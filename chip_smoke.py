@@ -13,14 +13,31 @@ code is not 0 and no result line is printed:
      two PCG kernels for one step, the fused PCG against its twin
      recurrence on the grid, and 300 PCG iterations at tol = 0 on the
      chain (ms per iteration for both);
-  4. the main path: the 100 x 200 cross-braced grid document (40,000 DOFs,
-     79,102 elements, tol 1e-5, 2 load increments) through
+  4. the Newton main path: the 100 x 200 cross-braced grid document
+     (40,000 DOFs, 79,102 elements, tol 1e-5, 2 load increments) through
      pinn_fem_tpu_torch.cli.generic.main on cuda, checked against a
-     float64 scipy solve, with every kernel's launch count from that run;
-  5. corpus example1 on cuda (the dense path).
+     float64 scipy solve, with the banded kernels' launch counts from that
+     run;
+  5. corpus example1 on cuda (the dense path);
+  6. kernel 4, the material fields' forward and backward kernels, against
+     their twin (the twin's autograd for the backward) at the grid's 79,102
+     midpoints and on a 1,000,000-element chain, with 1 and 2 hidden
+     layers and load factors 0.3 and 1.0; ms of kernel, twin and torch
+     form (each field's eval_batch and the product);
+  7. the GD main path: the grid as a PINN document (three MLP fields,
+     pinn_grid_document) through main() on cuda for GD_ITERS iterations,
+     with both material kernels' launch counts from that run, ms per GD
+     iteration, a profile of GD iterations, and the first CPU_ROWS history
+     rows against a CPU run of the same document (the twin);
+  8. corpus example2 (scalar GD) and example7-P (hybrid, three NN fields)
+     on cuda.
 
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.  Needs one card; imports no JAX.
+Every kernel is held to its plain version by the tolerance stated where it
+is checked.  The line before the last is {"kernels": [...]}, one entry per
+kernel with its launches on its main path, error, ms (CUDA events), the
+twin's ms, the bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s FP32,
+whichever is larger) and a one-call PyTorch yardstick where one exists;
+the last is {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -39,12 +56,36 @@ GRID = (100, 200)
 GRID_TOL = 1e-5
 CHAIN_NODES = 1_000_001
 CG_ITERS = 300
-SOURCE = "pinn_fem_tpu_torch/ops/kernels/csrc/dia_cg.cu"
-REPLACES = {
-    "dia_matvec": "pinn_fem_tpu/ops/pallas/dia_kernel.py:100",
-    "dia_dir_matvec": "pinn_fem_tpu/ops/pallas/cg_kernel.py:97",
-    "cg_update": "pinn_fem_tpu/ops/pallas/cg_kernel.py:115",
+MAT_CHAIN_ELEMENTS = 1_000_000
+GD_ITERS = 500
+CPU_ROWS = 50
+# Card vs CPU twin, first CPU_ROWS GD history rows: max |difference| over
+# each column's largest value.  Adam steps every component by about lr from
+# its first step on, whatever the size of its gradient, so float32 noise in
+# near-zero gradients moves the trajectory: two CPU runs of this document
+# whose measured data differ by one float32 ulp drift 2.8e-2 apart
+# (loss_physics) within 50 rows, u_norm 2.3e-3, theta_norm 2.3e-6
+# (tests/measure_torch_agreement.py drift).  The first row precedes any
+# step; it and theta_norm are held tightly.
+GD_ROWS_RTOL = 0.1
+GD_FIRST_ROW_RTOL = 1e-5
+GD_THETA_RTOL = 1e-4
+BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+FLOPS = 67e12           # H100 SXM FP32, outside the tensor cores
+CSRC = "pinn_fem_tpu_torch/ops/kernels/csrc/"
+KERNELS = {  # name: (source, TPU kernel it replaces)
+    "dia_matvec": ("dia_cg.cu", "pinn_fem_tpu/ops/pallas/dia_kernel.py:100"),
+    "dia_dir_matvec": ("dia_cg.cu",
+                       "pinn_fem_tpu/ops/pallas/cg_kernel.py:97"),
+    "cg_update": ("dia_cg.cu", "pinn_fem_tpu/ops/pallas/cg_kernel.py:115"),
+    "material_coefficients": (
+        "material.cu", "pinn_fem_tpu/ops/pallas/material_kernel.py:89"),
+    "material_coefficients_backward": (
+        "material.cu", "JAX autodiff of pinn_fem_tpu/ops/assembly.py:30 "
+        "(material_values)"),
 }
+BANDED = ("dia_matvec", "dia_dir_matvec", "cg_update")
+MATERIAL = ("material_coefficients", "material_coefficients_backward")
 
 
 def log(phase: str, **fields) -> None:
@@ -113,6 +154,61 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time for the work: bytes at the memory rate or operations
+    at the FP32 rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / BYTES_PER_S, n_ops / FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def banded_bounds(layout, nb: int) -> dict:
+    """Bounds of the three banded kernels: each input read once, each
+    output written once; nd multiply-adds per row of the stencil."""
+    nd, n = layout.n_diags, layout.ndof
+    diag_bytes = 4 * nd * n + 8 * nd
+    return {
+        "dia_matvec": bound(diag_bytes + 4 * 2 * n, 2 * nd * n),
+        # z, p, mask in; p_new, ap out; one partial per block
+        "dia_dir_matvec": bound(diag_bytes + 4 * 5 * n + 4 * nb + 4,
+                                (2 * nd + 5) * n),
+        # x, r, p, ap, inv_diag in; x, r, z out; two partials per block
+        "cg_update": bound(4 * 8 * n + 8 * nb + 4, 9 * n),
+    }
+
+
+def csr_of(layout, diags):
+    """K of the banded layout as a torch CSR matrix (the library yardstick
+    for the stencil)."""
+    import torch
+
+    n, dev = layout.ndof, diags.device
+    rows = torch.arange(n, device=dev).repeat(layout.n_diags, 1)
+    cols = rows + layout.offsets_on(dev)[:, None]
+    keep = (cols >= 0) & (cols < n) & (diags != 0)
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  diags[keep], (n, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def mlp_ops(widths, backward: bool) -> int:
+    """Operations per element of the three nets (transcendentals counted
+    as one), from csrc/material.cu.  widths: [(h1, h2), ...], h2 = 0 with
+    one hidden layer."""
+    total = 0
+    for h1, h2 in widths:
+        last = h2 or h1
+        fwd = 2 * 3 * h1 + 2 * h1 + (2 * h1 * h2 + 2 * h2) + 2 * last + 7
+        total += fwd
+        if backward:
+            n_params = 4 * h1 + (h1 * h2 + h2) + last + 1
+            # logistic and d_out, the deltas, and one multiply-add per
+            # parameter term
+            total += 6 + 4 * last + (2 * h1 * h2 + 3 * h1 if h2 else 0) \
+                + 2 * n_params
+    return total + (2 if not backward else 4)
+
+
 def phase_kernels(dev):
     import torch
 
@@ -179,6 +275,19 @@ def phase_kernels(dev):
                       alpha, xr, rr, p, z, inv_diag, zr), 20))
         log("phase3_cg_update", mesh=name, max_rel_err=err3,
             bit_equal=equal3, ms=k3["ms"], plain_ms=k3["plain_ms"])
+        bounds = banded_bounds(layout, -(-n // cg_kernel.THREADS))
+        k1.update(bounds["dia_matvec"])
+        k2.update(bounds["dia_dir_matvec"], library_ms=None)
+        k3.update(bounds["cg_update"], library_ms=None)
+        k_csr = csr_of(layout, diags)
+        y_csr = k_csr @ u
+        require(max_err(y_csr, y) <= 1e-5 * float(y.abs().max()),
+                f"CSR yardstick computes the same K u on {name}")
+        k1["library_ms"] = cuda_ms(lambda: k_csr @ u, 200)
+        del k_csr
+        log("phase3_bounds", mesh=name, **{
+            k: {"bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
+            for k, v in bounds.items()}, dia_matvec_csr_ms=k1["library_ms"])
         stats[name] = {"dia_matvec": k1, "dia_dir_matvec": k2,
                        "cg_update": k3}
 
@@ -236,26 +345,17 @@ def phase_kernels(dev):
 def float64_check(doc, u):
     """Host float64 residual of u, and u's distance from a float64 solve."""
     import numpy as np
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spl
 
-    nodes = np.asarray(doc["nodes"], float)
-    el = np.asarray(doc["elements"])
+    from pinn_fem_tpu_torch.examples_grid import (float64_solution,
+                                                  float64_stiffness)
+
     f = np.asarray(doc["loads"], float)
-    dx = nodes[el[:, 1]] - nodes[el[:, 0]]
-    length = np.linalg.norm(dx, axis=1)
-    g = np.concatenate([-dx, dx], axis=1) / length[:, None]
-    dof = np.concatenate([2 * el[:, :1], 2 * el[:, :1] + 1,
-                          2 * el[:, 1:], 2 * el[:, 1:] + 1], axis=1)
-    ke = g[:, :, None] * g[:, None, :] / length[:, None, None]  # E = A = 1
-    k = sp.coo_matrix((ke.ravel(), (np.repeat(dof, 4, 1).ravel(),
-                                    np.tile(dof, (1, 4)).ravel())),
-                      shape=(f.size, f.size)).tocsr()
+    k = float64_stiffness(doc["nodes"], doc["elements"])  # E = A = 1
     free = np.setdiff1d(np.arange(f.size), doc["fixed_dofs"])
     residual = (np.linalg.norm((f - k @ u)[free])
                 / np.linalg.norm(f[free]))
-    u_ref = np.zeros(f.size)
-    u_ref[free] = spl.spsolve(k[free][:, free].tocsc(), f[free])
+    u_ref = float64_solution(doc["nodes"], doc["elements"], f,
+                             doc["fixed_dofs"])
     return residual, float(np.abs(u - u_ref).max() / np.abs(u_ref).max())
 
 
@@ -289,8 +389,8 @@ def phase_main_path(workdir: Path):
     require(rc == 0, "CLI exit code 0")
     out = json.loads((workdir / "grid100x200.res.json").read_text())
     require(out["converged"] is True, "converged")
-    for name, n in launches.items():
-        require(n > 0, f"{name} launched on the main path")
+    for name in BANDED:
+        require(launches[name] > 0, f"{name} launched on the main path")
 
     t0 = time.perf_counter()
     require(main([str(path)]) == 0, "warm CLI run exit code 0")
@@ -307,7 +407,7 @@ def phase_main_path(workdir: Path):
         launches=launches)
     require(residual <= GRID_TOL ** 0.5, "float64 residual <= sqrt(tol)")
     require(u_err <= 1e-3, "max|u - u_scipy| / max|u_scipy| <= 1e-3")
-    return launches
+    return {k: launches[k] for k in BANDED}
 
 
 def phase_dense(workdir: Path):
@@ -326,6 +426,340 @@ def phase_dense(workdir: Path):
     log("phase5_example1", converged=True, max_abs_err=err)
 
 
+def mlp_material(hidden_layers: int, dev):
+    """Three MLP fields at the PINN grid's widths (20, 15, 10), input_dim 3,
+    seeded torch draws; the last layer is perturbed away from its constant
+    start so that every parameter's gradient is exercised."""
+    import torch
+
+    from pinn_fem_tpu_torch import Material, make_mlp_field
+
+    g = torch.Generator().manual_seed(hidden_layers)
+    fields = []
+    for width, scale in ((20, 2.0), (15, 0.5), (10, 7.0)):
+        f = make_mlp_field(g, hidden_layers=hidden_layers,
+                           neurons_per_layer=width, input_dim=3, scale=scale)
+        w, b = f.layers[-1]
+        f.layers[-1] = (w + 0.3 * torch.randn(w.shape, generator=g), b)
+        fields.append(f)
+    return Material(*fields).to(dev)
+
+
+def phase_material(dev):
+    """Kernel 4 forward and backward against the twin; ms of kernel, twin
+    and torch form; the bounds at the grid's shapes."""
+    import torch
+
+    from pinn_fem_tpu_torch.examples_grid import chain_problem, grid_problem
+    from pinn_fem_tpu_torch.ops.kernels import material_kernel as mk
+    from pinn_fem_tpu_torch.solvers.gd import get_theta
+
+    meshes = {"grid_79k": grid_problem(*GRID).to_device(dev),
+              "chain_1M": chain_problem(MAT_CHAIN_ELEMENTS + 1).to_device(dev)}
+    stats = {name: {"err": 0.0} for name in MATERIAL}
+    for mesh, data in meshes.items():
+        n = data.nelm
+        c = torch.randn(4, n, device=dev,
+                        generator=torch.Generator(dev).manual_seed(5))
+        for hidden in (1, 2):
+            mat = mlp_material(hidden, dev)
+            params = torch.cat([t.reshape(-1)
+                                for f in mk._fields(mat)
+                                for t in f.trainable_params()])
+            widths = mk._widths(mat)
+            scales = torch.stack([f.scale for f in mk._fields(mat)])
+            theta = [t for layers in get_theta(mat) for layer in layers
+                     for t in layer]
+            for lf in (0.3, 1.0):
+                got = mk.material_coefficients(data.mid, data.inv_len, lf,
+                                               params, scales, widths)
+                with torch.enable_grad():
+                    for t in theta:
+                        t.requires_grad_(True)
+                    want = mk.material_coefficients_reference(
+                        data.mid, data.inv_len, lf, mat)
+                    g_want = torch.cat([g.reshape(-1) for g in
+                                        torch.autograd.grad(
+                                            sum(torch.sum(ci * o) for ci, o
+                                                in zip(c, want)), theta)])
+                    for t in theta:
+                        t.requires_grad_(False)
+                want = [w.detach() for w in want]
+                g_got = mk.material_coefficients_backward(
+                    data.mid, data.inv_len, lf, params, scales, widths,
+                    got[0], got[1], tuple(c))
+                rel = []
+                for k, (a, b) in enumerate(zip(got, want)):
+                    rtol = 3e-5 if k == 3 else 2e-5
+                    require(bool(((a - b).abs() <= 1e-6 + rtol * b.abs()).all()),
+                            f"material forward output {k} within rtol {rtol}"
+                            f" / atol 1e-6 on {mesh}")
+                    rel.append(max_err(a, b) / float(b.abs().max()))
+                g_rel = max_err(g_got, g_want) / float(g_want.abs().max())
+                require(g_rel <= 1e-4, "material backward within 1e-4 of "
+                        f"max|grad| on {mesh}")
+                stats["material_coefficients"]["err"] = max(
+                    stats["material_coefficients"]["err"],
+                    max(max_err(a, b) for a, b in zip(got, want)))
+                stats["material_coefficients_backward"]["err"] = max(
+                    stats["material_coefficients_backward"]["err"],
+                    max_err(g_got, g_want))
+                timing = {}
+                if lf == 1.0:
+                    timing = material_times(data, mat, lf, params, scales,
+                                            widths, theta, c, got, reps=20)
+                log("phase6_material", mesh=mesh, elements=n,
+                    hidden_layers=hidden, load_factor=lf,
+                    max_rel_err_E_A_rho_s=rel, grad_max_rel_err=g_rel,
+                    **timing)
+                if hidden == 2 and lf == 1.0 and mesh == "grid_79k":
+                    fw = [(h, h) for h in (20, 15, 10)]
+                    io = 4 * (2 * n + n + 4 * n) + 4 * params.numel() + 12
+                    stats["material_coefficients"].update(
+                        ms=timing["kernel_ms"], plain_ms=timing["twin_ms"],
+                        library_ms=None,
+                        **bound(io, n * mlp_ops(fw, backward=False)))
+                    # mid, 1/L, E, A and four upstream gradients in
+                    io_b = 4 * (2 * n + 3 * n + 4 * n) + 8 * params.numel() + 12
+                    stats["material_coefficients_backward"].update(
+                        ms=timing["kernel_backward_ms"],
+                        plain_ms=timing["twin_backward_ms"], library_ms=None,
+                        **bound(io_b, n * mlp_ops(fw, backward=True)))
+    del meshes
+    torch.cuda.empty_cache()
+    return stats
+
+
+def material_times(data, mat, lf, params, scales, widths, theta, c, got,
+                   reps):
+    """ms of the forward and backward kernels, of the twin and of the
+    torch form (each field's eval_batch on the assembly inputs, and the
+    product), forward alone and backward alone."""
+    import torch
+
+    from pinn_fem_tpu_torch.models.fields import assembly_inputs
+    from pinn_fem_tpu_torch.ops.kernels import material_kernel as mk
+
+    def torch_form():
+        x = assembly_inputs(data.mid, data.dimension, lf)
+        e, a = mat.young.eval_batch(x), mat.area.eval_batch(x)
+        return e, a, mat.density.eval_batch(x), e * a * data.inv_len
+
+    out = {
+        "kernel_ms": cuda_ms(lambda: mk.material_coefficients(
+            data.mid, data.inv_len, lf, params, scales, widths), reps),
+        "twin_ms": cuda_ms(lambda: mk.material_coefficients_reference(
+            data.mid, data.inv_len, lf, mat), reps),
+        "torch_form_ms": cuda_ms(torch_form, reps),
+        "kernel_backward_ms": cuda_ms(lambda: mk.material_coefficients_backward(
+            data.mid, data.inv_len, lf, params, scales, widths, got[0],
+            got[1], tuple(c)), reps),
+    }
+    with torch.enable_grad():
+        for t in theta:
+            t.requires_grad_(True)
+        for label, fn in (("twin", lambda: mk.material_coefficients_reference(
+                data.mid, data.inv_len, lf, mat)), ("torch_form", torch_form)):
+            loss = sum(torch.sum(ci * o) for ci, o in zip(c, fn()))
+            out[f"{label}_backward_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(loss, theta, retain_graph=True),
+                reps)
+        for t in theta:
+            t.requires_grad_(False)
+    return out
+
+
+def sync_cost_ms(dev, reps: int = 200) -> float:
+    """Host ms of one small device result read back (the GD loop's one
+    sync per iteration) on an otherwise idle card."""
+    import torch
+
+    x = torch.ones(6, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        (x * 2.0).tolist()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def gd_profile(doc, dev, iters: int = 20) -> dict:
+    """torch.profiler over `iters` GD iterations of the document: device
+    busy time, wall time, and device time by kernel name (top 8)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.solvers.gd import solve_gd
+
+    parsed = parse_problem_dict(doc)
+    data = parsed.problem.to_device(dev)
+    cfg = parsed.config.with_(max_iterations=iters)
+    args = (parsed.measured_disp, parsed.measured_dofs)
+    solve_gd(parsed.problem, cfg, *args, data=data)        # warm-up
+    parsed = parse_problem_dict(doc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve_gd(parsed.problem, cfg, *args, data=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.device_time_total)[:8]
+    host = sorted((e for e in prof.key_averages()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
+    return {"iterations": iters, "wall_ms": 1e3 * wall,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": (1 - busy_us / 1e3 / (1e3 * wall)
+                                  if busy_us else None),
+            "top_device_kernels_us": {e.key[:60]: e.device_time_total
+                                      for e in top},
+            "top_host_ops_self_us_calls": {
+                e.key[:60]: [e.self_cpu_time_total, e.count] for e in host}}
+
+
+def phase_gd_main_path(workdir: Path, dev):
+    """The PINN grid document through main() on cuda: launches, loss,
+    ms per GD iteration, the first CPU_ROWS rows against the CPU twin."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main, run
+    from pinn_fem_tpu_torch.examples_grid import pinn_grid_document
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers.gd import solve_gd
+
+    doc = pinn_grid_document(*GRID, max_iterations=GD_ITERS)
+    path = workdir / "pinn_grid.json"
+    path.write_text(json.dumps(doc))
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pinn_fem_tpu_torch.cli.generic", str(path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cold_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"cold PINN CLI run exit code 0, got {proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = main([str(path)])
+    first_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    require(rc == 0, "PINN CLI exit code 0")
+    out = json.loads((workdir / "pinn_grid.res.json").read_text())
+    hist = out["history"]
+    n_it = len(hist)
+    require(n_it == GD_ITERS or out["converged"],
+            "GD ran its budget or converged")
+    require(launches["material_coefficients"] == n_it + 1,
+            "one forward kernel per GD iteration, one for the reactions")
+    require(launches["material_coefficients_backward"] == n_it,
+            "one backward kernel per GD iteration")
+    loss = [e["loss_total"] for e in hist]
+    require(bool(np.all(np.isfinite(loss))) and loss[-1] < 0.2 * loss[0],
+            "loss_total finite and falls")
+    u = np.asarray(out["displacements"], float)
+    require(bool(np.all(np.isfinite(u))) and u.size == 2 * GRID[0] * GRID[1],
+            "finite displacements of the expected shape")
+    measured = np.zeros(u.size)
+    measured[doc["measured_displacements"]["global_dof"]] = \
+        doc["measured_displacements"]["measured_u"]
+    u_rel = float(np.abs(u - measured).max() / np.abs(measured).max())
+
+    t0 = time.perf_counter()
+    require(main([str(path)]) == 0, "warm PINN CLI run exit code 0")
+    warm_s = time.perf_counter() - t0
+    again = json.loads((workdir / "pinn_grid.res.json").read_text())
+    repeat = again["history"] == hist
+
+    # ms per GD iteration: the solver alone, 100 iterations, warm.
+    parsed = parse_problem_dict(doc)
+    data = parsed.problem.to_device(dev)
+    cfg = parsed.config.with_(max_iterations=100)
+    solve_gd(parse_problem_dict(doc).problem, cfg.with_(max_iterations=5),
+             parsed.measured_disp, parsed.measured_dofs, data=data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_gd(parsed.problem, cfg, parsed.measured_disp,
+                   parsed.measured_dofs, data=data)
+    torch.cuda.synchronize()
+    ms_per_iter = 1e3 * (time.perf_counter() - t0) / len(res.history)
+    profile = gd_profile(doc, dev)
+
+    # The same document on the CPU (the twin) for CPU_ROWS iterations.
+    cpu_doc = dict(doc, pinn_config=dict(doc["pinn_config"],
+                                         max_iterations=CPU_ROWS))
+    cpu_path = workdir / "pinn_grid_cpu.json"
+    cpu_path.write_text(json.dumps(cpu_doc))
+    t0 = time.perf_counter()
+    cpu = run(str(cpu_path), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    keys = list(hist[0])
+    hc = np.array([[e[k] for k in keys] for e in cpu["history"]])
+    hg = np.array([[e[k] for k in keys] for e in hist[:CPU_ROWS]])
+    scale = np.maximum(np.abs(hc).max(axis=0), 1e-30)
+    col_err = np.abs(hg - hc).max(axis=0) / scale
+    first_err = float((np.abs(hg[0] - hc[0]) / scale).max())
+    rows_err = dict(zip(keys, col_err.tolist()))
+    log("phase7_gd_main_path", ndof=u.size, elements=len(doc["elements"]),
+        exit_code=rc, converged=out["converged"], history_length=n_it,
+        first_loss_total=loss[0], last_loss_total=loss[-1],
+        u_rel_err_vs_measured=u_rel, ms_per_gd_iteration=ms_per_iter,
+        sync_ms=sync_cost_ms(dev), cold_process_s=cold_s,
+        first_in_process_s=first_s, warm_s=warm_s,
+        warm_history_bit_equal=repeat, launches=launches,
+        cpu_twin_rows=len(cpu["history"]), cpu_twin_s=cpu_s,
+        card_vs_cpu_max_rel_err=rows_err, card_vs_cpu_first_row=first_err,
+        profile=profile)
+    require(len(cpu["history"]) == CPU_ROWS, "CPU twin run length")
+    require(first_err <= GD_FIRST_ROW_RTOL,
+            f"first row within {GD_FIRST_ROW_RTOL} of the CPU twin")
+    require(rows_err["theta_norm"] <= GD_THETA_RTOL,
+            f"theta_norm within {GD_THETA_RTOL} of the CPU twin")
+    require(max(col_err) <= GD_ROWS_RTOL,
+            f"first {CPU_ROWS} rows within {GD_ROWS_RTOL} of the CPU twin")
+    return {k: launches[k] for k in MATERIAL}
+
+
+def phase_gd_corpus(workdir: Path):
+    """Corpus example2 (scalar GD, 141 iterations) and example7-P (hybrid,
+    three NN fields with torch's init) on cuda."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.ops import kernels
+
+    for name, bound_u, pinned in (("example2", 4e-3, 141),
+                                  ("example7-P", 2e-4, None)):
+        path = workdir / f"{name}.json"
+        path.write_text((ROOT / "examples" / "json" / f"{name}.json")
+                        .read_text())
+        kernels.reset_launch_counts()
+        require(main([str(path)]) == 0, f"{name} exit code 0")
+        launches = kernels.launch_counts()
+        out = json.loads((workdir / f"{name}.res.json").read_text())
+        ux = np.asarray(out["displacements"]).reshape(-1, 2)[:, 0]
+        err = float(np.abs(ux - np.arange(len(ux))).max())
+        require(out["converged"] is True, f"{name} converged")
+        require(err <= bound_u * max(1.0, len(ux) - 1),
+                f"{name} displacements within {bound_u} x max(1, L)")
+        if pinned is not None:
+            require(out["iterations"] == pinned, f"{name} {pinned} iterations")
+        log("phase8_corpus", document=name, converged=True,
+            iterations=out["iterations"], max_abs_err=err,
+            launches={k: launches[k] for k in MATERIAL})
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -336,15 +770,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(Path(tmp))
         phase_dense(Path(tmp))
+        mat_stats = phase_material(dev)
+        launches.update(phase_gd_main_path(Path(tmp), dev))
+        phase_gd_corpus(Path(tmp))
 
-    grid = stats["grid_40k"]
+    grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
-    for name in ("dia_matvec", "dia_dir_matvec", "cg_update"):
+    for name, (source, replaces) in KERNELS.items():
+        err = (max(stats[m][name]["err"] for m in stats) if name in BANDED
+               else mat_stats[name]["err"])
+        k = grid[name]
         entries.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(stats[m][name]["err"] for m in stats),
-            "ms": grid[name]["ms"], "plain_ms": grid[name]["plain_ms"],
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -6,7 +6,9 @@ pinn_fem_tpu/cli/generic.py).
   * output defaults to <stem>.res.json next to the input;
   * a <stem>.log file captures the run (overwritten each run);
   * the result JSON carries {success, converged, iterations, displacements,
-    reactions, history};
+    reactions, history}, and for NN materials nn_parameters and
+    identified_properties;
+  * a solve that does not converge writes success: false and exits 0;
   * exit code 1, with "[ERROR]" and the traceback in the log, on failure.
 
 The device comes from PINN_FEM_TORCH_DEVICE (default "cuda"); asking for
@@ -95,7 +97,7 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
     result = solve_auto(problem, config, measured_disp=parsed.measured_disp,
                         measured_dofs=parsed.measured_dofs, verbose=True,
                         device=device)
-    output = result_to_output_dict(result)
+    output = result_to_output_dict(result, problem)
 
     if output_file is None:
         p = Path(problem_file)

@@ -39,9 +39,18 @@ class ScalarField:
         return torch.full((x.shape[0],), self.value, dtype=x.dtype,
                           device=x.device)
 
+    def eval_scalar(self) -> float:
+        return float(self.value)
+
     @property
     def is_trainable(self) -> bool:
         return False
+
+    def trainable_params(self) -> list:
+        return []
+
+    def to(self, device=None, dtype=None) -> "ScalarField":
+        return self
 
 
 @dataclass
@@ -97,9 +106,19 @@ class MLPField:
             scale=self.scale.to(device=device, dtype=dtype),
         )
 
+    def replace(self, **changes) -> "MLPField":
+        return replace(self, **changes)
+
     @property
     def is_trainable(self) -> bool:
         return True
+
+    def trainable_params(self) -> list:
+        """Flat list in the reference's parameter order: W, b per layer."""
+        return [t for layer in self.layers for t in layer]
+
+    def n_params(self) -> int:
+        return sum(w.numel() + b.numel() for w, b in self.layers)
 
 
 Field = Union[ScalarField, MLPField]
@@ -198,6 +217,17 @@ class Material:
         return (self.young.is_trainable or self.area.is_trainable
                 or self.density.is_trainable)
 
+    def trainable_params(self) -> list:
+        """All trainable tensors, young -> area -> density."""
+        return (self.young.trainable_params() + self.area.trainable_params()
+                + self.density.trainable_params())
+
+    def to(self, device=None, dtype=None) -> "Material":
+        """The material with every net's tensors on `device` in `dtype`."""
+        return Material(young=self.young.to(device, dtype),
+                        area=self.area.to(device, dtype),
+                        density=self.density.to(device, dtype))
+
 
 def assembly_inputs(mid_coords: torch.Tensor, dimension: int,
                     load_factor) -> torch.Tensor:
@@ -208,3 +238,31 @@ def assembly_inputs(mid_coords: torch.Tensor, dimension: int,
                          device=mid_coords.device)
     return torch.cat([lf.reshape(1, 1).expand(n, 1),
                       mid_coords[:, :dimension]], dim=1)
+
+
+def point_inputs_dict_order(coords: np.ndarray, dimension: int,
+                            load_factor: float, dtype: torch.dtype = None,
+                            device=None) -> torch.Tensor:
+    """Rows (load_factor, x[, y]) as assembly_inputs builds them, for
+    evaluating identified properties at nodes and centroids."""
+    dtype = dtype or default_dtype()
+    coords = np.atleast_2d(np.asarray(coords, dtype=float))
+    n = coords.shape[0]
+    cols = [np.full((n, 1), load_factor), coords[:, :1]]
+    for c in range(1, dimension):
+        cols.append(coords[:, c:c + 1] if coords.shape[1] > c
+                    else np.zeros((n, 1)))
+    return torch.as_tensor(np.concatenate(cols, axis=1), dtype=dtype,
+                           device=device)
+
+
+def point_inputs_direct(coords: np.ndarray, input_dim: int,
+                        dtype: torch.dtype = None, device=None
+                        ) -> torch.Tensor:
+    """Coordinates zero-padded (or cut) to input_dim columns."""
+    dtype = dtype or default_dtype()
+    coords = np.atleast_2d(np.asarray(coords, dtype=float))
+    if coords.shape[1] < input_dim:
+        pad = np.zeros((coords.shape[0], input_dim - coords.shape[1]))
+        coords = np.concatenate([coords, pad], axis=1)
+    return torch.as_tensor(coords[:, :input_dim], dtype=dtype, device=device)

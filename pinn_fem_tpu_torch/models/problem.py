@@ -125,6 +125,11 @@ class TrussProblem:
         """(nnode, dim) view of node coordinates regardless of dimension."""
         return self.nodes.reshape(self.nnode, self.dimension)
 
+    def element_midpoints(self) -> np.ndarray:
+        coords = self.node_coords_2d
+        i, j = self.elements[:, 0], self.elements[:, 1]
+        return 0.5 * (coords[i] + coords[j])
+
     def to_device(self, device=None, dtype: torch.dtype = None) -> ProblemData:
         """Compute the geometry arrays on the host (numpy, float64) and move
         them to `device` ("cuda" when None) in `dtype`."""

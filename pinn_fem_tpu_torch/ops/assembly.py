@@ -1,7 +1,11 @@
 """Global system assembly (counterpart of pinn_fem_tpu/ops/assembly.py).
 
 Material is evaluated at element midpoints with (load_factor, x[, y])
-inputs; density never enters the stiffness.
+inputs; density never enters the stiffness.  When the three fields are
+MLPs that kernel 4 takes (ops/kernels/material_kernel.py,
+`fused_coefficients_supported`), (E, A, s) come from
+`fused_material_coefficients`: the CUDA kernels on a card, their twin on
+the CPU.  Otherwise each field's own `eval_batch` (the torch form).
 
 Every scatter-add accumulates in float64 and rounds once to the working
 type (`scatter_add`).  A float32 scatter rounds after each addition, so
@@ -26,13 +30,27 @@ import torch
 from ..models.fields import Material, assembly_inputs
 from ..models.problem import ProblemData
 from .elements import truss_linear_batch
+from .kernels.material_kernel import (fused_coefficients_supported,
+                                      fused_material_coefficients)
+
+
+def material_coefficients(data: ProblemData, material: Material, load_factor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(young, area, s = young * area / L) at all element midpoints."""
+    if fused_coefficients_supported(material, data.dimension):
+        young, area, _, s = fused_material_coefficients(data, material,
+                                                        load_factor)
+        return young, area, s
+    x = assembly_inputs(data.mid, data.dimension, load_factor)
+    young, area = material.young.eval_batch(x), material.area.eval_batch(x)
+    return young, area, young * area * data.inv_len
 
 
 def material_values(data: ProblemData, material: Material, load_factor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(young, area) at all element midpoints in one batch."""
-    x = assembly_inputs(data.mid, data.dimension, load_factor)
-    return material.young.eval_batch(x), material.area.eval_batch(x)
+    young, area, _ = material_coefficients(data, material, load_factor)
+    return young, area
 
 
 def scatter_add(size: int, index: torch.Tensor, values: torch.Tensor
@@ -69,10 +87,10 @@ def assemble_system(data: ProblemData, material: Material, u: torch.Tensor,
 def internal_force_and_strain(data: ProblemData, material: Material,
                               u: torch.Tensor, load_factor=1.0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Matrix-free internal force (K is never formed) and element strains."""
-    young, area = material_values(data, material, load_factor)
+    """Matrix-free internal force (K is never formed) and element strains:
+    the GD loss's hot path."""
+    _, _, s = material_coefficients(data, material, load_factor)
     u_e = u[data.dof_map]
-    s = young * area * data.inv_len
     gu = torch.sum(data.gvec * u_e, dim=-1)
     fe = (s * gu)[:, None] * data.gvec
     return _scatter_dofs(data, fe), gu * data.inv_len

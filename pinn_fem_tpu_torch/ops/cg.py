@@ -11,11 +11,11 @@ import torch
 
 from ..models.fields import Material
 from ..models.problem import ProblemData
-from .assembly import material_values
+from .assembly import material_coefficients
 
 
 def stiffness_coefficients(data: ProblemData, material: Material,
                            load_factor=1.0) -> torch.Tensor:
-    """s_e = E_e A_e / L_e for every element."""
-    young, area = material_values(data, material, load_factor)
-    return young * area * data.inv_len
+    """s_e = E_e A_e / L_e for every element (kernel 4 where it applies,
+    as ops.assembly.material_coefficients decides)."""
+    return material_coefficients(data, material, load_factor)[2]

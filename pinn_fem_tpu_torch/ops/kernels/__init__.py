@@ -9,11 +9,17 @@ first use) or raises.  Each wrapper counts its kernel launches in its
 from .cg_kernel import (cg_update, dia_dir_matvec, fused_cg_solve,
                         fused_cg_solve_reference)
 from .dia_kernel import dia_matvec
+from .material_kernel import (fused_material_coefficients,
+                              material_coefficients,
+                              material_coefficients_backward,
+                              material_coefficients_reference)
 
 WRAPPERS = {
     "dia_matvec": dia_matvec,
     "dia_dir_matvec": dia_dir_matvec,
     "cg_update": cg_update,
+    "material_coefficients": material_coefficients,
+    "material_coefficients_backward": material_coefficients_backward,
 }
 
 
@@ -27,5 +33,7 @@ def launch_counts() -> dict:
 
 
 __all__ = ["WRAPPERS", "cg_update", "dia_dir_matvec", "dia_matvec",
-           "fused_cg_solve", "fused_cg_solve_reference", "launch_counts",
-           "reset_launch_counts"]
+           "fused_cg_solve", "fused_cg_solve_reference",
+           "fused_material_coefficients", "launch_counts",
+           "material_coefficients", "material_coefficients_backward",
+           "material_coefficients_reference", "reset_launch_counts"]

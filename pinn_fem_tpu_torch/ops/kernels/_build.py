@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels: nvcc into a shared library, ctypes.
 
-The source (csrc/dia_cg.cu) has a plain C interface, so it compiles in
-seconds without PyTorch's headers.  The library is built at first use, in
-a source checkout into ``build/pinn_fem_tpu_torch/`` at its root, in an
-installed package into ``pinn_fem_tpu_torch/`` of the user's cache
-directory ($XDG_CACHE_HOME, else ~/.cache).  Its name carries a hash of the
-source and the flags: an edited source is rebuilt, an unchanged one is
-loaded as it is.  Nothing is compiled or loaded when this module is
+Every source in csrc/ (*.cu) has a plain C interface, so it compiles in
+seconds without PyTorch's headers.  The sources compile in parallel, one
+nvcc each, and link into one shared library.  The library is built at
+first use, in a source checkout into ``build/pinn_fem_tpu_torch/`` at its
+root, in an installed package into ``pinn_fem_tpu_torch/`` of the user's
+cache directory ($XDG_CACHE_HOME, else ~/.cache).  Its name carries a hash
+of every source and the flags: an edited source is rebuilt, an unchanged
+set is loaded as it is.  Nothing is compiled or loaded when this module is
 imported.
 """
 
@@ -20,12 +21,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "dia_cg.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 
 # --fmad=false keeps every multiply and add separately rounded, which makes
-# the stencil bit-identical to its plain PyTorch version.
+# the stencil bit-identical to its plain PyTorch version (material.cu asks
+# for its fused multiply-adds explicitly).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -36,7 +38,16 @@ _SIGNATURES = {
                            ctypes.c_int64, _P, _P, _P, _P, _P, _P],
     "pft_cg_update": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                       ctypes.c_int64, _P, _P, _P],
+    "pft_material_forward": [ctypes.c_int, _P, ctypes.c_int, _P,
+                             ctypes.c_float, ctypes.c_int64, _P, _P, _P, _P,
+                             _P, _P, _P, _P],
+    "pft_material_backward": [ctypes.c_int, _P, ctypes.c_int, _P,
+                              ctypes.c_float, ctypes.c_int64, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _P, _P],
+    "pft_material_n_params": [_P],
 }
+# Entry points that return something other than an error code.
+_RESTYPES = {"pft_material_grad_blocks": ([ctypes.c_int64], ctypes.c_int64)}
 
 _library = None
 
@@ -62,32 +73,50 @@ def build_dir() -> Path:
     return Path(cache) / "pinn_fem_tpu_torch"
 
 
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"libdia_cg_{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return build_dir() / f"libpft_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_nvcc(procs) -> None:
+    """Wait for every nvcc process; raise with the output of a failed one."""
+    failed = []
+    for proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(proc.args)}\n{out}{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> Path:
-    """Compile the library unless a build of this exact source exists."""
+    """Compile the library unless a build of these exact sources exists."""
     target = library_path()
     if target.exists():
         return target
     target.parent.mkdir(parents=True, exist_ok=True)
-    # Build to a private name, then rename: concurrent builders never see
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    # Objects in a private directory and the library under a private name,
+    # then a rename: concurrent builders never see a half-written library.
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objects = [Path(tmp, src.stem + ".o") for src in sources()]
+        _run_nvcc([subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources(), objects)])
+        lib = Path(tmp, target.name)
+        _run_nvcc([subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+             *map(str, objects)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
+        os.replace(lib, target)
     return target
 
 
@@ -100,6 +129,10 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in _RESTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         lib.pft_error_string.argtypes = [ctypes.c_int]
         lib.pft_error_string.restype = ctypes.c_char_p
         _library = lib

@@ -375,13 +375,29 @@ def test_ops_dia_cg_solve_dispatch(monkeypatch, device):
     assert seen == [out] == (["plain"] if device == "cpu" else ["fused"])
 
 
-@pytest.mark.parametrize("where", ["checkout", "installed"])
+@pytest.mark.parametrize("where", ["checkout", "installed", "edited"])
 def test_kernel_build_dir(monkeypatch, tmp_path, where):
     """A source checkout builds into its build/ directory; an installed
-    package into the user's cache, never beside the interpreter."""
+    package into the user's cache, never beside the interpreter.  Every
+    csrc/*.cu goes into the one library, whose name changes when any of
+    them is edited."""
     repo = Path(__file__).resolve().parents[1]
     if where == "checkout":
         assert _build.build_dir() == repo / "build" / "pinn_fem_tpu_torch"
+        assert [s.name for s in _build.sources()] == ["dia_cg.cu",
+                                                      "material.cu"]
+        return
+    if where == "edited":
+        import shutil
+
+        csrc = tmp_path / "csrc"
+        shutil.copytree(_build.CSRC, csrc)
+        monkeypatch.setattr(_build, "CSRC", csrc)
+        names = {_build.library_path().name}
+        for src in _build.sources():
+            src.write_text(src.read_text() + "\n// edited\n")
+            names.add(_build.library_path().name)
+        assert len(names) == 1 + len(_build.sources())
         return
     site = tmp_path / "lib" / "site-packages"
     fake = site / "pinn_fem_tpu_torch" / "ops" / "kernels" / "_build.py"

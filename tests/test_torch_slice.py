@@ -132,26 +132,13 @@ def grid_case(request, tmp_path_factory):
 def float64_solution(doc):
     """(u, reactions) of a truss document by a float64 sparse direct solve
     (E = A = 1 as in grid_document)."""
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spl
+    from pinn_fem_tpu_torch.examples_grid import (float64_solution as solve64,
+                                                  float64_stiffness)
 
-    nodes = np.asarray(doc["nodes"], float)
-    el = np.asarray(doc["elements"])
     f = np.asarray(doc["loads"], float)
-    dx = nodes[el[:, 1]] - nodes[el[:, 0]]
-    length = np.linalg.norm(dx, axis=1)
-    g = np.concatenate([-dx, dx], axis=1) / length[:, None]
-    dof = np.concatenate([2 * el[:, :1], 2 * el[:, :1] + 1,
-                          2 * el[:, 1:], 2 * el[:, 1:] + 1], axis=1)
-    ke = g[:, :, None] * g[:, None, :] / length[:, None, None]
-    k = sp.coo_matrix((ke.ravel(), (np.repeat(dof, 4, 1).ravel(),
-                                    np.tile(dof, (1, 4)).ravel())),
-                      shape=(f.size, f.size)).tocsr()
-    free = np.setdiff1d(np.arange(f.size), doc["fixed_dofs"])
-    u = np.zeros(f.size)
-    u[free] = spl.spsolve(k[free][:, free].tocsc(), f[free])
-    reactions = k @ u - f
-    reactions[free] = 0.0
+    u = solve64(doc["nodes"], doc["elements"], f, doc["fixed_dofs"])
+    reactions = float64_stiffness(doc["nodes"], doc["elements"]) @ u - f
+    reactions[np.setdiff1d(np.arange(f.size), doc["fixed_dofs"])] = 0.0
     return u, reactions
 
 
@@ -254,7 +241,9 @@ def test_cli_cuda_without_card_is_an_error(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("doc,item", [
-    ({"solver_type": "pinn-gd"}, "ROADMAP item 6"),
+    ({"solver_config": {"method": "full-nr"},
+      "nn_config": {"young": {"enabled": True, "input_dim": 3}}},
+     "ROADMAP item 6"),
     ({"solver_config": {"method": "gn"}}, "ROADMAP item 6"),
     ({"thermal": {"alpha": 1.0, "delta_t": 1.0}}, "ROADMAP item 4"),
     ({"prescribed_displacements": {"dofs": [2], "values": [0.1]}},
