@@ -9,10 +9,15 @@ code is not 0 and no result line is printed:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the CUDA kernels from pinn_fem_tpu_torch/ops/kernels/csrc;
   3. each kernel against its plain PyTorch twin on the card: the stencil
-     on the 2,000,002-DOF chain and the 40,000-DOF grid (bit-equal), the
-     two PCG kernels for one step, the fused PCG against its twin
-     recurrence on the grid, and 300 PCG iterations at tol = 0 on the
-     chain (ms per iteration for both);
+     on the 2,000,002-DOF chain and the 40,000-DOF grid (staged window,
+     bit-equal, and on a misaligned view of u), and on a 63-diagonal band
+     too wide for shared memory (the kernel's unstaged path, bit-equal);
+     the two PCG kernels for one step (the update bit-equal, device state
+     included); the fused PCG against its twin recurrence on the grid, and
+     300 PCG iterations at tol = 0 on the chain (ms per iteration for
+     both); a torch.profiler window of 64 fused PCG iterations on the grid
+     and on the chain (device kernels per iteration, busy and idle share,
+     device us per launch of each banded kernel);
   4. the Newton main path: the 100 x 200 cross-braced grid document
      (40,000 DOFs, 79,102 elements, tol 1e-5, 2 load increments) through
      pinn_fem_tpu_torch.cli.generic.main on cuda, checked against a
@@ -36,7 +41,10 @@ Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
 kernel with its launches on its main path, error, ms (CUDA events), the
 twin's ms, the bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s FP32,
-whichever is larger) and a one-call PyTorch yardstick where one exists;
+whichever is larger), a one-call PyTorch yardstick where one exists, the
+device us per launch from the profiler (banded kernels), and for the two
+PCG kernels the wrapper's ms per call beside the ms of the launch bound
+once as the PCG loop calls it;
 the last is {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
 
@@ -54,7 +62,11 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 GRID = (100, 200)
 GRID_TOL = 1e-5
+# Newton iterations on the grid with the earlier update kernel (float32
+# dot products summed outside it): 18 stencils.
+EARLIER_NEWTON_ITERATIONS = 8
 CHAIN_NODES = 1_000_001
+WIDE_NDOF = 1_000_001
 CG_ITERS = 300
 MAT_CHAIN_ELEMENTS = 1_000_000
 GD_ITERS = 500
@@ -162,18 +174,25 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def banded_bounds(layout, nb: int) -> dict:
+def banded_bounds(layout, nb: int, update_blocks: int) -> dict:
     """Bounds of the three banded kernels: each input read once, each
-    output written once; nd multiply-adds per row of the stencil."""
+    output written once; nd multiply-adds per row of the stencil.  nb: the
+    direction kernel's blocks (its partials); update_blocks: the update's
+    fixed grid."""
     nd, n = layout.n_diags, layout.ndof
-    diag_bytes = 4 * nd * n + 8 * nd
     return {
-        "dia_matvec": bound(diag_bytes + 4 * 2 * n, 2 * nd * n),
-        # z, p, mask in; p_new, ap out; one partial per block
-        "dia_dir_matvec": bound(diag_bytes + 4 * 5 * n + 4 * nb + 4,
+        # diagonals and int32 offsets, u in; y out
+        "dia_matvec": bound(4 * nd * n + 4 * nd + 4 * 2 * n, 2 * nd * n),
+        # diagonals, int64 offsets, z, p, mask, beta in; p_new, ap and one
+        # partial per block out
+        "dia_dir_matvec": bound(4 * nd * n + 8 * nd + 4 * 5 * n + 4 * nb + 4,
                                 (2 * nd + 5) * n),
-        # x, r, p, ap, inv_diag in; x, r, z out; two partials per block
-        "cg_update": bound(4 * 8 * n + 8 * nb + 4, 9 * n),
+        # x, r, p, ap, inv_diag and the direction partials (counted once)
+        # in; x, r, z and two partials per block out; the 32-byte state in
+        # and out.  Per row 2 for x, 2 for r, 1 for z, 4 for the two dots;
+        # the sums of the partials besides.
+        "cg_update": bound(4 * 8 * n + 4 * nb + 8 * update_blocks + 64,
+                           9 * n + nb + 2 * update_blocks),
     }
 
 
@@ -209,6 +228,148 @@ def mlp_ops(widths, backward: bool) -> int:
     return total + (2 if not backward else 4)
 
 
+def wide_band_layout(ndof: int):
+    """63 diagonals at offsets 0, +-1290 j (j = 1..31): a band of 39,990
+    rows, whose window no block's shared memory holds (the stencil
+    kernel's unstaged path)."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.ops.dia import DiaLayout
+
+    offs = np.array([1290 * j for j in range(-31, 32)], np.int64)
+    return DiaLayout(offsets=offs, entry_slot=np.zeros((0, 2, 2), np.int64),
+                     ndof=ndof, bandwidth=int(offs.max()))
+
+
+def device_events(prof):
+    """The profiler's device-side events (kernels and copies)."""
+    import torch
+
+    return [e for e in prof.events()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA
+            and getattr(e, "device_time_total", 0) > 0]
+
+
+def profiled(fn):
+    """(host wall s, device events) of fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, device_events(prof)
+
+
+KERNEL_SYMBOLS = {"dia_matvec": "stencil_kernel",
+                  "dia_dir_matvec": "dia_dir_matvec_kernel",
+                  "cg_update": "cg_update_kernel"}
+
+
+def per_launch_us(events, name: str):
+    """(launches, mean device us per launch) of one banded kernel."""
+    mine = [e.device_time_total for e in events
+            if KERNEL_SYMBOLS[name] + "(" in e.name]
+    return len(mine), (sum(mine) / len(mine) if mine else None)
+
+
+def pcg_profile(layout, diags, rhs, mask, iters: int = 64) -> dict:
+    """torch.profiler over `iters` fused PCG iterations at tol = 0 (setup
+    included) and over the same call's setup alone (max_iter = 0): device
+    kernels per iteration, other device operations the loop adds, busy and
+    idle share of the window; on the device's timeline, from the first PCG
+    kernel's start to the last one's end, ms per iteration and the idle
+    share of the loop; and a window of `iters` stencil calls."""
+    from pinn_fem_tpu_torch.ops.kernels import dia_matvec, fused_cg_solve
+
+    def solve(n):
+        return lambda: fused_cg_solve(layout, diags, rhs, mask, tol=0.0,
+                                      max_iter=n)
+
+    solve(iters)()                                    # warm-up
+    wall0, ev0 = profiled(solve(0))
+    wall, ev = profiled(solve(iters))
+    n_dir, us_dir = per_launch_us(ev, "dia_dir_matvec")
+    n_upd, us_upd = per_launch_us(ev, "cg_update")
+    other = len(ev) - n_dir - n_upd - len(ev0)
+    busy_ms = sum(e.device_time_total for e in ev) / 1e3
+    pcg = [e for e in ev if any(KERNEL_SYMBOLS[k] + "(" in e.name
+                                for k in ("dia_dir_matvec", "cg_update"))]
+    loop = {}
+    if pcg:
+        t0 = min(e.time_range.start for e in pcg)
+        t1 = max(e.time_range.end for e in pcg)
+        busy_us = sum(max(0.0, min(e.time_range.end, t1)
+                          - max(e.time_range.start, t0)) for e in ev)
+        loop = {"loop_span_ms": (t1 - t0) / 1e3,
+                "loop_ms_per_iteration": (t1 - t0) / 1e3 / iters,
+                "loop_device_busy_ms": busy_us / 1e3,
+                "loop_device_idle_share": 1 - busy_us / (t1 - t0)}
+    u = rhs.clone()
+    _, ev_mv = profiled(lambda: [dia_matvec(layout, diags, u)
+                                 for _ in range(iters)])
+    n_mv, us_mv = per_launch_us(ev_mv, "dia_matvec")
+    return {"iterations": iters, "wall_ms": 1e3 * wall,
+            "setup_wall_ms": 1e3 * wall0,
+            "pcg_kernels_per_iteration": (n_dir + n_upd) / iters,
+            "other_device_ops_added_by_loop": other,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / (1e3 * wall), **loop,
+            "device_us": {"dia_matvec": us_mv, "dia_dir_matvec": us_dir,
+                          "cg_update": us_upd},
+            "launches_in_window": {"dia_matvec": n_mv,
+                                   "dia_dir_matvec": n_dir,
+                                   "cg_update": n_upd}}
+
+
+def check_update(layout, dev, gen, pap, name):
+    """Kernel 3, one step, against its twin (x, r, z, partials and the
+    state, bit for bit); ms of kernel and twin."""
+    import torch
+
+    from pinn_fem_tpu_torch.ops.kernels import cg_kernel
+
+    n = layout.ndof
+    x, r, p, ap = (torch.randn(n, generator=gen, device=dev) for _ in range(4))
+    inv_diag = torch.rand(n, generator=gen, device=dev) + 0.1
+    state = cg_kernel.new_state(torch.dot(r, inv_diag * r), torch.dot(r, r),
+                                torch.zeros((), device=dev), 2**31 - 1)
+    outs = []
+    for fn in (cg_kernel.cg_update, cg_kernel.cg_update_reference):
+        xs, rs, st = x.clone(), r.clone(), state.clone()
+        zs = torch.empty_like(x)
+        parts = fn(pap, xs, rs, p, ap, inv_diag, zs, st, 2**31 - 1)
+        outs.append((xs, rs, zs, parts, st))
+    pairs = list(zip(*outs))
+    err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+              for a, b in pairs[:4])
+    require(err <= 1e-6, f"cg_update within 1e-6 on {name}")
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    require(equal, f"cg_update bit-equal to its twin, state included, on "
+            f"{name}")
+    require(int(cg_kernel.state_views(outs[0][4])[1][0]) == 1,
+            "the update's epilogue counted the iteration")
+    # Timing: with ap = 0 the update leaves r, rz and rn2 as they are, so
+    # every timed call is live and does the same work.
+    # ms: the launch bound once, as the PCG loop calls it; wrapper_ms: the
+    # wrapper, which checks its operands on every call.
+    zero = torch.zeros_like(ap)
+    xs, rs, zs, st = x.clone(), r.clone(), torch.empty_like(x), state.clone()
+    launch, _ = cg_kernel.bind_cg_update(pap, xs, rs, p, zero, inv_diag, zs,
+                                         st, 2**31 - 1)
+    return dict(err=max(max_err(a, b) for a, b in pairs[:4]), bit_equal=equal,
+                ms=cuda_ms(launch, 200),
+                wrapper_ms=cuda_ms(lambda: cg_kernel.cg_update(
+                    pap, xs, rs, p, zero, inv_diag, zs, st, 2**31 - 1), 200),
+                plain_ms=cuda_ms(lambda: cg_kernel.cg_update_reference(
+                    pap, xs, rs, p, zero, inv_diag, zs, st, 2**31 - 1), 20))
+
+
 def phase_kernels(dev):
     import torch
 
@@ -224,22 +385,30 @@ def phase_kernels(dev):
                "chain_2M": banded_system(chain_problem(CHAIN_NODES), dev)}
     for name, (data, layout, diags) in systems.items():
         n = layout.ndof
-        u, z, p, x, r = (torch.randn(n, generator=gen, device=dev)
-                         for _ in range(5))
-        inv_diag = torch.rand(n, generator=gen, device=dev) + 0.1
+        u, z, p = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
         mask = data.free_mask
 
-        # Kernel 1: bit-equal to its twin (same order, no FMA contraction).
+        # Kernel 1: bit-equal to its twin (same order, no FMA contraction),
+        # also on a view of u that starts 4 bytes past a 16-byte boundary.
+        plan = dia_kernel.stencil_plan(layout)
         y = dia_kernel.dia_matvec(layout, diags, u)
         y_ref = dia_kernel.dia_matvec_reference(layout, diags, u)
         require(torch.equal(y, y_ref), f"dia_matvec bit-equal on {name}")
+        u_off = torch.randn(n + 1, generator=gen, device=dev)[1:]
+        require(torch.equal(dia_kernel.dia_matvec(layout, diags, u_off),
+                            dia_kernel.dia_matvec_reference(layout, diags,
+                                                            u_off)),
+                f"dia_matvec bit-equal on a misaligned view on {name}")
         k1 = dict(err=max_err(y, y_ref),
                   ms=cuda_ms(lambda: dia_kernel.dia_matvec(layout, diags, u), 200),
                   plain_ms=cuda_ms(lambda: dia_kernel.dia_matvec_reference(
                       layout, diags, u), 20))
         log("phase3_dia_matvec", mesh=name, ndof=n, n_diags=layout.n_diags,
-            bit_equal=True, max_abs_err=k1["err"], ms=k1["ms"],
-            plain_ms=k1["plain_ms"])
+            bandwidth=layout.bandwidth, plan=dict(
+                threads=plan.threads, tile=plan.tile, blocks=plan.blocks,
+                staged=plan.staged, shared_bytes=plan.shared_bytes),
+            bit_equal=True, misaligned_bit_equal=True,
+            max_abs_err=k1["err"], ms=k1["ms"], plain_ms=k1["plain_ms"])
 
         # Kernel 2, one step.
         beta = torch.tensor(0.37, device=dev)
@@ -249,33 +418,29 @@ def phase_kernels(dev):
                    for a, b in zip(got, want))
         require(err2 <= 1e-6, f"dia_dir_matvec within 1e-6 on {name}")
         equal2 = all(torch.equal(a, b) for a, b in zip(got, want))
+        # ms: the launch bound once, as the PCG loop calls it; wrapper_ms:
+        # the wrapper, which checks its operands on every call.
+        out = tuple(torch.empty_like(t) for t in got)
+        launch, _ = cg_kernel.bind_dir_matvec(beta, z, p, layout, diags, mask,
+                                              out=out)
         k2 = dict(err=max(max_err(a, b) for a, b in zip(got, want)),
-                  ms=cuda_ms(lambda: cg_kernel.dia_dir_matvec(
-                      beta, z, p, layout, diags, mask), 200),
+                  ms=cuda_ms(launch, 200),
+                  wrapper_ms=cuda_ms(lambda: cg_kernel.dia_dir_matvec(
+                      beta, z, p, layout, diags, mask, out=out), 200),
                   plain_ms=cuda_ms(lambda: cg_kernel.dir_matvec_reference(
                       beta, z, p, layout, diags, mask), 20))
         log("phase3_dia_dir_matvec", mesh=name, max_rel_err=err2,
-            bit_equal=equal2, ms=k2["ms"], plain_ms=k2["plain_ms"])
+            bit_equal=equal2, ms=k2["ms"], wrapper_ms=k2["wrapper_ms"],
+            plain_ms=k2["plain_ms"])
 
-        # Kernel 3, one step (in place: work on copies).
-        alpha = torch.tensor(0.21, device=dev)
-        xk, rk, zk = x.clone(), r.clone(), torch.empty_like(x)
-        xr, rr, zr = x.clone(), r.clone(), torch.empty_like(x)
-        pk = cg_kernel.cg_update(alpha, xk, rk, p, z, inv_diag, zk)
-        pr = cg_kernel.cg_update_reference(alpha, xr, rr, p, z, inv_diag, zr)
-        pairs = [(xk, xr), (rk, rr), (zk, zr), (pk, pr)]
-        err3 = max(max_err(a, b) / float(b.abs().max()) for a, b in pairs)
-        require(err3 <= 1e-6, f"cg_update within 1e-6 on {name}")
-        equal3 = all(torch.equal(a, b) for a, b in pairs)
-        # The timing loops update x, r and z in place again and again.
-        k3 = dict(err=max(max_err(a, b) for a, b in pairs),
-                  ms=cuda_ms(lambda: cg_kernel.cg_update(
-                      alpha, xk, rk, p, z, inv_diag, zk), 200),
-                  plain_ms=cuda_ms(lambda: cg_kernel.cg_update_reference(
-                      alpha, xr, rr, p, z, inv_diag, zr), 20))
-        log("phase3_cg_update", mesh=name, max_rel_err=err3,
-            bit_equal=equal3, ms=k3["ms"], plain_ms=k3["plain_ms"])
-        bounds = banded_bounds(layout, -(-n // cg_kernel.THREADS))
+        # Kernel 3, one step, on kernel 2's partials.
+        k3 = check_update(layout, dev, gen, got[2], name)
+        log("phase3_cg_update", mesh=name, bit_equal=k3["bit_equal"],
+            max_abs_err=k3["err"], ms=k3["ms"], wrapper_ms=k3["wrapper_ms"],
+            plain_ms=k3["plain_ms"],
+            update_blocks=cg_kernel.UPDATE_BLOCKS,
+            direction_partials=got[2].numel())
+        bounds = banded_bounds(layout, got[2].numel(), cg_kernel.UPDATE_BLOCKS)
         k1.update(bounds["dia_matvec"])
         k2.update(bounds["dia_dir_matvec"], library_ms=None)
         k3.update(bounds["cg_update"], library_ms=None)
@@ -291,6 +456,29 @@ def phase_kernels(dev):
         stats[name] = {"dia_matvec": k1, "dia_dir_matvec": k2,
                        "cg_update": k3}
 
+    # Kernel 1's unstaged path: a band too wide for shared memory, with
+    # ndof = 1 (mod 4), so diagonal rows of every alignment occur.
+    wide = wide_band_layout(WIDE_NDOF)
+    plan = dia_kernel.stencil_plan(wide)
+    require(not plan.staged, "the wide band takes the unstaged path")
+    d_wide = torch.randn(wide.n_diags, wide.ndof, generator=gen, device=dev)
+    u_wide = torch.randn(wide.ndof + 1, generator=gen, device=dev)
+    for uu in (u_wide[:-1], u_wide[1:]):
+        y = dia_kernel.dia_matvec(wide, d_wide, uu)
+        require(torch.equal(y, dia_kernel.dia_matvec_reference(wide, d_wide,
+                                                               uu)),
+                "dia_matvec bit-equal on the wide band")
+    uu = u_wide[:-1]
+    wide_ms = cuda_ms(lambda: dia_kernel.dia_matvec(wide, d_wide, uu), 50)
+    log("phase3_dia_matvec_wide_band", ndof=wide.ndof, n_diags=wide.n_diags,
+        bandwidth=wide.bandwidth, staged=plan.staged, bit_equal=True,
+        misaligned_bit_equal=True, ms=wide_ms,
+        plain_ms=cuda_ms(lambda: dia_kernel.dia_matvec_reference(
+            wide, d_wide, uu), 5),
+        bound_ms=banded_bounds(wide, 1, 1)["dia_matvec"]["bound_ms"])
+    del d_wide, u_wide, uu
+    stats["wide_band"] = {"dia_matvec": {"err": 0.0}}
+
     # Fused PCG on the grid, at the tolerances the Newton solve uses.
     data, layout, diags = systems["grid_40k"]
     cg_tol, cg_max = 0.1 * GRID_TOL, min(max(20 * layout.ndof, 1000), 100_000)
@@ -298,6 +486,8 @@ def phase_kernels(dev):
     for label, solver in (("fused", fused_cg_solve),
                           ("twin", fused_cg_solve_reference),
                           ("plain", dia_cg_solve_reference)):
+        solver(layout, diags, data.loads, data.free_mask, tol=cg_tol,
+               max_iter=3)  # warm: the first call loads torch's kernels
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, it, res = solver(layout, diags, data.loads, data.free_mask,
@@ -305,14 +495,32 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         runs[label] = (x, int(it), float(res), time.perf_counter() - t0)
     xf, itf, resf, tf = runs["fused"]
+    setup_s = []
+    for _ in range(3):  # the same call's setup alone, warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused_cg_solve(layout, diags, data.loads, data.free_mask, tol=cg_tol,
+                       max_iter=0)
+        torch.cuda.synchronize()
+        setup_s.append(time.perf_counter() - t0)
+    setup_s = sorted(setup_s)[1]
     xt, itt, _, tt = runs["twin"]
     require(itf == itt, "fused PCG iterations equal the twin recurrence's")
+    require(bool(torch.equal(xf, xt)), "fused PCG x bit-equal to the twin's")
     x_err = max_err(xf, xt) / float(xt.abs().max())
-    require(x_err <= 1e-5, "fused PCG x within 1e-5 max|x| of the twin")
+    prof_grid = pcg_profile(layout, diags, data.loads, data.free_mask)
     log("phase3_fused_cg_grid_40k", iterations=itf, twin_iterations=itt,
         plain_recurrence_iterations=runs["plain"][1], rel_residual=resf,
-        x_rel_err=x_err, bit_equal=bool(torch.equal(xf, xt)),
-        fused_s=tf, twin_s=tt, plain_s=runs["plain"][3])
+        x_rel_err=x_err, bit_equal=True, fused_s=tf,
+        fused_ms_per_iter=1e3 * tf / max(itf, 1), fused_setup_s=setup_s,
+        fused_loop_ms_per_iter=1e3 * (tf - setup_s) / max(itf, 1), twin_s=tt,
+        plain_s=runs["plain"][3], profile=prof_grid)
+    require(prof_grid["pcg_kernels_per_iteration"] == 2.0,
+            "two device kernels per fused PCG iteration")
+    require(prof_grid["other_device_ops_added_by_loop"]
+            <= 64 // cg_kernel.CHECK_EVERY,
+            "no device work in the loop besides the two kernels and the "
+            "flag copies")
 
     # 300 PCG iterations at tol = 0 on the chain (benchmarks/scaling.py
     # cg_iteration_fused / cg_iteration_xla): x of node 0 and every y
@@ -331,12 +539,22 @@ def phase_kernels(dev):
         t = cuda_ms(lambda: solvers[label](layout, diags, rhs, mask, tol=0.0,
                                            max_iter=CG_ITERS), 1)
         ms.setdefault(label, []).append(t / CG_ITERS)
-    _, it300, _ = fused_cg_solve(layout, diags, rhs, mask, tol=0.0,
-                                 max_iter=CG_ITERS)
+    x300, it300, _ = fused_cg_solve(layout, diags, rhs, mask, tol=0.0,
+                                    max_iter=CG_ITERS)
     require(int(it300) == CG_ITERS, "300 iterations at tol = 0")
+    xt300, itt300, _ = fused_cg_solve_reference(layout, diags, rhs, mask,
+                                                tol=0.0, max_iter=CG_ITERS)
+    require(int(itt300) == CG_ITERS and bool(torch.equal(x300, xt300)),
+            "300 fused iterations bit-equal to the twin recurrence")
+    prof_chain = pcg_profile(layout, diags, rhs, mask)
     log("phase3_cg_iteration_chain_2M", ndof=layout.ndof, iterations=CG_ITERS,
-        fused_ms_per_iter=ms["fused"], twin_ms_per_iter=ms["twin"],
-        plain_ms_per_iter=ms["plain"])
+        bit_equal=True, fused_ms_per_iter=ms["fused"],
+        twin_ms_per_iter=ms["twin"], plain_ms_per_iter=ms["plain"],
+        profile=prof_chain)
+    require(prof_chain["pcg_kernels_per_iteration"] == 2.0,
+            "two device kernels per fused PCG iteration on the chain")
+    for name in BANDED:
+        stats["grid_40k"][name]["device_us"] = prof_grid["device_us"][name]
     del systems
     torch.cuda.empty_cache()
     return stats
@@ -391,6 +609,14 @@ def phase_main_path(workdir: Path):
     require(out["converged"] is True, "converged")
     for name in BANDED:
         require(launches[name] > 0, f"{name} launched on the main path")
+    require(launches["dia_dir_matvec"] == launches["cg_update"],
+            "one update per direction pass: two launches a PCG iteration")
+    # Two stencils per Newton iteration and one per increment.  The count
+    # is reported beside earlier runs', not gated: at tol 1e-5 Newton stops
+    # at the float32 stall floor, where the step that fails to lower the
+    # residual rides on the last bits of each PCG solution (ROADMAP fault
+    # 3.5; PERF.md).
+    newton_iterations = (launches["dia_matvec"] - 2) // 2
 
     t0 = time.perf_counter()
     require(main([str(path)]) == 0, "warm CLI run exit code 0")
@@ -404,7 +630,8 @@ def phase_main_path(workdir: Path):
         converged=out["converged"], history=out["history"],
         float64_residual=residual, u_rel_err_vs_scipy=u_err,
         cold_process_s=cold_s, first_in_process_s=first_s, warm_s=warm_s,
-        launches=launches)
+        launches=launches, newton_iterations=newton_iterations,
+        earlier_newton_iterations=EARLIER_NEWTON_ITERATIONS)
     require(residual <= GRID_TOL ** 0.5, "float64 residual <= sqrt(tol)")
     require(u_err <= 1e-3, "max|u - u_scipy| / max|u_scipy| <= 1e-3")
     return {k: launches[k] for k in BANDED}
@@ -777,7 +1004,8 @@ def main() -> int:
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
     for name, (source, replaces) in KERNELS.items():
-        err = (max(stats[m][name]["err"] for m in stats) if name in BANDED
+        err = (max(stats[m][name]["err"] for m in stats if name in stats[m])
+               if name in BANDED
                else mat_stats[name]["err"])
         k = grid[name]
         entries.append({
@@ -785,7 +1013,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
+            "library_ms": k["library_ms"], "device_us": k.get("device_us"),
+            "wrapper_ms": k.get("wrapper_ms"),
         })
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

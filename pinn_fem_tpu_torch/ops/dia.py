@@ -58,15 +58,18 @@ class DiaLayout:
     def n_diags(self) -> int:
         return int(self.offsets.size)
 
+    def cached(self, key, make):
+        """make(), computed once per key and kept with the layout (device
+        copies and the kernels' launch data)."""
+        value = self._on_device.get(key)
+        if value is None:
+            value = self._on_device[key] = make()
+        return value
+
     def _tensor(self, name: str, device) -> torch.Tensor:
         device = torch.device(device)
-        key = (name, str(device))
-        t = self._on_device.get(key)
-        if t is None:
-            t = torch.as_tensor(getattr(self, name), dtype=torch.int64,
-                                device=device)
-            self._on_device[key] = t
-        return t
+        return self.cached((name, str(device)), lambda: torch.as_tensor(
+            getattr(self, name), dtype=torch.int64, device=device))
 
     def offsets_on(self, device) -> torch.Tensor:
         """(nd,) int64 offsets on `device`, copied once and kept."""

@@ -30,14 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
     "pft_threads_per_block": [],
-    "pft_dia_matvec": [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int64,
-                       _P, _P, _P],
-    "pft_dia_dir_matvec": [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
-                           ctypes.c_int64, _P, _P, _P, _P, _P, _P],
-    "pft_cg_update": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-                      ctypes.c_int64, _P, _P, _P],
+    "pft_update_blocks": [],
+    "pft_dia_matvec": [_I, _P, _P, _I, ctypes.c_int64, _P, _P, _I, _I, _I,
+                       _I, _I, _P],
+    "pft_dia_dir_matvec": [_P],   # a DirectionArgs (cg_kernel.py)
+    "pft_cg_update": [_P],        # an UpdateArgs
     "pft_material_forward": [ctypes.c_int, _P, ctypes.c_int, _P,
                              ctypes.c_float, ctypes.c_int64, _P, _P, _P, _P,
                              _P, _P, _P, _P],
@@ -137,6 +137,14 @@ def load_library() -> ctypes.CDLL:
         lib.pft_error_string.restype = ctypes.c_char_p
         _library = lib
     return _library
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device (the
+    lean form of torch.cuda.current_stream(device).cuda_stream)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, what: str) -> None:

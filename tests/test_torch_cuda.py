@@ -6,8 +6,9 @@ imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 The banded kernels sum in the twins' order with separately rounded
-multiplies and adds, and the twins reduce each block by the kernels' tree,
-so those comparisons are exact.  The material kernels (kernel 4) are held
+multiplies and adds, and the twins reduce by the kernels' partitions and
+trees, so those comparisons are exact, the PCG loop's device state
+included.  The material kernels (kernel 4) are held
 to their twin at the JAX kernel test's bounds (forward) and to 1e-4 of the
 largest gradient entry (backward).
 """
@@ -47,15 +48,39 @@ def system(mesh, dev):
     return data, layout, diags
 
 
+def update_operands(n, dev, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, r, p, ap = (torch.randn(n, generator=g, device=dev) for _ in range(4))
+    inv_diag = torch.rand(n, generator=g, device=dev) + 0.1
+    pap = torch.rand(-(-n // cg_kernel.THREADS), generator=g, device=dev) + 0.5
+    return pap, x, r, p, ap, inv_diag
+
+
+def update_both(args, state, max_iter):
+    """cg_update and its twin on copies of the same operands: the
+    kernel's and the twin's (x, r, z, partials, state)."""
+    pap, x, r, p, ap, inv_diag = args
+    out = []
+    for fn in (kernels.cg_update, cg_kernel.cg_update_reference):
+        xs, rs, st = x.clone(), r.clone(), state.clone()
+        zs = torch.zeros_like(x)
+        parts = torch.zeros(cg_kernel.UPDATE_BLOCKS, 2, dtype=torch.float64,
+                            device=x.device)
+        fn(pap, xs, rs, p, ap, inv_diag, zs, st, max_iter, parts)
+        out.append((xs, rs, zs, parts, st))
+    return out
+
+
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_kernels_equal_twins_on_card(cuda_device, mesh):
     dev = cuda_device
     data, layout, d = system(mesh, dev)
     rng = np.random.default_rng(4)
-    u, z, p, x, r = (torch.tensor(rng.normal(size=layout.ndof),
-                                  dtype=torch.float32, device=dev)
-                     for _ in range(5))
+    u, z, p = (torch.tensor(rng.normal(size=layout.ndof),
+                            dtype=torch.float32, device=dev)
+               for _ in range(3))
     before = kernels.launch_counts()
+    assert dia_kernel.stencil_plan(layout).staged
     assert torch.equal(kernels.dia_matvec(layout, d, u),
                        dia_kernel.dia_matvec_reference(layout, d, u))
     beta = torch.tensor(0.37, device=dev)
@@ -63,26 +88,104 @@ def test_kernels_equal_twins_on_card(cuda_device, mesh):
     want = cg_kernel.dir_matvec_reference(beta, z, p, layout, d,
                                           data.free_mask)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    inv_diag = torch.rand(layout.ndof, device=dev) + 0.1
-    x2, r2 = x.clone(), r.clone()
-    zk, z2 = torch.empty_like(x), torch.empty_like(x)
-    alpha = torch.tensor(0.21, device=dev)
-    pk = kernels.cg_update(alpha, x, r, p, z, inv_diag, zk)
-    pr = cg_kernel.cg_update_reference(alpha, x2, r2, p, z, inv_diag, z2)
-    assert torch.equal(pk, pr) and torch.equal(x, x2) and torch.equal(zk, z2)
+    state = cg_kernel.new_state(torch.tensor(3.0, device=dev),
+                                torch.tensor(2.0, device=dev),
+                                torch.tensor(1e-9, device=dev), 100)
+    k, t = update_both(update_operands(layout.ndof, dev), state, 100)
+    assert all(torch.equal(a, b) for a, b in zip(k, t))
     after = kernels.launch_counts()
     assert all(after[k] == before[k] + 1
                for k in ("dia_matvec", "dia_dir_matvec", "cg_update"))
 
 
-def test_fused_cg_on_card_equals_twin_recurrence(cuda_device):
-    data, layout, d = system("grid16x72", cuda_device)
-    x, it, _ = kernels.fused_cg_solve(layout, d, data.loads, data.free_mask,
-                                      tol=1e-5, max_iter=5000)
-    x_ref, it_ref, _ = kernels.fused_cg_solve_reference(
-        layout, d, data.loads, data.free_mask, tol=1e-5, max_iter=5000)
-    assert int(it) == int(it_ref) > 0 and torch.equal(x, x_ref)
-    assert float(torch.max(torch.abs(x * data.fixed_mask))) == 0.0
+def test_stencil_wide_band_and_misaligned_views(cuda_device):
+    """The kernel's unstaged path (a band far wider than shared memory)
+    and a u and diagonals that start 4 bytes past a 16-byte boundary, on
+    both paths: bit-equal to the twin."""
+    from pinn_fem_tpu_torch.ops.dia import DiaLayout
+
+    dev = cuda_device
+    offs = np.array([1290 * j for j in range(-31, 32)], np.int64)
+    wide = DiaLayout(offsets=offs, entry_slot=np.zeros((0, 2, 2), np.int64),
+                     ndof=100_001, bandwidth=int(offs.max()))
+    _, grid, _ = system("grid16x72", dev)
+    assert not dia_kernel.stencil_plan(wide).staged
+    g = torch.Generator(device=dev).manual_seed(9)
+    for layout in (wide, grid):
+        n, nd = layout.ndof, layout.n_diags
+        d = torch.randn(nd * n + 1, generator=g, device=dev)
+        u = torch.randn(n + 1, generator=g, device=dev)
+        for dd, uu in ((d[:-1].view(nd, n), u[:-1]),
+                       (d[1:].view(nd, n), u[1:])):
+            assert torch.equal(kernels.dia_matvec(layout, dd, uu),
+                               dia_kernel.dia_matvec_reference(layout, dd, uu))
+
+
+@pytest.mark.parametrize("case", ["live", "pap_zero", "rz_new_negative",
+                                  "rz_new_not_finite", "max_iter",
+                                  "ragged_end"])
+def test_update_epilogue_equals_twin_on_card(cuda_device, case):
+    """The update kernel and its twin, state included, on the epilogue's
+    guards; then a stopped state, which neither changes."""
+    dev = cuda_device
+    n = 70_003 if case == "ragged_end" else 4096
+    pap, x, r, p, ap, inv_diag = update_operands(n, dev, seed=11)
+    rz, it, max_iter = 3.0, 0, 100
+    if case == "pap_zero":
+        pap.zero_()
+    elif case == "rz_new_negative":
+        inv_diag = -inv_diag
+    elif case == "rz_new_not_finite":
+        inv_diag[5] = float("inf")
+    elif case == "max_iter":
+        it, max_iter = 36, 37
+    state = cg_kernel.new_state(torch.tensor(rz, device=dev),
+                                torch.tensor(2.0, device=dev),
+                                torch.tensor(1e-9, device=dev), max_iter)
+    cg_kernel.state_views(state)[1][0] = it
+    args = (pap, x, r, p, ap, inv_diag)
+    k, t = update_both(args, state, max_iter)
+    assert all(torch.equal(a, b) for a, b in zip(k[:4], t[:4]))
+    assert torch.equal(k[4], t[4])  # the state, bytes and all
+    stopped = case not in ("live", "ragged_end")
+    assert bool(cg_kernel.state_views(k[4])[2]) == stopped
+    if stopped:
+        k2, t2 = update_both((pap, k[0], k[1], p, ap, inv_diag), k[4],
+                             max_iter)
+        assert torch.equal(k2[4], k[4]) and torch.equal(k2[0], k[0])
+
+
+def test_update_refuses_misaligned_vectors(cuda_device):
+    pap, x, r, p, ap, inv_diag = update_operands(4097, cuda_device)
+    state = cg_kernel.new_state(*(torch.tensor(v, device=cuda_device)
+                                  for v in (1.0, 1.0, 0.0)), 10)
+    x = x[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.cg_update(pap, x, r[1:], p[1:], ap[1:], inv_diag[1:],
+                          torch.empty_like(x), state, 10)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_fused_cg_on_card_equals_twin_recurrence(cuda_device, mesh):
+    """Iterations, x and the residual bit for bit, at a reachable tol and
+    at tol 0 (300 iterations).  The chain is pulled at its free end, x of
+    node 0 and every y pinned, as in chip_smoke.py."""
+    data, layout, d = system(mesh, cuda_device)
+    rhs, mask = data.loads, data.free_mask
+    if mesh.startswith("chain"):
+        mask = torch.ones(layout.ndof, device=cuda_device)
+        mask[0] = 0.0
+        mask[1::2] = 0.0
+        rhs = torch.zeros(layout.ndof, device=cuda_device)
+        rhs[-2] = 1.0
+    for tol in (1e-5, 0.0):
+        x, it, res = kernels.fused_cg_solve(layout, d, rhs, mask, tol=tol,
+                                            max_iter=300)
+        x_ref, it_ref, res_ref = kernels.fused_cg_solve_reference(
+            layout, d, rhs, mask, tol=tol, max_iter=300)
+        assert int(it) == int(it_ref) > 0 and torch.equal(x, x_ref)
+        assert torch.equal(res, res_ref)
+        assert float(torch.max(torch.abs(x * (1 - mask)))) == 0.0
 
 
 def test_wrappers_refuse_float64_on_card(cuda_device):
@@ -95,10 +198,14 @@ def test_stop_flag_freezes_kernels(cuda_device):
     n = 1000
     x = torch.zeros(n, device=cuda_device)
     r, z = x + 1.0, x + 2.0
-    kernels.cg_update(torch.tensor(0.5, device=cuda_device), x, r, r, r, r,
-                      z, stop=torch.tensor(True, device=cuda_device))
+    state = cg_kernel.new_state(*(torch.tensor(v, device=cuda_device)
+                                  for v in (1.0, 1.0, 0.0)), 0)
+    before = state.clone()
+    kernels.cg_update(torch.ones(4, device=cuda_device), x, r, r, r, r, z,
+                      state, 0)
     assert float(x.abs().max()) == 0.0 and float((r - 1).abs().max()) == 0.0
     assert float((z - 2).abs().max()) == 0.0
+    assert torch.equal(state, before)
 
 
 def mlp_material(hidden_layers, dev):

@@ -125,6 +125,87 @@ def test_stencil_twin_matches_jax(interpret_pallas, mesh):
     np.testing.assert_allclose(y, y_pallas, rtol=0, atol=1e-6 * scale)
 
 
+def wide_band_layout(ndof=100_000, step=1290):
+    """A layout at dia_layout's widest: 63 diagonals (offsets 0 and
+    +-step * j, j = 1..31), a band of about 40,000 rows, far wider than a
+    block's shared memory holds."""
+    dof_map = np.array([[0, step * j] for j in range(1, 32)], np.int64)
+    return dia_layout(dof_map, ndof)
+
+
+def emulate_stencil(plan, layout, diags, u):
+    """stencil_kernel of csrc/dia_cg.cu, block by block in numpy: the
+    staged window with its zero fill, the shifted int32 offsets, the rows
+    of each tile; asserts that every window read lies inside the window."""
+    n = layout.ndof
+    shift = plan.halo_lo if plan.staged else 0
+    offsets = (layout.offsets + shift).astype(np.int32)
+    y = np.empty(n, np.float32)
+    for b in range(plan.blocks):
+        t0 = b * plan.tile
+        rows = np.arange(t0, min(t0 + plan.tile, n))
+        acc = np.zeros(rows.size, np.float32)
+        if plan.staged:
+            g = np.arange(t0 - plan.halo_lo, t0 - plan.halo_lo + plan.window)
+            win = np.where((g >= 0) & (g < n), u[np.clip(g, 0, n - 1)],
+                           np.float32(0))
+        for k, o in enumerate(offsets):
+            if plan.staged:
+                idx = rows - t0 + o
+                assert idx.min() >= 0 and idx.max() < plan.window
+                uv = win[idx]
+            else:
+                j = rows + o
+                uv = np.where((j >= 0) & (j < n), u[np.clip(j, 0, n - 1)],
+                              np.float32(0))
+            acc = acc + diags[k, rows] * uv
+        y[rows] = acc
+    return y
+
+
+def grid_layout(rows, cols):
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+
+    p = grid_problem(rows, cols)
+    return dia_layout(p.to_device(CPU).dof_map.numpy(), p.ndof)
+
+
+STENCIL_LAYOUTS = {
+    "chain3000": lambda: both_systems("chain3000")[1][1],
+    "grid24x48": lambda: grid_layout(24, 48),
+    "grid100x200": lambda: grid_layout(100, 200),
+    "wide_band": wide_band_layout,
+}
+
+
+@pytest.mark.parametrize("name", sorted(STENCIL_LAYOUTS))
+def test_stencil_plan(name):
+    """Each plan's halo covers the offsets, its shared memory fits a block,
+    its grid fills the card where the rows allow; the staged window and
+    the wide path, emulated block by block, give the twin's bits."""
+    layout = STENCIL_LAYOUTS[name]()
+    plan = dia_kernel.stencil_plan(layout)
+    assert plan.halo_lo >= -int(layout.offsets.min())
+    assert plan.halo_hi >= int(layout.offsets.max())
+    assert plan.halo_lo % 4 == 0 and plan.halo_hi % 4 == 0
+    assert plan.shared_bytes <= 232_448
+    assert plan.threads % 32 == 0 and plan.threads <= 256
+    assert plan.tile % (dia_kernel.ROWS_PER_THREAD * plan.threads) == 0
+    assert plan.staged == (name != "wide_band")
+    if plan.staged:
+        assert plan.window == plan.tile + plan.halo_lo + plan.halo_hi
+    if layout.ndof >= 4 * 32 * dia_kernel.SMS:
+        assert plan.blocks >= dia_kernel.SMS
+    if name == "grid100x200":  # the Newton path's 40k grid: 157 tiles of 256
+        assert (layout.bandwidth, plan.threads, plan.tile, plan.blocks) == (
+            403, 64, 256, 157)
+    rng = np.random.default_rng(5)
+    d = rng.normal(size=(layout.n_diags, layout.ndof)).astype(np.float32)
+    u = rng.normal(size=layout.ndof).astype(np.float32)
+    want = dia_kernel.dia_matvec_reference(layout, t32(d), t32(u)).numpy()
+    np.testing.assert_array_equal(emulate_stencil(plan, layout, d, u), want)
+
+
 def packed_operands(jl, jdiags):
     from pinn_fem_tpu.ops.pallas.dia_kernel import pack_dia_interleaved
 
@@ -168,31 +249,167 @@ def test_dir_matvec_twin_matches_jax(interpret_pallas, mesh):
 
 @pytest.mark.parametrize("mesh", ["chain3000", "grid16x72"])
 def test_update_twin_matches_jax(interpret_pallas, mesh):
+    """The update twin against JAX's `_update` in interpret mode followed
+    by the scalar recurrence of its while_loop body (alpha from the summed
+    direction partials, rz, rn2 and beta from the summed update
+    partials)."""
     _, ck = interpret_pallas
     (jd, jl, jdiags), (td, tl, tdiags) = both_systems(mesh)
     rng = np.random.default_rng(2)
     x, r, p, ap = (rng.normal(size=tl.ndof).astype(np.float32)
                    for _ in range(4))
     inv_diag = rng.uniform(0.1, 1.0, size=tl.ndof).astype(np.float32)
-    alpha = np.float32(0.21)
+    nb2 = -(-tl.ndof // cg_kernel.THREADS)
+    pap_parts = rng.uniform(0.5, 1.5, size=nb2).astype(np.float32)
+    rz = np.float32(np.dot(r, inv_diag * r))
+    rn2 = np.float32(np.dot(r, r))
 
     packed, _ = packed_operands(jl, jdiags)
     n = packed.n_rows
     pk = lambda v: ck.pack_vec(jnp.asarray(v), n)  # noqa: E731
+    alpha = rz / jnp.sum(jnp.asarray(pap_parts))
     x2, r2, z2, red = ck._update(alpha, pk(x), pk(r), pk(p), pk(ap),
                                  pk(inv_diag), n, packed.rows)
+    rz_j = float(jnp.sum(red[:, 0]))
+    rn2_j = float(jnp.sum(red[:, 1]))
 
     tx, tr, tz = t32(x), t32(r), torch.empty(tl.ndof)
+    state = cg_kernel.new_state(torch.tensor(rz), torch.tensor(rn2),
+                                torch.tensor(1e-9), max_iter=100)
     before = kernels.launch_counts()
-    t_parts = kernels.cg_update(torch.tensor(alpha), tx, tr, t32(p), t32(ap),
-                                t32(inv_diag), tz)
+    t_parts = kernels.cg_update(t32(pap_parts), tx, tr, t32(p), t32(ap),
+                                t32(inv_diag), tz, state, 100)
     assert kernels.launch_counts() == before
+    assert t_parts.shape == (cg_kernel.UPDATE_BLOCKS, 2)
     for got, want in ((tx, x2), (tr, r2), (tz, z2)):
         want = np.asarray(ck.unpack_vec(want, tl.ndof))
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=1e-6 * np.abs(want).max())
-    np.testing.assert_allclose(t_parts.sum(0).numpy(),
-                               np.asarray(jnp.sum(red, axis=0)), rtol=1e-5)
+    f, i, stop, ticket = cg_kernel.state_views(state)
+    np.testing.assert_allclose(f[1:3].numpy(), [rz_j, rn2_j], rtol=1e-5)
+    np.testing.assert_allclose(float(f[0]), rz_j / float(rz), rtol=1e-5)
+    assert i.tolist() == [1, 1] and not bool(stop) and int(ticket) == 0
+
+
+def epilogue_case(case, n=1000):
+    """Hand-made operands of one update step that hit one guard of the
+    epilogue: (pap_parts, x, r, p, ap, inv_diag, z, state, max_iter)."""
+    g = torch.Generator().manual_seed(7)
+    x, r, p, ap = (torch.randn(n, generator=g) for _ in range(4))
+    inv_diag = torch.rand(n, generator=g) + 0.1
+    pap = torch.rand(-(-n // cg_kernel.THREADS), generator=g) + 0.5
+    rz, it, max_iter = torch.tensor(3.0), 0, 100
+    if case == "pap_zero":
+        pap.zero_()
+    elif case == "rz_zero":
+        rz = torch.tensor(0.0)
+    elif case == "rz_new_negative":
+        inv_diag = -inv_diag
+    elif case == "rz_new_not_finite":
+        inv_diag[5] = float("inf")
+    elif case == "max_iter":
+        it, max_iter = 36, 37
+    state = cg_kernel.new_state(rz, torch.tensor(2.0), torch.tensor(1e-9),
+                                max_iter)
+    f, i, stop, _ = cg_kernel.state_views(state)
+    i[0] = it
+    if case == "rz_zero":  # a live state with rz = 0 (never reached in PCG)
+        i[1], stop[0] = 1, False
+    return pap, x, r, p, ap, inv_diag, torch.empty(n), state, max_iter
+
+
+@pytest.mark.parametrize("case", ["live", "pap_zero", "rz_zero",
+                                  "rz_new_negative", "rz_new_not_finite",
+                                  "max_iter"])
+def test_update_epilogue_guards(case):
+    """The guards of the update's epilogue on hand-made partials: alpha and
+    beta divide by 1e-30 where pAp or the old rz is 0; the loop stops on a
+    non-positive or non-finite r.z and when `it` reaches max_iter (37, not
+    a multiple of CHECK_EVERY); a stopped state changes nothing."""
+    pap, x, r, p, ap, inv_diag, z, state, max_iter = epilogue_case(case)
+    x0, r0, rz0 = x.clone(), r.clone(), cg_kernel.state_views(state)[0][1]
+    rz0 = float(rz0)
+    pap_sum = cg_kernel.fixed_sum(pap)
+    alpha = torch.tensor(rz0) / (pap_sum if float(pap_sum) != 0
+                                 else torch.tensor(1e-30))
+    kernels.cg_update(pap, x, r, p, ap, inv_diag, z, state, max_iter)
+    f, i, stop, ticket = cg_kernel.state_views(state)
+    assert torch.equal(x, x0 + alpha * p) and torch.equal(r, r0 - alpha * ap)
+    assert torch.equal(z, inv_diag * r)
+    rz_new = float(f[1])
+    assert rz_new == float(cg_kernel.fixed_sum(cg_kernel.update_partials(
+        r.double() * z.double())).float())
+    exact = float(r.double() @ z.double())
+    if abs(exact) < 3e38:  # representable in float32: rounded once
+        np.testing.assert_allclose(rz_new, exact, rtol=1e-6)
+    want_beta = torch.tensor(rz_new) / torch.tensor(rz0 if rz0 else 1e-30)
+    assert float(f[0]) == float(want_beta)
+    live = {"live": True, "pap_zero": False, "rz_zero": True,
+            "rz_new_negative": False, "rz_new_not_finite": False,
+            "max_iter": False}[case]
+    assert int(i[0]) == (37 if case == "max_iter" else 1)
+    assert bool(i[1]) == live and bool(stop) == (not live)
+    assert int(ticket) == 0
+    # Stopped: a further update writes nothing, state included.
+    if not live:
+        frozen = [t.clone() for t in (x, r, z, state)]
+        kernels.cg_update(pap, x, r, p, ap, inv_diag, z, state, max_iter)
+        assert all(torch.equal(a, b) for a, b in zip(frozen, (x, r, z, state)))
+
+
+def test_update_partition_and_trees():
+    """thread_sums follows the kernel's grid-stride partition (chunks of
+    four rows, UPDATE_BLOCKS x THREADS threads); the trees sum what they
+    are given."""
+    g, t = cg_kernel.UPDATE_BLOCKS, cg_kernel.THREADS
+    n = 4 * g * t * 2 + 6                  # two strides and a ragged end
+    v = torch.zeros(n)
+    # row -> (block, thread): chunk c = row // 4 = b * t + th + j * g * t
+    for row, (b, th) in ((4 * (3 * t + 5) + 2, (3, 5)),
+                         (4 * (g * t + 7) + 1, (0, 7)),
+                         (n - 1, (0, 1))):
+        v.zero_()
+        v[row] = 1.0
+        sums = cg_kernel.thread_sums(v)
+        assert float(sums[b, th]) == 1.0 and float(sums.sum()) == 1.0
+    w = torch.as_tensor(np.random.default_rng(3).normal(size=700),
+                        dtype=torch.float32)
+    np.testing.assert_allclose(float(cg_kernel.fixed_sum(w)), float(w.sum()),
+                               rtol=1e-5)
+    np.testing.assert_allclose(
+        cg_kernel.block_tree(w[:512].reshape(2, t)).numpy(),
+        [w[:256].sum(), w[256:512].sum()], rtol=1e-5)
+
+
+def test_pcg_makes_two_operation_calls_per_iteration():
+    """One PCG iteration is one direction call and one update call, with
+    no other operation between them (on the card: two launches); the
+    steps are bound once per solve, for each of the two p buffers."""
+    _, (td, tl, tdiags) = both_systems("chain777")
+    calls = []
+
+    def counted(name, bind):
+        def counting_bind(*args, **kwargs):
+            calls.append("bind")
+            launch, out = bind(*args, **kwargs)
+
+            def counting_launch():
+                calls.append(name)
+                return launch()
+            return counting_launch, out
+        return counting_bind
+
+    x, it, _ = cg_kernel._pcg(
+        dia_kernel.dia_matvec_reference,
+        counted("dir", cg_kernel.bind_dir_matvec),
+        counted("update", cg_kernel.bind_cg_update),
+        tl, tdiags, td.loads, td.free_mask, 1e-6, 5000, None)
+    rounds = -(-int(it) // cg_kernel.CHECK_EVERY) * cg_kernel.CHECK_EVERY
+    assert int(it) > 0
+    assert calls == ["bind"] * 4 + ["dir", "update"] * rounds
+    x_ref, it_ref, _ = kernels.fused_cg_solve_reference(
+        tl, tdiags, td.loads, td.free_mask, tol=1e-6, max_iter=5000)
+    assert int(it_ref) == int(it) and torch.equal(x_ref, x)
 
 
 @pytest.mark.parametrize("mesh,tol", [("chain777", 1e-6), ("grid16x72", 1e-5)])
@@ -239,20 +456,45 @@ def test_fused_cg_warm_start():
     assert torch.equal(x, x_ref)
 
 
-def test_fused_cg_stop_flag_freezes_state():
-    """Past the stop test the kernels' twins leave x, r and z untouched, so
-    checking the flag only every CHECK_EVERY iterations changes nothing."""
+def test_fused_cg_stop_flag_freezes_state(monkeypatch):
+    """Past the stop test the kernels' twins leave x, r, z and the state
+    untouched, so checking the flag only every CHECK_EVERY iterations
+    changes nothing: 37 iterations (not a multiple of 32) equal those of a
+    loop that reads the flag after every iteration."""
     _, (td, tl, tdiags) = both_systems("chain777")
-    x_a, it_a, _ = kernels.fused_cg_solve(tl, tdiags, td.loads, td.free_mask,
-                                          tol=1e-6, max_iter=37)
+    x_a, it_a, res_a = kernels.fused_cg_solve(tl, tdiags, td.loads,
+                                              td.free_mask, tol=1e-6,
+                                              max_iter=37)
     assert int(it_a) == 37 and 37 % cg_kernel.CHECK_EVERY != 0
+    monkeypatch.setattr(cg_kernel, "CHECK_EVERY", 1)
+    x_b, it_b, res_b = kernels.fused_cg_solve(tl, tdiags, td.loads,
+                                              td.free_mask, tol=1e-6,
+                                              max_iter=37)
+    assert int(it_b) == 37
+    assert torch.equal(x_a, x_b) and torch.equal(res_a, res_b)
     x = torch.zeros(tl.ndof)
     r, z = x + 1.0, x + 2.0
-    kernels.cg_update(torch.tensor(0.5), x, r, r, r, r, z,
-                      stop=torch.tensor(True))
+    state = cg_kernel.new_state(torch.tensor(1.0), torch.tensor(1.0),
+                                torch.tensor(0.0), max_iter=0)
+    assert bool(cg_kernel.state_views(state)[2])
+    before = state.clone()
+    kernels.cg_update(torch.ones(4), x, r, r, r, r, z, state, 0)
     assert torch.equal(x, torch.zeros(tl.ndof))
     assert torch.equal(r, torch.ones(tl.ndof))
     assert torch.equal(z, torch.full((tl.ndof,), 2.0))
+    assert torch.equal(state, before)
+
+
+def test_launch_structs_mirror_the_c_layouts():
+    """DirectionArgs and UpdateArgs are 104 bytes with the stream last, as
+    csrc/dia_cg.cu's static_assert holds its structs."""
+    import ctypes
+
+    for struct in (cg_kernel.DirectionArgs, cg_kernel.UpdateArgs):
+        assert ctypes.sizeof(struct) == 104
+        assert struct.stream.offset == 96
+    assert "sizeof(DirectionArgs) == 104 && sizeof(UpdateArgs) == 104" in (
+        _build.CSRC / "dia_cg.cu").read_text()
 
 
 def test_block_sums_follow_the_kernel_tree():
