@@ -27,8 +27,14 @@ code is not 0 and no result line is printed:
   6. kernel 4, the material fields' forward and backward kernels, against
      their twin (the twin's autograd for the backward) at the grid's 79,102
      midpoints and on a 1,000,000-element chain, with 1 and 2 hidden
-     layers and load factors 0.3 and 1.0; ms of kernel, twin and torch
-     form (each field's eval_batch and the product);
+     layers and load factors 0.3 and 1.0; the backward (4b) also against
+     its plain version (material_coefficients_backward_reference), bit
+     for bit against a second call, and with gs alone (the GD path: the
+     density block exactly zero); ms of kernel, plain version, twin and
+     torch form (each field's eval_batch and the product), the s-only
+     call's ms beside its own bound, host us per wrapper call, and a
+     profile: device us per launch of both kernels, one device kernel per
+     call;
   7. the GD main path: the grid as a PINN document (three MLP fields,
      pinn_grid_document) through main() on cuda for GD_ITERS iterations,
      with both material kernels' launch counts from that run, ms per GD
@@ -42,9 +48,10 @@ is checked.  The line before the last is {"kernels": [...]}, one entry per
 kernel with its launches on its main path, error, ms (CUDA events), the
 twin's ms, the bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s FP32,
 whichever is larger), a one-call PyTorch yardstick where one exists, the
-device us per launch from the profiler (banded kernels), and for the two
-PCG kernels the wrapper's ms per call beside the ms of the launch bound
-once as the PCG loop calls it;
+device us per launch from the profiler, for the two PCG kernels the
+wrapper's ms per call beside the ms of the launch bound once as the PCG
+loop calls it, and for the material kernels the host us per wrapper call
+(the backward also its twin's ms and the s-only call's ms and bound);
 the last is {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
 """
 
@@ -715,6 +722,17 @@ def phase_material(dev):
                 g_got = mk.material_coefficients_backward(
                     data.mid, data.inv_len, lf, params, scales, widths,
                     got[0], got[1], tuple(c))
+                plain_rel = check_backward(mk, data, lf, params, scales,
+                                           widths, got, tuple(c), g_got, mesh)
+                s_only = (None, None, None, c[3])
+                gs_got = mk.material_coefficients_backward(
+                    data.mid, data.inv_len, lf, params, scales, widths,
+                    got[0], got[1], s_only)
+                s_rel = check_backward(mk, data, lf, params, scales, widths,
+                                       got, s_only, gs_got, mesh)
+                require(bool((gs_got[-mat.density.n_params():] == 0).all()),
+                        f"s-only backward leaves the density block zero on "
+                        f"{mesh}")
                 rel = []
                 for k, (a, b) in enumerate(zip(got, want)):
                     rtol = 3e-5 if k == 3 else 2e-5
@@ -738,7 +756,9 @@ def phase_material(dev):
                 log("phase6_material", mesh=mesh, elements=n,
                     hidden_layers=hidden, load_factor=lf,
                     max_rel_err_E_A_rho_s=rel, grad_max_rel_err=g_rel,
-                    **timing)
+                    grad_max_rel_err_vs_plain=plain_rel,
+                    s_only_grad_max_rel_err_vs_plain=s_rel,
+                    backward_bit_equal_repeat=True, **timing)
                 if hidden == 2 and lf == 1.0 and mesh == "grid_79k":
                     fw = [(h, h) for h in (20, 15, 10)]
                     io = 4 * (2 * n + n + 4 * n) + 4 * params.numel() + 12
@@ -746,15 +766,80 @@ def phase_material(dev):
                         ms=timing["kernel_ms"], plain_ms=timing["twin_ms"],
                         library_ms=None,
                         **bound(io, n * mlp_ops(fw, backward=False)))
+                    stats["material_coefficients"].update(
+                        device_us=timing["kernel_device_us"],
+                        host_us=timing["kernel_host_us"])
                     # mid, 1/L, E, A and four upstream gradients in
                     io_b = 4 * (2 * n + 3 * n + 4 * n) + 8 * params.numel() + 12
+                    # s alone: the young and area nets only; gs in, and
+                    # the whole gradient out
+                    io_s = (4 * (2 * n + 3 * n + n) + 4 * params.numel()
+                            + 4 * (params.numel() - mat.density.n_params())
+                            + 12)
+                    s_bound = bound(io_s, n * mlp_ops(fw[:2], backward=True))
                     stats["material_coefficients_backward"].update(
                         ms=timing["kernel_backward_ms"],
-                        plain_ms=timing["twin_backward_ms"], library_ms=None,
+                        plain_ms=timing["plain_backward_ms"],
+                        twin_ms=timing["twin_backward_ms"], library_ms=None,
+                        device_us=timing["kernel_backward_device_us"],
+                        host_us=timing["kernel_backward_host_us"],
+                        s_only_ms=timing["kernel_backward_s_only_ms"],
+                        s_only_device_us=timing[
+                            "kernel_backward_s_only_device_us"],
+                        s_only_bound_ms=s_bound["bound_ms"],
                         **bound(io_b, n * mlp_ops(fw, backward=True)))
+                    log("phase6_material_bounds", mesh=mesh,
+                        forward=stats["material_coefficients"]["bound_ms"],
+                        backward=stats["material_coefficients_backward"][
+                            "bound_ms"], backward_s_only=s_bound["bound_ms"])
     del meshes
     torch.cuda.empty_cache()
     return stats
+
+
+def check_backward(mk, data, lf, params, scales, widths, got, grads, g_got,
+                   mesh) -> float:
+    """Kernel 4b against its plain version (1e-5 of max|grad|) and against
+    a second call (bit for bit); the relative error."""
+    import torch
+
+    g_plain = mk.material_coefficients_backward_reference(
+        data.mid, data.inv_len, lf, params, scales, widths, got[0], got[1],
+        grads)
+    rel = max_err(g_got, g_plain) / float(g_plain.abs().max())
+    require(rel <= 1e-5, "material backward within 1e-5 of max|grad| of its "
+            f"plain version on {mesh}")
+    require(bool(torch.equal(g_got, mk.material_coefficients_backward(
+        data.mid, data.inv_len, lf, params, scales, widths, got[0], got[1],
+        grads))), f"material backward bit for bit across two calls on {mesh}")
+    return rel
+
+
+def recorded_window(fn, tries: int = 3):
+    """(device events, windows taken) of fn() under torch.profiler: the
+    first of up to `tries` windows in which the profiler recorded any
+    device event (on the card a window now and then comes back with none,
+    or without its first records)."""
+    for window in range(1, tries + 1):
+        _, ev = profiled(fn)
+        if ev:
+            break
+    return ev, window
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host us per call of fn (time.perf_counter around `reps` calls after
+    a synchronize; the calls only enqueue)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
 
 
 def material_times(data, mat, lf, params, scales, widths, theta, c, got,
@@ -772,16 +857,52 @@ def material_times(data, mat, lf, params, scales, widths, theta, c, got,
         e, a = mat.young.eval_batch(x), mat.area.eval_batch(x)
         return e, a, mat.density.eval_batch(x), e * a * data.inv_len
 
+    def forward():
+        return mk.material_coefficients(data.mid, data.inv_len, lf, params,
+                                        scales, widths)
+
+    def backward(grads=tuple(c)):
+        return mk.material_coefficients_backward(
+            data.mid, data.inv_len, lf, params, scales, widths, got[0],
+            got[1], grads)
+
+    s_only = (None, None, None, c[3])
     out = {
-        "kernel_ms": cuda_ms(lambda: mk.material_coefficients(
-            data.mid, data.inv_len, lf, params, scales, widths), reps),
+        "kernel_ms": cuda_ms(forward, 200),
         "twin_ms": cuda_ms(lambda: mk.material_coefficients_reference(
             data.mid, data.inv_len, lf, mat), reps),
         "torch_form_ms": cuda_ms(torch_form, reps),
-        "kernel_backward_ms": cuda_ms(lambda: mk.material_coefficients_backward(
-            data.mid, data.inv_len, lf, params, scales, widths, got[0],
-            got[1], tuple(c)), reps),
+        "kernel_backward_ms": cuda_ms(backward, 200),
+        "kernel_backward_s_only_ms": cuda_ms(lambda: backward(s_only), 200),
+        "plain_backward_ms": cuda_ms(
+            lambda: mk.material_coefficients_backward_reference(
+                data.mid, data.inv_len, lf, params, scales, widths, got[0],
+                got[1], tuple(c)), 5),
+        "kernel_host_us": host_us(forward),
+        "kernel_backward_host_us": host_us(backward),
     }
+    # Device us per launch (torch.profiler over 20 calls of each), and
+    # device kernels per backward call.
+    for label, fn, symbol in (
+            ("kernel", forward, "material_forward_kernel"),
+            ("kernel_backward", backward, "material_grad_kernel"),
+            ("kernel_backward_s_only", lambda: backward(s_only),
+             "material_grad_kernel")):
+        ev, windows = recorded_window(lambda: [fn() for _ in range(20)])
+        mine = [e.device_time_total for e in ev if symbol + "(" in e.name]
+        others = sorted({e.name[:80] for e in ev if symbol + "(" not in e.name})
+        out[f"{label}_device_us"] = sum(mine) / max(len(mine), 1)
+        out[f"{label}_device_ops_per_call"] = len(ev) / 20
+        out[f"{label}_other_device_ops"] = others
+        out[f"{label}_profiler_windows"] = windows
+        # The profiler may drop the first records of a window (full runs
+        # on the card saw 18 and 19 of the 20 launches), and adds none: so
+        # every recorded device op must be this kernel, and most of the
+        # launches must be there.
+        require(not others and 15 <= len(mine) <= 20,
+                f"one device kernel ({symbol}) per {label} call: {len(mine)} "
+                f"launches and {len(ev)} device ops recorded in 20 calls, "
+                f"others {others}")
     with torch.enable_grad():
         for t in theta:
             t.requires_grad_(True)
@@ -1015,6 +1136,9 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "device_us": k.get("device_us"),
             "wrapper_ms": k.get("wrapper_ms"),
+            **{key: k[key] for key in ("host_us", "twin_ms", "s_only_ms",
+                                       "s_only_device_us", "s_only_bound_ms")
+               if key in k},
         })
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -41,14 +41,12 @@ _SIGNATURES = {
     "pft_material_forward": [ctypes.c_int, _P, ctypes.c_int, _P,
                              ctypes.c_float, ctypes.c_int64, _P, _P, _P, _P,
                              _P, _P, _P, _P],
-    "pft_material_backward": [ctypes.c_int, _P, ctypes.c_int, _P,
-                              ctypes.c_float, ctypes.c_int64, _P, _P, _P, _P,
-                              _P, _P, _P, _P, _P, _P, _P, _P],
+    "pft_material_backward": [_P, _P, ctypes.c_int, _P, ctypes.c_float,
+                              ctypes.c_int64, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P],
+    "pft_material_grad_plan": [_P, _P],
     "pft_material_n_params": [_P],
 }
-# Entry points that return something other than an error code.
-_RESTYPES = {"pft_material_grad_blocks": ([ctypes.c_int64], ctypes.c_int64)}
-
 _library = None
 
 
@@ -129,10 +127,6 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name, (argtypes, restype) in _RESTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
         lib.pft_error_string.argtypes = [ctypes.c_int]
         lib.pft_error_string.restype = ctypes.c_char_p
         _library = lib

@@ -10,7 +10,9 @@ multiplies and adds, and the twins reduce by the kernels' partitions and
 trees, so those comparisons are exact, the PCG loop's device state
 included.  The material kernels (kernel 4) are held
 to their twin at the JAX kernel test's bounds (forward) and to 1e-4 of the
-largest gradient entry (backward).
+largest gradient entry (backward); the backward (4b) also to its plain
+version, within 1e-5 of the largest gradient entry, as one device kernel
+per call.
 """
 
 import numpy as np
@@ -254,3 +256,89 @@ def test_material_kernels_match_twin_on_card(cuda_device, hidden_layers, lf):
     _, g_again = run(lambda: material_kernel.fused_material_coefficients(
         data, mat, lf))
     assert all(torch.equal(a, b) for a, b in zip(g_got, g_again))
+
+
+# (elements, midpoint dimension, hidden layers, upstream gradients given)
+BACKWARD_CASES = {
+    "ragged_2d": (1001, 2, 2, (0, 1, 2, 3)),
+    "below_one_tile": (50, 2, 2, (0, 1, 2, 3)),
+    "one_hidden_layer": (777, 2, 1, (0, 1, 2, 3)),
+    "s_only": (1001, 2, 2, (3,)),
+    "chain_1d": (3000, 1, 2, (0, 1, 2, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_material_backward_kernel_matches_plain_version(cuda_device, case):
+    """The backward kernel (4b) against its plain version within 1e-5 of
+    max|grad| and the twin's autograd within 1e-4; bit-reproducible; one
+    device kernel and one counted launch per call; the density block
+    exactly zero without grho."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pinn_fem_tpu_torch.solvers.gd import get_theta
+
+    n, dim, hidden, which = BACKWARD_CASES[case]
+    rng = np.random.default_rng(n + dim)
+    mid = torch.from_numpy(rng.uniform(0, 50, (n, dim)).astype(np.float32))
+    inv_len = torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(4, n)).astype(np.float32))
+    mid, inv_len, c = (t.to(cuda_device) for t in (mid, inv_len, c))
+    mat = mlp_material(hidden, cuda_device)
+    fields = material_kernel._fields(mat)
+    params = torch.cat([t.reshape(-1) for f in fields
+                        for t in f.trainable_params()])
+    scales = torch.stack([f.scale for f in fields])
+    widths = material_kernel._widths(mat)
+    lf = 0.8
+    e, a, _, _ = material_kernel.material_coefficients(
+        mid, inv_len, lf, params, scales, widths)
+    grads = tuple(c[k] if k in which else None for k in range(4))
+
+    def backward():
+        return material_kernel.material_coefficients_backward(
+            mid, inv_len, lf, params, scales, widths, e, a, grads)
+
+    before = kernels.launch_counts()["material_coefficients_backward"]
+    got = backward()
+    assert kernels.launch_counts()["material_coefficients_backward"] == \
+        before + 1
+    plain = material_kernel.material_coefficients_backward_reference(
+        mid, inv_len, lf, params, scales, widths, e, a, grads)
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 1e-5 * scale
+    theta = [t for layers in get_theta(mat) for layer in layers
+             for t in layer]
+    with torch.enable_grad():
+        for t in theta:
+            t.requires_grad_(True)
+        vals = material_kernel.material_coefficients_reference(
+            mid, inv_len, lf, mat)
+        twin = torch.autograd.grad(
+            sum(torch.sum(c[k] * vals[k]) for k in which), theta,
+            allow_unused=True)
+        for t in theta:
+            t.requires_grad_(False)
+    twin = torch.cat([torch.zeros_like(t).reshape(-1) if g is None
+                      else g.reshape(-1) for t, g in zip(theta, twin)])
+    assert float((got - twin).abs().max()) <= 1e-4 * float(twin.abs().max())
+    assert torch.equal(got, backward())
+    if 2 not in which:
+        assert bool((got[-mat.density.n_params():] == 0).all())
+    # The first profiler window that recorded anything (on the card a
+    # window now and then comes back empty, the first of a process among
+    # them).
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            backward()
+            torch.cuda.synchronize()
+        device_ops = [ev for ev in prof.events()
+                      if getattr(ev, "device_type", None)
+                      == torch.autograd.DeviceType.CUDA
+                      and getattr(ev, "device_time_total", 0) > 0]
+        if device_ops:
+            break
+    assert len(device_ops) == 1
+    assert "material_grad_kernel" in device_ops[0].name
