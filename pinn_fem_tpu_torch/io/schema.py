@@ -11,8 +11,10 @@ solver_config.method, then the solver_type mapping; pinn_config and
 solver_config keys with the reference's precedence (learning rates prefer
 solver_config, everything else prefers pinn_config).
 
-NN fields draw their initial weights from a torch.Generator seeded with
-seed * 1000 + k (k = 0, 1, 2 for young, area, density).
+NN fields draw their initial weights as the JAX package does, from
+jax.random.PRNGKey(seed * 1000 + k) (k = 0, 1, 2 for young, area,
+density) reproduced in numpy (utils/prng.py), so both CLIs start from the
+same weights.
 
 Not yet ported (ROADMAP item 4): the "thermal" and
 "prescribed_displacements" extensions.
@@ -25,11 +27,11 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 from ..config import SolverConfig
 from ..models.fields import Material, make_mlp_field, to_field
 from ..models.problem import TrussProblem
+from ..utils import prng
 
 _PROPERTY_DEFAULTS = {"young": 210e9, "area": 0.01, "density": 7850.0}
 
@@ -119,7 +121,7 @@ def _build_material(data, seed: int) -> Material:
         cfg = nn_config.get(prop, {})
         if cfg.get("enabled", False):
             fields[prop] = make_mlp_field(
-                torch.Generator().manual_seed(seed * 1000 + k),
+                prng.PRNGKey(seed * 1000 + k),
                 hidden_layers=cfg.get("hidden_layers", cfg.get("hiddenLayers", 2)),
                 neurons_per_layer=cfg.get(
                     "neurons_per_layer", cfg.get("neuronsPerLayer", 20)

@@ -12,9 +12,10 @@ Contracts kept from the JAX package:
     forward pass is x @ W + b; the last layer starts at W = 0.1, b = 1, and
     the hidden layers draw W and b from U(-1/sqrt(fan_in), +1/sqrt(fan_in)).
 
-The draws come from a `torch.Generator`, which gives other numbers than
-jax.random from the same seed; `material_from_numpy` builds a material
-from given arrays, so both packages can evaluate the same weights.
+Given a jax.random key (a numpy one, from utils.prng) the hidden layers are
+drawn exactly as the JAX package draws them, so the same key gives the same
+weights bit for bit; a `torch.Generator` is also taken, and gives other
+numbers.  `material_from_numpy` builds a material from given arrays.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import List, Mapping, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import prng
 from ..utils.runtime import default_dtype
 
 
@@ -125,7 +127,7 @@ Field = Union[ScalarField, MLPField]
 
 
 def make_mlp_field(
-    generator: torch.Generator,
+    key: Union[np.ndarray, torch.Generator],
     hidden_layers: int = 2,
     neurons_per_layer: int = 20,
     input_dim: int = 1,
@@ -137,8 +139,9 @@ def make_mlp_field(
     """Build an MLP field with the reference's architecture and init.
 
     Architecture: Linear(input_dim, n) + Tanh, then (hidden_layers - 1) x
-    [Linear(n, n) + Tanh], then Linear(n, 1).  The hidden layers draw from
-    `generator` (a CPU generator); the result is moved to `device`.
+    [Linear(n, n) + Tanh], then Linear(n, 1).  The hidden layers draw on
+    the host: from `key`, a utils.prng key, as jax.random does (float32
+    only), or from a CPU torch.Generator.  The result is moved to `device`.
     """
     dtype = dtype or default_dtype()
     sizes = [input_dim] + [neurons_per_layer] * hidden_layers + [1]
@@ -150,12 +153,21 @@ def make_mlp_field(
             # Deterministic last layer: softplus(~1) * scale ~= scale at start.
             w = torch.full((fan_in, fan_out), 0.1, dtype=dtype)
             b = torch.full((fan_out,), 1.0, dtype=dtype)
-        else:
+        elif isinstance(key, torch.Generator):
             bound = 1.0 / np.sqrt(fan_in)
-            w = (torch.rand((fan_in, fan_out), generator=generator,
+            w = (torch.rand((fan_in, fan_out), generator=key,
                             dtype=dtype) * 2.0 - 1.0) * bound
-            b = (torch.rand((fan_out,), generator=generator, dtype=dtype)
+            b = (torch.rand((fan_out,), generator=key, dtype=dtype)
                  * 2.0 - 1.0) * bound
+        else:
+            if dtype != torch.float32:
+                raise NotImplementedError(
+                    "the jax.random draw is reproduced in float32 only")
+            key, kw, kb = prng.split(key, 3)
+            bound = 1.0 / np.sqrt(fan_in)
+            w = torch.from_numpy(prng.uniform(kw, (fan_in, fan_out), -bound,
+                                              bound))
+            b = torch.from_numpy(prng.uniform(kb, (fan_out,), -bound, bound))
         layers.append((w, b))
     return MLPField(layers=layers, scale=torch.tensor(scale, dtype=dtype),
                     input_dim=input_dim,

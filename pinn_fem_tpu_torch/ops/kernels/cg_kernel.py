@@ -28,10 +28,10 @@ iteration.
 
 The update accumulates r . z and r . r in float64 (exact products) and
 rounds each once to float32.  The twins follow the kernels' partitions and
-trees (`block_sums` for the direction kernel's 256-row blocks;
-`update_partials` and `fixed_sum` for the update's fixed grid of
-UPDATE_BLOCKS blocks), so
-kernel and twin agree bit for bit, state included, and `fused_cg_solve`
+trees (`direction_partials` for the direction kernel's blocks, which
+`dia_kernel.direction_plan` lays out; `update_partials` and `fixed_sum`
+for the update's fixed grid of UPDATE_BLOCKS blocks), so kernel and twin
+agree bit for bit, state included, and `fused_cg_solve`
 and its twin recurrence `fused_cg_solve_reference` run the same
 iterations.  Against the plain recurrence (ops.dia.dia_cg_solve_reference)
 the sums are taken in another order, so values agree to float32 rounding;
@@ -47,11 +47,10 @@ import torch
 
 from . import _build
 from .dia_kernel import (check_operands, dia_matvec, dia_matvec_reference,
-                         operand_ok)
+                         direction_plan, operand_ok, window_offsets)
 
 CHECK_EVERY = 32
-THREADS = 256          # threads a block: kThreads in csrc/dia_cg.cu
-WARPS = THREADS // 32
+THREADS = 256          # the update's block: kThreads in csrc/dia_cg.cu
 UPDATE_BLOCKS = 264    # kUpdateBlocks: 2 x 132 SMs, fixed for every card
 ROWS = 4               # rows a thread takes at a time in the update
 TINY = 1e-30
@@ -70,20 +69,27 @@ def _tree(buf: torch.Tensor) -> torch.Tensor:
     return buf[..., 0]
 
 
-def block_sums(v: torch.Tensor) -> torch.Tensor:
-    """(nb,) sums of consecutive blocks of THREADS entries of v, each taken
-    by the pairwise tree of the direction kernel's shared-memory
-    reduction."""
-    n = v.shape[0]
-    nb = max(-(-n // THREADS), 1)
-    return _tree(torch.nn.functional.pad(v, (0, nb * THREADS - n))
-                 .reshape(nb, THREADS))
-
-
 def block_tree(v: torch.Tensor) -> torch.Tensor:
-    """(..., THREADS) -> (...): the update kernel's block sum, a shuffle
-    tree inside each warp, then the same tree over the warps' sums."""
-    return _tree(_tree(v.reshape(*v.shape[:-1], WARPS, 32)))
+    """(..., T) -> (...): the kernels' block sum over T threads (a
+    multiple of 32, T / 32 a power of two), a shuffle tree inside each
+    warp, then the same tree over the warps' sums."""
+    return _tree(_tree(v.reshape(*v.shape[:-1], v.shape[-1] // 32, 32)))
+
+
+def direction_partials(v: torch.Tensor, plan) -> torch.Tensor:
+    """(plan.blocks,) block partials of sum(v) as the direction kernel
+    takes them: thread t of block b adds its rows b * tile + R t + j R T
+    + e (pass j, then e < R) in turn, then block_tree over the block's T
+    threads.  Rows past the end add +0, which changes no sum."""
+    t, r = plan.threads, plan.rows
+    nb = max(plan.blocks, 1)
+    rows = torch.nn.functional.pad(v, (0, nb * plan.tile - v.shape[0]))
+    rows = rows.reshape(nb, plan.tile // (r * t), t, r)
+    acc = torch.zeros(nb, t, dtype=v.dtype, device=v.device)
+    for j in range(rows.shape[1]):
+        for e in range(r):
+            acc = acc + rows[:, j, :, e]
+    return block_tree(acc)
 
 
 def fixed_sum(parts: torch.Tensor) -> torch.Tensor:
@@ -153,8 +159,9 @@ _P = ctypes.c_void_p
 
 class DirectionArgs(ctypes.Structure):
     """struct DirectionArgs of csrc/dia_cg.cu."""
-    _fields_ = [("device", ctypes.c_int), ("nd", ctypes.c_int),
-                ("ndof", ctypes.c_int64)] + [
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "device", "nd", "threads", "rows", "tile", "halo_lo", "window",
+        "staged")] + [("ndof", ctypes.c_int64)] + [
         (name, _P) for name in ("beta", "z", "p", "diags", "offsets",
                                 "mask", "p_out", "ap_out", "partial", "stop",
                                 "stream")]
@@ -209,6 +216,18 @@ def _flag_ptr(stop: Optional[torch.Tensor], device) -> Optional[int]:
 
 # ------------------------------------------------------ kernel 2: direction
 
+def n_direction_partials(layout) -> int:
+    """How many partials the direction kernel writes: one a block."""
+    return max(direction_plan(layout).blocks, 1)
+
+
+def _direction_launch(layout, device):
+    """(plan, int32 offsets on the device), made once per (layout,
+    device)."""
+    plan = direction_plan(layout)
+    return plan, window_offsets(layout, plan, device)
+
+
 def dir_matvec_reference(beta, z, p, layout, diags, mask, stop=None,
                          out=None):
     """Plain twin of the direction kernel: (p_new, ap, partials), written
@@ -218,7 +237,8 @@ def dir_matvec_reference(beta, z, p, layout, diags, mask, stop=None,
     undefined; the twin computes them all the same."""
     p_new = z + beta * p
     ap = dia_matvec_reference(layout, diags, p_new) * mask
-    result = (p_new, ap, block_sums(p_new * ap))
+    result = (p_new, ap, direction_partials(p_new * ap,
+                                            direction_plan(layout)))
     if out is None:
         return result
     for dst, src in zip(out, result):
@@ -232,19 +252,19 @@ def bind_dir_matvec(beta: torch.Tensor, z: torch.Tensor, p: torch.Tensor,
     """The direction step on fixed operands, checked once: returns
     (launch, out), where launch() runs it (the kernel on CUDA tensors, on
     the stream current now; the twin on CPU tensors) and out is
-    (p_new, ap, partials), allocated when not given."""
+    (p_new, ap, partials), allocated when not given, the partials
+    (direction_plan(layout).blocks,)."""
     dev = z.device
     if dev.type == "cpu":
         if out is None:
             out = (torch.empty_like(z), torch.empty_like(z),
-                   torch.empty(max(-(-z.shape[0] // THREADS), 1),
-                               dtype=z.dtype))
+                   torch.empty(n_direction_partials(layout), dtype=z.dtype))
         return (lambda: dir_matvec_reference(beta, z, p, layout, diags, mask,
                                              stop, out)), out
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     n, nd = layout.ndof, layout.n_diags
-    nb = -(-n // THREADS)
+    nb = n_direction_partials(layout)
     if out is None:
         out = (torch.empty_like(z), torch.empty_like(z),
                torch.empty(nb, dtype=z.dtype, device=dev))
@@ -259,10 +279,12 @@ def bind_dir_matvec(beta: torch.Tensor, z: torch.Tensor, p: torch.Tensor,
                        nd=nd, scalars=(beta,))
         check_operands(nb, vectors=(partials,))
         raise ValueError("operands do not fit the direction kernel")
-    offsets = layout.cached(("direction", dev),
-                            lambda: layout.offsets_on(dev))
+    plan, offsets = layout.cached(("direction", dev),
+                                  lambda: _direction_launch(layout, dev))
     args = DirectionArgs(
-        dev.index, nd, n, beta.data_ptr(), z.data_ptr(), p.data_ptr(),
+        dev.index, nd, plan.threads, plan.rows, plan.tile, plan.halo_lo,
+        plan.window, int(plan.staged), n, beta.data_ptr(), z.data_ptr(),
+        p.data_ptr(),
         diags.data_ptr(), offsets.data_ptr(), mask.data_ptr(),
         p_new.data_ptr(), ap.data_ptr(), partials.data_ptr(),
         _flag_ptr(stop, dev), _build.current_stream(dev))
@@ -278,7 +300,8 @@ def dia_dir_matvec(beta: torch.Tensor, z: torch.Tensor, p: torch.Tensor,
     beta: one-element float32 tensor on the device (never read on the
     host).  stop: optional one-element bool tensor; when true nothing is
     written.  out: optional (p_new, ap, partials) to write into, the
-    partials (ceil(ndof / THREADS),).  Returns (p_new, ap, partials).
+    partials (n_direction_partials(layout),).  Returns (p_new, ap,
+    partials).
     """
     launch, out = bind_dir_matvec(beta, z, p, layout, diags, mask, stop, out)
     launch()
@@ -433,7 +456,7 @@ def _pcg(matvec, bind_direction, bind_update, layout, diags, rhs, free_mask,
     # from one buffer and writes p_new into the other; they swap roles.
     p_bufs = (torch.zeros_like(z), torch.empty_like(z))
     ap = torch.empty_like(z)
-    pap = torch.empty(-(-layout.ndof // THREADS), dtype=dt, device=dev)
+    pap = torch.empty(n_direction_partials(layout), dtype=dt, device=dev)
     partials = torch.empty(UPDATE_BLOCKS, 2, dtype=torch.float64,
                            device=dev)
     steps = []

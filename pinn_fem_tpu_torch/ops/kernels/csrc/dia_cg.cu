@@ -35,8 +35,20 @@
 // of the same kernel, which reads u from global memory with bounds tests.
 // The host's plan (ops/kernels/dia_kernel.stencil_plan) picks the tile.
 //
-// The direction kernel (dia_dir_matvec_kernel) keeps the first port's
-// design: one thread per row, neighbour reads of z and p left to L1/L2.
+// The direction kernel (dia_dir_matvec_kernel) is built the same way.  A
+// block stages the z and p windows of its tile with cp.async, forms
+// p_new = z + beta p once per window element in shared memory (a separate
+// multiply and add) and writes the tile's own rows of it to p_out; each
+// thread then owns R consecutive rows of each pass (R = 1, 2 or 4, a
+// template parameter, with the block size), reads the diagonals and the
+// mask R at a time (float4 / float2 where aligned) and the window with no
+// bounds test.  Each thread sums its own rows' p_new * ap in row order and
+// the block sums its threads by block_tree: one float32 partial a block.
+// The host's plan (ops/kernels/dia_kernel.direction_plan) picks R, the
+// block size and the tile so that small systems (the 40k-DOF Newton grid)
+// still keep about 8 warps on every SM, and large ones read four rows a
+// thread.  A band too wide for two windows takes the same kernel's second
+// path: p_new at a neighbour is rebuilt from z and p in global memory.
 //
 // The update (cg_update_kernel) runs a fixed grid of kUpdateBlocks blocks
 // walking the rows four at a time (float4).  Each block sums the direction
@@ -199,72 +211,10 @@ stencil_kernel(const float* __restrict__ diags, const int* __restrict__ offsets,
 
 // -------------------------------------------------------------- direction
 
-// p_new at any row, rebuilt from z and p (pointwise in beta), so that the
-// direction kernel needs no separate pass for the update of p.
-struct DirectionLoad {
-  const float* __restrict__ z;
-  const float* __restrict__ p;
-  float beta;
-  __device__ __forceinline__ float operator()(int64_t j) const {
-    return z[j] + beta * p[j];
-  }
-};
-
-template <typename Load>
-__device__ __forceinline__ float stencil_row(const float* __restrict__ diags,
-                                             const int64_t* __restrict__ offsets,
-                                             int nd, int64_t ndof, int64_t i,
-                                             const Load& load) {
-  float acc = 0.0f;
-  for (int k = 0; k < nd; ++k) {
-    const int64_t j = i + offsets[k];
-    const float v = (j >= 0 && j < ndof) ? load(j) : 0.0f;
-    acc = acc + diags[(int64_t)k * ndof + i] * v;
-  }
-  return acc;
-}
-
-// Sum of buf[0..kThreads) into buf[0]; every thread of the block calls it.
-__device__ __forceinline__ void block_sum(float* buf) {
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) buf[threadIdx.x] = buf[threadIdx.x] + buf[threadIdx.x + s];
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-dia_dir_matvec_kernel(const float* __restrict__ beta_ptr,
-                      const float* __restrict__ z, const float* __restrict__ p,
-                      const float* __restrict__ diags,
-                      const int64_t* __restrict__ offsets, int nd, int64_t ndof,
-                      const float* __restrict__ mask,
-                      float* __restrict__ p_out, float* __restrict__ ap_out,
-                      float* __restrict__ partial,
-                      const unsigned char* __restrict__ stop) {
-  if (stop != nullptr && *stop) return;  // uniform over the grid
-  __shared__ float buf[kThreads];
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const DirectionLoad load{z, p, *beta_ptr};
-  float prod = 0.0f;
-  if (i < ndof) {
-    const float pn = load(i);
-    const float ap = stencil_row(diags, offsets, nd, ndof, i, load) * mask[i];
-    p_out[i] = pn;
-    ap_out[i] = ap;
-    prod = pn * ap;
-  }
-  buf[threadIdx.x] = prod;
-  block_sum(buf);
-  if (threadIdx.x == 0) partial[blockIdx.x] = buf[0];
-}
-
-// ----------------------------------------------------------------- update
-
-// Block sum of one value per thread: a shuffle tree inside each warp
-// (lane l takes lane l + s, s = 16..1), then the same tree over the warps'
-// sums.  Every thread calls it; thread 0 holds the result.
-template <typename T>
+// Block sum of one value per thread over W warps: a shuffle tree inside
+// each warp (lane l takes lane l + s, s = 16..1), then the same tree over
+// the warps' sums.  Every thread calls it; thread 0 holds the result.
+template <typename T, int W = kWarps>
 __device__ __forceinline__ T block_tree(T v, T* warp_buf) {
   for (int s = 16; s > 0; s >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, s);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -272,12 +222,194 @@ __device__ __forceinline__ T block_tree(T v, T* warp_buf) {
   if (lane == 0) warp_buf[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < kWarps ? warp_buf[lane] : T(0);
-    for (int s = kWarps / 2; s > 0; s >>= 1)
+    v = lane < W ? warp_buf[lane] : T(0);
+    for (int s = W / 2; s > 0; s >>= 1)
       v = v + __shfl_down_sync(0xffffffffu, v, s);
   }
   return v;
 }
+
+// d[0..R) by the widest load the address allows (R = 1, 2 or 4).
+template <int R>
+__device__ __forceinline__ void load_rows(const float* __restrict__ d,
+                                          float* v) {
+  if (R == 4) {
+    load4(d, v);
+  } else if (R == 2 && (reinterpret_cast<uintptr_t>(d) & 7) == 0) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(d));
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    for (int e = 0; e < R; ++e) v[e] = __ldg(d + e);
+  }
+}
+
+// y[0..R) = v, as one float4 / float2 store where `aligned` (y's base is
+// 4R-byte aligned and every row index is a multiple of R).
+template <int R>
+__device__ __forceinline__ void store_rows(float* __restrict__ y,
+                                           const float* v, bool aligned) {
+  if (R == 4 && aligned) {
+    *reinterpret_cast<float4*>(y) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if (R == 2 && aligned) {
+    *reinterpret_cast<float2*>(y) = make_float2(v[0], v[1]);
+  } else {
+    for (int e = 0; e < R; ++e) y[e] = v[e];
+  }
+}
+
+// Copy src[ws, ws + window) to win with cp.async, 16-byte chunks where
+// src is 16-byte aligned and the chunk lies inside [0, ndof), 4-byte
+// copies at a ragged edge; entries outside [0, ndof) are not copied (the
+// caller never reads them).  ws and window are multiples of 4.
+__device__ __forceinline__ void stage_window(float* win,
+                                             const float* __restrict__ src,
+                                             int64_t ws, int window,
+                                             int64_t ndof) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  for (int c = threadIdx.x; c < window / 4; c += blockDim.x) {
+    const int64_t g = ws + 4 * (int64_t)c;
+    if (aligned && g >= 0 && g + 4 <= ndof) {
+      cp_async_16(win + 4 * c, src + g);
+    } else {
+      for (int e = 0; e < 4; ++e)
+        if (g + e >= 0 && g + e < ndof) cp_async_4(win + 4 * c + e, src + g + e);
+    }
+  }
+}
+
+// Rows [t0, t0 + tile) of one block, tile = R * T * passes; thread t owns
+// rows t0 + R t + j R T + e (e < R) of pass j.  offsets[k] is off_k +
+// halo_lo on the staged path, off_k on the wide one; window = tile +
+// halo_lo + halo_hi floats (staged path only).
+//
+// Staged: the block copies the z and p windows into shared memory, then
+// forms p_new = z + beta p once per window element into the first (zero
+// outside [0, ndof), as the plain version pads it) and writes the tile's
+// own rows of it to p_out.  Each row then reads p_new at its neighbours
+// from the window.  Wide: the neighbours' p_new is rebuilt from z and p
+// in global memory, with bounds tests.  Either way a thread sums its own
+// rows' p_new * ap in row order, and block_tree sums the threads.
+template <int R, int T>
+__global__ void __launch_bounds__(T)
+dia_dir_matvec_kernel(const float* __restrict__ beta_ptr,
+                  const float* __restrict__ z, const float* __restrict__ p,
+                  const float* __restrict__ diags,
+                  const int* __restrict__ offsets, int nd, int64_t ndof,
+                  const float* __restrict__ mask, float* __restrict__ p_out,
+                  float* __restrict__ ap_out, float* __restrict__ partial,
+                  const unsigned char* __restrict__ stop, int tile,
+                  int halo_lo, int window, int staged) {
+  extern __shared__ float4 smem4[];
+  __shared__ float warp_buf[T / 32];
+  float* pw = reinterpret_cast<float*>(smem4);      // z, then p_new
+  float* qw = pw + (staged ? window : 0);           // p
+  int* soff = reinterpret_cast<int*>(qw + (staged ? window : 0));
+  const int64_t t0 = (int64_t)blockIdx.x * tile;
+  const int64_t ws = t0 - halo_lo;
+  // Every copy into shared memory is in flight before the one wait: the
+  // offsets and, staged, the z and p windows; the stop flag and beta are
+  // read meanwhile.
+  for (int k = threadIdx.x; k < nd; k += T)
+    cp_async_4(reinterpret_cast<float*>(soff + k),
+               reinterpret_cast<const float*>(offsets + k));
+  if (staged) {
+    stage_window(pw, z, ws, window, ndof);
+    stage_window(qw, p, ws, window, ndof);
+  }
+  const bool stopped = stop != nullptr && __ldg(stop);
+  const float beta = __ldg(beta_ptr);
+  cp_async_wait_all();
+  if (stopped) return;  // uniform over the grid: nothing is written
+  __syncthreads();
+  if (staged) {
+    const bool out4 = (reinterpret_cast<uintptr_t>(p_out) & 15) == 0;
+    for (int c = threadIdx.x; c < window / 4; c += T) {
+      const int64_t g = ws + 4 * (int64_t)c;
+      const float4 zv = reinterpret_cast<const float4*>(pw)[c];
+      const float4 pv = reinterpret_cast<const float4*>(qw)[c];
+      const float zs[4] = {zv.x, zv.y, zv.z, zv.w};
+      const float ps[4] = {pv.x, pv.y, pv.z, pv.w};
+      float v[4];
+      for (int e = 0; e < 4; ++e)
+        v[e] = (g + e >= 0 && g + e < ndof) ? zs[e] + beta * ps[e] : 0.0f;
+      reinterpret_cast<float4*>(pw)[c] = make_float4(v[0], v[1], v[2], v[3]);
+      const int li = 4 * c - halo_lo;  // a multiple of 4
+      if (li >= 0 && li < tile) {
+        if (out4 && g + 4 <= ndof) {
+          *reinterpret_cast<float4*>(p_out + g) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+          for (int e = 0; e < 4; ++e)
+            if (g + e < ndof) p_out[g + e] = v[e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const bool ap_vec =
+      (reinterpret_cast<uintptr_t>(ap_out) & (4 * R - 1)) == 0;
+  const bool p_vec = (reinterpret_cast<uintptr_t>(p_out) & (4 * R - 1)) == 0;
+  float sum = 0.0f;
+  for (int li = R * threadIdx.x; li < tile; li += R * T) {
+    const int64_t i0 = t0 + li;
+    if (i0 >= ndof) break;
+    const bool full = i0 + R <= ndof;
+    float acc[R];
+    for (int e = 0; e < R; ++e) acc[e] = 0.0f;
+    // Unrolled so that several diagonals' loads are in flight at once;
+    // the sums still go in order k = 0..nd-1.
+#pragma unroll 4
+    for (int k = 0; k < nd; ++k) {
+      const float* d = diags + (int64_t)k * ndof + i0;
+      float dv[R], uv[R];
+      if (full) {
+        load_rows<R>(d, dv);
+      } else {
+        for (int e = 0; e < R; ++e) dv[e] = i0 + e < ndof ? __ldg(d + e) : 0.0f;
+      }
+      const int o = soff[k];
+      if (staged) {
+        for (int e = 0; e < R; ++e) uv[e] = pw[li + o + e];
+      } else {
+        for (int e = 0; e < R; ++e) {
+          const int64_t j = i0 + e + o;
+          uv[e] = (j >= 0 && j < ndof) ? __ldg(z + j) + beta * __ldg(p + j)
+                                       : 0.0f;
+        }
+      }
+      for (int e = 0; e < R; ++e) acc[e] = acc[e] + dv[e] * uv[e];
+    }
+    float mv[R], pn[R], ap[R];
+    if (full) {
+      load_rows<R>(mask + i0, mv);
+    } else {
+      for (int e = 0; e < R; ++e) mv[e] = i0 + e < ndof ? __ldg(mask + i0 + e) : 0.0f;
+    }
+    for (int e = 0; e < R; ++e) {
+      pn[e] = staged ? pw[halo_lo + li + e]
+                     : (i0 + e < ndof ? __ldg(z + i0 + e) + beta * __ldg(p + i0 + e)
+                                      : 0.0f);
+      ap[e] = acc[e] * mv[e];
+    }
+    if (full) {
+      store_rows<R>(ap_out + i0, ap, ap_vec);
+      if (!staged) store_rows<R>(p_out + i0, pn, p_vec);
+    } else {
+      for (int e = 0; e < R; ++e) {
+        if (i0 + e < ndof) {
+          ap_out[i0 + e] = ap[e];
+          if (!staged) p_out[i0 + e] = pn[e];
+        }
+      }
+    }
+    for (int e = 0; e < R; ++e)
+      if (i0 + e < ndof) sum = sum + pn[e] * ap[e];
+  }
+  sum = block_tree<float, T / 32>(sum, warp_buf);
+  if (threadIdx.x == 0) partial[blockIdx.x] = sum;
+}
+
+// ----------------------------------------------------------------- update
 
 // Sum of parts[0], parts[stride], ... (m entries) in one fixed order:
 // thread t adds entries t, t + kThreads, ... in turn, then block_tree.
@@ -395,10 +527,6 @@ cg_update_kernel(const float* __restrict__ pap_parts, int64_t n_pap,
   }
 }
 
-inline unsigned int n_blocks(int64_t n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
-}
-
 // cudaSetDevice only when another device is current (otherwise every
 // launch would pay for it).
 inline cudaError_t use_device(int device) {
@@ -406,6 +534,68 @@ inline cudaError_t use_device(int device) {
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess || current == device) return err;
   return cudaSetDevice(device);
+}
+
+}  // namespace
+
+// The PCG loop's two launches take their operands as one struct, filled
+// once per solve (DirectionArgs and UpdateArgs in ops/kernels/cg_kernel.py
+// mirror these layouts): a call then marshals one pointer, not fourteen
+// arguments.
+struct DirectionArgs {
+  int device, nd;
+  int threads, rows, tile, halo_lo, window, staged;  // the host's plan
+  int64_t ndof;
+  const float* beta;
+  const float* z;
+  const float* p;
+  const float* diags;
+  const int* offsets;  // int32, + halo_lo on the staged path
+  const float* mask;
+  float* p_out;
+  float* ap_out;
+  float* partial;      // one a block
+  const unsigned char* stop;
+  void* stream;
+};
+
+struct UpdateArgs {
+  int device, max_iter;
+  int64_t n_pap, n;
+  const float* pap_parts;
+  float* x;
+  float* r;
+  const float* p;
+  const float* ap;
+  const float* inv_diag;
+  float* z;
+  double* partials;  // 2 * kUpdateBlocks
+  void* state;       // a PcgState whose ticket is 0
+  void* stream;
+};
+
+static_assert(sizeof(DirectionArgs) == 128 && sizeof(UpdateArgs) == 104,
+              "the ctypes mirrors in cg_kernel.py assume these layouts");
+
+namespace {
+
+template <int R, int T>
+cudaError_t launch_dir_matvec(const DirectionArgs* a) {
+  const int shared = 4 * ((a->staged ? 2 * a->window : 0) + a->nd);
+  if (shared > 48 * 1024) {
+    if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        dia_dir_matvec_kernel<R, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned int blocks =
+      (unsigned int)((a->ndof + a->tile - 1) / a->tile);
+  dia_dir_matvec_kernel<R, T><<<blocks, T, shared, (cudaStream_t)a->stream>>>(
+      a->beta, a->z, a->p, a->diags, a->offsets, a->nd, a->ndof, a->mask,
+      a->p_out, a->ap_out, a->partial, a->stop, a->tile, a->halo_lo,
+      a->window, a->staged);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -443,52 +633,22 @@ int pft_dia_matvec(int device, const float* diags, const int* offsets,
   return (int)cudaGetLastError();
 }
 
-// The PCG loop's two launches take their operands as one struct, filled
-// once per solve (DirectionArgs and UpdateArgs in ops/kernels/cg_kernel.py
-// mirror these layouts): a call then marshals one pointer, not fourteen
-// arguments.
-struct DirectionArgs {
-  int device, nd;
-  int64_t ndof;
-  const float* beta;
-  const float* z;
-  const float* p;
-  const float* diags;
-  const int64_t* offsets;
-  const float* mask;
-  float* p_out;
-  float* ap_out;
-  float* partial;
-  const unsigned char* stop;
-  void* stream;
-};
-
-struct UpdateArgs {
-  int device, max_iter;
-  int64_t n_pap, n;
-  const float* pap_parts;
-  float* x;
-  float* r;
-  const float* p;
-  const float* ap;
-  const float* inv_diag;
-  float* z;
-  double* partials;  // 2 * kUpdateBlocks
-  void* state;       // a PcgState whose ticket is 0
-  void* stream;
-};
-
-static_assert(sizeof(DirectionArgs) == 104 && sizeof(UpdateArgs) == 104,
-              "the ctypes mirrors in cg_kernel.py assume these layouts");
-
+// rows (1, 2 or 4) and threads (32, 64 or 128) select the instantiation;
+// R * threads divides tile, and tile and halo_lo are multiples of 4.
 int pft_dia_dir_matvec(const DirectionArgs* a) {
   cudaError_t err = use_device(a->device);
   if (err != cudaSuccess) return (int)err;
   if (a->ndof > 0) {
-    dia_dir_matvec_kernel<<<n_blocks(a->ndof), kThreads, 0,
-                            (cudaStream_t)a->stream>>>(
-        a->beta, a->z, a->p, a->diags, a->offsets, a->nd, a->ndof, a->mask,
-        a->p_out, a->ap_out, a->partial, a->stop);
+    switch (a->rows * 1000 + a->threads) {
+#define PFT_DIR(R, T) \
+  case R * 1000 + T: err = launch_dir_matvec<R, T>(a); break;
+      PFT_DIR(1, 32) PFT_DIR(1, 64) PFT_DIR(1, 128)
+      PFT_DIR(2, 32) PFT_DIR(2, 64) PFT_DIR(2, 128)
+      PFT_DIR(4, 32) PFT_DIR(4, 64) PFT_DIR(4, 128)
+#undef PFT_DIR
+      default: err = cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

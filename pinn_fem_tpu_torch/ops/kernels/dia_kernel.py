@@ -112,6 +112,71 @@ def stencil_plan(layout) -> StencilPlan:
                        staged=staged, n_diags=nd, ndof=n)
 
 
+@dataclass(frozen=True)
+class DirectionPlan(StencilPlan):
+    """Launch shape of the direction kernel (kernel 2) for one layout: a
+    StencilPlan whose threads own `rows` consecutive rows each (1, 2 or
+    4) and whose staged path holds two windows (z and p) and the offsets.
+    One float32 partial of p_new . ap a block."""
+
+    rows: int = ROWS_PER_THREAD
+
+    @property
+    def shared_bytes(self) -> int:
+        return 4 * (2 * self.window + self.n_diags)
+
+
+DIRECTION_MIN_WARPS = 8   # resident warps an SM the direction plan aims at
+DIRECTION_MAX_THREADS = 128
+
+
+def direction_plan(layout) -> DirectionPlan:
+    """The direction kernel's partition for `layout`, a pure function of
+    the layout and SMS (the CPU twin sums by it).  Rows a thread: the most
+    of 4, 2, 1 that still gives DIRECTION_MIN_WARPS warps an SM over the
+    whole grid (four at 2M DOFs, one at 40k, where four would leave about
+    2.4).  Then the largest block of at most DIRECTION_MAX_THREADS that
+    gives SMS blocks (on the H100, 128-thread blocks ran the 2M chain 2-4
+    us faster than 256-thread ones and the 40k grid as fast), and, as in
+    stencil_plan, a tile shorter than four bandwidths grows while the
+    warps stay and two windows fit.  A band whose two windows do not fit
+    takes the unstaged path."""
+    nd, n = layout.n_diags, layout.ndof
+    offs = np.asarray(layout.offsets)
+    lo = max(0, -int(offs.min())) if offs.size else 0
+    hi = max(0, int(offs.max())) if offs.size else 0
+    halo_lo, halo_hi = _ceil4(lo), _ceil4(hi)
+    want = DIRECTION_MIN_WARPS * SMS
+
+    def fits(tile):
+        return 4 * (2 * (tile + halo_lo + halo_hi) + nd) <= SHARED_BYTES
+
+    def warps(tile, threads):
+        return -(-n // tile) * (threads // 32)
+
+    rows = next((r for r in (4, 2) if -(-n // (32 * r)) >= want), 1)
+    threads = DIRECTION_MAX_THREADS
+    while threads > 32 and -(-n // (rows * threads)) < SMS:
+        threads //= 2
+    tile = rows * threads
+    while (tile < 4 * max(lo, hi) and warps(2 * tile, threads) >= want
+           and fits(2 * tile)):
+        tile *= 2
+    staged = fits(tile)
+    return DirectionPlan(threads=threads, tile=tile, halo_lo=halo_lo,
+                         halo_hi=halo_hi,
+                         window=tile + halo_lo + halo_hi if staged else 0,
+                         staged=staged, n_diags=nd, ndof=n, rows=rows)
+
+
+def window_offsets(layout, plan: StencilPlan, device) -> torch.Tensor:
+    """The int32 offsets a kernel of `plan` reads: relative to the staged
+    window (+ halo_lo), or as they are on the unstaged path."""
+    shift = plan.halo_lo if plan.staged else 0
+    return torch.as_tensor(np.asarray(layout.offsets) + shift,
+                           dtype=torch.int32, device=device)
+
+
 def check_operands(ndof: int, vectors=(), scalars=(), diags=None, nd=0
                    ) -> None:
     """Validate what the CUDA kernels take: contiguous float32 tensors on
@@ -147,10 +212,8 @@ def _stencil_launch(layout, device):
     """(plan, int32 offsets on the device, the C entry point), made once
     per (layout, device)."""
     plan = stencil_plan(layout)
-    shift = plan.halo_lo if plan.staged else 0
-    offsets = torch.as_tensor(np.asarray(layout.offsets) + shift,
-                              dtype=torch.int32, device=device)
-    return plan, offsets, _build.load_library().pft_dia_matvec
+    return (plan, window_offsets(layout, plan, device),
+            _build.load_library().pft_dia_matvec)
 
 
 def dia_matvec(layout, diags: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,10 @@ layout (8 x TILE lane packing, weights zero-padded to 32) is not carried:
 the forward takes one thread per element and loops over the nets' own
 widths; the backward pads each net to a multiple of 4 and sums its
 parameter terms as 4 x 4 outer products (csrc/material.cu says what bounds
-each kernel).  The backward's launch is planned once per device, widths
-and element count (`_grad_plan`: grid, float64 scratch, tickets), so a
-call is one ctypes call; the forward checks the widths once per widths.
+each kernel).  The backward's launch is planned once per device, stream,
+widths and element count (`_grad_plan`: grid, float64 scratch, tickets),
+so a call is one ctypes call and calls on two streams never share
+scratch; the forward checks the widths once per widths.
 
 `fused_material_coefficients(data, material, load_factor)` is the entry the
 assembly calls when `fused_coefficients_supported` holds: CUDA tensors take
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import List, Tuple
 
 import torch
@@ -239,7 +241,8 @@ def material_coefficients_backward_reference(mid, inv_len, load_factor,
     widths = tuple(widths)
     tiles = -(-n // TILE)
     if blocks is None:
-        blocks = (_grad_plan(mid.device, widths, n)[0].blocks
+        blocks = (_grad_plan(mid.device, _build.current_stream(mid.device),
+                             widths, n)[0].blocks
                   if mid.device.type == "cuda"
                   else max(1, min(tiles, CPU_BLOCKS)))
     x = _kernel_inputs(mid, load_factor)
@@ -317,7 +320,8 @@ def _check(mid: torch.Tensor, vectors=(), others=()) -> None:
 
 
 _WIDTHS = {}   # (widths, n_params) -> ctypes int[6], checked by the library
-_PLANS = {}    # (device, widths, n) -> (GradPlan, its scratch tensors)
+_PLANS = {}    # (device, stream, widths, n) -> (GradPlan, its scratch)
+_PLANS_LOCK = threading.Lock()
 
 
 def _library(widths, n_params: int):
@@ -334,16 +338,24 @@ def _library(widths, n_params: int):
     return lib, arr
 
 
-def _grad_plan(device: torch.device, widths, n: int):
-    """The backward's plan for one device, widths and n, made once: the
-    grid from the card's occupancy, the float64 partials, the group sums
-    and the zeroed tickets (reset by the kernel's last block)."""
-    key = (device.index, tuple(widths), n)
+def _grad_plan(device: torch.device, stream: int, widths, n: int):
+    """The backward's plan for one device, stream, widths and n, made
+    once: the grid from the card's occupancy, the float64 partials, the
+    group sums and the zeroed tickets (reset by the kernel's last block).
+    Launches on one stream run in turn, so each stream's scratch is used
+    by one launch at a time; launches on two streams may overlap and get
+    two scratch sets.  The plans are never freed."""
+    key = (device.index, stream, tuple(widths), n)
     entry = _PLANS.get(key)
-    if entry is None:
+    if entry is not None:
+        return entry
+    with _PLANS_LOCK:
+        entry = _PLANS.get(key)
+        if entry is not None:
+            return entry
         lib = _build.load_library()
         plan = GradPlan(device=device.index, widths=(ctypes.c_int * 6)(
-            *key[1]), n=n)
+            *key[2]), n=n)
         sizes = (ctypes.c_int64 * 3)()
         _build.check(lib.pft_material_grad_plan(ctypes.byref(plan), sizes),
                      "material_coefficients_backward plan")
@@ -397,15 +409,15 @@ def _backward_launch(mid, inv_len, load_factor, params, scales, widths, e,
                      a, grads) -> torch.Tensor:
     """The launch itself, on operands the forward has checked (grads
     contiguous and of the outputs' shape)."""
-    plan, _ = _grad_plan(mid.device, widths, inv_len.shape[0])
+    stream = _build.current_stream(mid.device)
+    plan, _ = _grad_plan(mid.device, stream, widths, inv_len.shape[0])
     grad = torch.empty_like(params)
     _build.check(_build.load_library().pft_material_backward(
         ctypes.byref(plan), mid.data_ptr(), mid.shape[1], inv_len.data_ptr(),
         float(load_factor), inv_len.shape[0], params.data_ptr(),
         scales.data_ptr(), e.data_ptr(), a.data_ptr(),
         *(None if g is None else g.data_ptr() for g in grads),
-        grad.data_ptr(), _build.current_stream(mid.device)),
-        "material_coefficients_backward")
+        grad.data_ptr(), stream), "material_coefficients_backward")
     material_coefficients_backward.launches += 1
     return grad
 

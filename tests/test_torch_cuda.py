@@ -8,11 +8,13 @@ imports no JAX, so it also runs where JAX is absent:
 The banded kernels sum in the twins' order with separately rounded
 multiplies and adds, and the twins reduce by the kernels' partitions and
 trees, so those comparisons are exact, the PCG loop's device state
-included.  The material kernels (kernel 4) are held
-to their twin at the JAX kernel test's bounds (forward) and to 1e-4 of the
-largest gradient entry (backward); the backward (4b) also to its plain
-version, within 1e-5 of the largest gradient entry, as one device kernel
-per call.
+included; the direction kernel (kernel 2) is also held on misaligned
+views, a ragged end and a system below one tile.  The material kernels
+(kernel 4) are held to their twin at the JAX kernel test's bounds
+(forward) and to 1e-4 of the largest gradient entry (backward); the
+backward (4b) also to its plain version, within 1e-5 of the largest
+gradient entry, as one device kernel per call, and on two streams at
+once.
 """
 
 import numpy as np
@@ -41,8 +43,8 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def system(mesh, dev):
-    p = MESHES[mesh]()
+def system(mesh, dev, problem=None):
+    p = MESHES[mesh]() if problem is None else problem
     data = p.to_device(dev)
     layout = dia_layout(data.dof_map.cpu().numpy(), p.ndof)
     diags = assemble_dia(layout, stiffness_coefficients(data, p.material, 1.0),
@@ -50,11 +52,23 @@ def system(mesh, dev):
     return data, layout, diags
 
 
+def band_layout(n, offsets=range(-3, 4)):
+    """A DIA layout of n rows with the given offsets (a chain's: -3..3)."""
+    from pinn_fem_tpu_torch.ops.dia import DiaLayout
+
+    offs = np.asarray(list(offsets), np.int64)
+    return DiaLayout(offsets=offs, entry_slot=np.zeros((0, 2, 2), np.int64),
+                     ndof=n, bandwidth=int(np.abs(offs).max()))
+
+
 def update_operands(n, dev, seed=4):
+    """The update's operands, with as many direction partials as the
+    direction kernel writes for a chain of n rows."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x, r, p, ap = (torch.randn(n, generator=g, device=dev) for _ in range(4))
     inv_diag = torch.rand(n, generator=g, device=dev) + 0.1
-    pap = torch.rand(-(-n // cg_kernel.THREADS), generator=g, device=dev) + 0.5
+    pap = torch.rand(cg_kernel.n_direction_partials(band_layout(n)),
+                     generator=g, device=dev) + 0.5
     return pap, x, r, p, ap, inv_diag
 
 
@@ -208,6 +222,133 @@ def test_stop_flag_freezes_kernels(cuda_device):
     assert float(x.abs().max()) == 0.0 and float((r - 1).abs().max()) == 0.0
     assert float((z - 2).abs().max()) == 0.0
     assert torch.equal(state, before)
+
+
+def device_kernels(fn):
+    """The device kernels of one call of fn, from the first of three
+    torch.profiler windows that recorded anything (on the card a window
+    now and then comes back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        found = [ev.name for ev in prof.events()
+                 if getattr(ev, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA
+                 and getattr(ev, "device_time_total", 0) > 0]
+        if found:
+            return found
+    return []
+
+
+def direction_case(case, dev):
+    """(layout, diags) of one direction-kernel case."""
+    if case == "grid_40k":
+        _, layout, d = system(None, dev, grid_problem(100, 200))
+        return layout, d
+    layout = {
+        "chain_2M": lambda: band_layout(2_000_002),
+        "wide_band": lambda: band_layout(100_001,
+                                         [1290 * j for j in range(-31, 32)]),
+        "ragged": lambda: band_layout(70_003),
+        "below_one_tile": lambda: band_layout(30),
+    }[case]()
+    g = torch.Generator(device=dev).manual_seed(3)
+    return layout, torch.randn(layout.n_diags, layout.ndof, generator=g,
+                               device=dev)
+
+
+@pytest.mark.parametrize("case", ["grid_40k", "chain_2M", "wide_band",
+                                  "ragged", "below_one_tile"])
+def test_dir_matvec_equals_twin_on_card(cuda_device, case):
+    """Kernel 2 bit for bit against dir_matvec_reference (p_new, ap and
+    the per-block partials), also on views of every operand that start 4
+    bytes past a 16-byte boundary; one device kernel and one counted
+    launch per call; with the stop flag set it writes nothing."""
+    dev = cuda_device
+    layout, d = direction_case(case, dev)
+    n, nd = layout.ndof, layout.n_diags
+    plan = dia_kernel.direction_plan(layout)
+    assert plan.staged == (case != "wide_band")
+    assert plan.blocks == cg_kernel.n_direction_partials(layout)
+    if case == "below_one_tile":
+        assert plan.blocks == 1 and n < plan.tile
+    g = torch.Generator(device=dev).manual_seed(8)
+    beta = torch.tensor(-0.37, device=dev)
+    z, p = (torch.randn(n + 1, generator=g, device=dev) for _ in range(2))
+    mask = (torch.rand(n + 1, generator=g, device=dev) > 0.2).float()
+    d_off = torch.randn(nd * n + 1, generator=g, device=dev)
+    views = {"aligned": (z[:-1], p[:-1], mask[:-1], d),
+             "misaligned": (z[1:], p[1:], mask[1:], d_off[1:].view(nd, n))}
+    for label, (zz, pp, mm, dd) in views.items():
+        want = cg_kernel.dir_matvec_reference(beta, zz, pp, layout, dd, mm)
+        outs = [torch.full((n + 1,), float("nan"), device=dev)
+                for _ in range(2)]
+        lo = 1 if label == "misaligned" else 0
+        out = (outs[0][lo:lo + n], outs[1][lo:lo + n],
+               torch.full((plan.blocks,), float("nan"), device=dev))
+        before = kernels.launch_counts()["dia_dir_matvec"]
+        got = kernels.dia_dir_matvec(beta, zz, pp, layout, dd, mm, out=out)
+        assert kernels.launch_counts()["dia_dir_matvec"] == before + 1
+        for k, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (case, label, k, float(
+                (a - b).abs().nan_to_num(float("inf")).max()))
+    names = device_kernels(lambda: kernels.dia_dir_matvec(
+        beta, z[:-1], p[:-1], layout, d, mask[:-1], out=out))
+    assert len(names) == 1 and "dia_dir_matvec_kernel" in names[0], names
+    stop = torch.ones(1, dtype=torch.bool, device=dev)
+    frozen = [t.clone() for t in out]
+    kernels.dia_dir_matvec(beta, z[:-1], p[:-1], layout, d, mask[:-1],
+                           stop=stop, out=out)
+    assert [torch.equal(a, b) for a, b in zip(out, frozen)] == [True] * 3
+
+
+def test_material_backward_per_stream_scratch(cuda_device):
+    """Two backward calls of kernel 4b in flight together on two streams
+    each give the result of a call made alone: each stream has its own
+    float64 scratch and tickets."""
+    dev = cuda_device
+    n = 1_000_000
+    rng = np.random.default_rng(12)
+    mid = torch.from_numpy(rng.uniform(0, 50, (n, 2)).astype(np.float32))
+    inv_len = torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(2, 4, n)).astype(np.float32))
+    mid, inv_len, c = (t.to(dev) for t in (mid, inv_len, c))
+    mat = mlp_material(2, dev)
+    fields = material_kernel._fields(mat)
+    params = torch.cat([t.reshape(-1) for f in fields
+                        for t in f.trainable_params()])
+    scales = torch.stack([f.scale for f in fields])
+    widths = material_kernel._widths(mat)
+    e, a, _, _ = material_kernel.material_coefficients(
+        mid, inv_len, 0.8, params, scales, widths)
+
+    def backward(k):
+        return material_kernel.material_coefficients_backward(
+            mid, inv_len, 0.8, params, scales, widths, e, a, tuple(c[k]))
+
+    alone = [backward(k) for k in (0, 1)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    main = torch.cuda.current_stream(dev)
+    for _ in range(3):
+        got = []
+        for k, s in enumerate(streams):
+            s.wait_stream(main)
+            with torch.cuda.stream(s):
+                got.append([backward(k) for _ in range(4)])
+        for s in streams:
+            main.wait_stream(s)
+        torch.cuda.synchronize()
+        for k in (0, 1):
+            assert all(torch.equal(g, alone[k]) for g in got[k])
+    plans = [material_kernel._grad_plan(dev, s.cuda_stream, widths, n)
+             for s in streams]
+    assert plans[0][0].partial != plans[1][0].partial
+    assert plans[0][0].tickets != plans[1][0].tickets
 
 
 def mlp_material(hidden_layers, dev):

@@ -3,8 +3,9 @@
 Scalar documents go through both CLIs' `run()` and must give the pinned
 history lengths of tests/test_examples_e2e.py:45-60.  NN documents run at
 the solver level with the weights JAX drew (handed over through
-material_from_numpy), since torch cannot draw jax.random's numbers; their
-bounds are the measured differences times a margin (PERF.md lists both).
+material_from_numpy); their bounds are the measured differences times a
+margin (PERF.md lists both).  tests/test_torch_prng.py holds the port's
+own draw, and both CLIs with no weights passed, against JAX.
 A small PINN grid runs kernel 4's dispatch (on the CPU: its twin) through
 100 GD iterations beside the JAX solver.
 """

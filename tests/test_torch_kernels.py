@@ -236,7 +236,7 @@ def test_dir_matvec_twin_matches_jax(interpret_pallas, mesh):
     pn, ap, t_parts = kernels.dia_dir_matvec(
         torch.tensor(beta), t32(z), t32(p), tl, t32(d), t32(mask))
     assert kernels.launch_counts() == before
-    assert t_parts.shape == (-(-tl.ndof // cg_kernel.THREADS),)
+    assert t_parts.shape == (cg_kernel.n_direction_partials(tl),)
     np.testing.assert_allclose(pn.numpy(), j_pn, rtol=0,
                                atol=1e-6 * np.abs(j_pn).max())
     np.testing.assert_allclose(ap.numpy(), j_ap, rtol=0,
@@ -259,7 +259,7 @@ def test_update_twin_matches_jax(interpret_pallas, mesh):
     x, r, p, ap = (rng.normal(size=tl.ndof).astype(np.float32)
                    for _ in range(4))
     inv_diag = rng.uniform(0.1, 1.0, size=tl.ndof).astype(np.float32)
-    nb2 = -(-tl.ndof // cg_kernel.THREADS)
+    nb2 = cg_kernel.n_direction_partials(tl)
     pap_parts = rng.uniform(0.5, 1.5, size=nb2).astype(np.float32)
     rz = np.float32(np.dot(r, inv_diag * r))
     rn2 = np.float32(np.dot(r, r))
@@ -486,25 +486,211 @@ def test_fused_cg_stop_flag_freezes_state(monkeypatch):
 
 
 def test_launch_structs_mirror_the_c_layouts():
-    """DirectionArgs and UpdateArgs are 104 bytes with the stream last, as
-    csrc/dia_cg.cu's static_assert holds its structs."""
+    """DirectionArgs (128 bytes, the plan's ints ahead of ndof) and
+    UpdateArgs (104 bytes), each with the stream last, as csrc/dia_cg.cu's
+    static_assert holds its structs."""
     import ctypes
 
-    for struct in (cg_kernel.DirectionArgs, cg_kernel.UpdateArgs):
-        assert ctypes.sizeof(struct) == 104
-        assert struct.stream.offset == 96
-    assert "sizeof(DirectionArgs) == 104 && sizeof(UpdateArgs) == 104" in (
+    for struct, size in ((cg_kernel.DirectionArgs, 128),
+                         (cg_kernel.UpdateArgs, 104)):
+        assert ctypes.sizeof(struct) == size
+        assert struct.stream.offset == size - 8
+    assert cg_kernel.DirectionArgs.ndof.offset == 32
+    assert "sizeof(DirectionArgs) == 128 && sizeof(UpdateArgs) == 104" in (
         _build.CSRC / "dia_cg.cu").read_text()
 
 
 def test_block_sums_follow_the_kernel_tree():
+    """direction_partials follows the direction kernel's partition: thread
+    t of block b owns rows b * tile + R t + j R T + e; each block's
+    partial is the sum of its tile's rows."""
+    plan = dia_kernel.DirectionPlan(threads=64, tile=256, halo_lo=0,
+                                    halo_hi=0, window=256, staged=True,
+                                    n_diags=1, ndof=700, rows=2)
+    assert plan.blocks == 3
     v = torch.as_tensor(np.random.default_rng(3).normal(size=700),
                         dtype=torch.float32)
-    parts = cg_kernel.block_sums(v)
+    parts = cg_kernel.direction_partials(v, plan)
     assert parts.shape == (3,)
     np.testing.assert_allclose(parts.numpy(),
                                [v[:256].sum(), v[256:512].sum(),
                                 v[512:].sum()], rtol=1e-5)
+    # Rows 2 t + e (pass 0) and 128 + 2 t + e (pass 1) of a block are
+    # thread t's: with ones on thread 5's rows of block 1 only, its sum
+    # is 4, whatever the tree.
+    one_thread = torch.zeros(700)
+    for row in (256 + 10, 256 + 11, 256 + 138, 256 + 139):
+        one_thread[row] = 1.0
+    assert cg_kernel.direction_partials(one_thread, plan).tolist() == [
+        0.0, 4.0, 0.0]
+
+
+def shuffle_tree(v):
+    """The kernels' block_tree, step by step as the card runs it: lane l
+    adds lane l + s of its warp (its own value where l + s passes the
+    warp), s = 16..1; then warp 0 does the same over the warps' sums
+    (lanes past the last warp hold 0).  v: (T,) -> float32."""
+    def warp(x):
+        lane = np.arange(32)
+        for s in (16, 8, 4, 2, 1):
+            x = x + np.where(lane + s < 32, x[np.minimum(lane + s, 31)], x)
+        return x[0]
+
+    sums = np.array([warp(w) for w in v.reshape(-1, 32)], np.float32)
+    nw = sums.size
+    x = np.zeros(32, np.float32)
+    x[:nw] = sums
+    lane, s = np.arange(32), nw // 2
+    while s:
+        x = x + np.where(lane + s < 32, x[np.minimum(lane + s, 31)], x)
+        s //= 2
+    return x[0]
+
+
+def emulate_direction(plan, layout, diags, z, p, beta, mask):
+    """dia_dir_matvec_kernel of csrc/dia_cg.cu, block by block in numpy:
+    the staged z and p windows, p_new formed once per window element (zero
+    outside [0, ndof)), the shifted int32 offsets, R rows a thread; the
+    unstaged path rebuilds p_new at each neighbour.  Each thread sums its
+    own rows' p_new * ap in row order, then shuffle_tree.  Asserts that
+    every window read lies inside the window."""
+    n, t, r = layout.ndof, plan.threads, plan.rows
+    offsets = layout.offsets + (plan.halo_lo if plan.staged else 0)
+    offsets = offsets.astype(np.int32)
+    p_new = np.empty(n, np.float32)
+    ap = np.empty(n, np.float32)
+    partials = np.empty(plan.blocks, np.float32)
+
+    def form(g):
+        inside = (g >= 0) & (g < n)
+        gc = np.clip(g, 0, n - 1)
+        return np.where(inside, z[gc] + beta * p[gc], np.float32(0))
+
+    for b in range(plan.blocks):
+        t0 = b * plan.tile
+        li = np.arange(plan.tile)
+        rows = t0 + li
+        valid = rows < n
+        rv = np.clip(rows, 0, n - 1)
+        if plan.staged:
+            win = form(np.arange(t0 - plan.halo_lo,
+                                 t0 - plan.halo_lo + plan.window))
+            pn = win[plan.halo_lo + li]
+        else:
+            pn = form(rows)
+        acc = np.zeros(plan.tile, np.float32)
+        for k, o in enumerate(offsets):
+            if plan.staged:
+                idx = li + o
+                assert idx.min() >= 0 and idx.max() < plan.window
+                uv = win[idx]
+            else:
+                uv = form(rows + o)
+            acc = acc + np.where(valid, diags[k, rv], np.float32(0)) * uv
+        apb = acc * np.where(valid, mask[rv], np.float32(0))
+        p_new[rows[valid]] = pn[valid]
+        ap[rows[valid]] = apb[valid]
+        sums = np.zeros(t, np.float32)
+        for th in range(t):
+            for j in range(plan.tile // (r * t)):
+                for e in range(r):
+                    row = r * th + j * r * t + e
+                    if valid[row]:
+                        sums[th] = sums[th] + pn[row] * apb[row]
+        partials[b] = shuffle_tree(sums)
+    return p_new, ap, partials
+
+
+def chain_2m_layout():
+    """The 2,000,002-DOF chain's layout (chip_smoke.py's 2M PCG cell):
+    offsets -3..3, as a chain of any length has them."""
+    from pinn_fem_tpu_torch.ops.dia import DiaLayout
+
+    offs = np.arange(-3, 4, dtype=np.int64)
+    return DiaLayout(offsets=offs, entry_slot=np.zeros((0, 4, 4), np.int64),
+                     ndof=2_000_002, bandwidth=3)
+
+
+DIRECTION_PLANS = {  # (threads, rows, tile, blocks, staged)
+    "grid100x200": (grid_layout, (100, 200), (128, 1, 128, 313, True)),
+    "chain_2M": (chain_2m_layout, (), (128, 4, 512, 3907, True)),
+    "wide_band": (wide_band_layout, (1_000_001,),
+                  (128, 4, 512, 1954, False)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DIRECTION_PLANS))
+def test_direction_plan_is_pinned(name):
+    """direction_plan's partition at the shapes chip_smoke.py measures:
+    the 40k Newton grid takes 313 blocks of 128 threads, one row a thread
+    (about 9.5 warps an SM; four rows a thread would leave 2.4), the 2M
+    chain four rows a thread, and the 63-diagonal band the unstaged
+    path."""
+    make, args, want = DIRECTION_PLANS[name]
+    layout = make(*args)
+    plan = dia_kernel.direction_plan(layout)
+    assert (plan.threads, plan.rows, plan.tile, plan.blocks,
+            plan.staged) == want
+    assert plan.shared_bytes <= dia_kernel.SHARED_BYTES or not plan.staged
+    warps_per_sm = plan.blocks * plan.threads / 32 / dia_kernel.SMS
+    assert warps_per_sm >= dia_kernel.DIRECTION_MIN_WARPS
+    if name == "chain_2M":
+        assert np.array_equal(
+            both_systems("chain3000")[1][1].offsets, layout.offsets)
+
+
+def forced_plan(layout, rows, threads, passes, staged):
+    """The layout's halos under another partition."""
+    plan = dia_kernel.direction_plan(layout)
+    tile = rows * threads * passes
+    return dia_kernel.DirectionPlan(
+        threads=threads, tile=tile, halo_lo=plan.halo_lo,
+        halo_hi=plan.halo_hi,
+        window=tile + plan.halo_lo + plan.halo_hi if staged else 0,
+        staged=staged, n_diags=layout.n_diags, ndof=layout.ndof, rows=rows)
+
+
+DIRECTION_CASES = {
+    "chain3000": lambda: both_systems("chain3000")[1][1],
+    "grid24x48": lambda: grid_layout(24, 48),
+    "wide_band": lambda: wide_band_layout(ndof=20_003, step=500),
+}
+
+
+@pytest.mark.parametrize("form", [(1, 32, 1), (1, 64, 2), (2, 32, 1),
+                                  (2, 64, 2), (4, 32, 1), (4, 32, 3)])
+@pytest.mark.parametrize("name", sorted(DIRECTION_CASES))
+def test_direction_kernel_emulation(name, form):
+    """The direction kernel, emulated block by block in each rows-a-thread
+    form (rows, threads, passes), on the staged and the unstaged path:
+    p_new and ap bit for bit equal to dir_matvec_reference, the partials
+    to direction_partials under the same plan; on the layout's own plan,
+    the whole twin.  Ragged ends: 4,608 and 6,000 DOFs are no multiple of
+    the tiles, and 20,003 of 4."""
+    layout = DIRECTION_CASES[name]()
+    rng = np.random.default_rng(6)
+    n, nd = layout.ndof, layout.n_diags
+    d = rng.normal(size=(nd, n)).astype(np.float32)
+    z, p, mask = (rng.normal(size=n).astype(np.float32) for _ in range(3))
+    mask = (mask > -0.5).astype(np.float32)
+    beta = np.float32(0.37)
+    want = cg_kernel.dir_matvec_reference(torch.tensor(beta), t32(z), t32(p),
+                                          layout, t32(d), t32(mask))
+    staged_fits = dia_kernel.direction_plan(layout).staged
+    assert staged_fits == (name != "wide_band")
+    for staged in ((True, False) if staged_fits else (False,)):
+        plan = forced_plan(layout, *form, staged)
+        assert plan.shared_bytes <= dia_kernel.SHARED_BYTES or not staged
+        got = emulate_direction(plan, layout, d, z, p, beta, mask)
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        np.testing.assert_array_equal(got[1], want[1].numpy())
+        np.testing.assert_array_equal(
+            got[2], cg_kernel.direction_partials(want[0] * want[1],
+                                                 plan).numpy())
+    plan = dia_kernel.direction_plan(layout)
+    got = emulate_direction(plan, layout, d, z, p, beta, mask)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
 
 
 def jax_mlp_leaves(field):

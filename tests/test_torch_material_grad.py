@@ -247,3 +247,54 @@ def test_grad_plan_geometry():
         [(1, 1), (2, 1), (2, 2), (3, 2), (23, 23)]
     assert [n[3] for n in tmk._nets((20, 20, 15, 15, 10, 10))] == \
         [521, 316, 161]
+
+
+def test_grad_plans_per_stream_under_threads(monkeypatch):
+    """_grad_plan makes one plan per (device, stream, widths, n), once,
+    however many threads ask at the same time; other streams get their
+    own scratch.  The library is a stand-in that counts plan requests
+    (the real one needs the card)."""
+    import sys
+    import threading
+    import time
+
+    made = []
+
+    class FakeLib:
+        def pft_material_grad_plan(self, plan, sizes):
+            time.sleep(0.01)  # a slow call: the other threads run meanwhile
+            made.append(plan._obj.n)
+            sizes[0], sizes[1], sizes[2] = 8, 4, 2
+            return 0
+
+    monkeypatch.setattr(tmk._build, "load_library", lambda: FakeLib())
+    monkeypatch.setattr(tmk, "_PLANS", {})
+    widths = (20, 20, 15, 15, 10, 10)
+    cpu = torch.device("cpu", 0)
+    plans, errors = [], []
+    barrier = threading.Barrier(16)
+
+    def ask(stream):
+        try:
+            barrier.wait(timeout=30)
+            plans.append((stream, tmk._grad_plan(cpu, stream, widths, 999)))
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=ask, args=(k % 2,))
+                   for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert made == [999, 999]
+    by_stream = {s: {id(p) for q, p in plans if q == s} for s in (0, 1)}
+    assert all(len(ids) == 1 for ids in by_stream.values())
+    first = {s: next(p for q, p in plans if q == s) for s in (0, 1)}
+    assert first[0][0].partial != first[1][0].partial
