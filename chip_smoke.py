@@ -30,7 +30,9 @@ code is not 0 and no result line is printed:
   6. kernel 4, the material fields' forward and backward kernels, against
      their twin (the twin's autograd for the backward) at the grid's 79,102
      midpoints and on a 1,000,000-element chain, with 1 and 2 hidden
-     layers and load factors 0.3 and 1.0; the backward (4b) also against
+     layers and load factors 0.3 and 1.0; the forward also bit for bit
+     against a second call, with its plan, registers and local bytes
+     logged; the backward (4b) also against
      its plain version (material_coefficients_backward_reference), bit
      for bit against a second call, and with gs alone (the GD path: the
      density block exactly zero); ms of kernel, plain version, twin and
@@ -294,12 +296,16 @@ KERNEL_SYMBOLS = {"dia_matvec": "stencil_kernel",
                   "cg_update": "cg_update_kernel"}
 
 
-def per_launch_us(events, name: str):
-    """(launches, mean device us per launch) of one banded kernel (a
+def launched(name: str, symbol: str) -> bool:
+    """Whether a profiler event's name is the kernel `symbol` (a
     template's name goes on with its arguments, "<...>")."""
+    return symbol + "(" in name or symbol + "<" in name
+
+
+def per_launch_us(events, name: str):
+    """(launches, mean device us per launch) of one banded kernel."""
     symbol = KERNEL_SYMBOLS[name]
-    mine = [e.device_time_total for e in events
-            if symbol + "(" in e.name or symbol + "<" in e.name]
+    mine = [e.device_time_total for e in events if launched(e.name, symbol)]
     return len(mine), (sum(mine) / len(mine) if mine else None)
 
 
@@ -773,6 +779,11 @@ def phase_material(dev):
             for lf in (0.3, 1.0):
                 got = mk.material_coefficients(data.mid, data.inv_len, lf,
                                                params, scales, widths)
+                require(all(torch.equal(a, b) for a, b in zip(
+                    got, mk.material_coefficients(data.mid, data.inv_len, lf,
+                                                  params, scales, widths))),
+                        f"material forward bit for bit across two calls on "
+                        f"{mesh}")
                 with torch.enable_grad():
                     for t in theta:
                         t.requires_grad_(True)
@@ -819,8 +830,14 @@ def phase_material(dev):
                 if lf == 1.0:
                     timing = material_times(data, mat, lf, params, scales,
                                             widths, theta, c, got, reps=20)
+                plan, occupancy = mk._forward_plan(data.mid.device, widths, n)
                 log("phase6_material", mesh=mesh, elements=n,
                     hidden_layers=hidden, load_factor=lf,
+                    forward_plan=plan._asdict(),
+                    forward_blocks_per_sm=occupancy[0],
+                    forward_registers=occupancy[2],
+                    forward_local_bytes=occupancy[3],
+                    forward_bit_equal_repeat=True,
                     max_rel_err_E_A_rho_s=rel, grad_max_rel_err=g_rel,
                     grad_max_rel_err_vs_plain=plain_rel,
                     s_only_grad_max_rel_err_vs_plain=s_rel,
@@ -956,9 +973,10 @@ def material_times(data, mat, lf, params, scales, widths, theta, c, got,
              "material_grad_kernel")):
         ev, windows = recorded_window(
             lambda: [fn() for _ in range(20)],
-            enough=lambda ev: sum(symbol + "(" in e.name for e in ev) >= 15)
-        mine = [e.device_time_total for e in ev if symbol + "(" in e.name]
-        others = sorted({e.name[:80] for e in ev if symbol + "(" not in e.name})
+            enough=lambda ev: sum(launched(e.name, symbol) for e in ev) >= 15)
+        mine = [e.device_time_total for e in ev if launched(e.name, symbol)]
+        others = sorted({e.name[:80] for e in ev
+                         if not launched(e.name, symbol)})
         out[f"{label}_device_us"] = sum(mine) / max(len(mine), 1)
         out[f"{label}_device_ops_per_call"] = len(ev) / 20
         out[f"{label}_other_device_ops"] = others

@@ -39,8 +39,9 @@ _SIGNATURES = {
     "pft_dia_dir_matvec": [_P],   # a DirectionArgs (cg_kernel.py)
     "pft_cg_update": [_P],        # an UpdateArgs
     "pft_material_forward": [ctypes.c_int, _P, ctypes.c_int, _P,
-                             ctypes.c_float, ctypes.c_int64, _P, _P, _P, _P,
-                             _P, _P, _P, _P],
+                             ctypes.c_float, ctypes.c_int64, _P, _P, _P, _I,
+                             _I, _I, _P, _P, _P, _P, _P],
+    "pft_material_forward_occupancy": [_I, _I, _I, _P, _P],
     "pft_material_backward": [_P, _P, ctypes.c_int, _P, ctypes.c_float,
                               ctypes.c_int64, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P],

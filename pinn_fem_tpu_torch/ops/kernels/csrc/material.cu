@@ -17,12 +17,36 @@
 // pinn_fem_tpu_torch/solvers/gd.py, so the gradient comes out in the
 // layout of theta itself.
 //
-// Forward: one thread per element, all three nets' weights in shared
-// memory (at most 3 * 1217 floats).  Per element the nets at widths
-// 20/15/10 cost about 1,900 flops and 90 tanhf against 28 bytes of
-// traffic, so the kernel is bound by arithmetic, not by memory; the
-// simple design keeps every activation in registers / L1 and reads the
-// weights from shared memory only.
+// Both kernels put all three nets' weights in shared memory once per
+// block, each net zero-padded to P = 4 Q columns (Q quads: the wider
+// hidden layer rounded up to 4), and run a net at an element through one
+// routine, net_forward, a template on Q, the depth and the elements a
+// thread: every activation has a compile-time index and stays in
+// registers, and every weight is read as a float4 that all threads of a
+// warp share (a broadcast), one load for four fmaf an element.  A padded
+// unit's weights and bias are zero, so its activation is tanh(+0) = +0 and
+// every term it adds is an exact zero: the sums are the unpadded ones.
+//
+// Forward (material_forward_kernel<kQuads>): bound by the issue of FP32
+// instructions and by the shared-memory reads of the weights.  Per element
+// the nets at widths 20/15/10 issue about 2,900 instructions: 1,600 fmaf
+// (half of them inside the accurate tanhf, 96 of which take some 16
+// instructions and two MUFU each) and 275 float4 weight reads, against 28
+// bytes of traffic.  Nets of widths <= 20 take two elements a thread at a
+// time, so each weight quad read feeds eight fmaf; wider nets take one.
+// The grid's warps split the elements evenly: warp w of W takes
+// [w n / W, (w + 1) n / W), 32 E at a time, lane l the elements l, l + 32,
+// ...  The host's plan (material_kernel.forward_plan) sets the grid from
+// the card's occupancy: a multiple of the SM count once the elements fill
+// more than one block an SM, so that every SM and every warp scheduler
+// gets the same work.  Loads and stores are coalesced (the midpoints as
+// float2 when dim = 2), and the next elements' inputs load while the
+// current ones run.  The arithmetic order is the plain version's (and
+// that of the first design, one thread an element with the activations
+// in local arrays): layer 1 fmaf(x0, w, 0), then x1, then x2, then + b1,
+// tanhf; each layer-2 unit a chain of fmaf over i in order from 0, then
+// + b2, tanhf; the output a chain over j in order, then + b3;
+// softplus(o) * scale; s = (E * A) * (1 / L).
 //
 // Backward (material_grad_kernel): bound by arithmetic as well, about
 // twice the forward's plus one multiply-add per parameter and element.
@@ -31,16 +55,12 @@
 // takes the contiguous elements [b n / B, (b + 1) n / B), kTile at a time
 // (its last tile may be short), so the blocks' loads differ by at most
 // one element.  The block walks the nets one at a time; for each net:
-//   * its weights, zero-padded to P = 4 Q columns (Q quads: the wider
-//     hidden layer rounded up to 4; a padded unit's activation is
-//     tanh(0) = 0 and its delta 0, so it adds exact zeros), are in shared
-//     memory, where the block put all three nets' at its start;
-//   * element pass: each thread takes one element of the tile, keeps its
-//     activations in registers (the routine is a template on Q and the
-//     depth, so the arrays have compile-time sizes) and writes one table
-//     row: X = (lf, x, y, 1), O = (d_out, 1, 0, 0), a1, d1[, a2, d2], as
+//   * element pass: each thread takes one element of the tile, runs
+//     net_forward, backpropagates in registers and writes one table row:
+//     X = (lf, x, y, 1), O = (d_out, 1, 0, 0), a1, d1[, a2, d2], as
 //     float4, at a row stride of an odd number of quads (the eight
-//     threads of a 16-byte store phase hit distinct banks);
+//     threads of a 16-byte store phase hit distinct banks); a padded
+//     unit's delta is 0;
 //   * parameter pass: every parameter term is an entry of a 4 x 4 outer
 //     product of two quads of a row, summed over the tile's rows: X x d1
 //     gives W1 and b1, a1 x d2 gives W2, a_last x O gives W3, d2 x O
@@ -82,7 +102,7 @@ namespace {
 constexpr int kFields = 3;
 constexpr int kInputs = 3;       // (load_factor, x, y)
 constexpr int kMaxWidth = 32;
-constexpr int kForwardThreads = 256;
+constexpr int kForwardMaxThreads = 256;  // forward: the most threads a block
 constexpr int kTile = 128;       // backward: elements per tile = threads per block
 // Backward: blocks an SM the launch bounds ask for.  3 gives 168 registers
 // a thread (12 warps an SM); at 4 (16 warps) the 128-register cap spills
@@ -112,38 +132,6 @@ __device__ __forceinline__ float logistic(float o) {
   return e / (1.0f + e);
 }
 
-// One net's raw output at input x; the hidden activations are written to
-// a1[j * stride] and (two hidden layers) a2[j * stride].
-__device__ float net_forward(const float* __restrict__ p, int h1, int h2,
-                             const float* x, float* a1, float* a2,
-                             int stride) {
-  const float* w1 = p;
-  const float* b1 = w1 + kInputs * h1;
-  for (int j = 0; j < h1; ++j) {
-    float acc = 0.0f;
-    for (int k = 0; k < kInputs; ++k) acc = fmaf(x[k], w1[k * h1 + j], acc);
-    a1[j * stride] = tanhf(acc + b1[j]);
-  }
-  const float* q = b1 + h1;
-  const float* last = a1;
-  int width = h1;
-  if (h2 > 0) {
-    const float* w2 = q;
-    const float* b2 = w2 + h1 * h2;
-    for (int j = 0; j < h2; ++j) {
-      float acc = 0.0f;
-      for (int i = 0; i < h1; ++i) acc = fmaf(a1[i * stride], w2[i * h2 + j], acc);
-      a2[j * stride] = tanhf(acc + b2[j]);
-    }
-    q = b2 + h2;
-    last = a2;
-    width = h2;
-  }
-  float acc = 0.0f;
-  for (int j = 0; j < width; ++j) acc = fmaf(last[j * stride], q[j], acc);
-  return acc + q[width];
-}
-
 __device__ __forceinline__ void load_input(const float* __restrict__ mid,
                                            int dim, float lf, int64_t i,
                                            float* x) {
@@ -152,47 +140,26 @@ __device__ __forceinline__ void load_input(const float* __restrict__ mid,
   x[2] = dim > 1 ? mid[i * dim + 1] : 0.0f;
 }
 
-__global__ void __launch_bounds__(kForwardThreads)
-material_forward_kernel(const float* __restrict__ mid, int dim,
-                        const float* __restrict__ inv_len, float lf,
-                        int64_t n, const float* __restrict__ params,
-                        const float* __restrict__ scales, Nets nets,
-                        float* __restrict__ e_out, float* __restrict__ a_out,
-                        float* __restrict__ rho_out,
-                        float* __restrict__ s_out) {
-  extern __shared__ float w[];
-  for (int k = threadIdx.x; k < nets.n_params; k += blockDim.x) w[k] = params[k];
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float x[kInputs];
-  load_input(mid, dim, lf, i, x);
-  float a1[kMaxWidth], a2[kMaxWidth];
-  float v[kFields];
-  for (int f = 0; f < kFields; ++f) {
-    const float o = net_forward(w + nets.offset[f], nets.h1[f], nets.h2[f], x,
-                                a1, a2, 1);
-    v[f] = softplus(o) * scales[f];
-  }
-  e_out[i] = v[0];
-  a_out[i] = v[1];
-  rho_out[i] = v[2];
-  s_out[i] = v[0] * v[1] * inv_len[i];
+// v[f] with f chosen at run time: a select, not an indexed load (which
+// would copy the kernel's parameter struct to local memory).
+__device__ __forceinline__ int pick(const int (&v)[kFields], int f) {
+  return f == 0 ? v[0] : (f == 1 ? v[1] : v[2]);
 }
 
-// ------------------------------------------------------------ backward
+// ------------------------------------------ padded weights, shared by both
 
-// One net's shape in the backward: both hidden layers padded to P = 4 q.
-struct GradNet {
+// One net's shape: both hidden layers padded to P = 4 q; the rest is the
+// backward's.
+struct NetShape {
   int q;        // quads of the padded width
   int two;      // two hidden layers
-  int stride;   // table row in floats: X, O, a1, d1[, a2, d2], one pad quad
-  int n_jobs;   // 4 x 4 outer products of the parameter pass
-  int slices;   // row slices a job is cut into (slices * n_jobs <= kTile)
+  int stride;   // backward table row in floats: X, O, a1, d1[, a2, d2], one pad quad
+  int n_jobs;   // backward: 4 x 4 outer products of the parameter pass
+  int slices;   // backward: row slices a job is cut into (slices * n_jobs <= kTile)
 };
 
-__host__ __device__ inline GradNet grad_net(int h1, int h2) {
-  GradNet g;
+__host__ __device__ inline NetShape net_shape(int h1, int h2) {
+  NetShape g;
   const int h = h2 > h1 ? h2 : h1;
   g.q = (h + 3) / 4;
   g.two = h2 > 0 ? 1 : 0;
@@ -205,40 +172,37 @@ __host__ __device__ inline GradNet grad_net(int h1, int h2) {
 
 // Floats of a net's padded weights: W1 [3][P], b1 [P], [W2 [P][P],
 // b2 [P],] W3 [P], b3 (one quad).  Every group starts on a quad.
-__host__ __device__ inline int padded_size(const GradNet& g) {
+__host__ __device__ inline int padded_size(const NetShape& g) {
   const int p = 4 * g.q;
   return 5 * p + 4 + (g.two ? p * p + p : 0);
 }
 
-// Shared memory of the backward: the three nets' padded weights, net
-// after net, then the tables of kTile rows (reused as the float64 slice
-// sums).
-__host__ inline int grad_weight_floats(const Nets& nets) {
-  int w = 0;
-  for (int f = 0; f < kFields; ++f)
-    w += padded_size(grad_net(nets.h1[f], nets.h2[f]));
-  return w;
+// The same offsets at compile time, for net_forward.
+template <int Q, bool kTwo>
+struct Padded {
+  static constexpr int P = 4 * Q;
+  static constexpr int w2 = 4 * P;
+  static constexpr int b2 = w2 + P * P;
+  static constexpr int w3 = kTwo ? b2 + P : 4 * P;
+};
+
+// The three nets' padded weights, net after net: the first float of each
+// and the total.
+__host__ __device__ inline void padded_offsets(const Nets& nets,
+                                               int (&wofs)[kFields]) {
+  wofs[0] = 0;
+  wofs[1] = padded_size(net_shape(nets.h1[0], nets.h2[0]));
+  wofs[2] = wofs[1] + padded_size(net_shape(nets.h1[1], nets.h2[1]));
 }
 
-__host__ inline size_t grad_shared_bytes(const Nets& nets) {
-  int stride = 0;
-  for (int f = 0; f < kFields; ++f) {
-    const int s = grad_net(nets.h1[f], nets.h2[f]).stride;
-    stride = s > stride ? s : stride;
-  }
-  const size_t tables = sizeof(float) * kTile * stride;
-  const size_t slices = sizeof(double) * kTile * kJobSize;
-  return sizeof(float) * grad_weight_floats(nets)
-         + (tables > slices ? tables : slices);
+__host__ inline int padded_floats(const Nets& nets) {
+  int wofs[kFields];
+  padded_offsets(nets, wofs);
+  return wofs[2] + padded_size(net_shape(nets.h1[2], nets.h2[2]));
 }
-
-// The largest shared memory any widths need (32 wide, two layers).
-constexpr size_t kGradMaxShared =
-    sizeof(float) * kFields * (6 * 32 + 4 + 32 * 32)
-    + sizeof(float) * kTile * 4 * (3 + 4 * 8);
 
 // Position in a net's padded weights of its flat parameter j.
-__device__ __forceinline__ int padded_slot(int h1, int h2, const GradNet& g,
+__device__ __forceinline__ int padded_slot(int h1, int h2, const NetShape& g,
                                            int j) {
   const int pw = 4 * g.q;
   if (j < 3 * h1) return (j / h1) * pw + j % h1;     // W1
@@ -255,6 +219,39 @@ __device__ __forceinline__ int padded_slot(int h1, int h2, const GradNet& g,
     base += pw;
   }
   return base + (j < (g.two ? h2 : h1) ? j : pw);    // W3, then b3
+}
+
+// All three nets' weights, zero-padded, into w (weight_floats floats, net
+// f from wofs[f]) by the block's `threads` threads, this one t: one round
+// of global loads for the block (eight in flight a thread).  The caller
+// synchronises before reading w.
+__device__ __forceinline__ void stage_weights(float* w,
+                                              const float* __restrict__ params,
+                                              const Nets& nets,
+                                              const int (&wofs)[kFields],
+                                              int weight_floats, int t,
+                                              int threads) {
+  const int n_params = nets.n_params;
+  for (int i = t; i < weight_floats; i += threads) w[i] = 0.0f;
+  __syncthreads();
+  for (int k0 = t; k0 < n_params; k0 += 8 * threads) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k0 + j * threads;
+      v[j] = k < n_params ? params[k] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k0 + j * threads;
+      if (k >= n_params) continue;
+      const int f = k >= nets.offset[2] ? 2 : (k >= nets.offset[1] ? 1 : 0);
+      const int h1 = pick(nets.h1, f), h2 = pick(nets.h2, f);
+      const int slot = padded_slot(h1, h2, net_shape(h1, h2),
+                                   k - pick(nets.offset, f));
+      w[pick(wofs, f) + slot] = v[j];
+    }
+  }
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -278,21 +275,318 @@ __device__ __forceinline__ void store_quads(float* dst, const float (&v)[P]) {
     sts4(dst + 4 * q, v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
-// sum_j h[j] w3[j] + b3, in order.
-template <int P>
-__device__ __forceinline__ float output(const float (&h)[P],
-                                        const float* w3, const float* b3) {
-  float acc = 0.0f;
+// ------------------------------------------------------- one net's forward
+
+// Layer 1 at E elements: a1[e][j] = tanhf(fmaf(x2, W1[2][j],
+// fmaf(x1, W1[1][j], fmaf(x0, W1[0][j], 0))) + b1[j]).
+template <int Q, int E>
+__device__ __forceinline__ void hidden1(const float* __restrict__ w, float x0,
+                                        const float (&x1)[E],
+                                        const float (&x2)[E],
+                                        float (&a1)[E][4 * Q]) {
+  constexpr int P = 4 * Q;
 #pragma unroll
-  for (int q = 0; q < P / 4; ++q) {
-    const float4 u = lds4(w3 + 4 * q);
+  for (int q = 0; q < Q; ++q) {
+    const float4 u0 = lds4(w + 4 * q), u1 = lds4(w + P + 4 * q);
+    const float4 u2 = lds4(w + 2 * P + 4 * q), bb = lds4(w + 3 * P + 4 * q);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc = fmaf(h[4 * q + k], lane(u, k), acc);
+    for (int k = 0; k < 4; ++k) {
+      const float t0 = fmaf(x0, lane(u0, k), 0.0f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float acc = fmaf(x2[e], lane(u2, k),
+                               fmaf(x1[e], lane(u1, k), t0));
+        a1[e][4 * q + k] = tanhf(acc + lane(bb, k));
+      }
+    }
   }
-  return acc + b3[0];
 }
 
-// Element pass of one net for one element: activations and deltas in
+// Layer 2 at E elements: a2[e][j] = tanhf(sum_i a1[e][i] W2[i][j] + b2[j]),
+// each sum a chain of fmaf over i in order from 0.  A float4 of W2 feeds
+// 4 E fmaf.
+template <int Q, int E>
+__device__ __forceinline__ void hidden2(const float* __restrict__ w2,
+                                        const float* __restrict__ b2,
+                                        const float (&a1)[E][4 * Q],
+                                        float (&a2)[E][4 * Q]) {
+  constexpr int P = 4 * Q;
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+#pragma unroll
+    for (int j = 0; j < P; ++j) a2[e][j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float4 u = lds4(w2 + i * P + 4 * q);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          a2[e][4 * q + k] = fmaf(a1[e][i], lane(u, k), a2[e][4 * q + k]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float4 bb = lds4(b2 + 4 * q);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        a2[e][4 * q + k] = tanhf(a2[e][4 * q + k] + lane(bb, k));
+  }
+}
+
+// The raw output at E elements: sum_j h[e][j] W3[j], a chain over j in
+// order from 0, then + b3 (the float after W3's P).
+template <int Q, int E>
+__device__ __forceinline__ void output(const float (&h)[E][4 * Q],
+                                       const float* __restrict__ w3,
+                                       float (&o)[E]) {
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float4 u = lds4(w3 + 4 * q);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[e] = fmaf(h[e][4 * q + k], lane(u, k), acc[e]);
+  }
+  const float b3 = w3[4 * Q];
+#pragma unroll
+  for (int e = 0; e < E; ++e) o[e] = acc[e] + b3;
+}
+
+// One net's raw output o at E elements, inputs (x0, x1[e], x2[e]); the
+// hidden activations are left in a1 and (two hidden layers) a2.  w: the
+// net's padded weights in shared memory.
+template <int Q, bool kTwo, int E>
+__device__ __forceinline__ void net_forward(const float* __restrict__ w,
+                                            float x0, const float (&x1)[E],
+                                            const float (&x2)[E],
+                                            float (&a1)[E][4 * Q],
+                                            float (&a2)[E][4 * Q],
+                                            float (&o)[E]) {
+  using L = Padded<Q, kTwo>;
+  hidden1<Q, E>(w, x0, x1, x2, a1);
+  if constexpr (kTwo) {
+    hidden2<Q, E>(w + L::w2, w + L::b2, a1, a2);
+    output<Q, E>(a2, w + L::w3, o);
+  } else {
+    output<Q, E>(a1, w + L::w3, o);
+  }
+}
+
+// ------------------------------------------------------------ forward
+
+struct ForwardArgs {
+  const float* mid;
+  const float* inv_len;
+  const float* params;
+  const float* scales;
+  float* e;
+  float* a;
+  float* rho;
+  float* s;
+  int64_t n;
+  Nets nets;
+  float lf;
+  int dim;
+  int mid_float2;     // dim 2 and mid 8-byte aligned: one float2 an element
+  int weight_floats;
+};
+
+// Element i's (x, y) and 1 / L; zeros when i is past the warp's end.
+__device__ __forceinline__ void forward_inputs(const ForwardArgs& a,
+                                               int64_t i, int64_t end,
+                                               float& x, float& y,
+                                               float& inv_len) {
+  x = y = inv_len = 0.0f;
+  if (i >= end) return;
+  if (a.mid_float2) {
+    const float2 m = __ldg(reinterpret_cast<const float2*>(a.mid) + i);
+    x = m.x;
+    y = m.y;
+  } else {
+    x = __ldg(a.mid + i * a.dim);
+    if (a.dim > 1) y = __ldg(a.mid + i * a.dim + 1);
+  }
+  inv_len = __ldg(a.inv_len + i);
+}
+
+// One net's raw output at E elements, the template chosen by its shape
+// (nets wider than kQuads quads do not reach a kernel compiled for
+// kQuads).
+template <int E, int kQuads>
+__device__ __forceinline__ void net_output(const NetShape& g, const float* w,
+                                           float x0, const float (&x1)[E],
+                                           const float (&x2)[E],
+                                           float (&o)[E]) {
+#define PFT_FORWARD_CASE(Q)                                             \
+  case Q:                                                               \
+    if constexpr (Q <= kQuads) {                                        \
+      float a1[E][4 * Q], a2[E][4 * Q];                                 \
+      if (g.two) net_forward<Q, true, E>(w, x0, x1, x2, a1, a2, o);     \
+      else net_forward<Q, false, E>(w, x0, x1, x2, a1, a2, o);          \
+    }                                                                   \
+    break;
+  switch (g.q) {
+    PFT_FORWARD_CASE(1)
+    PFT_FORWARD_CASE(2)
+    PFT_FORWARD_CASE(3)
+    PFT_FORWARD_CASE(4)
+    PFT_FORWARD_CASE(5)
+    PFT_FORWARD_CASE(6)
+    PFT_FORWARD_CASE(7)
+    PFT_FORWARD_CASE(8)
+  }
+#undef PFT_FORWARD_CASE
+}
+
+// The forward is compiled for nets of at most kNarrowQuads quads (widths
+// <= 20: every net of the corpus and the PINN grid) and for the widest
+// (32): a kernel's registers follow its widest template.  Narrow nets take
+// two elements a thread (each weight quad feeds eight fmaf, half the
+// shared-memory reads an element of one), wide ones one (two would need
+// 191 registers).  Either way at most 128 registers a thread (more
+// registers cut the warps an SM and ran slower; fewer spilled).
+constexpr int kNarrowQuads = 5;
+constexpr int kWideQuads = kMaxWidth / 4;
+
+__host__ __device__ constexpr int forward_elements(int quads) {
+  return quads <= kNarrowQuads ? 2 : 1;
+}
+__host__ __device__ constexpr int forward_max_threads(int quads) {
+  return forward_elements(quads) == 2 ? kForwardMaxThreads : 128;
+}
+__host__ __device__ constexpr int forward_min_blocks(int quads) {
+  return 65536 / 128 / forward_max_threads(quads);
+}
+
+// forward_elements(kQuads) elements a thread at a time; blockDim.x a
+// multiple of 32, at most forward_max_threads(kQuads); every net at most
+// kQuads quads.
+template <int kQuads>
+__global__ void __launch_bounds__(forward_max_threads(kQuads),
+                                  forward_min_blocks(kQuads))
+material_forward_kernel(ForwardArgs a) {
+  constexpr int E = forward_elements(kQuads);
+  extern __shared__ float4 smem4[];
+  float* w = reinterpret_cast<float*>(smem4);
+  constexpr int kStep = 32 * E;
+  const int lane_id = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  const int64_t warp =
+      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int64_t e0 = warp * a.n / warps;
+  const int64_t e1 = (warp + 1) * a.n / warps;
+
+  // The first elements' inputs load while the weights are staged.
+  float x1[E], x2[E], il[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    forward_inputs(a, e0 + lane_id + 32 * e, e1, x1[e], x2[e], il[e]);
+  int wofs[kFields];
+  padded_offsets(a.nets, wofs);
+  stage_weights(w, a.params, a.nets, wofs, a.weight_floats, threadIdx.x,
+                blockDim.x);
+  const float scale0 = a.scales[0], scale1 = a.scales[1];
+  const float scale2 = a.scales[2];
+  __syncthreads();
+
+  for (int64_t base = e0; base < e1; base += kStep) {
+    float nx1[E], nx2[E], nil[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      forward_inputs(a, base + kStep + lane_id + 32 * e, e1, nx1[e], nx2[e],
+                     nil[e]);
+    float ve[E], va[E];
+#pragma unroll 1
+    for (int f = 0; f < kFields; ++f) {
+      float o[E];
+      net_output<E, kQuads>(
+          net_shape(pick(a.nets.h1, f), pick(a.nets.h2, f)),
+          w + pick(wofs, f), a.lf, x1, x2, o);
+      const float scale = f == 0 ? scale0 : (f == 1 ? scale1 : scale2);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float v = softplus(o[e]) * scale;
+        const int64_t i = base + lane_id + 32 * e;
+        if (f == 0) ve[e] = v;
+        else if (f == 1) va[e] = v;
+        else if (i < e1) a.rho[i] = v;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int64_t i = base + lane_id + 32 * e;
+      if (i < e1) {
+        a.e[i] = ve[e];
+        a.a[i] = va[e];
+        a.s[i] = ve[e] * va[e] * il[e];
+      }
+      x1[e] = nx1[e];
+      x2[e] = nx2[e];
+      il[e] = nil[e];
+    }
+  }
+}
+
+// The widest net's quads.
+inline int widest_quads(const Nets& nets) {
+  int quads = 0;
+  for (int f = 0; f < kFields; ++f) {
+    const int q = net_shape(nets.h1[f], nets.h2[f]).q;
+    quads = q > quads ? q : quads;
+  }
+  return quads;
+}
+
+// The forward kernel for these nets.
+using ForwardKernel = void (*)(ForwardArgs);
+
+ForwardKernel forward_kernel(const Nets& nets) {
+  return widest_quads(nets) <= kNarrowQuads
+             ? material_forward_kernel<kNarrowQuads>
+             : material_forward_kernel<kWideQuads>;
+}
+
+// A launch form the kernel for these nets takes: its elements a thread
+// and a multiple of 32 threads a block, at most its largest block.
+inline bool forward_form_ok(const Nets& nets, int per_thread, int threads) {
+  const int quads = widest_quads(nets) <= kNarrowQuads ? kNarrowQuads
+                                                       : kWideQuads;
+  return per_thread == forward_elements(quads) && threads >= 32 &&
+         threads <= forward_max_threads(quads) && threads % 32 == 0;
+}
+
+// ------------------------------------------------------------ backward
+
+// Shared memory of the backward: the three nets' padded weights, net
+// after net, then the tables of kTile rows (reused as the float64 slice
+// sums).
+__host__ inline size_t grad_shared_bytes(const Nets& nets) {
+  int stride = 0;
+  for (int f = 0; f < kFields; ++f) {
+    const int s = net_shape(nets.h1[f], nets.h2[f]).stride;
+    stride = s > stride ? s : stride;
+  }
+  const size_t tables = sizeof(float) * kTile * stride;
+  const size_t slices = sizeof(double) * kTile * kJobSize;
+  return sizeof(float) * padded_floats(nets)
+         + (tables > slices ? tables : slices);
+}
+
+// The largest shared memory any widths need (32 wide, two layers).
+constexpr size_t kGradMaxShared =
+    sizeof(float) * kFields * (6 * 32 + 4 + 32 * 32)
+    + sizeof(float) * kTile * 4 * (3 + 4 * 8);
+
+// Element pass of one net for one element: net_forward, the deltas in
 // registers, then the element's table row.  w: the padded weights.
 template <int Q, bool kTwo>
 __device__ __forceinline__ void element_row(const float* __restrict__ w,
@@ -300,65 +594,34 @@ __device__ __forceinline__ void element_row(const float* __restrict__ w,
                                             float dv, float scale,
                                             float* __restrict__ row) {
   constexpr int P = 4 * Q;
-  const float* w1 = w;
-  const float* b1 = w1 + 3 * P;
-  const float* w2 = b1 + P;
-  const float* b2 = w2 + P * P;
-  const float* w3 = kTwo ? b2 + P : b1 + P;
-  const float* b3 = w3 + P;
-  float a1[P];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const float4 u0 = lds4(w1 + 4 * q), u1 = lds4(w1 + P + 4 * q);
-    const float4 u2 = lds4(w1 + 2 * P + 4 * q), bb = lds4(b1 + 4 * q);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float acc = fmaf(x0, lane(u0, k), 0.0f);
-      acc = fmaf(x1, lane(u1, k), acc);
-      acc = fmaf(x2, lane(u2, k), acc);
-      a1[4 * q + k] = tanhf(acc + lane(bb, k));
-    }
-  }
+  using L = Padded<Q, kTwo>;
+  const float* w2 = w + L::w2;
+  const float* w3 = w + L::w3;
+  const float xs1[1] = {x1}, xs2[1] = {x2};
+  float a1[1][P], a2[1][P], o[1];
+  net_forward<Q, kTwo, 1>(w, x0, xs1, xs2, a1, a2, o);
+  const float d_out = dv * logistic(o[0]) * scale;
   float* a1s = row + 8;
   float* d1s = a1s + P;
-  store_quads<P>(a1s, a1);
+  sts4(row, x0, x1, x2, 1.0f);
+  sts4(row + 4, d_out, 1.0f, 0.0f, 0.0f);
+  store_quads<P>(a1s, a1[0]);
   if constexpr (kTwo) {
-    float a2[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) a2[j] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const float4 u = lds4(w2 + i * P + 4 * q);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          a2[4 * q + k] = fmaf(a1[i], lane(u, k), a2[4 * q + k]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const float4 bb = lds4(b2 + 4 * q);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) a2[4 * q + k] = tanhf(a2[4 * q + k] + lane(bb, k));
-    }
-    const float d_out = dv * logistic(output<P>(a2, w3, b3)) * scale;
-    sts4(row, x0, x1, x2, 1.0f);
-    sts4(row + 4, d_out, 1.0f, 0.0f, 0.0f);
+    float (&h)[P] = a2[0];
     float* a2s = d1s + P;
     float* d2s = a2s + P;
-    store_quads<P>(a2s, a2);
+    store_quads<P>(a2s, h);
     // a2 becomes d2 in place.
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const float4 u = lds4(w3 + 4 * q);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float a = a2[4 * q + k];
-        a2[4 * q + k] = d_out * lane(u, k) * (1.0f - a * a);
+        const float a = h[4 * q + k];
+        h[4 * q + k] = d_out * lane(u, k) * (1.0f - a * a);
       }
     }
-    store_quads<P>(d2s, a2);
+    store_quads<P>(d2s, h);
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       float d[4];
@@ -371,7 +634,7 @@ __device__ __forceinline__ void element_row(const float* __restrict__ w,
           const float4 u = lds4(wr + 4 * q2);
 #pragma unroll
           for (int k2 = 0; k2 < 4; ++k2)
-            acc = fmaf(lane(u, k2), a2[4 * q2 + k2], acc);
+            acc = fmaf(lane(u, k2), h[4 * q2 + k2], acc);
         }
         const float a = a1s[4 * q + k];  // from the row: frees a1's registers
         d[k] = acc * (1.0f - a * a);
@@ -379,16 +642,13 @@ __device__ __forceinline__ void element_row(const float* __restrict__ w,
       sts4(d1s + 4 * q, d[0], d[1], d[2], d[3]);
     }
   } else {
-    const float d_out = dv * logistic(output<P>(a1, w3, b3)) * scale;
-    sts4(row, x0, x1, x2, 1.0f);
-    sts4(row + 4, d_out, 1.0f, 0.0f, 0.0f);
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const float4 u = lds4(w3 + 4 * q);
       float d[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float a = a1[4 * q + k];
+        const float a = a1[0][4 * q + k];
         d[k] = d_out * lane(u, k) * (1.0f - a * a);
       }
       sts4(d1s + 4 * q, d[0], d[1], d[2], d[3]);
@@ -396,7 +656,7 @@ __device__ __forceinline__ void element_row(const float* __restrict__ w,
   }
 }
 
-__device__ __forceinline__ void element_pass(const GradNet& g,
+__device__ __forceinline__ void element_pass(const NetShape& g,
                                              const float* w, float x0,
                                              float x1, float x2, float dv,
                                              float scale, float* row) {
@@ -420,7 +680,7 @@ __device__ __forceinline__ void element_pass(const GradNet& g,
 
 // Job j of a net: float offsets in the table row of its left and right
 // quads (X at 0, O at 4, a1 at 8, d1 at 8 + P, a2 at 8 + 2P, d2 at 8 + 3P).
-__device__ __forceinline__ void job_quads(const GradNet& g, int j, int* l,
+__device__ __forceinline__ void job_quads(const NetShape& g, int j, int* l,
                                           int* r) {
   const int p = 4 * g.q;
   const int a_last = g.two ? 8 + 2 * p : 8;
@@ -447,7 +707,7 @@ __device__ __forceinline__ void job_quads(const GradNet& g, int j, int* l,
 // Where the net's flat parameter j sums: job * kJobSize + entry (ii * 4 +
 // jj) of the 4 x 4 outer product.  The other entries of the products are
 // not parameters.
-__device__ __forceinline__ int param_entry(const GradNet& g, int h1, int h2,
+__device__ __forceinline__ int param_entry(const NetShape& g, int h1, int h2,
                                            int j) {
   if (j < kInputs * h1) {                             // W1: X row k x d1
     const int k = j / h1, c = j % h1;
@@ -515,12 +775,6 @@ __device__ __forceinline__ bool param_on(const GradArgs& a, int k) {
   return net_on(a, k >= a.nets.offset[2] ? 2 : (k >= a.nets.offset[1] ? 1 : 0));
 }
 
-// v[f] with f chosen at run time: a select, not an indexed load (which
-// would copy the kernel's parameter struct to local memory).
-__device__ __forceinline__ int pick(const int (&v)[kFields], int f) {
-  return f == 0 ? v[0] : (f == 1 ? v[1] : v[2]);
-}
-
 constexpr int kSumCols = 4;   // epilogue: columns a thread sums at once
 constexpr int kSumRows = 8;   // and rows it loads at once for each
 
@@ -529,7 +783,7 @@ constexpr int kSumRows = 8;   // and rows it loads at once for each
 // kSumCols x kSumRows loads in flight at a time; the sums go to dst
 // (float64), or to grad (float32, zero for a skipped net's parameters).
 // Inlined, like every helper that takes the kernel's parameter struct or a
-// GradNet by reference: an out-of-line call would need their address and
+// NetShape by reference: an out-of-line call would need their address and
 // copy them to local memory.
 __device__ __forceinline__ void sum_rows(const GradArgs& a, const double* m,
                                          int r0, int r1, double* dst,
@@ -578,37 +832,15 @@ material_grad_kernel(GradArgs a) {
   const int64_t e0 = blockIdx.x * a.n / gridDim.x;
   const int64_t e1 = (blockIdx.x + 1) * a.n / gridDim.x;
 
-  // All three nets' weights, zero-padded, net after net: one round of
-  // global loads for the block (eight in flight a thread).
-  const int size0 = padded_size(grad_net(a.nets.h1[0], a.nets.h2[0]));
-  const int wofs[kFields] = {
-      0, size0, size0 + padded_size(grad_net(a.nets.h1[1], a.nets.h2[1]))};
-  for (int i = t; i < a.weight_floats; i += kTile) w[i] = 0.0f;
-  __syncthreads();
-  for (int k0 = t; k0 < n_params; k0 += 8 * kTile) {
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + j * kTile;
-      v[j] = k < n_params ? a.params[k] : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + j * kTile;
-      if (k >= n_params) continue;
-      const int f = k >= a.nets.offset[2] ? 2 : (k >= a.nets.offset[1] ? 1 : 0);
-      const int h1 = pick(a.nets.h1, f), h2 = pick(a.nets.h2, f);
-      const int slot = padded_slot(h1, h2, grad_net(h1, h2),
-                                   k - pick(a.nets.offset, f));
-      w[pick(wofs, f) + slot] = v[j];
-    }
-  }
+  int wofs[kFields];
+  padded_offsets(a.nets, wofs);
+  stage_weights(w, a.params, a.nets, wofs, a.weight_floats, t, kTile);
 
   for (int f = 0; f < kFields; ++f) {
     if (!net_on(a, f)) continue;
     const int h1 = pick(a.nets.h1, f), h2 = pick(a.nets.h2, f);
     const int offset = pick(a.nets.offset, f);
-    const GradNet g = grad_net(h1, h2);
+    const NetShape g = net_shape(h1, h2);
     const float* wf = w + pick(wofs, f);
     __syncthreads();  // the weights are in; the previous net's readers done
     const float scale = a.scales[f];
@@ -742,24 +974,69 @@ int pft_material_n_params(const int* widths) {
   return make_nets(widths, &nets) ? nets.n_params : -1;
 }
 
-int pft_material_forward(int device, const float* mid, int dim,
-                         const float* inv_len, float lf, int64_t n,
-                         const float* params, const float* scales,
-                         const int* widths, float* e, float* a, float* rho,
-                         float* s, void* stream) {
+// For the forward at these widths, taking per_thread elements a thread in
+// blocks of `threads`: out[0] the blocks one SM holds, out[1] the SMs,
+// out[2] the kernel's registers a thread, out[3] its local-memory bytes a
+// thread (spills).
+int pft_material_forward_occupancy(int device, int per_thread, int threads,
+                                   const int* widths, int* out) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   Nets nets;
-  if (!make_nets(widths, &nets) || dim < 1 || dim > 2)
+  if (!make_nets(widths, &nets) ||
+      !forward_form_ok(nets, per_thread, threads))
     return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const unsigned int blocks =
-        (unsigned int)((n + kForwardThreads - 1) / kForwardThreads);
-    material_forward_kernel<<<blocks, kForwardThreads,
-                              sizeof(float) * nets.n_params,
-                              (cudaStream_t)stream>>>(
-        mid, dim, inv_len, lf, n, params, scales, nets, e, a, rho, s);
-  }
+  const void* fn = (const void*)forward_kernel(nets);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, threads, sizeof(float) * padded_floats(nets));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = per_sm;
+  out[1] = sms;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  return 0;
+}
+
+// (E, A, rho, s) at n elements in `blocks` blocks of `threads` threads,
+// per_thread elements a thread at a time (material_kernel.forward_plan).
+int pft_material_forward(int device, const float* mid, int dim,
+                         const float* inv_len, float lf, int64_t n,
+                         const float* params, const float* scales,
+                         const int* widths, int per_thread, int threads,
+                         int blocks, float* e, float* a, float* rho,
+                         float* s, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  ForwardArgs args;
+  if (!make_nets(widths, &args.nets) || dim < 1 || dim > 2 || n < 0 ||
+      !forward_form_ok(args.nets, per_thread, threads) || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  args.mid = mid;
+  args.inv_len = inv_len;
+  args.params = params;
+  args.scales = scales;
+  args.e = e;
+  args.a = a;
+  args.rho = rho;
+  args.s = s;
+  args.n = n;
+  args.lf = lf;
+  args.dim = dim;
+  args.mid_float2 = dim == 2 && reinterpret_cast<uintptr_t>(mid) % 8 == 0;
+  args.weight_floats = padded_floats(args.nets);
+  void* launch_args[] = {&args};
+  err = cudaLaunchKernel((const void*)forward_kernel(args.nets),
+                         dim3(blocks), dim3(threads), launch_args,
+                         sizeof(float) * args.weight_floats,
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -844,7 +1121,7 @@ int pft_material_backward(const GradPlan* plan, const float* mid, int dim,
   args.n = n;
   args.lf = lf;
   args.dim = dim;
-  args.weight_floats = grad_weight_floats(args.nets);
+  args.weight_floats = padded_floats(args.nets);
   args.group_size = plan->group_size;
   material_grad_kernel<<<plan->blocks, kTile, plan->shared_bytes,
                          (cudaStream_t)stream>>>(args);

@@ -13,13 +13,14 @@ differentiated path, so its gradient is a kernel too:
 
 `MaterialCoefficients` binds the two as one autograd.Function.  The TPU
 layout (8 x TILE lane packing, weights zero-padded to 32) is not carried:
-the forward takes one thread per element and loops over the nets' own
-widths; the backward pads each net to a multiple of 4 and sums its
+both kernels pad each net to a multiple of 4 and run it through one
+routine that keeps the activations in registers; the backward sums its
 parameter terms as 4 x 4 outer products (csrc/material.cu says what bounds
-each kernel).  The backward's launch is planned once per device, stream,
-widths and element count (`_grad_plan`: grid, float64 scratch, tickets),
-so a call is one ctypes call and calls on two streams never share
-scratch; the forward checks the widths once per widths.
+each kernel).  The forward's grid is planned once per device, widths and
+element count (`forward_plan` on the card's occupancy, `_forward_plan`);
+the backward's launch likewise, per stream too (`_grad_plan`: grid,
+float64 scratch, tickets), so a call is one ctypes call and calls on two
+streams never share scratch.
 
 `fused_material_coefficients(data, material, load_factor)` is the entry the
 assembly calls when `fused_coefficients_supported` holds: CUDA tensors take
@@ -37,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -49,6 +50,14 @@ TILE = 128       # kTile: the backward's rows a tile and threads a block
 # The plain backward's default grid off the card: one block per tile, at
 # most the H100's 132 SMs x 3 resident blocks.
 CPU_BLOCKS = 3 * 132
+# The forward kernel's two builds (csrc/material.cu): nets of at most
+# NARROW_QUADS quads (widths <= 20) take two elements a thread in blocks of
+# up to 256 threads, wider nets one element in blocks of up to 128.
+NARROW_QUADS = 5
+FORWARD_MAX_THREADS = {2: 256, 1: 128}
+# Warps an SM needs to issue without pause (two a scheduler): the plan
+# counts a scheduler with fewer as if it had them.
+FORWARD_MIN_WARPS = 8
 FIELDS = ("young", "area", "density")
 
 
@@ -287,6 +296,62 @@ def material_coefficients_backward_reference(mid, inv_len, load_factor,
     return grad
 
 
+# --------------------------------------------------- the forward's grid
+
+class ForwardPlan(NamedTuple):
+    per_thread: int   # elements a thread at a time (1 or 2)
+    threads: int      # threads a block (a multiple of 32)
+    blocks: int
+
+
+def forward_elements(widths) -> int:
+    """Elements a thread of the forward kernel for these widths."""
+    quads = max(-(-h // 4) for h in widths)
+    return 2 if quads <= NARROW_QUADS else 1
+
+
+def forward_form(n: int, per_thread: int, resident: int, sms: int
+                 ) -> Tuple[int, int]:
+    """(elements a thread, threads a block) for n elements.  128 threads
+    while one pass of every warp covers n with `resident` blocks of 128 on
+    each of the sms SMs (more, smaller blocks spread one pass evenly);
+    beyond, with two elements a thread, 256 (on the H100 a million
+    elements ran 9-18 % faster in blocks of 256 than of 128)."""
+    if n <= sms * resident * 128 * per_thread or per_thread == 1:
+        return per_thread, 128
+    return per_thread, 256
+
+
+def forward_plan(n: int, resident: int, sms: int, per_thread: int,
+                 threads: int) -> ForwardPlan:
+    """The forward kernel's grid for n elements, given the blocks of this
+    form one SM holds (`resident`, the card's occupancy) and the SM count.
+
+    The kernel splits the elements evenly over the grid's warps, each
+    taking 32 * per_thread at a time.  Up to one block an SM: a block per
+    32 * per_thread elements a warp.  Beyond: m blocks an SM (m <=
+    resident), so every SM and every warp scheduler gets the same work;
+    m is the one with the least (warps an SM, at least FORWARD_MIN_WARPS)
+    x (passes of the longest warp), the time of an SM that issues without
+    pause, the larger m on a tie (more warps to hide latency)."""
+    if per_thread not in FORWARD_MAX_THREADS or threads % 32 or not (
+            32 <= threads <= FORWARD_MAX_THREADS[per_thread]):
+        raise ValueError(f"no forward form ({per_thread}, {threads})")
+    step = 32 * per_thread
+    warps_block = threads // 32
+    tiles = -(-n // (step * warps_block))
+    if tiles <= sms:
+        return ForwardPlan(per_thread, threads, max(tiles, 1))
+    best_cost, best_m = None, 1
+    for m in range(1, max(resident, 1) + 1):
+        warps = sms * m * warps_block
+        passes = -(-(-(-n // warps)) // step)
+        cost = max(m * warps_block, FORWARD_MIN_WARPS) * passes
+        if best_cost is None or cost <= best_cost:
+            best_cost, best_m = cost, m
+    return ForwardPlan(per_thread, threads, sms * best_m)
+
+
 # ------------------------------------------------------------ the kernels
 
 class GradPlan(ctypes.Structure):
@@ -320,6 +385,7 @@ def _check(mid: torch.Tensor, vectors=(), others=()) -> None:
 
 
 _WIDTHS = {}   # (widths, n_params) -> ctypes int[6], checked by the library
+_FORWARD_PLANS = {}  # (device, widths, n) -> (ForwardPlan, occupancy)
 _PLANS = {}    # (device, stream, widths, n) -> (GradPlan, its scratch)
 _PLANS_LOCK = threading.Lock()
 
@@ -368,6 +434,34 @@ def _grad_plan(device: torch.device, stream: int, widths, n: int):
     return entry
 
 
+def _forward_occupancy(device: torch.device, form, widths):
+    """(blocks an SM, SMs, registers a thread, local-memory bytes a thread)
+    of the forward kernel in this form for these widths, from the
+    library."""
+    occ = (ctypes.c_int * 4)()
+    _build.check(_build.load_library().pft_material_forward_occupancy(
+        device.index, *form, (ctypes.c_int * 6)(*widths), occ),
+        "material_coefficients plan")
+    return tuple(occ)
+
+
+def _forward_plan(device: torch.device, widths, n: int):
+    """(ForwardPlan, occupancy) of the forward kernel for one device,
+    widths and n, made once (occupancy: `_forward_occupancy` of the
+    plan's form)."""
+    key = (device.index, tuple(widths), n)
+    entry = _FORWARD_PLANS.get(key)
+    if entry is None:
+        first = (forward_elements(key[1]), 128)
+        occ = _forward_occupancy(device, first, key[1])
+        form = forward_form(n, first[0], occ[0], occ[1])
+        if form != first:
+            occ = _forward_occupancy(device, form, key[1])
+        entry = _FORWARD_PLANS[key] = (forward_plan(n, occ[0], occ[1], *form),
+                                       occ)
+    return entry
+
+
 def material_coefficients(mid: torch.Tensor, inv_len: torch.Tensor,
                           load_factor: float, params: torch.Tensor,
                           scales: torch.Tensor, widths
@@ -380,11 +474,14 @@ def material_coefficients(mid: torch.Tensor, inv_len: torch.Tensor,
     _check(mid, (inv_len,), (params, scales))
     lib, arr = _library(widths, params.numel())
     out = [torch.empty_like(inv_len) for _ in range(4)]
+    if n == 0:
+        return tuple(out)
+    plan, _ = _forward_plan(mid.device, widths, n)
     _build.check(lib.pft_material_forward(
         mid.device.index, mid.data_ptr(), mid.shape[1], inv_len.data_ptr(),
         float(load_factor), n, params.data_ptr(), scales.data_ptr(), arr,
-        *(t.data_ptr() for t in out), _build.current_stream(mid.device)),
-        "material_coefficients")
+        *plan, *(t.data_ptr() for t in out),
+        _build.current_stream(mid.device)), "material_coefficients")
     material_coefficients.launches += 1
     return tuple(out)
 

@@ -399,6 +399,93 @@ def test_material_kernels_match_twin_on_card(cuda_device, hidden_layers, lf):
     assert all(torch.equal(a, b) for a, b in zip(g_got, g_again))
 
 
+# (elements, midpoint dimension, (h1, h2) of the three nets): every padded
+# width Q = 1..8 with odd widths and h1 != h2 at both depths; n = 0, below
+# one block, not a multiple of the plan's block, and several passes a warp;
+# dim 1, dim 2, and dim 2 from a view 4 bytes off an 8-byte boundary (the
+# kernel's float2 loads do not apply).
+FORWARD_CASES = {
+    "q123_two": (1001, 2, ((1, 3), (5, 7), (11, 9))),
+    "q456_two": (1001, 2, ((15, 13), (17, 19), (21, 23))),
+    "q788_two": (1001, 1, ((25, 27), (31, 29), (32, 30))),
+    "q123_one": (1001, 1, ((3, 0), (5, 0), (9, 0))),
+    "q456_one": (1001, 2, ((13, 0), (17, 0), (21, 0))),
+    "q788_one": (1001, 2, ((25, 0), (31, 0), (32, 0))),
+    "empty": (0, 2, ((20, 20), (15, 15), (10, 10))),
+    "below_one_block": (50, 2, ((1, 32), (17, 5), (32, 1))),
+    "many_passes": (300_007, 2, ((20, 20), (15, 15), (10, 10))),
+    "misaligned_2d": (777, 2, ((20, 20), (15, 15), (10, 10))),
+}
+
+
+def random_material(shapes, seed, dev):
+    """Three MLP fields of the given (h1, h2) shapes, input_dim 3, weights
+    uniform in +-1/sqrt(fan in) and the output layer at three times that,
+    biases in +-0.1, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    fields = []
+    for (h1, h2), scale in zip(shapes, (2.0, 0.5, 7.0)):
+        dims = [3, h1] + ([h2] if h2 else []) + [1]
+        layers = []
+        for k, (i, o) in enumerate(zip(dims, dims[1:])):
+            gain = 3.0 if k == len(dims) - 2 else 1.0
+            w = gain * rng.uniform(-1, 1, (i, o)) / np.sqrt(i)
+            b = rng.uniform(-0.1, 0.1, o)
+            layers.append((torch.tensor(w, dtype=torch.float32, device=dev),
+                           torch.tensor(b, dtype=torch.float32, device=dev)))
+        fields.append(T.MLPField(layers=layers, input_dim=3,
+                                 scale=torch.tensor(scale, device=dev),
+                                 enforce_positive=True))
+    return T.Material(*fields)
+
+
+@pytest.mark.parametrize("case", list(FORWARD_CASES))
+def test_material_forward_shapes_on_card(cuda_device, case):
+    """The forward kernel (4) against the twin at every padded width, both
+    depths, dim 1 and 2 and ragged n: within rtol 2e-5 (3e-5 for s) and
+    atol 1e-6, bit for bit across two calls, one counted launch a call
+    (none for n = 0)."""
+    n, dim, shapes = FORWARD_CASES[case]
+    rng = np.random.default_rng(n + dim)
+    flat = rng.uniform(0, 50, 2 * n + 1).astype(np.float32)
+    if case == "misaligned_2d":
+        mid = torch.from_numpy(flat).to(cuda_device)[1:].view(n, 2)
+        assert mid.data_ptr() % 8 == 4 and mid.is_contiguous()
+    else:
+        mid = torch.from_numpy(flat[:n * dim].reshape(n, dim)).to(cuda_device)
+    inv_len = torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32)
+                               ).to(cuda_device)
+    mat = random_material(shapes, n + 3, cuda_device)
+    fields = material_kernel._fields(mat)
+    params = torch.cat([t.reshape(-1) for f in fields
+                        for t in f.trainable_params()])
+    scales = torch.stack([f.scale for f in fields])
+    widths = material_kernel._widths(mat)
+    assert widths == tuple(h for pair in shapes for h in pair)
+    for lf in (0.3, 1.0):
+        before = kernels.launch_counts()["material_coefficients"]
+        got = material_kernel.material_coefficients(mid, inv_len, lf, params,
+                                                    scales, widths)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["material_coefficients"] == \
+            before + (1 if n else 0)
+        assert all(t.shape == (n,) for t in got)
+        want = material_kernel.material_coefficients_reference(
+            mid, inv_len, lf, mat)
+        for k, (a, b) in enumerate(zip(got, want)):
+            torch.testing.assert_close(a, b, rtol=3e-5 if k == 3 else 2e-5,
+                                       atol=1e-6)
+        again = material_kernel.material_coefficients(mid, inv_len, lf,
+                                                      params, scales, widths)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if n:
+        plan, occupancy = material_kernel._forward_plan(cuda_device, widths,
+                                                        n)
+        assert occupancy[3] == 0, f"the forward spills: {occupancy}"
+        assert plan == material_kernel.forward_plan(
+            n, occupancy[0], occupancy[1], plan.per_thread, plan.threads)
+
+
 # (elements, midpoint dimension, hidden layers, upstream gradients given)
 BACKWARD_CASES = {
     "ragged_2d": (1001, 2, 2, (0, 1, 2, 3)),

@@ -234,3 +234,100 @@ def test_kernel_operand_checks():
     # 3h + h + h*h + h + h + 1 flat parameters per net at h = 20, 15, 10.
     assert [f.n_params() for f in (tmat.young, tmat.area, tmat.density)] == \
         [521, 316, 161]
+
+
+def test_forward_wrapper_refuses_bad_operands(monkeypatch):
+    """The forward kernel's wrapper checks its operands before it reaches
+    the library (a stand-in that fails if it is loaded)."""
+    def no_library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(tmk._build, "load_library", no_library)
+    jmat, tmat = both_materials()
+    _, td = both_data(jmat, tmat, n_nodes=20)
+    fields = tmk._fields(tmat)
+    params = torch.cat([t.reshape(-1) for f in fields
+                        for t in f.trainable_params()])
+    scales = torch.stack([f.scale for f in fields])
+
+    def forward(mid, inv_len, p=params):
+        return tmk.material_coefficients(mid, inv_len, 1.0, p, scales,
+                                         tmk._widths(tmat))
+
+    with pytest.raises(TypeError, match="float32"):
+        forward(td.mid.double(), td.inv_len)
+    with pytest.raises(TypeError, match="float32"):
+        forward(td.mid, td.inv_len, params.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        forward(td.mid, torch.zeros(2 * td.nelm)[::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        forward(torch.zeros(2, td.nelm).T, td.inv_len)
+    with pytest.raises(ValueError, match="midpoints"):
+        forward(torch.zeros(td.nelm, 3), td.inv_len)
+    with pytest.raises(ValueError, match="midpoints"):
+        forward(td.mid[1:], td.inv_len)
+
+
+def test_forward_plan_geometry():
+    """The forward kernel's form (forward_elements, forward_form) and grid
+    (forward_plan) at the main path's sizes on the H100's 132 SMs, from
+    the blocks of a form one SM holds: up to one block an SM, a block per
+    32 E elements a warp; beyond, a multiple of the SM count chosen by the
+    passes of the longest warp."""
+    plan = tmk.ForwardPlan
+    # Two elements a thread for nets of widths <= 20, one beyond.
+    assert tmk.forward_elements((20, 20, 15, 15, 10, 10)) == 2
+    assert tmk.forward_elements((20, 0, 1, 3, 17, 5)) == 2
+    assert tmk.forward_elements((20, 21, 15, 15, 10, 10)) == 1
+    assert tmk.forward_elements((32, 0, 1, 0, 1, 0)) == 1
+    # 128 threads while one pass of 4 blocks an SM covers n, then 256.
+    assert tmk.forward_form(79_102, 2, 4, 132) == (2, 128)
+    assert tmk.forward_form(135_168, 2, 4, 132) == (2, 128)
+    assert tmk.forward_form(135_169, 2, 4, 132) == (2, 256)
+    assert tmk.forward_form(1_000_000, 2, 4, 132) == (2, 256)
+    assert tmk.forward_form(1_000_000, 1, 4, 132) == (1, 128)
+    assert tmk.forward_plan(0, 4, 132, 2, 128) == plan(2, 128, 1)
+    assert tmk.forward_plan(50, 4, 132, 2, 128) == plan(2, 128, 1)
+    assert tmk.forward_plan(1001, 4, 132, 2, 128) == plan(2, 128, 4)
+    # The PINN grid's 79,102 midpoints: 3 blocks an SM, one pass a warp
+    # (50 elements: two for lanes 0-17, one for the rest).
+    assert tmk.forward_plan(79_102, 4, 132, 2, 128) == plan(2, 128, 396)
+    # A million elements: one block of 256 an SM, 15 passes of 64 a warp
+    # (947 elements; two blocks an SM would take 8 passes of 474, 16
+    # warps x 8 against 8 x 15).
+    assert tmk.forward_plan(1_000_000, 2, 132, 2, 256) == plan(2, 256, 132)
+    assert tmk.forward_plan(1_000_000, 1, 132, 2, 256) == plan(2, 256, 132)
+    # One element a thread (the wide nets): 5 blocks an SM, one pass of 30
+    # elements a warp; with room for 3 or 4, 3 blocks and two passes.
+    assert tmk.forward_plan(79_102, 5, 132, 1, 128) == plan(1, 128, 660)
+    assert tmk.forward_plan(79_102, 4, 132, 1, 128) == plan(1, 128, 396)
+    assert tmk.forward_plan(300_007, 5, 132, 1, 128) == plan(1, 128, 396)
+    # Another card: the grid follows its SM count (114 SMs: 5 blocks an
+    # SM would still take two passes a warp, so 3 take them).
+    assert tmk.forward_plan(79_102, 5, 114, 1, 128) == plan(1, 128, 342)
+    for form in ((3, 128), (1, 96 + 1), (1, 256), (2, 512), (0, 128)):
+        with pytest.raises(ValueError, match="no forward form"):
+            tmk.forward_plan(1000, 5, 132, *form)
+
+
+@pytest.mark.parametrize("n", [1, 50, 1001, 79_102, 300_007])
+@pytest.mark.parametrize("form", [(1, 128), (2, 128), (2, 256), (1, 64)])
+def test_forward_partition_covers_every_element(n, form):
+    """The kernel's split, emulated: warp w of W takes [w n / W,
+    (w + 1) n / W), 32 E elements a pass, lane l the elements base + l +
+    32 e; every element is taken exactly once, and the warps' shares
+    differ by at most one element."""
+    plan = tmk.forward_plan(n, 5, 132, *form)
+    warps = plan.blocks * plan.threads // 32
+    ranges = np.array([(w * n // warps, (w + 1) * n // warps)
+                       for w in range(warps)], np.int64)
+    lengths = ranges[:, 1] - ranges[:, 0]
+    assert lengths.max() - lengths.min() <= 1
+    step = 32 * plan.per_thread
+    passes = -(-int(lengths.max()) // step)
+    offsets = (np.arange(passes)[:, None, None] * step
+               + np.arange(32)[None, :, None]
+               + 32 * np.arange(plan.per_thread)[None, None, :]).reshape(-1)
+    taken = ranges[:, :1] + offsets[None, :]
+    taken = taken[taken < ranges[:, 1:]]
+    assert np.array_equal(np.sort(taken), np.arange(n))
