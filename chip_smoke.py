@@ -46,7 +46,21 @@ code is not 0 and no result line is printed:
      iteration, a profile of GD iterations, and the first CPU_ROWS history
      rows against a CPU run of the same document (the twin);
   8. corpus example2 (scalar GD) and example7-P (hybrid, three NN fields,
-     initial weights as the JAX CLI draws them) on cuda.
+     initial weights as the JAX CLI draws them) on cuda;
+  9. the second-order methods through main() on cuda: corpus example9
+     and example10 (full-nr with NN fields; converged, ||(f_int - f)_free||
+     < 1e-5 at the identified material on the card, each increment's
+     history length); gn on copies of example3 and example7 (max_iterations
+     100; u within 2e-4 L of [1, 2, 3]); kernel 4 takes every value-only
+     evaluation (its launches equal the phases' flag reads plus the
+     reactions, > 0 on example10 and example7), kernel 4b none; and the
+     16 x 32 PINN grid as a full-nr document (n_z 1,990; 1,906 elements),
+     FNR_GRID_ITERS iterations: ms per iteration split into loss,
+     gradient and Hessian (one torch.func call) and LM tries, host syncs
+     per iteration, the device's idle share (torch.profiler over
+     FNR_SPLIT_ITERS iterations), the peak memory, the loss falling at
+     every accepted step, finite rows, and the first FNR_CPU_ROWS rows
+     against a CPU run of the same document (the twin).
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -56,8 +70,9 @@ whichever is larger), a one-call PyTorch yardstick where one exists, the
 device us per launch from the profiler, for the two PCG kernels the
 wrapper's ms per call beside the ms of the launch bound once as the PCG
 loop calls it, and for the material kernels the host us per wrapper call
-(the backward also its twin's ms and the s-only call's ms and bound);
-the last is {"ok": true, "device": {...}}.  Needs one card; imports no JAX.
+(the backward also its twin's ms and the s-only call's ms and bound;
+kernel 4 also its launches on phase 9's paths); the last is {"ok": true,
+"device": {...}}.  Needs one card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -97,6 +112,27 @@ CPU_ROWS = 50
 GD_ROWS_RTOL = 0.1
 GD_FIRST_ROW_RTOL = 1e-5
 GD_THETA_RTOL = 1e-4
+# Phase 9: the full-NR PINN grid, its iterations, the iterations of the
+# timed split and the profile, and the rows held against the CPU twin.
+FNR_GRID = (16, 32)
+FNR_GRID_ITERS = 20
+FNR_SPLIT_ITERS = 5
+FNR_CPU_ROWS = 3
+# Card vs CPU twin, first FNR_CPU_ROWS full-NR rows: max |difference| over
+# each column's largest value.  Newton steps do not amplify float32 noise
+# as Adam's do: two CPU runs of the 8 x 16 grid whose measured data differ
+# by one float32 ulp stay 2.6e-7 apart over 3 rows, and the port and the
+# JAX package 1.5e-5 over 5 rows of the 4 x 8 grid
+# (tests/measure_torch_agreement.py fnr_drift, second_order); 16 x 32,
+# 2.8e-7 on the card machine's CPU.  The card against the twin: 1.1e-7 on
+# the first row, 6.0e-6 over 3 rows (grad_norm_theta; NVIDIA H100 80GB
+# HBM3, 700.00 W).  The first row precedes any step and is held as phase
+# 7 holds its first row.
+FNR_FIRST_ROW_RTOL = 1e-5
+FNR_ROWS_RTOL = 1e-4
+# ||(f_int - f)_free|| at the identified material
+# (tests/test_examples_e2e.py:76-86).
+FNR_RESIDUAL = 1e-5
 BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FLOPS = 67e12           # H100 SXM FP32, outside the tensor cores
 CSRC = "pinn_fem_tpu_torch/ops/kernels/csrc/"
@@ -1196,6 +1232,263 @@ def phase_gd_corpus(workdir: Path):
             launches={k: launches[k] for k in MATERIAL})
 
 
+class Spy:
+    """Records (args, kwargs, result) of every call of module.name while
+    in the with block."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.inner, self.calls = getattr(module, name), []
+
+    def __enter__(self):
+        def spy(*args, **kwargs):
+            result = self.inner(*args, **kwargs)
+            self.calls.append((args, kwargs, result))
+            return result
+
+        setattr(self.module, self.name, spy)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def corpus_copy(workdir: Path, name: str, **config) -> Path:
+    """A corpus document written to workdir; config: solver_config and
+    pinn_config entries to set."""
+    doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                     .read_text())
+    for key, value in config.items():
+        section = "pinn_config" if key == "max_iterations" else "solver_config"
+        doc.setdefault(section, {})[key] = value
+    path = workdir / f"{name}.json"
+    path.write_text(json.dumps(doc))
+    return path
+
+
+def value_launches(out, gn: bool) -> int:
+    """Kernel 4 launches of one increment when every value-only evaluation
+    takes it: one per flag read (full-NR: the row's loss, each LM trial
+    loss; gn: the row's residual, each line-search try), gn's stall norm
+    after a step no try accepted, and the reactions."""
+    stall_norms = sum(not a for a in out.accepted) if gn else 0
+    return out.host_syncs + stall_norms + 1
+
+
+def full_nr_profile(objective_args, iters: int) -> dict:
+    """torch.profiler over `iters` full-NR iterations: device busy time,
+    wall time, idle share and device time by kernel name (top 8)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pinn_fem_tpu_torch.solvers.phases import full_nr_phase
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        full_nr_phase(*objective_args(iters))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.device_time_total)[:8]
+    return {"iterations": iters, "wall_ms": 1e3 * wall,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": (1 - busy_us / 1e3 / (1e3 * wall)
+                                  if busy_us else None),
+            "top_device_kernels_us": {e.key[:60]: e.device_time_total
+                                      for e in top}}
+
+
+def phase_second_order(workdir: Path, dev):
+    """Full-NR with NN fields and gn through main() on cuda, and the
+    16 x 32 PINN grid as a full-NR document (section 9 of the module
+    docstring).  Returns kernel 4's launches on each path."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main, run
+    from pinn_fem_tpu_torch.examples_grid import pinn_grid_document
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.ops.assembly import internal_force_and_strain
+    from pinn_fem_tpu_torch.solvers import driver, full_newton, gauss_newton
+    from pinn_fem_tpu_torch.solvers.gd import get_theta, set_theta
+    from pinn_fem_tpu_torch.solvers.phases import FullNRLoss, ZSpace
+
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    launches = {}
+    for name in ("example9", "example10"):
+        path = corpus_copy(workdir, name)
+        with Spy(driver, "solve_full_nr") as solves, \
+                Spy(full_newton, "full_nr_phase") as phase_runs:
+            kernels.reset_launch_counts()
+            rc = main([str(path)])
+            counts = kernels.launch_counts()
+        out = json.loads((workdir / f"{name}.res.json").read_text())
+        require(rc == 0 and out["converged"] is True,
+                f"{name} exit code 0 and converged")
+        problem = solves[-1][0][0]
+        data = problem.to_device(dev)
+        u = torch.as_tensor(out["displacements"], dtype=data.loads.dtype,
+                            device=dev).reshape(-1)
+        with torch.no_grad():
+            f_int, _ = internal_force_and_strain(data, problem.material, u,
+                                                 1.0)
+            residual = float(torch.linalg.vector_norm(
+                (f_int - data.loads) * data.free_mask))
+        require(residual < FNR_RESIDUAL,
+                f"{name} ||(f_int - f)_free|| < {FNR_RESIDUAL} on the card")
+        expected = sum(value_launches(r, False) for _, _, r in phase_runs)
+        fused = name == "example10"
+        require(counts["material_coefficients"] == (expected if fused else 0),
+                f"{name}: kernel 4 takes every value-only evaluation")
+        require(counts["material_coefficients_backward"] == 0,
+                f"{name}: kernel 4b never runs")
+        log("phase9_full_nr", document=name, exit_code=rc, converged=True,
+            free_residual_norm=residual,
+            rows_per_increment=[len(r.history) for _, _, r in solves],
+            host_syncs=sum(r.host_syncs for _, _, r in phase_runs),
+            launches={k: counts[k] for k in MATERIAL})
+        launches[name] = counts["material_coefficients"]
+
+    for name in ("example3", "example7"):
+        path = corpus_copy(workdir, name, method="gn", max_iterations=100)
+        with Spy(gauss_newton, "gn_phase") as phase_runs:
+            kernels.reset_launch_counts()
+            rc = main([str(path)])
+            counts = kernels.launch_counts()
+        out = json.loads((workdir / f"{name}.res.json").read_text())
+        ux = np.asarray(out["displacements"]).reshape(-1, 2)[:, 0]
+        err = float(np.abs(ux - np.arange(len(ux))).max())
+        require(rc == 0 and out["converged"] is True,
+                f"gn {name} exit code 0 and converged")
+        require(err <= 2e-4 * max(1.0, len(ux) - 1),
+                f"gn {name} displacements within 2e-4 x max(1, L)")
+        expected = sum(value_launches(r, True) for _, _, r in phase_runs)
+        fused = name == "example7"
+        require(counts["material_coefficients"] == (expected if fused else 0),
+                f"gn {name}: kernel 4 takes every value-only evaluation")
+        require(counts["material_coefficients_backward"] == 0,
+                f"gn {name}: kernel 4b never runs")
+        log("phase9_gn", document=name, exit_code=rc, converged=True,
+            iterations=out["iterations"], max_abs_err=err,
+            host_syncs=sum(r.host_syncs for _, _, r in phase_runs),
+            launches={k: counts[k] for k in MATERIAL})
+        launches[f"gn_{name}"] = counts["material_coefficients"]
+
+    doc = pinn_grid_document(*FNR_GRID, max_iterations=FNR_GRID_ITERS)
+    doc["solver_config"]["method"] = "full-nr"
+    path = workdir / "fnr_grid.json"
+    path.write_text(json.dumps(doc))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Spy(full_newton, "full_nr_phase") as phase_runs:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = main([str(path)])
+        cli_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    require(rc == 0, "full-NR grid exit code 0")
+    out = json.loads((workdir / "fnr_grid.res.json").read_text())
+    zout = phase_runs[0][2]
+    hist = out["history"]
+    keys = list(hist[0])
+    rows = np.array([[e[k] for k in keys] for e in hist])
+    loss = rows[:, keys.index("loss_total")]
+    require(len(hist) == FNR_GRID_ITERS or out["converged"],
+            "full-NR grid ran its iterations or converged")
+    require(bool(np.all(np.isfinite(rows))), "full-NR grid rows finite")
+    require(all(loss[k + 1] < loss[k] for k in range(len(hist) - 1)
+                if zout.accepted[k]),
+            "full-NR grid loss falls at every accepted step")
+    require(counts["material_coefficients"] == value_launches(zout, False),
+            "full-NR grid: kernel 4 takes every value-only evaluation")
+    require(counts["material_coefficients_backward"] == 0,
+            "full-NR grid: kernel 4b never runs")
+    launches["fnr_grid"] = counts["material_coefficients"]
+
+    # ms per iteration by part, warm, one synchronize at each part's end.
+    parsed = parse_problem_dict(doc)
+    data = parsed.problem.to_device(dev)
+    material = parsed.problem.material.to(dev)
+    has_meas, mvals, mdofs = full_newton.measurements_on(
+        data, parsed.measured_disp, parsed.measured_dofs)
+    free_idx, u0 = full_newton.initial_state(parsed.problem, data, None)
+    cfg = parsed.config
+
+    def phase_args(iters, clock=None):
+        return (data, material, set_theta, u0, get_theta(material), free_idx,
+                1.0, mvals, mdofs, has_meas, iters, cfg.tolerance,
+                cfg.full_nr_data_tolerance, cfg.learning_rate_u,
+                cfg.learning_rate_theta, clock)
+
+    seconds = {}
+    mark = [0.0]
+
+    def clock(part):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[part] = seconds.get(part, 0.0) + now - mark[0]
+        mark[0] = now
+
+    torch.cuda.synchronize()
+    mark[0] = t0 = time.perf_counter()
+    split_out = full_newton.full_nr_phase(*phase_args(FNR_SPLIT_ITERS, clock))
+    split_s = time.perf_counter() - t0
+    split_ms = {k: 1e3 * v / len(split_out.hist) for k, v in seconds.items()}
+    # The gradient alone against the one call that gives H and g, at z0.
+    space = ZSpace(data, material, set_theta, get_theta(material), free_idx)
+    objective = FullNRLoss(space, 1.0, mvals, mdofs, has_meas)
+    z0 = space.pack(u0)
+    gradient = torch.func.grad(lambda z: objective.parts(z, True)[0])
+    at_z0 = {"gradient_ms": cuda_ms(lambda: gradient(z0), 10),
+             "gradient_and_hessian_ms": cuda_ms(
+                 lambda: objective.hessian_and_gradient(z0), 5)}
+    profile = full_nr_profile(phase_args, FNR_SPLIT_ITERS)
+
+    # The same document on the CPU (the twin) for FNR_CPU_ROWS iterations.
+    cpu_doc = dict(doc, pinn_config=dict(doc["pinn_config"],
+                                         max_iterations=FNR_CPU_ROWS))
+    cpu_path = workdir / "fnr_grid_cpu.json"
+    cpu_path.write_text(json.dumps(cpu_doc))
+    t0 = time.perf_counter()
+    cpu = run(str(cpu_path), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    hc = np.array([[e[k] for k in keys] for e in cpu["history"]])
+    hg = rows[:FNR_CPU_ROWS]
+    scale = np.maximum(np.abs(hc).max(axis=0), 1e-30)
+    col_err = np.abs(hg - hc).max(axis=0) / scale
+    first_err = float((np.abs(hg[0] - hc[0]) / scale).max())
+    log("phase9_full_nr_grid", ndof=data.ndof, elements=data.nelm,
+        n_z=int(free_idx.numel()) + sum(
+            p.numel() for f in get_theta(material) for layer in f
+            for p in layer),
+        exit_code=rc, converged=out["converged"], history_length=len(hist),
+        first_loss_total=float(loss[0]), last_loss_total=float(loss[-1]),
+        accepted_steps=sum(zout.accepted), cli_s=cli_s,
+        ms_per_iteration_cli=1e3 * cli_s / len(hist),
+        ms_per_iteration_warm=1e3 * split_s / len(split_out.hist),
+        ms_per_iteration_split=split_ms, ms_at_z0=at_z0,
+        host_syncs_per_iteration=zout.host_syncs / len(hist),
+        lm_tries_per_iteration=(zout.host_syncs - len(hist)) / len(hist),
+        peak_memory_gib=peak_gb, launches={k: counts[k] for k in MATERIAL},
+        profile=profile, cpu_twin_rows=len(cpu["history"]), cpu_twin_s=cpu_s,
+        card_vs_cpu_max_rel_err=dict(zip(keys, col_err.tolist())),
+        card_vs_cpu_first_row=first_err)
+    require(len(cpu["history"]) == FNR_CPU_ROWS, "CPU twin run length")
+    require(first_err <= FNR_FIRST_ROW_RTOL,
+            f"full-NR first row within {FNR_FIRST_ROW_RTOL} of the CPU twin")
+    require(float(col_err.max()) <= FNR_ROWS_RTOL,
+            f"first {FNR_CPU_ROWS} full-NR rows within {FNR_ROWS_RTOL} of "
+            "the CPU twin")
+    return launches
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -1209,6 +1502,7 @@ def main() -> int:
         mat_stats = phase_material(dev)
         launches.update(phase_gd_main_path(Path(tmp), dev))
         phase_gd_corpus(Path(tmp))
+        second_order = phase_second_order(Path(tmp), dev)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -1228,6 +1522,8 @@ def main() -> int:
                                        "s_only_device_us", "s_only_bound_ms")
                if key in k},
         })
+        if name == "material_coefficients":
+            entries[-1]["launches_second_order"] = second_order
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ and the internal force is s_e (g_e . u_e) g_e.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,6 +119,13 @@ class TrussProblem:
     @property
     def ndof(self) -> int:
         return self.nnode * self.dimension
+
+    def free_fixed(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(free, fixed) DOF index arrays, each sorted ascending."""
+        fixed = np.unique(np.asarray(self.fixed_dofs, dtype=int).reshape(-1))
+        mask = np.ones(self.ndof, dtype=bool)
+        mask[fixed] = False
+        return np.flatnonzero(mask), fixed
 
     @property
     def node_coords_2d(self) -> np.ndarray:

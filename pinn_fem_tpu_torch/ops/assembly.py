@@ -6,6 +6,8 @@ MLPs that kernel 4 takes (ops/kernels/material_kernel.py,
 `fused_coefficients_supported`), (E, A, s) come from
 `fused_material_coefficients`: the CUDA kernels on a card, their twin on
 the CPU.  Otherwise each field's own `eval_batch` (the torch form).
+`torch_form=True` takes the torch form on every device: the route of the
+second-order methods (see `material_coefficients`).
 
 Every scatter-add accumulates in float64 and rounds once to the working
 type (`scatter_add`).  A float32 scatter rounds after each addition, so
@@ -31,15 +33,34 @@ from ..models.fields import Material, assembly_inputs
 from ..models.problem import ProblemData
 from .elements import truss_linear_batch
 from .kernels.material_kernel import (fused_coefficients_supported,
-                                      fused_material_coefficients)
+                                      fused_material_coefficients,
+                                      material_coefficients_reference)
 
 
-def material_coefficients(data: ProblemData, material: Material, load_factor
+def material_coefficients(data: ProblemData, material: Material, load_factor,
+                          torch_form: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(young, area, s = young * area / L) at all element midpoints."""
+    """(young, area, s = young * area / L) at all element midpoints.
+
+    torch_form=False is the value route: kernel 4 where
+    `fused_coefficients_supported` holds (its twin on the CPU).
+    torch_form=True evaluates the same functions in torch ops on every
+    device (`material_coefficients_reference`, or each field's
+    `eval_batch`), so torch.func can differentiate them to any order.
+    This is the form the full-NR and Gauss-Newton methods differentiate,
+    not a fallback: the JAX package's full-NR and Gauss-Newton
+    differentiate its XLA form (pinn_fem_tpu/ops/assembly.py:30) and never
+    its Pallas kernel, and kernel 4's backward (4b) is first-order only
+    (`MaterialCoefficients` has no forward-mode or vmap rule, so torch.func
+    refuses it).  A forward-over-reverse rule for kernel 4 waits for a card
+    measurement that asks for it (ROADMAP item 6)."""
     if fused_coefficients_supported(material, data.dimension):
-        young, area, _, s = fused_material_coefficients(data, material,
-                                                        load_factor)
+        if torch_form:
+            young, area, _, s = material_coefficients_reference(
+                data.mid, data.inv_len, load_factor, material)
+        else:
+            young, area, _, s = fused_material_coefficients(data, material,
+                                                            load_factor)
         return young, area, s
     x = assembly_inputs(data.mid, data.dimension, load_factor)
     young, area = material.young.eval_batch(x), material.area.eval_batch(x)
@@ -85,11 +106,13 @@ def assemble_system(data: ProblemData, material: Material, u: torch.Tensor,
 
 
 def internal_force_and_strain(data: ProblemData, material: Material,
-                              u: torch.Tensor, load_factor=1.0
+                              u: torch.Tensor, load_factor=1.0,
+                              torch_form: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Matrix-free internal force (K is never formed) and element strains:
-    the GD loss's hot path."""
-    _, _, s = material_coefficients(data, material, load_factor)
+    the GD loss's hot path.  torch_form: the material's route, as in
+    `material_coefficients`."""
+    _, _, s = material_coefficients(data, material, load_factor, torch_form)
     u_e = u[data.dof_map]
     gu = torch.sum(data.gvec * u_e, dim=-1)
     fe = (s * gu)[:, None] * data.gvec

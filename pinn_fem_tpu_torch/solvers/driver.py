@@ -3,14 +3,15 @@ pinn_fem_tpu/solvers/driver.py).
 
 Method resolution (explicit config.method, else: no NN and no measurements
 -> "nr", otherwise "gd"), load stepping lf_i = lf0 + (i/n)(lf1 - lf0),
-warm starts between increments, early stop on a non-converged increment,
-and the last increment's result.  The problem arrays are moved to the
-device once and shared by every increment.
+warm starts between increments (full-nr only under config.nr_warm_start),
+early stop on a non-converged increment, and the last increment's result.
+The problem arrays are moved to the device once and shared by every
+increment.
 
-Ported methods: "nr"; "full-nr" with scalar materials, which is classic
-NR (as pinn_fem_tpu/solvers/full_newton.py:90-92 delegates); "gd" and
-"hybrid".  "gn" and "full-nr" with NN materials need second derivatives
-through the material kernels (ROADMAP item 6).
+Every method of the JAX driver is ported: "nr"; "gd" and "hybrid";
+"full-nr" (classic NR with scalar materials, the coupled (u, theta)
+Newton with NN fields); and "gn".  The JAX driver's checkpoint_dir /
+resume wait for ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -24,13 +25,15 @@ from ..config import SolverConfig, SolverResult
 from ..models.problem import TrussProblem
 from ..utils.progress import (PACKAGE_LOGGER, ensure_console_logging,
                               log_gd_progress)
+from .full_newton import solve_full_nr
+from .gauss_newton import solve_gauss_newton
 from .gd import solve_gd
 from .hybrid import solve_hybrid
 from .newton import solve_nr
 
 logger = logging.getLogger(f"{PACKAGE_LOGGER}.solvers")
 
-_NOT_PORTED = ("gn",)
+METHODS = ("nr", "gd", "hybrid", "full-nr", "full_nr", "gn")
 
 
 def resolve_method(problem: TrussProblem, config: SolverConfig,
@@ -44,15 +47,6 @@ def resolve_method(problem: TrussProblem, config: SolverConfig,
     return "gd"
 
 
-def _check_ported(method: str, problem: TrussProblem) -> None:
-    nn = problem.material.has_trainable_params
-    if method in _NOT_PORTED or (method in ("full-nr", "full_nr") and nn):
-        what = f"method {method!r}" + (" with NN materials" if nn else "")
-        raise NotImplementedError(f"{what} is not yet ported, ROADMAP item 6")
-    if method not in ("nr", "full-nr", "full_nr", "gd", "hybrid"):
-        raise ValueError(f"Unknown solver method: {method}")
-
-
 def solve(problem: TrussProblem, config: Optional[SolverConfig] = None,
           measured_disp: Optional[np.ndarray] = None,
           measured_dofs: Optional[np.ndarray] = None, verbose: bool = True,
@@ -60,7 +54,8 @@ def solve(problem: TrussProblem, config: Optional[SolverConfig] = None,
     """Universal incremental solve on `device` ("cuda" when None)."""
     config = config or SolverConfig()
     method = resolve_method(problem, config, measured_disp, measured_dofs)
-    _check_ported(method, problem)
+    if method not in METHODS:
+        raise ValueError(f"Unknown solver method: {method}")
     data = problem.to_device(device)
     if verbose:
         ensure_console_logging()
@@ -83,13 +78,26 @@ def solve(problem: TrussProblem, config: Optional[SolverConfig] = None,
             result = solve_hybrid(problem, config, measured_disp,
                                   measured_dofs, target_load_factor=load_factor,
                                   u_initial=u_current, data=data)
-        else:  # "nr" and scalar "full-nr" are the same solve.
+        elif method in ("full-nr", "full_nr"):
+            # As in the JAX driver: the warm start only under
+            # config.nr_warm_start (the reference never warm-starts).
+            result = solve_full_nr(
+                problem, config, measured_disp, measured_dofs,
+                target_load_factor=load_factor, data=data,
+                u_initial=u_current if config.nr_warm_start else None)
+        elif method == "gn":
+            result = solve_gauss_newton(
+                problem, config, measured_disp, measured_dofs,
+                target_load_factor=load_factor, u_initial=u_current,
+                data=data)
+        else:
             result = solve_nr(problem, config, target_load_factor=load_factor,
                               u_initial=u_current, data=data)
 
         u_current = result.displacements.flatten()
         if verbose:
-            # The reference's per-iteration GD table, from the history.
+            # The reference's progress table (GD or full-NR rows), from
+            # the history.
             log_gd_progress(result.history, config.print_every)
             status = "CONVERGED" if result.converged else "FAILED"
             logger.info("%4d | %12.6f | %10s", iinc, load_factor, status)

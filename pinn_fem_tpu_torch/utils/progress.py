@@ -1,9 +1,10 @@
 """Console progress output (counterpart of pinn_fem_tpu/utils/progress.py).
 
-The GD loop keeps its history rows on the host, so the reference's
-progress table (solver.py:245-249, 325-333) is printed from the history
-after each increment, through the package logger.  The full-NR table
-comes with the full-NR solver (ROADMAP item 6).
+The GD and full-NR loops keep their history rows on the host, so the
+reference's progress table (solver.py:245-249, 325-333) is printed from
+the history after each increment, through the package logger; full-NR
+rows get their own columns, Gauss-Newton rows no table, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -29,13 +30,36 @@ def ensure_console_logging() -> None:
         pkg.setLevel(logging.INFO)
 
 
+def _log_full_nr_progress(log: logging.Logger, rows: List[Dict[str, float]],
+                          print_every: int) -> None:
+    """Full-NR rows: iterations 0 and 1, every print_every-th, the last."""
+    log.info("%s", f"{'Iter':>6} | {'Loss Total':>12} | "
+                   f"{'Loss Physics':>12} | {'||R||':>12} | "
+                   f"{'|grad u|':>10} | {'|grad th|':>10}")
+    log.info("%s", "-" * 78)
+    for e in rows:
+        it = int(e.get("iteration", 0))
+        if not (it <= 1 or it % print_every == 0 or e is rows[-1]):
+            continue
+        rnorm = (2.0 * e.get("loss_physics", 0.0)) ** 0.5
+        log.info("%s", f"{it:6d} | {e.get('loss_total', 0.0):12.3e} | "
+                       f"{e.get('loss_physics', 0.0):12.3e} | {rnorm:12.3e} | "
+                       f"{e.get('grad_norm_u', 0.0):10.3e} | "
+                       f"{e.get('grad_norm_theta', 0.0):10.3e}")
+
+
 def log_gd_progress(history: List[Dict[str, float]], print_every: int
                     ) -> None:
-    """The reference's GD progress table from GD history rows (rows
-    without "residual_norm", such as NR summaries, are skipped): iteration
-    1, every print_every-th iteration, and the last row."""
+    """The reference's progress table from the history: full-NR rows
+    (those with "grad_norm_u") in their own table, else GD rows (rows
+    without "residual_norm", such as NR summaries, are skipped):
+    iteration 1, every print_every-th iteration, and the last row."""
     log = logging.getLogger(f"{PACKAGE_LOGGER}.solvers")
     print_every = max(print_every, 1)
+    fnr_rows = [e for e in history if "grad_norm_u" in e]
+    if fnr_rows:
+        _log_full_nr_progress(log, fnr_rows, print_every)
+        return
     rows = [e for e in history if "residual_norm" in e]
     if not rows:
         return

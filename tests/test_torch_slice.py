@@ -241,10 +241,6 @@ def test_cli_cuda_without_card_is_an_error(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("doc,item", [
-    ({"solver_config": {"method": "full-nr"},
-      "nn_config": {"young": {"enabled": True, "input_dim": 3}}},
-     "ROADMAP item 6"),
-    ({"solver_config": {"method": "gn"}}, "ROADMAP item 6"),
     ({"thermal": {"alpha": 1.0, "delta_t": 1.0}}, "ROADMAP item 4"),
     ({"prescribed_displacements": {"dofs": [2], "values": [0.1]}},
      "ROADMAP item 4"),
