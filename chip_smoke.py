@@ -60,7 +60,24 @@ code is not 0 and no result line is printed:
      per iteration, the device's idle share (torch.profiler over
      FNR_SPLIT_ITERS iterations), the peak memory, the loss falling at
      every accepted step, finite rows, and the first FNR_CPU_ROWS rows
-     against a CPU run of the same document (the twin).
+     against a CPU run of the same document (the twin);
+ 10. thermal loads, support settlement and Green-Lagrange Newton: the
+     100 x 200 grid as a thermal document (a per-node temperature
+     gradient, alpha dT up to 0.5 against load strains of about 1; tol
+     1e-5, 2 increments), as a settlement document (the right edge's
+     x-DOFs settled 0.01, -1e-2 on each top-row node's y-DOF) and as a
+     settlement-only document, each through main() on cuda twice (ms warm,
+     Newton and PCG iterations, kernels 1-3's launches with one update per
+     direction pass): thermal converged, its float64 residual with f + f_th
+     <= sqrt(tol) and u within 1e-3 of float64; settlement converged, u
+     within 1e-3 of a float64 solve of K_ff u_f = f_f - K_fp u_p, the
+     settled values kept and their reactions within 1e-3 of float64
+     K u - f; settlement only converged: false, as the JAX package gives
+     (ROADMAP fault 3.9), with u within 1e-3 of float64; and
+     solve_nr(geometric_nonlinear=True) on the 32 x 32 grid (2,048 DOFs,
+     the dense limit) with strains of 10-40 %: its float64 Green-Lagrange
+     equilibrium residual, its distance from the linear solve, ms per
+     Newton iteration, and the singular tangent's RuntimeError on the card.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -71,7 +88,8 @@ device us per launch from the profiler, for the two PCG kernels the
 wrapper's ms per call beside the ms of the launch bound once as the PCG
 loop calls it, and for the material kernels the host us per wrapper call
 (the backward also its twin's ms and the s-only call's ms and bound;
-kernel 4 also its launches on phase 9's paths); the last is {"ok": true,
+kernel 4 also its launches on phase 9's paths, kernels 1-3 theirs on
+phase 10's documents); the last is {"ok": true,
 "device": {...}}.  Needs one card; imports no JAX.
 """
 
@@ -133,6 +151,18 @@ FNR_ROWS_RTOL = 1e-4
 # ||(f_int - f)_free|| at the identified material
 # (tests/test_examples_e2e.py:76-86).
 FNR_RESIDUAL = 1e-5
+# Phase 10: the settlement document's load on each top-row node's y-DOF
+# (with the right edge settled 0.01, it converges at the grid's tol, where
+# a load of -1e-4 leaves the residual at the float32 floor); the settled
+# DOFs' reactions against float64 (the 24 x 48 grid on the CPU: 2.4e-5);
+# the Green-Lagrange grid at the dense limit and its load factor (strains
+# of about 20 %), and its float64 equilibrium residual
+# ||(f_int(u) - f)_free|| / ||f_free||.
+SETTLE_TOP_LOAD = -1e-2
+SETTLED_REACTIONS_RTOL = 1e-3
+GL_GRID = (32, 32)
+GL_LOAD = 0.3
+GL_RESIDUAL = 1e-3
 BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FLOPS = 67e12           # H100 SXM FP32, outside the tensor cores
 CSRC = "pinn_fem_tpu_torch/ops/kernels/csrc/"
@@ -1489,6 +1519,154 @@ def phase_second_order(workdir: Path, dev):
     return launches
 
 
+def run_document(workdir: Path, name: str, doc: dict):
+    """One document through main() twice: (result, displacements, the
+    banded kernels' launches in the first run, its s, the warm run's s)."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.ops import kernels
+
+    path = workdir / f"{name}.json"
+    path.write_text(json.dumps(doc))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = main([str(path)])
+    first_s = time.perf_counter() - t0
+    launches = {k: kernels.launch_counts()[k] for k in BANDED}
+    require(rc == 0, f"{name}: exit code 0")
+    t0 = time.perf_counter()
+    require(main([str(path)]) == 0, f"{name}: warm exit code 0")
+    warm_s = time.perf_counter() - t0
+    out = json.loads((workdir / f"{name}.res.json").read_text())
+    u = np.asarray(out["displacements"], float).reshape(-1)
+    require(bool(np.all(np.isfinite(u))) and u.size == len(doc["loads"]),
+            f"{name}: finite displacements of the expected shape")
+    for k in BANDED:
+        require(launches[k] > 0, f"{name}: {k} launched")
+    require(launches["dia_dir_matvec"] == launches["cg_update"],
+            f"{name}: one update per direction pass")
+    return out, u, launches, first_s, warm_s
+
+
+def phase_truss_extensions(workdir: Path, dev, card: str):
+    """Thermal and settlement documents on the 100 x 200 grid through
+    main(), and the Green-Lagrange Newton at the dense limit (section 10
+    of the module docstring).  Returns kernels 1-3's launches on each
+    document."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import SolverConfig, TrussProblem, solve_nr
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.models.fields import Material
+
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    launches = {}
+
+    doc = eg.thermal_grid_document(*GRID, tolerance=GRID_TOL, n_increments=2)
+    out, u, counts, first_s, warm_s = run_document(workdir, "thermal", doc)
+    th = doc["thermal"]
+    f = np.asarray(doc["loads"], float) + eg.float64_thermal_loads(
+        doc["nodes"], doc["elements"], th["alpha"], th["delta_t"])
+    residual, u_err = float64_check(dict(doc, loads=f.tolist()), u)
+    log("phase10_thermal", card=card, ndof=u.size,
+        converged=out["converged"], history=out["history"],
+        float64_residual=residual, u_rel_err_vs_scipy=u_err,
+        first_in_process_s=first_s, warm_s=warm_s, launches=counts,
+        # Two stencils a Newton iteration and one an increment (reactions).
+        newton_iterations_both_increments=(counts["dia_matvec"] - 2) // 2,
+        pcg_iterations=counts["cg_update"],
+        max_alpha_dt=th["alpha"] * max(th["delta_t"]))
+    require(out["converged"] is True, "thermal grid converged")
+    require(residual <= GRID_TOL ** 0.5,
+            "thermal float64 residual <= sqrt(tol)")
+    require(u_err <= 1e-3, "thermal max|u - u_f64| / max|u_f64| <= 1e-3")
+    launches["thermal"] = counts
+
+    for name, top_load in (("settlement", SETTLE_TOP_LOAD),
+                           ("settlement_only", 0.0)):
+        doc = eg.settlement_grid_document(*GRID, top_load=top_load,
+                                          tolerance=GRID_TOL)
+        out, u, counts, first_s, warm_s = run_document(workdir, name, doc)
+        u64, r64, _, _ = eg.float64_reference(doc)
+        settled = np.asarray(doc["prescribed_displacements"]["dofs"])
+        u_err = float(np.abs(u - u64).max() / np.abs(u64).max())
+        r = np.asarray(out["reactions"], float).reshape(-1)
+        r_err = float(np.abs(r[settled] - r64[settled]).max()
+                      / np.abs(r64[settled]).max())
+        log(f"phase10_{name}", card=card, ndof=u.size,
+            converged=out["converged"], history=out["history"],
+            u_rel_err_vs_scipy=u_err, settled_reactions_rel_err=r_err,
+            settled_values_kept=bool(np.all(
+                u[settled] == np.float32(doc["prescribed_displacements"]
+                                         ["values"][0]))),
+            first_in_process_s=first_s, warm_s=warm_s, launches=counts,
+            newton_iterations=(counts["dia_matvec"] - 1) // 2,
+            pcg_iterations=counts["cg_update"])
+        require(u_err <= 1e-3, f"{name}: max|u - u_f64| / max|u_f64| <= 1e-3")
+        require(r_err <= SETTLED_REACTIONS_RTOL,
+                f"{name}: settled reactions within {SETTLED_REACTIONS_RTOL} "
+                "of float64")
+        if top_load:
+            require(out["converged"] is True, f"{name} converged")
+        else:
+            # ROADMAP fault 3.9: no free load, so the banded residual is
+            # divided by min_denominator and stays far above tol, as in
+            # the JAX package.  Reported, not a failure.
+            require(out["converged"] is False,
+                    "settlement only: converged false, as the JAX package")
+        launches[name] = counts
+
+    nodes, elements, loads, fixed = eg.grid_arrays(*GL_GRID)
+    problem = TrussProblem(nodes=nodes, elements=elements,
+                           material=Material(young=1.0, area=1.0,
+                                             density=1.0),
+                           loads=loads * GL_LOAD, fixed_dofs=fixed,
+                           dimension=2)
+    require(problem.ndof <= 2048, "Green-Lagrange grid at the dense limit")
+    cfg = SolverConfig(max_iterations=50, tolerance=1e-6)
+    res = solve_nr(problem, cfg, 1.0, geometric_nonlinear=True, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_nr(problem, cfg, 1.0, geometric_nonlinear=True, device=dev)
+    torch.cuda.synchronize()
+    gl_s = time.perf_counter() - t0
+    lin = solve_nr(problem, cfg, 1.0, device=dev)
+    u = np.asarray(res.displacements, float).reshape(-1)
+    f = problem.loads
+    free = np.setdiff1d(np.arange(f.size), fixed)
+    f_int = eg.float64_green_lagrange_force(nodes, elements, u)
+    gl_residual = float(np.linalg.norm((f_int - f)[free])
+                        / np.linalg.norm(f[free]))
+    u_lin = np.asarray(lin.displacements, float).reshape(-1)
+    gap = float(np.abs(u - u_lin).max() / np.abs(u).max())
+    iters = res.history[0]["iterations"]
+    singular = None
+    try:
+        solve_nr(TrussProblem(
+            nodes=np.array([[0.0, 0.0], [1.0, 0.0]]),
+            elements=np.array([[0, 1]]),
+            material=Material(young=1.0, area=1.0, density=1.0),
+            loads=np.array([0.0, 0.0, 1.0, 0.0]),
+            fixed_dofs=np.array([0, 1]), dimension=2), device=dev)
+    except RuntimeError as e:
+        singular = str(e)
+    log("phase10_green_lagrange", card=card, grid=list(GL_GRID),
+        ndof=problem.ndof, converged=res.converged, history=res.history,
+        float64_gl_residual=gl_residual, u_gap_vs_linear=gap, warm_s=gl_s,
+        ms_per_newton_iteration=1e3 * gl_s / iters, singular_error=singular)
+    require(res.converged, "Green-Lagrange grid converged")
+    require(0.1 <= res.history[0]["max_strain"] <= 0.4,
+            "Green-Lagrange strains of 10-40 %")
+    require(gl_residual <= GL_RESIDUAL,
+            f"float64 Green-Lagrange residual <= {GL_RESIDUAL}")
+    require(gap >= 0.02, "Green-Lagrange u differs from the linear solve")
+    require(singular == "Tangent stiffness became singular during solve",
+            "singular tangent raises the JAX package's RuntimeError")
+    return launches
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -1503,6 +1681,7 @@ def main() -> int:
         launches.update(phase_gd_main_path(Path(tmp), dev))
         phase_gd_corpus(Path(tmp))
         second_order = phase_second_order(Path(tmp), dev)
+        truss_ext = phase_truss_extensions(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -1524,6 +1703,9 @@ def main() -> int:
         })
         if name == "material_coefficients":
             entries[-1]["launches_second_order"] = second_order
+        if name in BANDED:
+            entries[-1]["launches_truss_ext"] = {
+                doc: counts[name] for doc, counts in truss_ext.items()}
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

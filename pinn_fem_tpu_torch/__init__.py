@@ -11,7 +11,9 @@ PINN identification by gradient descent (methods gd and hybrid), whose
 loss evaluates MLP material fields with the material kernels; and the
 second-order methods full-nr with NN fields and gn, which differentiate
 the torch form of the material twice and evaluate values with the
-kernels.  ROADMAP.md lists what is still to port.
+kernels.  Truss documents may carry thermal loads and prescribed support
+displacements, and solve_nr takes Green-Lagrange kinematics on the dense
+path.  ROADMAP.md lists what is still to port.
 
 Float32 by default.  TF32 is switched off for every contraction, because
 rounded inputs break the symmetry the Cholesky and PCG solves rely on.
@@ -31,6 +33,7 @@ from .models.fields import (  # noqa: E402
     material_from_numpy,
 )
 from .models.problem import ProblemData, TrussProblem  # noqa: E402
+from .ops.thermal import thermal_free_strains, thermal_loads  # noqa: E402
 from .solvers.driver import solve  # noqa: E402
 from .solvers.full_newton import solve_full_nr  # noqa: E402
 from .solvers.gauss_newton import solve_gauss_newton  # noqa: E402
@@ -42,5 +45,5 @@ __all__ = [
     "Material", "MLPField", "ProblemData", "ScalarField", "SolverConfig",
     "SolverResult", "TrussProblem", "make_mlp_field", "material_from_numpy",
     "solve", "solve_full_nr", "solve_gauss_newton", "solve_gd",
-    "solve_hybrid", "solve_nr",
+    "solve_hybrid", "solve_nr", "thermal_free_strains", "thermal_loads",
 ]

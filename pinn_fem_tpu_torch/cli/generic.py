@@ -9,6 +9,8 @@ pinn_fem_tpu/cli/generic.py).
     reactions, history}, and for NN materials nn_parameters and
     identified_properties;
   * a solve that does not converge writes success: false and exits 0;
+  * a "prescribed_displacements" document (support settlement) takes one
+    Newton solve at the full load (method nr or auto), as in the JAX CLI;
   * exit code 1, with "[ERROR]" and the traceback in the log, on failure.
 
 The device comes from PINN_FEM_TORCH_DEVICE (default "cuda"); asking for
@@ -26,10 +28,13 @@ import sys
 from datetime import datetime
 from pathlib import Path
 
+import numpy as np
+
 from ..io.results import result_to_output_dict
 from ..io.schema import parse_problem_dict
 from ..solvers.auto import solve_auto
 from ..solvers.driver import resolve_method
+from ..solvers.newton import solve_nr
 from ..utils.progress import PACKAGE_LOGGER
 from ..utils.runtime import resolve_device
 
@@ -77,6 +82,12 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
             f'"{family}" element documents are not yet ported, ROADMAP item '
             f"{_ELEMENT_FAMILIES[family]}")
     if isinstance(raw, dict) and raw.get("analysis"):
+        if raw.get("prescribed_displacements"):
+            # The prescribed DOFs join fixed_dofs, but their nonzero values
+            # reach only the Newton settlement route: an analysis would
+            # clamp them at zero.
+            raise ValueError("prescribed_displacements cannot be combined "
+                             "with an analysis block")
         raise NotImplementedError(
             '"analysis" documents are not yet ported, ROADMAP item 17')
     parsed = parse_problem_dict(raw, seed=seed)
@@ -94,14 +105,32 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         resolve_method(problem, config, parsed.measured_disp, parsed.measured_dofs),
     )
 
+    if output_file is None:
+        p = Path(problem_file)
+        output_file = str(p.parent / f"{p.stem}.res.json")
+
+    if parsed.prescribed is not None:
+        # Support settlement: one Newton solve at the full load, with the
+        # prescribed values of the fixed DOFs.
+        method = resolve_method(problem, config, parsed.measured_disp,
+                                parsed.measured_dofs)
+        if method not in ("nr", "auto"):
+            raise ValueError("prescribed_displacements require the "
+                             f"Newton-Raphson path (got method={method!r})")
+        logger.info("Prescribed displacements on %d DOFs",
+                    int(np.count_nonzero(parsed.prescribed)))
+        result = solve_nr(problem, config, 1.0,
+                          prescribed_u=parsed.prescribed, device=device)
+        output = result_to_output_dict(result, problem)
+        with open(output_file, "w") as f:
+            json.dump(output, f, indent=2)
+        logger.info("Results written to %s", output_file)
+        return output
+
     result = solve_auto(problem, config, measured_disp=parsed.measured_disp,
                         measured_dofs=parsed.measured_dofs, verbose=True,
                         device=device)
     output = result_to_output_dict(result, problem)
-
-    if output_file is None:
-        p = Path(problem_file)
-        output_file = str(p.parent / f"{p.stem}.res.json")
     with open(output_file, "w") as f:
         json.dump(output, f, indent=2)
 

@@ -6,7 +6,13 @@ The 100 x 200 grid (40,000 DOFs, 79,102 elements) is the repository's
 large-mesh Newton figure; the 1,000,001-node chain (2,000,002 DOFs, 7
 diagonals) is its matvec and CG-iteration figure.  `pinn_grid_document`
 makes the grid a PINN identification document (three MLP fields, measured
-displacements), the large-mesh figure of the GD path.
+displacements), the large-mesh figure of the GD path;
+`thermal_grid_document` and `settlement_grid_document` make it a thermal
+and a support-settlement document, with float64 references
+(`float64_thermal_loads`, `float64_solution(..., prescribed)`,
+`float64_reference` for a whole document), and
+`float64_green_lagrange_force` recomputes the Green-Lagrange internal
+force from a solution.
 """
 
 from __future__ import annotations
@@ -65,6 +71,41 @@ def grid_document(rows: int, cols: int, tolerance: float = 1e-5,
     }
 
 
+def grid_delta_t(rows: int, cols: int, top: float) -> np.ndarray:
+    """Per-node temperature change of the grid: 0 on the bottom row, rising
+    linearly to `top` on the top row."""
+    return np.repeat(np.linspace(0.0, top, rows), cols)
+
+
+def thermal_grid_document(rows: int, cols: int, alpha: float = 1e-2,
+                          top: float = 50.0, **config) -> dict:
+    """The grid document (`grid_document`) with a "thermal" block: a
+    per-node temperature gradient (`grid_delta_t`), so alpha dT runs from 0
+    at the bottom row to alpha * top at the top row."""
+    doc = grid_document(rows, cols, **config)
+    doc["description"] += ", heated from the bottom row up"
+    doc["thermal"] = {"alpha": alpha,
+                      "delta_t": grid_delta_t(rows, cols, top).tolist()}
+    return doc
+
+
+def settlement_grid_document(rows: int, cols: int, settlement: float = 0.01,
+                             top_load: float = -1e-4, **config) -> dict:
+    """The grid document with its right edge's x-DOFs prescribed to
+    `settlement` (they become fixed) and the loads replaced by `top_load`
+    on each top-row node's y-DOF (zero: settlement only)."""
+    doc = grid_document(rows, cols, **config)
+    nid = np.arange(rows * cols).reshape(rows, cols)
+    loads = np.zeros(2 * rows * cols)
+    loads[2 * nid[-1, 1:] + 1] = top_load
+    doc["description"] += ", right edge settled"
+    doc["loads"] = loads.tolist()
+    doc["prescribed_displacements"] = {
+        "dofs": (2 * nid[:, -1]).tolist(),
+        "values": [settlement] * rows}
+    return doc
+
+
 def chain_problem(n_nodes: int) -> TrussProblem:
     """Straight 2D chain, pinned at node 0, pulled at the free end."""
     nodes = np.stack([np.arange(n_nodes, dtype=float), np.zeros(n_nodes)], 1)
@@ -74,6 +115,12 @@ def chain_problem(n_nodes: int) -> TrussProblem:
     return TrussProblem(nodes=nodes, elements=elements,
                         material=Material(young=1.0, area=1.0, density=1.0),
                         loads=loads, fixed_dofs=np.array([0, 1]), dimension=2)
+
+
+def _dofs_2d(el) -> np.ndarray:
+    """(nelm, 4) global DOFs of 2D elements [[i, j], ...]."""
+    return np.concatenate([2 * el[:, :1], 2 * el[:, :1] + 1,
+                           2 * el[:, 1:], 2 * el[:, 1:] + 1], axis=1)
 
 
 def float64_stiffness(nodes, elements):
@@ -86,25 +133,88 @@ def float64_stiffness(nodes, elements):
     dx = nodes[el[:, 1]] - nodes[el[:, 0]]
     length = np.linalg.norm(dx, axis=1)
     g = np.concatenate([-dx, dx], axis=1) / length[:, None]
-    dof = np.concatenate([2 * el[:, :1], 2 * el[:, :1] + 1,
-                          2 * el[:, 1:], 2 * el[:, 1:] + 1], axis=1)
+    dof = _dofs_2d(el)
     ke = g[:, :, None] * g[:, None, :] / length[:, None, None]
     return sp.coo_matrix((ke.ravel(), (np.repeat(dof, 4, 1).ravel(),
                                        np.tile(dof, (1, 4)).ravel())),
                          shape=(ndof, ndof)).tocsr()
 
 
-def float64_solution(nodes, elements, loads, fixed_dofs) -> np.ndarray:
+def float64_thermal_loads(nodes, elements, alpha: float,
+                          delta_t_nodes) -> np.ndarray:
+    """f_th = sum_e alpha dT_e g_e of a 2D truss with E = A = 1 in float64,
+    dT_e the mean of the element's two node values."""
+    nodes, el = np.asarray(nodes, float), np.asarray(elements)
+    dt_n = np.asarray(delta_t_nodes, float)
+    dx = nodes[el[:, 1]] - nodes[el[:, 0]]
+    g = np.concatenate([-dx, dx], axis=1) / np.linalg.norm(
+        dx, axis=1)[:, None]
+    coef = alpha * 0.5 * (dt_n[el[:, 0]] + dt_n[el[:, 1]])
+    dof = _dofs_2d(el)
+    f = np.zeros(2 * nodes.shape[0])
+    np.add.at(f, dof, coef[:, None] * g)
+    return f
+
+
+def float64_green_lagrange_force(nodes, elements, u) -> np.ndarray:
+    """Internal force of a 2D truss with E = A = 1 under Green-Lagrange
+    kinematics, in float64: sum_e (1/L0) e_gl d_e, d_e = [-dx, dx] the
+    deformed chord, e_gl = (dx0.delta + |delta|^2 / 2) / L0^2."""
+    nodes, el = np.asarray(nodes, float), np.asarray(elements)
+    u2 = np.asarray(u, float).reshape(-1, 2)
+    dx0 = nodes[el[:, 1]] - nodes[el[:, 0]]
+    delta = u2[el[:, 1]] - u2[el[:, 0]]
+    l0_sq = np.sum(dx0 * dx0, axis=1)
+    e_gl = (np.sum(dx0 * delta, axis=1)
+            + 0.5 * np.sum(delta * delta, axis=1)) / l0_sq
+    dx = dx0 + delta
+    fe = (e_gl / np.sqrt(l0_sq))[:, None] * np.concatenate([-dx, dx], 1)
+    dof = _dofs_2d(el)
+    f = np.zeros(2 * nodes.shape[0])
+    np.add.at(f, dof, fe)
+    return f
+
+
+def float64_solution(nodes, elements, loads, fixed_dofs,
+                     prescribed=None) -> np.ndarray:
     """Displacements of a 2D truss with E = A = 1 by a float64 sparse
-    direct solve (scipy)."""
+    direct solve (scipy): K_ff u_f = f_f - K_fp u_p, where u_p, the
+    fixed DOFs' values, is `prescribed` (ndof,) or zero."""
     import scipy.sparse.linalg as spl
 
     k = float64_stiffness(nodes, elements)
     f = np.asarray(loads, float)
+    u = (np.zeros(f.size) if prescribed is None
+         else np.asarray(prescribed, float).copy())
     free = np.setdiff1d(np.arange(f.size), fixed_dofs)
-    u = np.zeros(f.size)
-    u[free] = spl.spsolve(k[free][:, free].tocsc(), f[free])
+    u[free] = 0.0
+    rhs = f - k @ u
+    u[free] = spl.spsolve(k[free][:, free].tocsc(), rhs[free])
     return u
+
+
+def float64_reference(doc: dict):
+    """(u, reactions, f, fixed) of a 2D truss document with E = A = 1 in
+    float64: f the loads with the thermal block's f_th, fixed the fixed
+    DOFs with the prescribed ones, u from `float64_solution` with the
+    prescribed values, reactions K u - f on the fixed DOFs (0 on the
+    free)."""
+    f = np.asarray(doc["loads"], float)
+    fixed = np.asarray(doc["fixed_dofs"], int)
+    prescribed = None
+    if "thermal" in doc:
+        th = doc["thermal"]
+        f = f + float64_thermal_loads(doc["nodes"], doc["elements"],
+                                      th["alpha"], th["delta_t"])
+    if "prescribed_displacements" in doc:
+        pd = doc["prescribed_displacements"]
+        prescribed = np.zeros(f.size)
+        prescribed[pd["dofs"]] = pd["values"]
+        fixed = np.union1d(fixed, pd["dofs"])
+    u = float64_solution(doc["nodes"], doc["elements"], f, fixed, prescribed)
+    reactions = float64_stiffness(doc["nodes"], doc["elements"]) @ u - f
+    reactions[np.setdiff1d(np.arange(f.size), fixed)] = 0.0
+    return u, reactions, f, fixed
 
 
 def pinn_grid_document(rows: int, cols: int, max_iterations: int = 500,

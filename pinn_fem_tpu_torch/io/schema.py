@@ -16,8 +16,12 @@ jax.random.PRNGKey(seed * 1000 + k) (k = 0, 1, 2 for young, area,
 density) reproduced in numpy (utils/prng.py), so both CLIs start from the
 same weights.
 
-Not yet ported (ROADMAP item 4): the "thermal" and
-"prescribed_displacements" extensions.
+Two extensions of the JAX package's schema: a "thermal" block
+{"alpha", "delta_t"} whose equivalent loads (ops/thermal.py) join the load
+vector at parse time, evaluated on the CPU (parsing never touches a card);
+and a "prescribed_displacements" block {"dofs", "values"} (support
+settlement), whose DOFs become fixed and whose values reach
+solve_nr(prescribed_u=...) through `ParsedProblem.prescribed`.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ class ParsedProblem:
     config: SolverConfig
     measured_disp: Optional[np.ndarray] = None
     measured_dofs: Optional[np.ndarray] = None
+    prescribed: Optional[np.ndarray] = None  # (ndof,) settlement values
 
 
 def _parse_nodes(nodes_list):
@@ -136,10 +141,6 @@ def _build_material(data, seed: int) -> Material:
 
 
 def parse_problem_dict(data: Dict, seed: int = 0) -> ParsedProblem:
-    for key in ("thermal", "prescribed_displacements"):
-        if data.get(key):
-            raise NotImplementedError(
-                f'"{key}" documents are not yet ported, ROADMAP item 4')
     nodes_list = data.get("nodes", [])
     nodes, problem_dim, _ = _parse_nodes(nodes_list)
     elements = _parse_elements(data.get("elements", []))
@@ -187,6 +188,36 @@ def parse_problem_dict(data: Dict, seed: int = 0) -> ParsedProblem:
         point_masses=point_masses,
     )
 
+    thermal = data.get("thermal")
+    if thermal:
+        if material.has_trainable_params:
+            # f_th would be frozen at the initial field values, and an
+            # inverse solve would identify against a stale thermal load.
+            raise ValueError(
+                "thermal loading with trainable (NN) material fields is "
+                "not supported: the equivalent loads E A alpha dT would "
+                "be frozen at the initial field values")
+        from ..ops.thermal import element_delta_t, thermal_loads
+
+        tdata = problem.to_device("cpu")
+        dt_e = element_delta_t(tdata, thermal["delta_t"], n_nodes)
+        f_th = thermal_loads(tdata, material, thermal.get("alpha", 1.0), dt_e)
+        problem.loads = problem.loads + f_th.numpy().astype(float)
+
+    prescribed = None
+    pd = data.get("prescribed_displacements")
+    if pd:
+        pdofs = np.asarray(pd["dofs"], dtype=int)
+        pvals = np.asarray(pd["values"], dtype=float)
+        if pdofs.shape != pvals.shape:
+            raise ValueError("prescribed dofs/values length mismatch")
+        prescribed = np.zeros(n_dofs)
+        prescribed[pdofs] = pvals
+        extra = np.setdiff1d(pdofs, problem.fixed_dofs)
+        if extra.size:  # prescribing a DOF fixes it
+            problem.fixed_dofs = np.sort(
+                np.concatenate([problem.fixed_dofs, extra]))
+
     sc = data.get("solver_config", {})
     pc = data.get("pinn_config", {})
 
@@ -224,6 +255,7 @@ def parse_problem_dict(data: Dict, seed: int = 0) -> ParsedProblem:
         config=config,
         measured_disp=measured_disp,
         measured_dofs=measured_dofs,
+        prescribed=prescribed,
     )
 
 

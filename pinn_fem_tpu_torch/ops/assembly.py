@@ -31,7 +31,7 @@ import torch
 
 from ..models.fields import Material, assembly_inputs
 from ..models.problem import ProblemData
-from .elements import truss_linear_batch
+from .elements import truss2d_green_lagrange_batch, truss_linear_batch
 from .kernels.material_kernel import (fused_coefficients_supported,
                                       fused_material_coefficients,
                                       material_coefficients_reference)
@@ -95,14 +95,39 @@ def assemble_system(data: ProblemData, material: Material, u: torch.Tensor,
     young, area = material_values(data, material, load_factor)
     u_e = u[data.dof_map]                                  # (nelm, 2d)
     elem = truss_linear_batch(data.gvec, data.inv_len, u_e, young, area)
-    ndof = data.ndof
-    # Flat (row * ndof + col) slots: one scatter_add builds dense K.
-    slots = data.dof_map[:, :, None] * ndof + data.dof_map[:, None, :]
-    k_global = scatter_add(ndof * ndof, slots, elem.ke).reshape(ndof, ndof)
+    k_global = _assemble_dense(data, elem.ke)
     f_int = _scatter_dofs(data, elem.fe_int)
     max_abs_strain = (torch.max(torch.abs(elem.strain)) if data.nelm
                       else torch.zeros((), dtype=u.dtype, device=u.device))
     return k_global, f_int, max_abs_strain
+
+
+def _assemble_dense(data: ProblemData, ke: torch.Tensor) -> torch.Tensor:
+    """Dense (ndof, ndof) K from element blocks: one float64 scatter_add
+    over flat (row * ndof + col) slots."""
+    ndof = data.ndof
+    slots = data.dof_map[:, :, None] * ndof + data.dof_map[:, None, :]
+    return scatter_add(ndof * ndof, slots, ke).reshape(ndof, ndof)
+
+
+def assemble_system_nonlinear(data: ProblemData, material: Material,
+                              u: torch.Tensor, load_factor=1.0
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Green-Lagrange tangent K (ndof, ndof), internal force and max
+    |e_gl| (2D and 3D), as assemble_system returns them.  The rest
+    coordinates come from the midpoints and the rest chords
+    dx0 = g[:, dim:] / inv_len."""
+    if data.dimension not in (2, 3):
+        raise ValueError("geometric nonlinearity requires a 2D or 3D truss")
+    young, area = material_values(data, material, load_factor)
+    dim = data.dimension
+    dx0 = data.gvec[:, dim:] / data.inv_len[:, None]
+    x0 = torch.stack([data.mid - 0.5 * dx0, data.mid + 0.5 * dx0], dim=1)
+    elem = truss2d_green_lagrange_batch(x0, u[data.dof_map], data.inv_len,
+                                        young, area)
+    return (_assemble_dense(data, elem.ke), _scatter_dofs(data, elem.fe_int),
+            torch.max(torch.abs(elem.strain)))
 
 
 def internal_force_and_strain(data: ProblemData, material: Material,

@@ -11,6 +11,8 @@ iterative refinement recovers float32 accuracy after the factorization.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 
@@ -21,11 +23,16 @@ def apply_bc_operator(k: torch.Tensor, free_mask: torch.Tensor) -> torch.Tensor:
 
 
 def masked_solve(k: torch.Tensor, rhs: torch.Tensor, free_mask: torch.Tensor,
-                 refine_steps: int = 1) -> torch.Tensor:
-    """Solve K_ff du_f = rhs_f by Cholesky; du is 0 on fixed DOFs."""
+                 refine_steps: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Solve K_ff du_f = rhs_f by Cholesky; du is 0 on fixed DOFs.
+
+    Returns (du, info): info is cholesky_ex's device code, nonzero when
+    K_bc is not positive definite (JAX's cho_factor returns NaN there), and
+    du is then meaningless.  Reading info is left to the caller, so the
+    solve itself never waits for the device."""
     k_bc = apply_bc_operator(k, free_mask)
     rhs_bc = rhs * free_mask
-    chol = torch.linalg.cholesky(k_bc)
+    chol, info = torch.linalg.cholesky_ex(k_bc)
 
     def solve(b):
         return torch.cholesky_solve(b[:, None], chol)[:, 0]
@@ -34,4 +41,4 @@ def masked_solve(k: torch.Tensor, rhs: torch.Tensor, free_mask: torch.Tensor,
     for _ in range(refine_steps):
         r = (rhs_bc - k_bc @ du) * free_mask
         du = du + solve(r)
-    return du * free_mask
+    return du * free_mask, info

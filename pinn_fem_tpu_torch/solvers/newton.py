@@ -7,7 +7,14 @@ above it, on a banded mesh, each Newton iteration assembles the DIA
 diagonals and solves with the fused two-kernel Jacobi-PCG: the CUDA
 kernels on a card, their plain twins on the CPU.  The Newton loops are
 Python loops that read one flag per Newton iteration; the PCG loop inside
-keeps its state on the device.
+keeps its state on the device.  Geometric nonlinearity (Green-Lagrange)
+takes the dense path only, as in the JAX package.  Prescribed nonzero
+displacements of fixed DOFs (support settlement) take either path.
+
+As in the JAX package, the banded path divides the free residual by
+max(||lf f_free||, min_denominator): a settlement document with no load on
+a free DOF divides by min_denominator, so its relative residual stays far
+above tol and the increment reports converged = false (ROADMAP fault 3.9).
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch
 from ..config import SolverConfig, SolverResult
 from ..models.fields import Material
 from ..models.problem import ProblemData, TrussProblem
-from ..ops.assembly import assemble_system
+from ..ops.assembly import assemble_system, assemble_system_nonlinear
 
 # DOF count above which the dense factorization gives way to banded PCG
 # (dense K is O(ndof^2) memory).
@@ -29,14 +36,22 @@ DENSE_DOF_LIMIT = 2048
 
 def _nr_core(data: ProblemData, material: Material, u0: torch.Tensor,
              load_factor: torch.Tensor, max_iter: int, tol: float,
-             min_denom: float):
-    """One load increment of dense Newton-Raphson."""
+             min_denom: float, nonlinear: bool = False):
+    """One load increment of dense Newton-Raphson (Green-Lagrange
+    kinematics when `nonlinear`)."""
     from .phases import nr_phase
 
-    out = nr_phase(data, material, u0, load_factor, max_iter, tol, min_denom)
-    # Reactions: K u - lf * loads, free DOFs zeroed.
-    k_final, _, _ = assemble_system(data, material, out.u, load_factor)
-    reactions = (k_final @ out.u - load_factor * data.loads) * data.fixed_mask
+    out = nr_phase(data, material, u0, load_factor, max_iter, tol, min_denom,
+                   nonlinear=nonlinear)
+    # Reactions: f_int - lf * loads (K u for linear kinematics), free DOFs
+    # zeroed.
+    if nonlinear:
+        _, f_int, _ = assemble_system_nonlinear(data, material, out.u,
+                                                load_factor)
+    else:
+        k_final, _, _ = assemble_system(data, material, out.u, load_factor)
+        f_int = k_final @ out.u
+    reactions = (f_int - load_factor * data.loads) * data.fixed_mask
     return (out.u, reactions, out.n_iters, out.residual, out.converged,
             out.max_strain)
 
@@ -124,6 +139,7 @@ def solve_nr(
     linear_solver: str = "auto",
     geometric_nonlinear: bool = False,
     cg_precond: str = "auto",
+    prescribed_u: Optional[np.ndarray] = None,
     device=None,
 ) -> SolverResult:
     """Single-increment NR solve (driven by solvers.driver.solve).
@@ -132,11 +148,17 @@ def solve_nr(
     operator), or "auto" (banded above DENSE_DOF_LIMIT).  "cg" prefers the
     banded operator and needs the gather-based PCG only for meshes without
     a banded layout.
+    geometric_nonlinear: opt-in Green-Lagrange kinematics (2D / 3D, dense
+    solver only).
+    prescribed_u: (ndof,) values of the fixed DOFs (support settlement).
+    They seed u0 and persist, since every update is masked to the free
+    DOFs: on the dense path by the masked solve, on the banded path by the
+    PCG's masked result.
     device: where to solve when `data` is not given ("cuda" when None).
     """
-    if geometric_nonlinear:
-        raise NotImplementedError(
-            "geometric nonlinearity is not yet ported, ROADMAP item 5")
+    if geometric_nonlinear and linear_solver not in ("auto", "dense"):
+        raise ValueError(
+            "geometric_nonlinear requires the dense linear solver")
     config = config or SolverConfig()
     if problem.material.has_trainable_params:
         raise ValueError(
@@ -151,9 +173,15 @@ def solve_nr(
                              dtype=dtype).to(dev)
     else:
         u0 = torch.zeros(problem.ndof, dtype=dtype, device=dev)
+    if prescribed_u is not None:
+        up = torch.as_tensor(np.asarray(prescribed_u, dtype=float).reshape(-1),
+                             dtype=dtype).to(dev)
+        u0 = u0 * data.free_mask + up * (1.0 - data.free_mask)
     lf = torch.tensor(target_load_factor, dtype=dtype, device=dev)
 
-    if linear_solver == "auto":
+    if geometric_nonlinear:
+        linear_solver = "dense"
+    elif linear_solver == "auto":
         linear_solver = "cg" if problem.ndof > DENSE_DOF_LIMIT else "dense"
     if linear_solver == "cg":
         if _dia_layout_of(problem, data) is None:
@@ -177,7 +205,8 @@ def solve_nr(
         )
     elif linear_solver == "dense":
         out = _nr_core(data, problem.material, u0, lf, config.max_iterations,
-                       config.tolerance, config.min_denominator)
+                       config.tolerance, config.min_denominator,
+                       nonlinear=geometric_nonlinear)
     else:
         raise ValueError(f"unknown linear_solver {linear_solver!r}")
     u, reactions, it, res, conv, max_strain = out

@@ -26,8 +26,8 @@ import torch
 
 from ..models.fields import Material
 from ..models.problem import ProblemData
-from ..ops.assembly import (assemble_system, internal_force_and_strain,
-                             scatter_add)
+from ..ops.assembly import (assemble_system, assemble_system_nonlinear,
+                             internal_force_and_strain, scatter_add)
 from ..ops.linalg import masked_solve
 
 # GD history columns (reference solve_gd history keys, solver.py:308-322).
@@ -172,9 +172,16 @@ class NRPhaseOut(NamedTuple):
 
 def nr_phase(data: ProblemData, material: Material, u0: torch.Tensor,
              load_factor: float, max_iter: int, tol: float,
-             min_denom: float) -> NRPhaseOut:
+             min_denom: float, nonlinear: bool = False) -> NRPhaseOut:
     """One Newton-Raphson phase: same update rule and relative-du criterion
-    ||du|| / max(||u||, min_denom) <= tol as the reference solve_nr loop."""
+    ||du|| / max(||u||, min_denom) <= tol as the reference solve_nr loop.
+
+    nonlinear=True assembles the Green-Lagrange tangent and internal force
+    (2D / 3D).  The one flag read an iteration carries the convergence test
+    and the Cholesky info code.  A tangent that fails to factor ends the
+    phase with u all NaN: JAX's NaN factor makes its u NaN and its loop runs
+    on to max_iter, and either way solve_nr's finite check raises."""
+    assemble = assemble_system_nonlinear if nonlinear else assemble_system
     dt, dev = u0.dtype, u0.device
     tol_t = torch.tensor(tol, dtype=dt, device=dev)
     min_denom_t = torch.tensor(min_denom, dtype=dt, device=dev)
@@ -183,14 +190,19 @@ def nr_phase(data: ProblemData, material: Material, u0: torch.Tensor,
     max_strain = torch.zeros((), dtype=dt, device=dev)
     it, conv = 0, False
     while it < max_iter and not conv:
-        k, f_int, max_strain = assemble_system(data, material, u, load_factor)
+        k, f_int, max_strain = assemble(data, material, u, load_factor)
         rhs = load_factor * data.loads - f_int
-        du = masked_solve(k, rhs, data.free_mask)
+        du, info = masked_solve(k, rhs, data.free_mask)
         u = u + du
         res = (torch.linalg.vector_norm(du)
                / torch.maximum(torch.linalg.vector_norm(u), min_denom_t))
-        conv = bool(res <= tol_t)
+        flags = int((res <= tol_t).to(torch.int32) + 2 * (info != 0))
         it += 1
+        if flags & 2:
+            u = torch.full_like(u, float("nan"))
+            res = torch.full_like(res, float("nan"))
+            break
+        conv = bool(flags & 1)
     return NRPhaseOut(u=u, n_iters=it, residual=res, converged=conv,
                       max_strain=max_strain)
 

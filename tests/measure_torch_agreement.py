@@ -22,6 +22,12 @@ Parts (all by default), one JSON line each:
   fnr_drift  two port runs of the PINN grid as a full-NR document on the
           CPU, 3 rows, whose measured data differ by one float32 ulp
           (grid size from argv: fnr_drift=16x32; 8 x 16 by default).
+  truss_ext  thermal loads, support settlement and Green-Lagrange, port
+          vs JAX (tests/test_torch_truss_extensions.py): f_th of each
+          case, the Green-Lagrange element and assembly, the 24 x 48
+          thermal / settlement documents through both CLIs (each against
+          float64 too), example1 heated, the settled bar and the 4 x 8
+          grid under large stretch.
 Not collected by pytest (no test_ prefix).  fnr_drift imports no JAX, so
 it also runs where JAX is not installed.
 """
@@ -273,9 +279,101 @@ def fnr_drift(size: str = "8x16", rows: int = 3):
                       "row_max": err.max(axis=1).tolist()}), flush=True)
 
 
+def truss_ext():
+    import tempfile
+
+    import torch
+
+    import test_torch_truss_extensions as X
+
+    def line(case, **fields):
+        print(json.dumps({"part": "truss_ext", "case": case, **fields}),
+              flush=True)
+
+    for name in ("1d-scalar", "2d-per-node", "2d-per-element",
+                 "3d-per-node", "ring-nelm-eq-nnode"):
+        nodes, elements, dim, alpha, delta_t = X._thermal_case(name)
+        j, t = X.problems(nodes, elements, np.zeros(dim * len(nodes)), [0],
+                          dim)
+        jd, td = j.to_device(), t.to_device("cpu")
+        f_j = X.j_thermal.thermal_loads(
+            jd, j.material, alpha, X.j_thermal.element_delta_t(
+                jd, delta_t, len(nodes)))
+        f_t = X.tp.thermal_loads(td, t.material, alpha,
+                                 X.t_thermal.element_delta_t(
+                                     td, delta_t, len(nodes)))
+        line(f"f_th {name}", rel=rel_max(f_t.numpy(), np.asarray(f_j)))
+
+    for dim in (2, 3):
+        rng = np.random.default_rng(dim)
+        x0 = rng.uniform(-1.0, 1.0, (64, 2, dim)).astype(np.float32)
+        u_e = rng.uniform(-0.3, 0.3, (64, 2 * dim)).astype(np.float32)
+        inv_len = (1.0 / np.linalg.norm(x0[:, 1] - x0[:, 0], axis=1)
+                   ).astype(np.float32)
+        e = rng.uniform(0.5, 2.0, 64).astype(np.float32)
+        a = rng.uniform(0.5, 2.0, 64).astype(np.float32)
+        want = X.j_elements.truss2d_green_lagrange_batch(x0, u_e, inv_len,
+                                                         e, a)
+        got = X.t_elements.truss2d_green_lagrange_batch(
+            *(torch.from_numpy(v) for v in (x0, u_e, inv_len, e, a)))
+        line(f"green-lagrange batch {dim}D",
+             ke_fe_strain_rel=[rel_max(g.numpy(), np.asarray(w))
+                               for g, w in zip(got, want)])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("thermal", "settlement", "settlement-only"):
+            doc = X._grid_doc(kind)
+            d = Path(tmp) / kind
+            d.mkdir()
+            j, t = X.run_both(d, "grid.json", doc)
+            u64, r64, _, _ = X.eg.float64_reference(doc)
+            line(f"grid 24x48 {kind}",
+                 converged=[j["converged"], t["converged"]],
+                 iterations=[j["history"][-1]["iterations"],
+                             t["history"][-1]["iterations"]],
+                 residual=[j["history"][-1]["residual"],
+                           t["history"][-1]["residual"]],
+                 u_port_vs_jax=rel_max(t["displacements"],
+                                       j["displacements"]),
+                 u_vs_float64=[rel_max(j["displacements"], u64),
+                               rel_max(t["displacements"], u64)],
+                 reactions_vs_float64=[rel_max(j["reactions"], r64),
+                                       rel_max(t["reactions"], r64)])
+        doc = json.loads((X.CORPUS / "example1.json").read_text())
+        doc["thermal"] = {"alpha": 0.01, "delta_t": [0.0, 10.0, 20.0, 30.0]}
+        d = Path(tmp) / "example1"
+        d.mkdir()
+        j, t = X.run_both(d, "example1.json", doc)
+        line("example1 heated",
+             u_rel=rel_max(t["displacements"], j["displacements"]),
+             reactions_rel=rel_max(t["reactions"], j["reactions"]))
+
+    up = np.zeros(6)
+    up[-1] = X.DELTA
+    jb, tb = X._settle_bar(6)
+    u_j, r_j, _ = X._settle(jb, X.jp.solve_nr, up)
+    u_t, r_t, _ = X._settle(tb, X.tp.solve_nr, up, device="cpu")
+    line("settled bar", u_rel=rel_max(u_t, u_j),
+         reactions_rel=rel_max(r_t, r_j))
+
+    nodes, elements, loads, fixed = X.eg.grid_arrays(4, 8)
+    j, t = X.problems(nodes, elements, loads * 0.3, fixed, 2)
+    r_j = X.jp.solve_nr(j, X.jp.SolverConfig(max_iterations=50,
+                                             tolerance=1e-6), 1.0,
+                        geometric_nonlinear=True)
+    r_t = X.tp.solve_nr(t, X.tp.SolverConfig(max_iterations=50,
+                                             tolerance=1e-6), 1.0,
+                        geometric_nonlinear=True, device="cpu")
+    line("green-lagrange grid 4x8", history=[r_j.history[0],
+                                             r_t.history[0]],
+         u_rel=rel_max(r_t.displacements, r_j.displacements),
+         reactions_rel=rel_max(r_t.reactions, r_j.reactions))
+
+
 if __name__ == "__main__":
     parts = {"corpus": corpus, "grid": grid, "grad": grad, "drift": drift,
-             "second_order": second_order, "fnr_drift": fnr_drift}
+             "second_order": second_order, "fnr_drift": fnr_drift,
+             "truss_ext": truss_ext}
     for part in sys.argv[1:] or list(parts):
         name, _, arg = part.partition("=")
         parts[name](*([arg] if arg else []))

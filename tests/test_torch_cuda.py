@@ -570,3 +570,41 @@ def test_material_backward_kernel_matches_plain_version(cuda_device, case):
             break
     assert len(device_ops) == 1
     assert "material_grad_kernel" in device_ops[0].name
+
+
+@pytest.mark.parametrize("kind", ["thermal", "settlement"])
+def test_truss_extension_documents_on_card(cuda_device, tmp_path, kind):
+    """The 24 x 48 thermal and settlement documents (banded Newton)
+    through the CLI on the card against the CPU run (the twins): both
+    converge, u and the reactions within the grid's 1e-4 of each other's
+    largest entry (each lies within 3.4e-5 of float64 on the CPU), the
+    settled values kept exactly, and kernels 1-3 launched with one update
+    per direction pass."""
+    import json
+
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.cli.generic import run
+
+    doc = (eg.thermal_grid_document(24, 48, tolerance=1e-4, n_increments=1)
+           if kind == "thermal" else
+           eg.settlement_grid_document(24, 48, tolerance=1e-4))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        path = tmp_path / f"{dev}.json"
+        path.write_text(json.dumps(doc))
+        kernels.reset_launch_counts()
+        outs[dev] = run(str(path), device=dev)
+        counts = kernels.launch_counts()
+    for name in ("dia_matvec", "dia_dir_matvec", "cg_update"):
+        assert counts[name] > 0, name
+    assert counts["dia_dir_matvec"] == counts["cg_update"]
+    cpu, card = outs["cpu"], outs["cuda"]
+    assert cpu["converged"] is card["converged"] is True
+    for key in ("displacements", "reactions"):
+        want = np.asarray(cpu[key], float)
+        np.testing.assert_allclose(card[key], want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+    if kind == "settlement":
+        pd = doc["prescribed_displacements"]
+        u = np.asarray(card["displacements"]).reshape(-1)
+        assert np.all(u[pd["dofs"]] == np.float32(pd["values"][0]))

@@ -241,9 +241,6 @@ def test_cli_cuda_without_card_is_an_error(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("doc,item", [
-    ({"thermal": {"alpha": 1.0, "delta_t": 1.0}}, "ROADMAP item 4"),
-    ({"prescribed_displacements": {"dofs": [2], "values": [0.1]}},
-     "ROADMAP item 4"),
     ({"analysis": {"type": "modal"}}, "ROADMAP item 17"),
 ])
 def test_unported_documents_name_their_roadmap_item(tmp_path, doc, item):
@@ -280,8 +277,6 @@ def test_unported_solver_options_raise():
     from pinn_fem_tpu_torch.solvers.newton import solve_nr
 
     p = grid_problem(3, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        solve_nr(p, geometric_nonlinear=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         solve_nr(p, linear_solver="cg-dia", cg_precond="mg", device="cpu")
 
