@@ -77,7 +77,21 @@ code is not 0 and no result line is printed:
      solve_nr(geometric_nonlinear=True) on the 32 x 32 grid (2,048 DOFs,
      the dense limit) with strains of 10-40 %: its float64 Green-Lagrange
      equilibrium residual, its distance from the linear solve, ms per
-     Newton iteration, and the singular tangent's RuntimeError on the card.
+     Newton iteration, and the singular tangent's RuntimeError on the card;
+ 11. the Node backend's JSON API entry points on cuda: (a) the legacy
+     PINN GD (solve_pinn_gradient_descent) on the 100 x 200 PINN grid for
+     LEGACY_GD_ITERS iterations, kernels 4 and 4b once an iteration, the
+     loss falling, ms an iteration, the device's idle share over 20
+     iterations, the first LEGACY_CPU_ROWS rows against the CPU twin;
+     (b) api_fem_solver.main on the 32 x 32 grid (10 increments, u and
+     strains within 1e-3 of float64) and solve_incremental_newton with
+     three frozen MLP fields (kernel 4 once per assembly, u against the
+     CPU twin); (c) api_pinn_nr and api_pinn_gd through main() (E A
+     within 1e-3; without measurements exit 1) and identify_scalars_gd's
+     ms an iteration on the 40k grid; (d) legacy_generic.main on the
+     legacy web NN payload (a timestamped log, u within 1e-2, kernel 4
+     not launched: input_dim 1); (e) PINN_FEM_TPU_X64=1: example1 in
+     float64 on the card, the 40k grid document refused (exit 1).
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -89,7 +103,8 @@ wrapper's ms per call beside the ms of the launch bound once as the PCG
 loop calls it, and for the material kernels the host us per wrapper call
 (the backward also its twin's ms and the s-only call's ms and bound;
 kernel 4 also its launches on phase 9's paths, kernels 1-3 theirs on
-phase 10's documents); the last is {"ok": true,
+phase 10's documents, kernels 4 and 4b theirs on phase 11's legacy
+paths); the last is {"ok": true,
 "device": {...}}.  Needs one card; imports no JAX.
 """
 
@@ -163,6 +178,41 @@ SETTLED_REACTIONS_RTOL = 1e-3
 GL_GRID = (32, 32)
 GL_LOAD = 0.3
 GL_RESIDUAL = 1e-3
+# Phase 11: the legacy GD on the PINN grid and the rows held against the
+# CPU twin (phase 7's bounds); the dense grid of api_fem_solver and the
+# frozen-NN incremental Newton, their increments, and u's bound against
+# float64 and against the CPU twin; the scalar identification's grid, its
+# true E A and the scalar GD's iterations.
+LEGACY_GD_ITERS = 300
+LEGACY_CPU_ROWS = 20
+LEGACY_GRID = (32, 32)
+LEGACY_INCREMENTS = 10
+FROZEN_INCREMENTS = 3
+LEGACY_U_RTOL = 1e-3
+SCALAR_GRID = (16, 32)
+SCALAR_EA = 2e9
+SCALAR_GD_ITERS = 500
+# Adam's step is about lr per component: at 3e-3 (the SI payload's) the
+# grid's u, of order 7e-4, oscillates and the loss rises (331 -> 645 on
+# the card); at 1e-5 it falls to 0.03 in 500 steps (the CPU, 100 x 200).
+SCALAR_GD_LR = 1e-5
+# tests/test_cli.py's legacy web payload: one input_dim 1 net.
+LEGACY_WEB_NN = {
+    "nodes": [{"x": 0, "y": 0, "fixed": True},
+              {"x": 1, "y": 0, "fixed_y": True},
+              {"x": 2, "y": 0, "fixed_y": True},
+              {"x": 3, "y": 0, "fixed_y": True}],
+    "elements": [[0, 1], [1, 2], [2, 3]],
+    "loads": [0, 0, 0, 0, 0, 0, 1.0, 0],
+    "material": {"young": 1.0, "area": 1.0, "density": 1.0},
+    "measured_displacements": {"nodes": [1, 2, 3], "ux": [1.0, 2.0, 3.0],
+                               "uy": [0, 0, 0]},
+    "nn_config": {"young": {"enabled": True, "hiddenLayers": 2,
+                            "neuronsPerLayer": 8}},
+    "pinn_config": {"max_iterations": 1500, "learning_rate_u": 0.01,
+                    "learning_rate_theta": 1e-3, "tolerance": 1e-5},
+    "solver_type": "pinn-gd",
+}
 BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FLOPS = 67e12           # H100 SXM FP32, outside the tensor cores
 CSRC = "pinn_fem_tpu_torch/ops/kernels/csrc/"
@@ -1667,6 +1717,394 @@ def phase_truss_extensions(workdir: Path, dev, card: str):
     return launches
 
 
+def api_problem_payload(nodes, elements, loads, fixed, young, area) -> dict:
+    """An api_* input document: dict nodes with the fixed / fixed_x /
+    fixed_y flags of `fixed`, {"nodes": [i, j]} elements."""
+    fixed = set(int(d) for d in fixed)
+    node_dicts = []
+    for i, (x, y) in enumerate(nodes):
+        node = {"x": float(x), "y": float(y)}
+        fx, fy = 2 * i in fixed, 2 * i + 1 in fixed
+        if fx and fy:
+            node["fixed"] = True
+        elif fx or fy:
+            node["fixed_x" if fx else "fixed_y"] = True
+        node_dicts.append(node)
+    return {"nodes": node_dicts,
+            "elements": [{"nodes": [int(i), int(j)]} for i, j in elements],
+            "material": {"young": young, "area": area},
+            "loads": [float(v) for v in loads]}
+
+
+def run_api(module, workdir: Path, name: str, payload: dict):
+    """(exit code, output dict) of module.main([in, out]) on DEVICE."""
+    inp, outp = workdir / f"{name}.in.json", workdir / f"{name}.out.json"
+    inp.write_text(json.dumps(payload))
+    rc = module.main([str(inp), str(outp)])
+    return rc, json.loads(outp.read_text())
+
+
+def idle_profile(fn) -> dict:
+    """Device busy ms and idle share of fn() (torch.profiler)."""
+    wall, events = profiled(fn)
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / (1e3 * wall) if events
+            else None}
+
+
+def phase_legacy_gd(dev, card: str) -> dict:
+    """11(a): solve_pinn_gradient_descent on the 100 x 200 PINN grid."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import (PINNGradientDescentConfig,
+                                    solve_pinn_gradient_descent)
+    from pinn_fem_tpu_torch.examples_grid import pinn_grid_document
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+
+    doc = pinn_grid_document(*GRID)
+    pc = doc["pinn_config"]
+    parsed = parse_problem_dict(doc)
+    problem, mat0 = parsed.problem, parsed.problem.material
+    cfg = PINNGradientDescentConfig(
+        max_iterations=LEGACY_GD_ITERS, tolerance=0.0,
+        learning_rate_u=pc["learning_rate_u"],
+        learning_rate_theta=pc["learning_rate_theta"],
+        alpha_physics=pc["alpha_physics"], alpha_data=pc["alpha_data"])
+
+    def run(iters, device):
+        problem.material = mat0     # the JAX CLI's initial weights
+        return solve_pinn_gradient_descent(
+            problem, problem.loads, parsed.measured_disp,
+            parsed.measured_dofs,
+            dataclasses.replace(cfg, max_iterations=iters), device=device)
+
+    def timed(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run(iters, dev)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    run(5, dev)
+    kernels.reset_launch_counts()
+    res, wall = timed(LEGACY_GD_ITERS)
+    launches = {k: kernels.launch_counts()[k] for k in MATERIAL}
+    # The loop alone: the 300-iteration call less a 50-iteration one (the
+    # call's setup, to_device and the weights' copy, cancels).
+    _, wall_50 = timed(50)
+    loop_ms = 1e3 * (wall - wall_50) / (LEGACY_GD_ITERS - 50)
+    hist = res.history
+    loss = [e["loss_total"] for e in hist]
+    u = res.displacements.reshape(-1)
+    profile = idle_profile(lambda: run(20, dev))
+    t0 = time.perf_counter()
+    cpu = run(LEGACY_CPU_ROWS, "cpu")
+    cpu_s = time.perf_counter() - t0
+    keys = list(hist[0])
+    hc = np.array([[e[k] for k in keys] for e in cpu.history])
+    hg = np.array([[e[k] for k in keys] for e in hist[:LEGACY_CPU_ROWS]])
+    scale = np.maximum(np.abs(hc).max(axis=0), 1e-30)
+    col_err = np.abs(hg - hc).max(axis=0) / scale
+    first_err = float((np.abs(hg[0] - hc[0]) / scale).max())
+    log("phase11a_legacy_gd", card=card, ndof=u.size,
+        elements=len(doc["elements"]), iterations=len(hist),
+        launches=launches, first_loss_total=loss[0],
+        last_loss_total=loss[-1], wall_s=wall,
+        ms_per_legacy_gd_iteration=loop_ms,
+        call_ms_per_iteration=1e3 * wall / len(hist),
+        call_setup_ms=1e3 * wall_50 - 50 * loop_ms,
+        profile_20_iterations=profile, cpu_twin_rows=len(cpu.history),
+        cpu_twin_s=cpu_s,
+        card_vs_cpu_max_rel_err=dict(zip(keys, col_err.tolist())),
+        card_vs_cpu_first_row=first_err)
+    require(len(hist) == LEGACY_GD_ITERS, "legacy GD ran its budget")
+    for name in MATERIAL:
+        require(launches[name] == len(hist),
+                f"{name}: one launch per legacy GD iteration")
+    require(bool(np.all(np.isfinite(loss))) and loss[-1] < loss[0],
+            "legacy GD loss finite and falls")
+    require(bool(np.all(np.isfinite(u))) and u.size == 2 * GRID[0] * GRID[1],
+            "legacy GD displacements finite, of the expected shape")
+    require(len(cpu.history) == LEGACY_CPU_ROWS, "CPU twin run length")
+    require(first_err <= GD_FIRST_ROW_RTOL,
+            f"legacy GD first row within {GD_FIRST_ROW_RTOL} of the CPU twin")
+    require(max(col_err) <= GD_ROWS_RTOL,
+            f"legacy GD first {LEGACY_CPU_ROWS} rows within {GD_ROWS_RTOL} "
+            "of the CPU twin")
+    return launches
+
+
+def phase_incremental_newton(workdir: Path, dev, card: str) -> dict:
+    """11(b): api_fem_solver on the 32 x 32 grid, and
+    solve_incremental_newton with three frozen MLP fields."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import (LegacySolverConfig, TrussProblem,
+                                    solve_incremental_newton)
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.cli import _api_common, api_fem_solver
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+
+    nodes, elements, loads, fixed = eg.grid_arrays(*LEGACY_GRID)
+    loads = loads / LEGACY_GRID[0]
+    payload = dict(api_problem_payload(nodes, elements, loads, fixed, 1.0,
+                                       1.0),
+                   solver_config={"n_increments": LEGACY_INCREMENTS,
+                                  "max_iterations": 50, "tolerance": 1e-6})
+    t0 = time.perf_counter()
+    rc, out = run_api(api_fem_solver, workdir, "api_fem", payload)
+    first_s = time.perf_counter() - t0
+    require(rc == 0, "api_fem_solver exit code 0")
+    t0 = time.perf_counter()
+    require(run_api(api_fem_solver, workdir, "api_fem", payload)[0] == 0,
+            "api_fem_solver warm exit code 0")
+    warm_s = time.perf_counter() - t0
+    u = np.asarray(out["displacements"], float)
+    u64 = eg.float64_solution(nodes, elements, loads, fixed)
+    _, strains64 = _api_common.element_stresses_2d(nodes, elements, u64, 1.0)
+    u_err = float(np.abs(u - u64).max() / np.abs(u64).max())
+    strains64 = np.asarray(strains64)
+    s_err = float(np.abs(np.asarray(out["strains"]) - strains64).max()
+                  / np.abs(strains64).max())
+    hist = out["convergence_history"]
+    newton = sum(int(e["iterations"]) for e in hist)
+    log("phase11b_api_fem_solver", card=card, grid=list(LEGACY_GRID),
+        ndof=u.size, converged=out["converged"], increments=len(hist),
+        newton_iterations=newton, u_rel_err_vs_scipy=u_err,
+        strains_rel_err_vs_float64=s_err, first_in_process_s=first_s,
+        warm_s=warm_s, ms_per_increment=1e3 * warm_s / len(hist),
+        ms_per_newton_iteration=1e3 * warm_s / newton)
+    require(out["converged"] is True, "api_fem_solver converged")
+    require(len(hist) == LEGACY_INCREMENTS,
+            f"{LEGACY_INCREMENTS} history rows, one per increment")
+    require(u_err <= LEGACY_U_RTOL,
+            f"api_fem_solver u within {LEGACY_U_RTOL} of float64")
+    require(s_err <= LEGACY_U_RTOL,
+            f"api_fem_solver strains within {LEGACY_U_RTOL} of float64")
+
+    material = parse_problem_dict(
+        eg.pinn_grid_document(*LEGACY_GRID)).problem.material
+    problem = TrussProblem(nodes=nodes, elements=elements, material=material,
+                           loads=loads, fixed_dofs=fixed, dimension=2)
+    cfg = LegacySolverConfig(n_increments=FROZEN_INCREMENTS)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_incremental_newton(problem, cfg, device=dev)
+    torch.cuda.synchronize()
+    frozen_s = time.perf_counter() - t0
+    launches = {k: kernels.launch_counts()[k] for k in MATERIAL}
+    cpu = solve_incremental_newton(problem, cfg, device="cpu")
+    newton = sum(int(e["iterations"]) for e in res.history)
+    uf, uc = res.displacements.reshape(-1), cpu.displacements.reshape(-1)
+    frozen_err = float(np.abs(uf - uc).max() / np.abs(uc).max())
+    log("phase11b_frozen_nn", card=card, grid=list(LEGACY_GRID),
+        converged=res.converged, history=res.history,
+        newton_iterations=newton, launches=launches,
+        u_rel_err_vs_cpu_twin=frozen_err,
+        cpu_iterations=[e["iterations"] for e in cpu.history],
+        first_in_process_s=frozen_s)
+    require(res.converged, "frozen-NN incremental Newton converged")
+    require(launches["material_coefficients"] == newton + 1,
+            "kernel 4 once per assembly: Newton iterations + reactions")
+    require(launches["material_coefficients_backward"] == 0,
+            "no kernel 4b on the frozen Newton path")
+    require(frozen_err <= LEGACY_U_RTOL,
+            f"frozen-NN u within {LEGACY_U_RTOL} of the CPU twin")
+    return launches
+
+
+def phase_scalar_identification(workdir: Path, dev, card: str):
+    """11(c): api_pinn_nr and api_pinn_gd through main() on the card, and
+    identify_scalars_gd's ms an iteration on the 40k grid."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import TrussProblem
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.cli import api_pinn_gd, api_pinn_nr
+    from pinn_fem_tpu_torch.models.fields import Material
+    from pinn_fem_tpu_torch.solvers.scalar_inverse import identify_scalars_gd
+
+    si = {"nodes": [{"x": 0, "y": 0, "fixed": True},
+                    {"x": 1, "y": 0, "fixed_y": True}],
+          "elements": [{"nodes": [0, 1]}],
+          "material": {"young": 100e9, "area": 0.01},
+          "loads": [0, 0, 1e6, 0], "measured_disp": [5e-4],
+          "measured_dofs": [2]}
+    results = {}
+    for name, module, config in (
+            ("si_nr", api_pinn_nr, {"max_iterations": 60,
+                                    "tolerance": 1e-10, "lambda_lm": 1e-3}),
+            ("si_gd", api_pinn_gd, {"max_iterations": 2000,
+                                    "learning_rate": 3e-3, "beta": 1e3})):
+        rc, out = run_api(module, workdir, name,
+                          dict(si, solver_config=config))
+        require(rc == 0, f"{name}: exit code 0")
+        ip = out["identified_params"]
+        results[name] = ip["young"] * ip["area"]
+
+    # The 16 x 32 grid in SI units: measurements on the right edge's
+    # x-DOFs from a float64 solve at E A = SCALAR_EA.
+    nodes, elements, loads, fixed = eg.grid_arrays(*SCALAR_GRID)
+    loads = loads * 1e6 / SCALAR_GRID[0]
+    u64 = eg.float64_solution(nodes, elements, loads, fixed) / SCALAR_EA
+    mdofs = [2 * (r * SCALAR_GRID[1] + SCALAR_GRID[1] - 1)
+             for r in range(SCALAR_GRID[0])]
+    grid = dict(api_problem_payload(nodes, elements, loads, fixed, 100e9,
+                                    0.01),
+                measured_disp=u64[mdofs].tolist(), measured_dofs=mdofs,
+                solver_config={"max_iterations": 30, "tolerance": 1e-10,
+                               "lambda_lm": 1e-3})
+    t0 = time.perf_counter()
+    rc, out = run_api(api_pinn_nr, workdir, "grid_nr", grid)
+    grid_s = time.perf_counter() - t0
+    require(rc == 0, "api_pinn_nr on the grid: exit code 0")
+    ip = out["identified_params"]
+    results["grid_nr"] = ip["young"] * ip["area"]
+    grid_rows = len(out["convergence_history"])
+    grid_u_err = float(np.abs(np.asarray(out["displacements"]) - u64).max()
+                       / np.abs(u64).max())
+
+    rc, missing = run_api(api_pinn_gd, workdir, "no_meas",
+                          {k: v for k, v in si.items()
+                           if not k.startswith("measured")})
+
+    # identify_scalars_gd on the 100 x 200 grid: no kernel, no host read
+    # inside the loop.
+    nodes, elements, loads, fixed = eg.grid_arrays(*GRID)
+    loads = loads * 1e6 / GRID[0]
+    u64 = eg.float64_solution(nodes, elements, loads, fixed) / SCALAR_EA
+    free = np.setdiff1d(np.arange(loads.size), fixed)[::10]
+    problem = TrussProblem(nodes=nodes, elements=elements,
+                           material=Material(young=100e9, area=0.01,
+                                             density=0.0),
+                           loads=loads, fixed_dofs=fixed, dimension=2)
+    kw = dict(u_measured=u64[free], measured_dofs=free, young_init=100e9,
+              area_init=0.01, learning_rate=SCALAR_GD_LR, beta=1e3)
+    identify_scalars_gd(problem, loads, n_iterations=5, device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gd = identify_scalars_gd(problem, loads, n_iterations=SCALAR_GD_ITERS,
+                             device=dev, **kw)
+    torch.cuda.synchronize()
+    gd_s = time.perf_counter() - t0
+    profile = idle_profile(lambda: identify_scalars_gd(
+        problem, loads, n_iterations=20, device=dev, **kw))
+    loss = [e["loss_total"] for e in gd["history"]]
+    rel = {k: abs(v - SCALAR_EA) / SCALAR_EA for k, v in results.items()}
+    log("phase11c_scalar_identification", card=card,
+        ea_rel_err=rel, grid=list(SCALAR_GRID), grid_nr_rows=grid_rows,
+        grid_nr_s=grid_s, grid_nr_u_rel_err_vs_float64=grid_u_err,
+        missing_measurements=[rc, missing],
+        scalar_gd_grid=list(GRID), scalar_gd_iterations=len(loss),
+        scalar_gd_first_loss=loss[0], scalar_gd_last_loss=loss[-1],
+        scalar_gd_ea_rel_err=abs(gd["young_final"] * gd["area_final"]
+                                 - SCALAR_EA) / SCALAR_EA,
+        ms_per_scalar_gd_iteration=1e3 * gd_s / len(loss),
+        profile_20_iterations=profile)
+    for name, err in rel.items():
+        require(err <= 1e-3, f"{name}: E A within 1e-3 of {SCALAR_EA}")
+    require(rc == 1 and "measured_disp" in missing.get("error", ""),
+            "api_pinn_gd without measurements exits 1 with the error")
+    require(len(loss) == SCALAR_GD_ITERS and bool(np.all(np.isfinite(loss)))
+            and loss[-1] < loss[0], "scalar GD ran its budget, loss falls")
+
+
+def phase_legacy_generic(workdir: Path, card: str):
+    """11(d): the legacy web NN payload (input_dim 1: the torch form)
+    through legacy_generic.main() on the card."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.cli import legacy_generic
+    from pinn_fem_tpu_torch.ops import kernels
+
+    sub = workdir / "legacy"
+    sub.mkdir()
+    path = sub / "legacy_nn.json"
+    path.write_text(json.dumps(LEGACY_WEB_NN))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = legacy_generic.main([str(path)])
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.launch_counts()[k] for k in MATERIAL}
+    logs = sorted(p.name for p in sub.glob("legacy_nn_????????_??????.log"))
+    out = json.loads((sub / "legacy_nn.res.json").read_text())
+    u = np.asarray(out["displacements"], float)
+    err = float(np.abs(u[[2, 4, 6]] - [1.0, 2.0, 3.0]).max())
+    log("phase11d_legacy_generic", card=card, exit_code=rc, logs=logs,
+        iterations=out.get("iterations"), max_abs_err=err, wall_s=wall,
+        launches=launches)
+    require(rc == 0, "legacy_generic exit code 0")
+    require(len(logs) == 1, "one timestamped legacy_nn log")
+    require(err <= 1e-2, "legacy web NN u within 1e-2 of [1, 2, 3]")
+    require("identified_properties" in out, "identified_properties written")
+    require(launches["material_coefficients"] == 0,
+            "input_dim 1 takes the torch form: kernel 4 not launched")
+
+
+def phase_x64(workdir: Path, dev, card: str):
+    """11(e): PINN_FEM_TPU_X64=1 on the card: the dense path in float64,
+    the banded 40k document refused at kernel 1's dispatch."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.examples_grid import grid_document
+    from pinn_fem_tpu_torch.io.schema import parse_problem_file
+    from pinn_fem_tpu_torch.ops import kernels
+
+    sub = workdir / "x64"
+    sub.mkdir()
+    os.environ["PINN_FEM_TPU_X64"] = "1"
+    path = sub / "example1.json"
+    path.write_text((ROOT / "examples" / "json" / "example1.json")
+                    .read_text())
+    dtype = str(parse_problem_file(path).problem.to_device(dev).loads.dtype)
+    rc = main([str(path)])
+    out = json.loads((sub / "example1.res.json").read_text())
+    err = float(np.abs(np.asarray(out["displacements"])
+                       - [0, 0, 1, 0, 2, 0, 3, 0]).max())
+    grid = sub / "grid.json"
+    grid.write_text(json.dumps(grid_document(*GRID, tolerance=GRID_TOL)))
+    kernels.reset_launch_counts()
+    grid_rc = main([str(grid)])
+    launches = kernels.launch_counts()
+    refusal = [line for line in (sub / "grid.log").read_text().splitlines()
+               if "[ERROR]" in line]
+    del os.environ["PINN_FEM_TPU_X64"]
+    log("phase11e_x64", card=card, dtype=dtype, example1_exit_code=rc,
+        example1_max_abs_err=err, grid_exit_code=grid_rc,
+        grid_refusal=refusal, launches=launches)
+    require(dtype == "torch.float64", "X64: float64 arrays on the card")
+    require(rc == 0 and out["converged"] is True and err <= 1e-12,
+            "X64 example1 on the card within 1e-12 of [0, 1, 2, 3]")
+    require(grid_rc == 1 and any("PINN_FEM_TPU_X64" in line
+                                 and "dia_matvec" in line
+                                 for line in refusal),
+            "X64 40k grid document: exit 1 with the kernels' refusal")
+    require(not any(launches.values()), "no kernel launched under X64")
+
+
+def phase_api(workdir: Path, dev, card: str) -> dict:
+    """Phase 11: the Node backend's JSON API entry points.  Returns kernel
+    4 and 4b's launches on (a) and (b)."""
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    legacy = {"legacy_gd": phase_legacy_gd(dev, card)}
+    legacy["incremental_newton"] = phase_incremental_newton(workdir, dev,
+                                                            card)
+    phase_scalar_identification(workdir, dev, card)
+    phase_legacy_generic(workdir, card)
+    phase_x64(workdir, dev, card)
+    return legacy
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -1682,6 +2120,7 @@ def main() -> int:
         phase_gd_corpus(Path(tmp))
         second_order = phase_second_order(Path(tmp), dev)
         truss_ext = phase_truss_extensions(Path(tmp), dev, card)
+        legacy = phase_api(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -1703,6 +2142,9 @@ def main() -> int:
         })
         if name == "material_coefficients":
             entries[-1]["launches_second_order"] = second_order
+        if name in MATERIAL:
+            entries[-1]["launches_legacy"] = {
+                path: counts[name] for path, counts in legacy.items()}
         if name in BANDED:
             entries[-1]["launches_truss_ext"] = {
                 doc: counts[name] for doc, counts in truss_ext.items()}

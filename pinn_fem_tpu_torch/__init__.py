@@ -13,10 +13,16 @@ second-order methods full-nr with NN fields and gn, which differentiate
 the torch form of the material twice and evaluate values with the
 kernels.  Truss documents may carry thermal loads and prescribed support
 displacements, and solve_nr takes Green-Lagrange kinematics on the dense
-path.  ROADMAP.md lists what is still to port.
+path.  The Node backend's JSON API entry points run too: the legacy
+solvers (solvers/legacy.py), scalar (E, A) identification
+(solvers/scalar_inverse.py) and their CLIs (cli/api_fem_solver.py,
+cli/api_pinn_gd.py, cli/api_pinn_nr.py, cli/legacy_generic.py).
+ROADMAP.md lists what is still to port.
 
-Float32 by default.  TF32 is switched off for every contraction, because
-rounded inputs break the symmetry the Cholesky and PCG solves rely on.
+Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
+kernel is on the path (utils/runtime.py).  TF32 is switched off for every
+contraction, because rounded inputs break the symmetry the Cholesky and
+PCG solves rely on.
 """
 
 import torch
@@ -31,6 +37,7 @@ from .models.fields import (  # noqa: E402
     ScalarField,
     make_mlp_field,
     material_from_numpy,
+    to_field,
 )
 from .models.problem import ProblemData, TrussProblem  # noqa: E402
 from .ops.thermal import thermal_free_strains, thermal_loads  # noqa: E402
@@ -39,11 +46,23 @@ from .solvers.full_newton import solve_full_nr  # noqa: E402
 from .solvers.gauss_newton import solve_gauss_newton  # noqa: E402
 from .solvers.gd import solve_gd  # noqa: E402
 from .solvers.hybrid import solve_hybrid  # noqa: E402
+from .solvers.legacy import (  # noqa: E402
+    LegacySolverConfig,
+    PINNGradientDescentConfig,
+    PINNSolverConfig,
+    PINNSolverResult,
+    solve_incremental_newton,
+    solve_pinn_gradient_descent,
+    solve_pinn_newton_raphson,
+)
 from .solvers.newton import solve_nr  # noqa: E402
 
 __all__ = [
-    "Material", "MLPField", "ProblemData", "ScalarField", "SolverConfig",
-    "SolverResult", "TrussProblem", "make_mlp_field", "material_from_numpy",
-    "solve", "solve_full_nr", "solve_gauss_newton", "solve_gd",
-    "solve_hybrid", "solve_nr", "thermal_free_strains", "thermal_loads",
+    "LegacySolverConfig", "Material", "MLPField", "PINNGradientDescentConfig",
+    "PINNSolverConfig", "PINNSolverResult", "ProblemData", "ScalarField",
+    "SolverConfig", "SolverResult", "TrussProblem", "make_mlp_field",
+    "material_from_numpy", "solve", "solve_full_nr", "solve_gauss_newton",
+    "solve_gd", "solve_hybrid", "solve_incremental_newton", "solve_nr",
+    "solve_pinn_gradient_descent", "solve_pinn_newton_raphson",
+    "thermal_free_strains", "thermal_loads", "to_field",
 ]

@@ -16,7 +16,8 @@ pinn_fem_tpu/cli/generic.py).
 The device comes from PINN_FEM_TORCH_DEVICE (default "cuda"); asking for
 CUDA without a card is an error, not a CPU run.  PINN_FEM_TPU_SEED seeds
 the NN initialisation, as in the JAX CLI.  Element-family documents
-("element_type") and "analysis" documents are not yet ported and exit 1.
+("element_type") and "analysis" documents (routed, as in the JAX CLI, on
+the parsed document's meta["analysis"]) are not yet ported and exit 1.
 """
 
 from __future__ import annotations
@@ -81,17 +82,17 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         raise NotImplementedError(
             f'"{family}" element documents are not yet ported, ROADMAP item '
             f"{_ELEMENT_FAMILIES[family]}")
-    if isinstance(raw, dict) and raw.get("analysis"):
-        if raw.get("prescribed_displacements"):
-            # The prescribed DOFs join fixed_dofs, but their nonzero values
-            # reach only the Newton settlement route: an analysis would
-            # clamp them at zero.
+    parsed = parse_problem_dict(raw, seed=seed)
+    problem, config = parsed.problem, parsed.config
+    if parsed.meta.get("analysis"):
+        if parsed.prescribed is not None:
+            # The prescribed DOFs joined fixed_dofs, but their nonzero
+            # values reach only the Newton settlement route: an analysis
+            # would clamp them at zero.
             raise ValueError("prescribed_displacements cannot be combined "
                              "with an analysis block")
         raise NotImplementedError(
             '"analysis" documents are not yet ported, ROADMAP item 17')
-    parsed = parse_problem_dict(raw, seed=seed)
-    problem, config = parsed.problem, parsed.config
 
     logger.info("Device: %s", device)
     logger.info("Nodes: %d", problem.nnode)

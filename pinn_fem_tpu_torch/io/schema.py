@@ -27,7 +27,7 @@ solve_nr(prescribed_u=...) through `ParsedProblem.prescribed`.
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,6 +46,9 @@ class ParsedProblem:
     config: SolverConfig
     measured_disp: Optional[np.ndarray] = None
     measured_dofs: Optional[np.ndarray] = None
+    # {solver_type, description, analysis, thermal}: the document's
+    # routing keys, as the JAX package's ParsedProblem.meta holds them.
+    meta: Dict = field(default_factory=dict)
     prescribed: Optional[np.ndarray] = None  # (ndof,) settlement values
 
 
@@ -255,6 +258,12 @@ def parse_problem_dict(data: Dict, seed: int = 0) -> ParsedProblem:
         config=config,
         measured_disp=measured_disp,
         measured_dofs=measured_dofs,
+        meta={
+            "solver_type": solver_type,
+            "description": data.get("description", ""),
+            "analysis": data.get("analysis"),
+            "thermal": thermal,
+        },
         prescribed=prescribed,
     )
 

@@ -34,10 +34,12 @@ from ..utils.runtime import default_dtype
 class ScalarField:
     """Constant material property."""
 
-    value: float
+    value: float  # or a 0-d tensor, which the values stay differentiable in
 
     def eval_batch(self, x: torch.Tensor) -> torch.Tensor:
         """(n, k) inputs -> (n,) constant values."""
+        if isinstance(self.value, torch.Tensor):
+            return self.value.expand(x.shape[0])
         return torch.full((x.shape[0],), self.value, dtype=x.dtype,
                           device=x.device)
 
@@ -141,7 +143,8 @@ def make_mlp_field(
     Architecture: Linear(input_dim, n) + Tanh, then (hidden_layers - 1) x
     [Linear(n, n) + Tanh], then Linear(n, 1).  The hidden layers draw on
     the host: from `key`, a utils.prng key, as jax.random does (float32
-    only), or from a CPU torch.Generator.  The result is moved to `device`.
+    or float64), or from a CPU torch.Generator.  The result is moved to
+    `device`.
     """
     dtype = dtype or default_dtype()
     sizes = [input_dim] + [neurons_per_layer] * hidden_layers + [1]
@@ -160,14 +163,17 @@ def make_mlp_field(
             b = (torch.rand((fan_out,), generator=key, dtype=dtype)
                  * 2.0 - 1.0) * bound
         else:
-            if dtype != torch.float32:
+            if dtype not in (torch.float32, torch.float64):
                 raise NotImplementedError(
-                    "the jax.random draw is reproduced in float32 only")
+                    "the jax.random draw is reproduced in float32 and "
+                    "float64 only")
+            np_dtype = np.float64 if dtype == torch.float64 else np.float32
             key, kw, kb = prng.split(key, 3)
             bound = 1.0 / np.sqrt(fan_in)
             w = torch.from_numpy(prng.uniform(kw, (fan_in, fan_out), -bound,
-                                              bound))
-            b = torch.from_numpy(prng.uniform(kb, (fan_out,), -bound, bound))
+                                              bound, np_dtype))
+            b = torch.from_numpy(prng.uniform(kb, (fan_out,), -bound, bound,
+                                              np_dtype))
         layers.append((w, b))
     return MLPField(layers=layers, scale=torch.tensor(scale, dtype=dtype),
                     input_dim=input_dim,

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils.runtime import require_float32
 from . import _build
 from .dia_kernel import (check_operands, dia_matvec, dia_matvec_reference,
                          direction_plan, operand_ok, window_offsets)
@@ -491,8 +492,19 @@ def fused_cg_solve(
     Returns (x * mask, iterations, relative recurrence-residual norm) with
     the convergence and float32 breakdown gates of ops.dia.dia_cg_solve;
     iterations and residual are 0-d device tensors.  On CUDA tensors every
-    iteration launches the two kernels (and r0 = b - A x0 the stencil).
+    iteration launches the two kernels (and r0 = b - A x0 the stencil);
+    they take float32 only.  The twins keep the kernels' float32 loop
+    state, so float64 CPU tensors (PINN_FEM_TPU_X64) take the plain
+    recurrence, ops.dia.dia_cg_solve_reference.
     """
+    if rhs.device.type == "cuda":
+        require_float32(rhs.dtype, "fused PCG (kernels 1-3: dia_matvec, "
+                        "dia_dir_matvec, cg_update)")
+    elif rhs.dtype != torch.float32:
+        from ..dia import dia_cg_solve_reference
+
+        return dia_cg_solve_reference(layout, diags, rhs, free_mask, tol,
+                                      max_iter, x0)
     return _pcg(dia_matvec, bind_dir_matvec, bind_cg_update, layout, diags,
                 rhs, free_mask, tol, max_iter, x0)
 

@@ -43,6 +43,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from ...models.fields import Material, MLPField
+from ...utils.runtime import require_float32
 from . import _build
 
 MAX_WIDTH = 32   # kMaxWidth in csrc/material.cu (the TPU kernel's PAD_W)
@@ -554,7 +555,8 @@ def fused_material_coefficients(data, material: Material, load_factor
     """(E, A, rho, s) at every element midpoint, each (nelm,).
 
     Requires fused_coefficients_supported(material, data.dimension).  CPU
-    tensors take the twin; CUDA tensors the kernels (or raise)."""
+    tensors take the twin; CUDA tensors the kernels (or raise), float32
+    only."""
     dev = data.inv_len.device
     if dev.type == "cpu":
         return material_coefficients_reference(data.mid, data.inv_len,
@@ -562,6 +564,10 @@ def fused_material_coefficients(data, material: Material, load_factor
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     fields = _fields(material)
+    for t in (data.inv_len, *(p for f in fields
+                              for p in f.trainable_params())):
+        require_float32(t.dtype, "material_coefficients (kernels 4 and 4b, "
+                        "the material fields)")
     params = torch.cat([p.reshape(-1) for f in fields
                         for p in f.trainable_params()])
     scales = torch.stack([f.scale for f in fields]).detach()

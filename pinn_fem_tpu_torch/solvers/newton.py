@@ -28,6 +28,7 @@ from ..config import SolverConfig, SolverResult
 from ..models.fields import Material
 from ..models.problem import ProblemData, TrussProblem
 from ..ops.assembly import assemble_system, assemble_system_nonlinear
+from ..utils.runtime import require_float32
 
 # DOF count above which the dense factorization gives way to banded PCG
 # (dense K is O(ndof^2) memory).
@@ -98,6 +99,9 @@ def _nr_dia_core(layout, data: ProblemData, material: Material,
             f"preconditioner {precond!r}: only Jacobi is ported; multigrid "
             "(ops/mg.py) is ROADMAP item 13")
     dt, dev = u0.dtype, u0.device
+    if dev.type == "cuda":
+        require_float32(dt, "banded Newton (kernels 1-3: dia_matvec, "
+                        "dia_dir_matvec, cg_update)")
     f_ext = load_factor * data.loads
     f_norm = torch.clamp_min(torch.linalg.vector_norm(f_ext * data.free_mask),
                              min_denom)

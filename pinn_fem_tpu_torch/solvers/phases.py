@@ -39,6 +39,13 @@ GD_HIST_COLS = 7  # iteration, loss_total, loss_physics, loss_data, u_norm,
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
+def in_working_precision(x: float, dtype: torch.dtype) -> float:
+    """x rounded to `dtype` (float32 or float64), as jnp.asarray(x, dtype)
+    rounds a tolerance before the JAX phases compare with it."""
+    return float(np.asarray(x, dtype=np.float64 if dtype == torch.float64
+                            else np.float32))
+
+
 class Adam:
     """Adam moments of one tensor; fresh state per phase, as the reference
     builds a new torch.optim.Adam per call (solver.py:234-238)."""
@@ -47,6 +54,8 @@ class Adam:
         self.mu = torch.zeros_like(like)
         self.nu = torch.zeros_like(like)
         self.count = 0
+        self.np_dtype = (np.float64 if like.dtype == torch.float64
+                         else np.float32)
 
     def direction(self, g: torch.Tensor) -> torch.Tensor:
         """The step direction mu_hat / (sqrt(nu_hat) + eps) for gradient g."""
@@ -54,9 +63,9 @@ class Adam:
         self.nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * self.nu
         self.count += 1
         # Bias corrections in the working precision, as optax takes them.
-        one = np.float32(1.0)
-        bc1 = float(one - np.float32(ADAM_B1) ** np.float32(self.count))
-        bc2 = float(one - np.float32(ADAM_B2) ** np.float32(self.count))
+        dt = self.np_dtype
+        bc1 = float(dt(1.0) - dt(ADAM_B1) ** dt(self.count))
+        bc2 = float(dt(1.0) - dt(ADAM_B2) ** dt(self.count))
         return (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + ADAM_EPS)
 
 
@@ -102,7 +111,7 @@ def gd_phase(data: ProblemData, material: Material, set_theta_fn,
     them.  theta0 must lie on u0's device."""
     dt = u0.dtype
     lf = float(load_factor)
-    tol32 = float(np.float32(tol))
+    tol_w = in_working_precision(tol, dt)
     f_ext = lf * data.loads
     u = u0.detach()
     th = _flatten(theta0)
@@ -154,8 +163,8 @@ def gd_phase(data: ProblemData, material: Material, set_theta_fn,
                 torch.linalg.vector_norm(r), theta_norm]).tolist()
         hist.append(row)
         loss_v, rnorm = row[1], row[5]
-        conv = it > 10 and (rnorm < tol32
-                            or (not math.isnan(loss_v) and loss_v < tol32))
+        conv = it > 10 and (rnorm < tol_w
+                            or (not math.isnan(loss_v) and loss_v < tol_w))
         it += 1
     theta = _unflatten(th, theta0) if th is not None else []
     return GDPhaseOut(u=u, theta=theta, hist=hist, n_iters=it,
@@ -394,7 +403,8 @@ def full_nr_phase(data: ProblemData, material: Material, set_theta_fn,
     lr = torch.cat([torch.full((n_free,), lr_u, dtype=dt, device=dev),
                     torch.full((z.numel() - n_free,), lr_theta, dtype=dt,
                                device=dev)])
-    tol32, data_tol32 = float(np.float32(tol)), float(np.float32(data_tol))
+    tol_w = in_working_precision(tol, dt)
+    data_tol_w = in_working_precision(data_tol, dt)
     hist: List[List[float]] = []
     accepted: List[bool] = []
     it, conv, syncs = 0, False, 0
@@ -414,8 +424,8 @@ def full_nr_phase(data: ProblemData, material: Material, set_theta_fn,
                                torch.sqrt(2.0 * lp), torch.sqrt(ld)]).tolist()
             syncs += 1
             total, rnorm, drms = row[5:]
-            conv = total < tol32 or (rnorm < tol32
-                                     and (not has_meas or drms < data_tol32))
+            conv = total < tol_w or (rnorm < tol_w
+                                     and (not has_meas or drms < data_tol_w))
             if not conv:
                 z, tries, ok = lm_step(z, g, h, loss, objective.value, lr)
                 syncs += tries
@@ -449,7 +459,7 @@ def gn_phase(data: ProblemData, material: Material, set_theta_fn,
     n_free = space.n_free
     z = space.pack(u0)
     eye = torch.eye(z.numel(), dtype=dt, device=dev)
-    tol32 = float(np.float32(tol))
+    tol_w = in_working_precision(tol, dt)
     hist: List[List[float]] = []
     steps_accepted: List[bool] = []
     it, conv, stalled, syncs = 0, False, False, 0
@@ -483,7 +493,7 @@ def gn_phase(data: ProblemData, material: Material, set_theta_fn,
             syncs += 1
         hist.append([float(it + 1)] + row[:5])
         steps_accepted.append(accepted)
-        conv = row[3] < tol32 and row[4] > 0
+        conv = row[3] < tol_w and row[4] > 0
         # Stall: the line search never accepted and the step it ended on
         # did not lower the residual.
         stalled = not accepted and row[5] >= row[2]

@@ -28,6 +28,12 @@ Parts (all by default), one JSON line each:
           thermal / settlement documents through both CLIs (each against
           float64 too), example1 heated, the settled bar and the 4 x 8
           grid under large stretch.
+  legacy  the legacy solvers, scalar identification and API CLIs, port
+          vs JAX (tests/test_torch_legacy.py): u, reactions, history rows
+          (first row and all, against each column's largest value),
+          nn_parameters, E*A, iteration counts;
+  x64     example1 / example2 / example7-P through both CLIs, both in
+          float64 (tests/test_torch_x64.py): iterations, u, nn_parameters.
 Not collected by pytest (no test_ prefix).  fnr_drift imports no JAX, so
 it also runs where JAX is not installed.
 """
@@ -370,10 +376,111 @@ def truss_ext():
          reactions_rel=rel_max(r_t.reactions, r_j.reactions))
 
 
+def printer(part: str):
+    """A line(case, **fields) that prints one JSON line of `part`."""
+    def line(case, **fields):
+        print(json.dumps({"part": part, "case": case, **fields}),
+              flush=True)
+    return line
+
+
+def legacy():
+    import test_torch_legacy as L
+
+    line = printer("legacy")
+    J, T = L.J, L.T
+    for kind in ("scalar", "frozen_nn"):
+        pj, pt = L.both_chains(L.nn_material() if kind == "frozen_nn"
+                               else None)
+        rj = J.solve_incremental_newton(pj)
+        rt = T.solve_incremental_newton(pt, device="cpu")
+        line(f"incremental newton chain {kind}",
+             u_rel=L.rel_err(rj.displacements, rt.displacements),
+             reactions_rel=L.rel_err(rj.reactions, rt.reactions),
+             iterations=[[e["iterations"] for e in r.history]
+                         for r in (rj, rt)])
+    jp, tp = L.grid_both()
+    rj = J.solve_incremental_newton(jp.problem,
+                                    J.LegacySolverConfig(n_increments=3))
+    rt = T.solve_incremental_newton(tp.problem,
+                                    T.LegacySolverConfig(n_increments=3),
+                                    device="cpu")
+    line("incremental newton 4x8 grid, frozen fields",
+         u_rel=L.rel_err(rj.displacements, rt.displacements),
+         iterations=[[e["iterations"] for e in r.history]
+                     for r in (rj, rt)],
+         residuals=[[e["residual"] for e in r.history] for r in (rj, rt)])
+    for measured in (True, False):
+        pj, pt = L.both_chains(L.nn_material())
+        kw = L.MEASURED if measured else {}
+        cfg = dict(max_iterations=300, learning_rate_u=0.01,
+                   learning_rate_theta=1e-3)
+        rj = J.solve_pinn_gradient_descent(
+            pj, pj.loads, config=J.PINNGradientDescentConfig(**cfg), **kw)
+        rt = T.solve_pinn_gradient_descent(
+            pt, pt.loads, config=T.PINNGradientDescentConfig(**cfg),
+            device="cpu", **kw)
+        line(f"legacy gd chain, measured={measured}",
+             first_row=L.rows_err(rj.history[:1], rt.history[:1]),
+             rows=L.rows_err(rj.history, rt.history),
+             u_rel=L.rel_err(rj.displacements, rt.displacements),
+             nn_rel=max(L.rel_err(v, rt.nn_parameters[k])
+                        for k, v in rj.nn_parameters.items()))
+    pj, pt = L.both_chains(L.nn_material(seed=3))
+    cfg = dict(max_iterations=50, alpha_physics=0.1, alpha_data=10.0)
+    rj = J.solve_pinn_newton_raphson(pj, pj.loads,
+                                     config=J.PINNSolverConfig(**cfg),
+                                     **L.MEASURED)
+    rt = T.solve_pinn_newton_raphson(pt, pt.loads,
+                                     config=T.PINNSolverConfig(**cfg),
+                                     device="cpu", **L.MEASURED)
+    line("legacy gauss-newton chain", rows=[len(rj.history),
+                                            len(rt.history)],
+         rows_rel=L.rows_err(rj.history, rt.history),
+         u_rel=L.rel_err(rj.displacements, rt.displacements))
+    for method, kw in (("gn", dict(max_iterations=60, tolerance=1e-10)),
+                       ("gd", dict(n_iterations=2000, learning_rate=3e-3,
+                                   beta=1e3))):
+        pj, pt = L.si_problem(J), L.si_problem(T)
+        a = getattr(L.j_scalar, f"identify_scalars_{method}")(
+            pj, pj.loads, **L.SI, **kw)
+        b = getattr(L.scalar_inverse, f"identify_scalars_{method}")(
+            pt, pt.loads, device="cpu", **L.SI, **kw)
+        ea = [r["young_final"] * r["area_final"] for r in (a, b)]
+        line(f"identify_scalars_{method} SI", ea=ea,
+             ea_rel=abs(ea[1] - ea[0]) / ea[0],
+             rows=[len(a["history"]), len(b["history"])],
+             first_row=L.rows_err(a["history"][:1], b["history"][:1]))
+
+
+def x64():
+    import os
+    import tempfile
+
+    import jax
+
+    import test_torch_x64 as X
+
+    line = printer("x64")
+    os.environ[X.X64_VARIABLE] = "1"
+    with jax.enable_x64(True), tempfile.TemporaryDirectory() as tmp:
+        for name in ("example1", "example2", "example7-P"):
+            sub = Path(tmp) / name
+            sub.mkdir()
+            j, t = X.run_both(sub, name)
+            nn = [X.rel_err(v, t["nn_parameters"][k])
+                  for k, v in (j.get("nn_parameters") or {}).items()]
+            line(f"x64 {name}", iterations=[j["iterations"],
+                                            t["iterations"]],
+                 u_rel=X.rel_err(j["displacements"], t["displacements"]),
+                 nn_rel=max(nn) if nn else None)
+    del os.environ[X.X64_VARIABLE]
+
+
 if __name__ == "__main__":
     parts = {"corpus": corpus, "grid": grid, "grad": grad, "drift": drift,
              "second_order": second_order, "fnr_drift": fnr_drift,
-             "truss_ext": truss_ext}
+             "truss_ext": truss_ext, "legacy": legacy, "x64": x64}
     for part in sys.argv[1:] or list(parts):
         name, _, arg = part.partition("=")
         parts[name](*([arg] if arg else []))

@@ -608,3 +608,73 @@ def test_truss_extension_documents_on_card(cuda_device, tmp_path, kind):
         pd = doc["prescribed_displacements"]
         u = np.asarray(card["displacements"]).reshape(-1)
         assert np.all(u[pd["dofs"]] == np.float32(pd["values"][0]))
+
+
+def test_x64_refused_at_kernel_dispatch_on_card(cuda_device, monkeypatch):
+    """Under PINN_FEM_TPU_X64=1 a float64 tensor at the dispatch of
+    kernels 1-3 (the banded Newton) or of kernels 4 / 4b (the material
+    fields) raises one ValueError naming the variable and the kernel, and
+    nothing launches; the dense Newton path runs in float64 on the card."""
+    from pathlib import Path
+
+    from pinn_fem_tpu_torch.examples_grid import pinn_grid_document
+    from pinn_fem_tpu_torch.io.schema import (parse_problem_dict,
+                                              parse_problem_file)
+    from pinn_fem_tpu_torch.ops.assembly import material_coefficients
+
+    monkeypatch.setenv("PINN_FEM_TPU_X64", "1")
+    kernels.reset_launch_counts()
+    banded = grid_problem(24, 48)
+    assert banded.ndof > 2048
+    with pytest.raises(ValueError, match="PINN_FEM_TPU_X64") as err:
+        T.solve_nr(banded, device=cuda_device)
+    assert "dia_matvec" in str(err.value)
+
+    parsed = parse_problem_dict(pinn_grid_document(4, 8))
+    data = parsed.problem.to_device(cuda_device)
+    assert data.loads.dtype == torch.float64
+    with pytest.raises(ValueError, match="PINN_FEM_TPU_X64") as err:
+        material_coefficients(data, parsed.problem.material.to(cuda_device),
+                              1.0)
+    assert "material_coefficients" in str(err.value)
+    assert not any(kernels.launch_counts().values())
+
+    example1 = Path(__file__).resolve().parents[1] / "examples" / "json" \
+        / "example1.json"
+    dense = parse_problem_file(example1).problem
+    assert dense.to_device(cuda_device).loads.dtype == torch.float64
+    result = T.solve_nr(dense, device=cuda_device)
+    assert result.converged
+    np.testing.assert_allclose(result.displacements.reshape(-1),
+                               [0, 0, 1, 0, 2, 0, 3, 0], rtol=0, atol=1e-12)
+
+
+def test_legacy_gd_launches_the_material_kernels_once_an_iteration(
+        cuda_device):
+    """solve_pinn_gradient_descent on the 8 x 16 PINN grid: one kernel 4
+    and one kernel 4b launch per iteration; its first history row within
+    1e-5 of the CPU run's (the twin), as chip_smoke.py holds the GD
+    path's."""
+    from pinn_fem_tpu_torch.examples_grid import pinn_grid_document
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+
+    doc = pinn_grid_document(8, 16)
+    cfg = T.PINNGradientDescentConfig(max_iterations=30, tolerance=0.0,
+                                      learning_rate_u=1e-3,
+                                      learning_rate_theta=1e-3)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        parsed = parse_problem_dict(doc)
+        kernels.reset_launch_counts()
+        runs[str(dev)] = T.solve_pinn_gradient_descent(
+            parsed.problem, parsed.problem.loads, parsed.measured_disp,
+            parsed.measured_dofs, cfg, device=dev)
+    counts = kernels.launch_counts()
+    card = runs[str(cuda_device)]
+    assert len(card.history) == 30
+    assert counts["material_coefficients"] == 30
+    assert counts["material_coefficients_backward"] == 30
+    first_cpu = np.array(list(runs["cpu"].history[0].values()))
+    first_card = np.array(list(card.history[0].values()))
+    assert np.abs(first_card - first_cpu).max() <= 1e-5 * np.abs(
+        first_cpu).max()

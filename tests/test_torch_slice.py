@@ -283,7 +283,13 @@ def test_unported_solver_options_raise():
 
 def test_port_never_imports_jax(tmp_path):
     shutil.copy(CORPUS / "example1.json", tmp_path / "example1.json")
-    code = ("import sys, pinn_fem_tpu_torch\n"
+    # Every module of the port (the API CLIs, legacy and scalar solvers
+    # included) is imported, then the CLI runs.
+    code = ("import importlib, pkgutil, sys, pinn_fem_tpu_torch\n"
+            "for m in pkgutil.walk_packages(pinn_fem_tpu_torch.__path__,\n"
+            "                               'pinn_fem_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'pinn_fem_tpu_torch.cli.api_pinn_nr' in sys.modules\n"
             "from pinn_fem_tpu_torch.cli.generic import main\n"
             f"rc = main([{str(tmp_path / 'example1.json')!r}])\n"
             "print('RESULT', rc, 'jax' in sys.modules,"
