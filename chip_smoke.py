@@ -91,7 +91,28 @@ code is not 0 and no result line is printed:
      ms an iteration on the 40k grid; (d) legacy_generic.main on the
      legacy web NN payload (a timestamped log, u within 1e-2, kernel 4
      not launched: input_dim 1); (e) PINN_FEM_TPU_X64=1: example1 in
-     float64 on the card, the 40k grid document refused (exit 1).
+     float64 on the card, the 40k grid document refused (exit 1);
+ 12. meshes without a banded layout, RCM, and checkpoint / resume: (a)
+     the 100 x 200 grid document with its nodes renumbered by a seeded
+     permutation (shuffled_document) through main() on cuda: no banded
+     layout, so the gather-based PCG (ops/cg.py, torch ops); converged, u
+     mapped back within 1e-3 of float64, no repo kernel launched, Newton
+     and PCG iterations beside phase 4's, ms warm, ms per PCG iteration
+     and the device's idle share over 64 PCG iterations; (b) RCM
+     (reorder_problem) on that mesh: its host time, the implementation
+     (native library or numpy), its band against the 192-diagonal budget,
+     and its solve_nr with u mapped back (within 1e-3 of float64 and 1e-4
+     of (a)); then the shuffled 20 x 60 grid, which RCM puts back on the
+     banded operator: kernels 1-3 launched, u within 1e-3 of float64 and
+     1e-4 of its gather solve; (c) the gather and banded Newton cores on
+     one ProblemData of the natural 100 x 200 grid (Newton counts within
+     one, u within 1e-4, one gather K u within 1e-6 of kernel 1's); (d)
+     checkpoint / resume on cuda: the grid's nr run writes state.msgpack,
+     the driver's state after increment 1 resumed gives the uninterrupted
+     u within 1e-5 with kernels 1-3 for the re-run increment only (the
+     state written as half of the final u, as tests/test_aux.py does,
+     within 1e-3), and the PINN grid's GD run of 2 increments saves theta,
+     which loads back on the card bit for bit and resumes.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -104,7 +125,8 @@ loop calls it, and for the material kernels the host us per wrapper call
 (the backward also its twin's ms and the s-only call's ms and bound;
 kernel 4 also its launches on phase 9's paths, kernels 1-3 theirs on
 phase 10's documents, kernels 4 and 4b theirs on phase 11's legacy
-paths); the last is {"ok": true,
+paths, every kernel its launches on phase 12's paths); the last is
+{"ok": true,
 "device": {...}}.  Needs one card; imports no JAX.
 """
 
@@ -213,6 +235,24 @@ LEGACY_WEB_NN = {
                     "learning_rate_theta": 1e-3, "tolerance": 1e-5},
     "solver_type": "pinn-gd",
 }
+# Phase 12: the seed of the node renumbering, the grid RCM puts back on
+# the banded operator, PCG iterations in the gather loop's profile and
+# timing, the GD document's iterations an increment (its tolerance lies
+# above the loss, so each increment stops at the gate after iteration 10),
+# and the bounds: u against float64 as phase 4; the gather and banded
+# solves of one mesh within the grid bound of tests/test_torch_slice.py;
+# one gather K u against kernel 1's within float32 rounding; a resumed run
+# against the uninterrupted one.
+SHUFFLE_SEED = 12
+RCM_GRID = (20, 60)
+GATHER_PROFILE_ITERS = 64
+GATHER_TIMED_ITERS = 512
+RESUME_GD_TOL = 1e9
+RESUME_GD_ITERS = 40
+GATHER_U_RTOL = 1e-3
+GATHER_VS_BANDED_RTOL = 1e-4
+GATHER_MATVEC_RTOL = 1e-6
+RESUME_RTOL = 1e-5
 BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FLOPS = 67e12           # H100 SXM FP32, outside the tensor cores
 CSRC = "pinn_fem_tpu_torch/ops/kernels/csrc/"
@@ -2105,6 +2145,337 @@ def phase_api(workdir: Path, dev, card: str) -> dict:
     return legacy
 
 
+def rel_err(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, float).reshape(-1), np.asarray(b, float).reshape(-1)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def phase_gather_cli(workdir: Path, dev, card: str, phase4: dict) -> dict:
+    """12(a): the shuffled 100 x 200 grid document through main(): no
+    banded layout, so the gather-based PCG; no repo kernel launches.
+    Returns the document, its node order and u in the original
+    numbering."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.examples_grid import (grid_document,
+                                                  shuffled_document)
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import cg, kernels
+    from pinn_fem_tpu_torch.ops.reorder import restore_field
+    from pinn_fem_tpu_torch.solvers.newton import _dia_layout_of
+
+    doc = grid_document(*GRID, tolerance=GRID_TOL, n_increments=2)
+    sdoc, order = shuffled_document(doc, seed=SHUFFLE_SEED)
+    problem = parse_problem_dict(sdoc).problem
+    data = problem.to_device(dev)
+    require(_dia_layout_of(problem, data) is None,
+            "the shuffled grid has no banded layout")
+    path = workdir / "shuffled.json"
+    path.write_text(json.dumps(sdoc))
+    kernels.reset_launch_counts()
+    with Spy(cg, "cg_solve") as solves:
+        t0 = time.perf_counter()
+        rc = main([str(path)])
+        first_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    require(rc == 0, "shuffled grid: exit code 0")
+    t0 = time.perf_counter()
+    require(main([str(path)]) == 0, "shuffled grid: warm exit code 0")
+    warm_s = time.perf_counter() - t0
+    out = json.loads((workdir / "shuffled.res.json").read_text())
+    u = restore_field(np.asarray(out["displacements"], float), order, 2)
+    require(bool(np.all(np.isfinite(u))) and u.size == 2 * GRID[0] * GRID[1],
+            "shuffled grid: finite displacements of the expected shape")
+    residual, u_err = float64_check(doc, u)
+    pcg_iterations = sum(int(res[1]) for _, _, res in solves)
+
+    # ms per PCG iteration, and the device's idle share over
+    # GATHER_PROFILE_ITERS iterations, on the shuffled grid's first solve.
+    s = cg.stiffness_coefficients(data, problem.material, 1.0)
+    rhs = data.loads.clone()
+
+    def solve(n):
+        return lambda: cg.cg_solve(data, s, rhs, tol=0.0, max_iter=n)
+
+    solve(GATHER_PROFILE_ITERS)()
+    times = {}
+    for n in (0, GATHER_TIMED_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(n)()
+        torch.cuda.synchronize()
+        times[n] = time.perf_counter() - t0
+    ms_per_iteration = 1e3 * (times[GATHER_TIMED_ITERS] - times[0]) \
+        / GATHER_TIMED_ITERS
+    idle = idle_profile(solve(GATHER_PROFILE_ITERS))
+    log("phase12_gather_cli", card=card, ndof=u.size,
+        converged=out["converged"], history=out["history"],
+        float64_residual=residual, u_rel_err_vs_scipy=u_err,
+        first_in_process_s=first_s, warm_s=warm_s, launches=launches,
+        newton_iterations=len(solves), pcg_iterations=pcg_iterations,
+        phase4_newton_iterations=(phase4["dia_matvec"] - 2) // 2,
+        phase4_pcg_iterations=phase4["cg_update"],
+        ms_per_pcg_iteration=ms_per_iteration,
+        gather_map_shape=list(data.gather_map.shape),
+        profile_iterations=GATHER_PROFILE_ITERS, profile=idle)
+    require(out["converged"] is True, "shuffled grid converged")
+    require(not any(launches.values()),
+            "the gather path launches no repo kernel")
+    require(residual <= GRID_TOL ** 0.5, "float64 residual <= sqrt(tol)")
+    require(u_err <= GATHER_U_RTOL,
+            f"shuffled grid: u within {GATHER_U_RTOL} of float64")
+    return {"doc": sdoc, "order": order, "u": u, "launches": launches}
+
+
+def phase_rcm(workdir: Path, dev, card: str, gathered: dict) -> dict:
+    """12(b): reorder_problem on the shuffled 100 x 200 grid (RCM's host
+    time and implementation; its band against the diagonal budget) and
+    its solve_nr, u mapped back; then the shuffled RCM_GRID grid, which RCM
+    puts back on the banded operator: kernels 1-3, u against float64 and
+    against its gather solve."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import SolverConfig, solve_nr
+    from pinn_fem_tpu_torch.examples_grid import (float64_solution,
+                                                  grid_document,
+                                                  shuffled_document)
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.ops.dia import dia_layout
+    from pinn_fem_tpu_torch.ops.reorder import reorder_problem, restore_field
+    from pinn_fem_tpu_torch.solvers.newton import _dia_layout_of
+    from pinn_fem_tpu_torch.utils import native
+
+    implementation = "native" if native.available() else "numpy"
+    problem = parse_problem_dict(gathered["doc"]).problem
+    t0 = time.perf_counter()
+    reordered, order = reorder_problem(problem)
+    rcm_s = time.perf_counter() - t0
+    data = reordered.to_device(dev)
+    band = dia_layout(data.dof_map.cpu().numpy(), reordered.ndof,
+                      max_diags=10 ** 6)
+    layout = _dia_layout_of(reordered, data)
+    cfg = SolverConfig(tolerance=GRID_TOL, max_iterations=20)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_nr(reordered, cfg, 1.0, data=data)
+    solve_s = time.perf_counter() - t0
+    launches_40k = kernels.launch_counts()
+    u = restore_field(restore_field(res.displacements, order, 2),
+                      gathered["order"], 2)
+    doc40k = grid_document(*GRID, tolerance=GRID_TOL)
+    _, u_err = float64_check(doc40k, u)
+    vs_a = rel_err(u, gathered["u"])
+    log("phase12_rcm_40k", card=card, implementation=implementation,
+        rcm_host_s=rcm_s, diagonals=band.n_diags, bandwidth=band.bandwidth,
+        banded_layout=layout is not None, solve_s=solve_s,
+        converged=res.converged, history=res.history,
+        launches=launches_40k, u_rel_err_vs_scipy=u_err,
+        u_rel_vs_gather_cli=vs_a)
+    require(res.converged, "RCM 40k grid converged")
+    require(u_err <= GATHER_U_RTOL, "RCM 40k grid: u within 1e-3 of float64")
+    require(vs_a <= GATHER_VS_BANDED_RTOL,
+            f"RCM 40k grid: u within {GATHER_VS_BANDED_RTOL} of 12(a)")
+
+    doc, _ = shuffled_document(grid_document(*RCM_GRID, tolerance=GRID_TOL),
+                               seed=SHUFFLE_SEED)
+    problem = parse_problem_dict(doc).problem
+    gather = solve_nr(problem, cfg, 1.0, device=dev)
+    t0 = time.perf_counter()
+    reordered, order = reorder_problem(problem)
+    rcm_s = time.perf_counter() - t0
+    data = reordered.to_device(dev)
+    layout = _dia_layout_of(reordered, data)
+    require(layout is not None, f"RCM {RCM_GRID}: a banded layout")
+    kernels.reset_launch_counts()
+    res = solve_nr(reordered, cfg, 1.0, data=data)
+    launches = kernels.launch_counts()
+    u = restore_field(res.displacements, order, 2)
+    u64 = float64_solution(doc["nodes"], doc["elements"],
+                           np.asarray(doc["loads"], float), doc["fixed_dofs"])
+    u_err, vs_gather = rel_err(u, u64), rel_err(u, gather.displacements)
+    log("phase12_rcm_banded", card=card, grid=list(RCM_GRID),
+        implementation=implementation, rcm_host_s=rcm_s,
+        diagonals=layout.n_diags, converged=res.converged,
+        history=res.history, launches=launches, u_rel_err_vs_scipy=u_err,
+        u_rel_vs_gather=vs_gather)
+    require(res.converged and gather.converged, f"RCM {RCM_GRID} converged")
+    for k in BANDED:
+        require(launches[k] > 0, f"RCM {RCM_GRID}: {k} launched")
+    require(launches["dia_dir_matvec"] == launches["cg_update"],
+            f"RCM {RCM_GRID}: one update per direction pass")
+    require(u_err <= GATHER_U_RTOL, f"RCM {RCM_GRID}: u within 1e-3 of "
+            "float64")
+    require(vs_gather <= GATHER_VS_BANDED_RTOL,
+            f"RCM {RCM_GRID}: u within {GATHER_VS_BANDED_RTOL} of the "
+            "gather solve")
+    return {"rcm_40k": launches_40k, "rcm_banded": launches}
+
+
+def phase_gather_vs_banded(dev, card: str) -> dict:
+    """12(c): the gather and the banded Newton cores on one ProblemData of
+    the natural 100 x 200 grid, and one gather K u against kernel 1's."""
+    import torch
+
+    from pinn_fem_tpu_torch import SolverConfig
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.ops.cg import (apply_stiffness,
+                                           stiffness_coefficients)
+    from pinn_fem_tpu_torch.ops.dia import assemble_dia, dia_matvec
+    from pinn_fem_tpu_torch.solvers.newton import (_dia_layout_of,
+                                                   _nr_core_cg, _nr_dia_core)
+
+    problem = grid_problem(*GRID)
+    data = problem.to_device(dev)
+    layout = _dia_layout_of(problem, data)
+    cfg = SolverConfig(tolerance=GRID_TOL, max_iterations=20)
+    lf = torch.tensor(1.0, device=dev)
+    u0 = torch.zeros(problem.ndof, device=dev)
+    args = (cfg.max_iterations, cfg.tolerance, cfg.min_denominator)
+    cg_tol = max(cfg.tolerance * 0.1, 5e-8)
+    runs, launches = {}, {}
+    for name, core in (
+            ("banded", lambda: _nr_dia_core(
+                layout, data, problem.material, u0, lf, *args, cg_tol=cg_tol,
+                cg_max_iter=min(max(20 * problem.ndof, 1000), 100_000))),
+            ("gather", lambda: _nr_core_cg(
+                data, problem.material, u0, lf, *args, cg_tol=cg_tol,
+                cg_max_iter=max(20 * problem.ndof, 1000)))):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = core()
+        torch.cuda.synchronize()
+        runs[name] += (time.perf_counter() - t0,)
+        launches[name] = kernels.launch_counts()
+    u_b, u_g = runs["banded"][0], runs["gather"][0]
+    # K u of a random u (at the solution K u is the load, a difference of
+    # entries far larger than itself).
+    s = stiffness_coefficients(data, problem.material, 1.0)
+    gen = torch.Generator(device=dev).manual_seed(SHUFFLE_SEED)
+    u = torch.randn(problem.ndof, generator=gen, device=dev)
+    ku_stencil = dia_matvec(layout, assemble_dia(layout, s, data.gvec), u)
+    ku_gather = apply_stiffness(data, s, u)
+    matvec_err = rel_err(ku_gather.cpu(), ku_stencil.cpu())
+    u_gap = rel_err(u_g.cpu(), u_b.cpu())
+    log("phase12_gather_vs_banded", card=card, ndof=problem.ndof,
+        newton_iterations={k: v[2] for k, v in runs.items()},
+        residual={k: float(v[3]) for k, v in runs.items()},
+        converged={k: v[4] for k, v in runs.items()},
+        solve_s={k: v[6] for k, v in runs.items()}, launches=launches,
+        u_rel_gap=u_gap, matvec_rel_err=matvec_err)
+    require(runs["banded"][4] and runs["gather"][4],
+            "natural grid: both cores converged")
+    require(abs(runs["banded"][2] - runs["gather"][2]) <= 1,
+            "natural grid: Newton counts within one (fault 3.5)")
+    require(u_gap <= GATHER_VS_BANDED_RTOL,
+            f"natural grid: gather u within {GATHER_VS_BANDED_RTOL} of banded")
+    require(matvec_err <= GATHER_MATVEC_RTOL,
+            f"gather K u within {GATHER_MATVEC_RTOL} of the stencil's")
+    require(not any(launches["gather"].values()),
+            "the gather core launches no repo kernel")
+    return launches["banded"]
+
+
+def phase_resume(workdir: Path, dev, card: str) -> dict:
+    """12(d): checkpoint and resume on the card: the 100 x 200 grid as an
+    nr run (2 increments) and the 100 x 200 PINN grid as a GD run."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import SolverConfig, solve
+    from pinn_fem_tpu_torch.examples_grid import (grid_problem,
+                                                  pinn_grid_document)
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers.gd import get_theta
+    from pinn_fem_tpu_torch.utils.checkpoint import (load_increment_state,
+                                                     save_increment_state)
+
+    def nr(n_increments=2, lf=1.0, **kw):
+        cfg = SolverConfig(method="nr", tolerance=GRID_TOL, max_iterations=20,
+                           n_increments=n_increments, load_factor_final=lf)
+        kernels.reset_launch_counts()
+        res = solve(grid_problem(*GRID), cfg, verbose=False, device=dev, **kw)
+        return res, kernels.launch_counts()
+
+    whole, launches_whole = nr(checkpoint_dir=str(workdir / "nr_full"))
+    meta = json.loads((workdir / "nr_full" / "meta.json").read_text())
+    require((workdir / "nr_full" / "state.msgpack").exists()
+            and meta["increment"] == 2, "nr: state.msgpack after increment 2")
+    # The driver's own state after increment 1 (a one-increment run to lf
+    # 0.5), resumed: the last increment runs from the same u as in the
+    # uninterrupted run.
+    ckpt = str(workdir / "nr_ckpt")
+    nr(1, 0.5, checkpoint_dir=ckpt)
+    resumed, launches_resumed = nr(checkpoint_dir=ckpt, resume=True)
+    gap = rel_err(resumed.displacements, whole.displacements)
+    newton = int(resumed.history[0]["iterations"])
+    # As tests/test_aux.py writes it: increment 1 as half of the final u.
+    save_increment_state(ckpt, 1, whole.displacements.reshape(-1) * 0.5, [])
+    halved, _ = nr(checkpoint_dir=ckpt, resume=True)
+    gap_halved = rel_err(halved.displacements, whole.displacements)
+
+    doc = pinn_grid_document(*GRID, max_iterations=RESUME_GD_ITERS,
+                             tolerance=RESUME_GD_TOL)
+    doc["solver_config"] = {"n_increments": 2}
+    gd_ckpt = str(workdir / "gd_ckpt")
+    parsed = parse_problem_dict(doc)
+    kernels.reset_launch_counts()
+    gd = solve(parsed.problem, parsed.config, parsed.measured_disp,
+               parsed.measured_dofs, verbose=False, device=dev,
+               checkpoint_dir=gd_ckpt)
+    launches_gd = kernels.launch_counts()
+    saved = get_theta(parsed.problem.material)
+    inc, _, theta = load_increment_state(gd_ckpt, saved)
+    same = all(torch.equal(a, b) and a.device == b.device
+               for la, lb in zip(theta, saved) for pa, pb in zip(la, lb)
+               for a, b in zip(pa, pb))
+    again = parse_problem_dict(doc)
+    gd_resumed = solve(again.problem, again.config, again.measured_disp,
+                       again.measured_dofs, verbose=False, device=dev,
+                       checkpoint_dir=gd_ckpt, resume=True)
+    log("phase12_resume", card=card, nr_launches_whole=launches_whole,
+        nr_launches_resumed=launches_resumed,
+        nr_resumed_newton_iterations=newton, nr_u_rel_gap=gap,
+        nr_u_rel_gap_halved_state=gap_halved, gd_increment_saved=inc,
+        gd_rows=[len(gd.history), len(gd_resumed.history)],
+        gd_launches=launches_gd, gd_theta_bit_equal_on_card=same,
+        theta_device=str(theta[0][0][0].device))
+    require(resumed.converged and whole.converged, "nr runs converged")
+    require(gap <= RESUME_RTOL, f"resumed nr u within {RESUME_RTOL}")
+    require(gap_halved <= GATHER_U_RTOL,
+            f"resumed from the halved state within {GATHER_U_RTOL}")
+    require(launches_resumed["dia_matvec"] == 2 * newton + 1,
+            "resume: kernel 1 only for the re-run increment")
+    require(0 < launches_resumed["dia_dir_matvec"]
+            < launches_whole["dia_dir_matvec"],
+            "resume: kernel 2 only for the re-run increment")
+    require(gd.converged and gd_resumed.converged and inc == 2,
+            "GD increments converged and saved")
+    require(same, "theta resumed on the card equals the saved theta")
+    require(np.all(np.isfinite(gd_resumed.displacements)),
+            "finite GD displacements after the resume")
+    return {"resume_nr": launches_resumed, "resume_gd": launches_gd}
+
+
+def phase_meshes(workdir: Path, dev, card: str, phase4: dict) -> dict:
+    """Phase 12: meshes without a banded layout, RCM, and checkpoint /
+    resume.  Returns the kernels' launches on each of its paths."""
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    gathered = phase_gather_cli(workdir, dev, card, phase4)
+    launches = {"gather_cli": gathered["launches"]}
+    launches.update(phase_rcm(workdir, dev, card, gathered))
+    launches["banded_core_40k"] = phase_gather_vs_banded(dev, card)
+    launches.update(phase_resume(workdir, dev, card))
+    return launches
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -2114,6 +2485,7 @@ def main() -> int:
     stats = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(Path(tmp))
+        phase4 = dict(launches)
         phase_dense(Path(tmp))
         mat_stats = phase_material(dev)
         launches.update(phase_gd_main_path(Path(tmp), dev))
@@ -2121,6 +2493,7 @@ def main() -> int:
         second_order = phase_second_order(Path(tmp), dev)
         truss_ext = phase_truss_extensions(Path(tmp), dev, card)
         legacy = phase_api(Path(tmp), dev, card)
+        meshes = phase_meshes(Path(tmp), dev, card, phase4)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -2148,6 +2521,8 @@ def main() -> int:
         if name in BANDED:
             entries[-1]["launches_truss_ext"] = {
                 doc: counts[name] for doc, counts in truss_ext.items()}
+        entries[-1]["launches_meshes"] = {
+            path: counts[name] for path, counts in meshes.items()}
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

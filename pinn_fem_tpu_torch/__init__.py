@@ -16,8 +16,11 @@ displacements, and solve_nr takes Green-Lagrange kinematics on the dense
 path.  The Node backend's JSON API entry points run too: the legacy
 solvers (solvers/legacy.py), scalar (E, A) identification
 (solvers/scalar_inverse.py) and their CLIs (cli/api_fem_solver.py,
-cli/api_pinn_gd.py, cli/api_pinn_nr.py, cli/legacy_generic.py).
-ROADMAP.md lists what is still to port.
+cli/api_pinn_gd.py, cli/api_pinn_nr.py, cli/legacy_generic.py).  Meshes
+whose numbering gives no banded layout take the gather-based PCG
+(ops/cg.py), and RCM (ops/reorder.py) renumbers them; solve's
+checkpoint_dir / resume write and read the JAX package's checkpoint files
+(utils/checkpoint.py).  ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every

@@ -12,7 +12,9 @@ and a support-settlement document, with float64 references
 (`float64_thermal_loads`, `float64_solution(..., prescribed)`,
 `float64_reference` for a whole document), and
 `float64_green_lagrange_force` recomputes the Green-Lagrange internal
-force from a solution.
+force from a solution.  `shuffled_document` renumbers any of these
+documents' nodes by a seeded random permutation: the same mesh, whose
+numbering gives no banded layout (the gather-based PCG's case).
 """
 
 from __future__ import annotations
@@ -104,6 +106,43 @@ def settlement_grid_document(rows: int, cols: int, settlement: float = 0.01,
         "dofs": (2 * nid[:, -1]).tolist(),
         "values": [settlement] * rows}
     return doc
+
+
+def shuffled_document(doc: dict, seed: int = 0):
+    """(document, order): a 2D truss document with its nodes renumbered by
+    a seeded random permutation, order[new] = old node id.  Loads, fixed,
+    prescribed and measured DOFs and a per-node temperature change follow
+    their nodes; the element order is kept.
+    ops.reorder.restore_field(field, order, 2) maps a per-DOF field of the
+    result back to the original numbering."""
+    nnode = len(doc["nodes"])
+    order = np.random.default_rng(seed).permutation(nnode)
+    new_of_old = np.empty(nnode, dtype=np.int64)
+    new_of_old[order] = np.arange(nnode)
+    new_dof = (2 * new_of_old[:, None] + np.arange(2)).reshape(-1)
+
+    def dofs(ids):
+        return new_dof[np.asarray(ids, dtype=np.int64)].tolist()
+
+    out = dict(doc)
+    out["nodes"] = np.asarray(doc["nodes"], float)[order].tolist()
+    out["elements"] = new_of_old[np.asarray(doc["elements"])].tolist()
+    loads = np.asarray(doc["loads"], float)
+    out["loads"] = loads[(2 * order[:, None] + np.arange(2)).reshape(-1)
+                         ].tolist()
+    out["fixed_dofs"] = sorted(dofs(doc["fixed_dofs"]))
+    if "thermal" in doc and np.ndim(doc["thermal"]["delta_t"]) == 1 \
+            and len(doc["thermal"]["delta_t"]) == nnode:
+        out["thermal"] = dict(doc["thermal"], delta_t=np.asarray(
+            doc["thermal"]["delta_t"], float)[order].tolist())
+    if "prescribed_displacements" in doc:
+        pd = doc["prescribed_displacements"]
+        out["prescribed_displacements"] = dict(pd, dofs=dofs(pd["dofs"]))
+    if "measured_displacements" in doc:
+        md = doc["measured_displacements"]
+        out["measured_displacements"] = dict(md,
+                                             global_dof=dofs(md["global_dof"]))
+    return out, order
 
 
 def chain_problem(n_nodes: int) -> TrussProblem:

@@ -26,11 +26,12 @@ from .fields import Material
 class ProblemData:
     """Device-resident structure of arrays of a truss problem.
 
-    gather_map (the transposed incidence used by the JAX package's
-    scatter-free segment sum) is left None: the slice scatters with
-    index_add_; the gather-based PCG that needs it waits for ROADMAP
-    item 10.  The payload mass per DOF (point_mass) comes with the dynamics
-    family, ROADMAP item 14.
+    gather_map, the (ndof, V) int32 transposed incidence of the
+    gather-based PCG (ops/scatter.py), is built at its first need by
+    `ensure_gather_map` and kept here, so a solve that never takes the
+    gather path (the banded and dense Newton, GD) never builds it.  The
+    payload mass per DOF (point_mass) comes with the dynamics family,
+    ROADMAP item 14.
     """
 
     dof_map: torch.Tensor     # (nelm, 2*dim) int64 global DOF per element
@@ -54,6 +55,21 @@ class ProblemData:
     @property
     def device(self) -> torch.device:
         return self.loads.device
+
+    def ensure_gather_map(self) -> torch.Tensor:
+        """The gather map, built on the host from dof_map at the first call
+        (the native library's build when present, else numpy: the same
+        map) and kept on the device."""
+        if self.gather_map is None:
+            from ..ops.scatter import build_gather_map
+            from ..utils.native import build_gather_map_native
+
+            dof_map = self.dof_map.cpu().numpy()
+            host = build_gather_map_native(dof_map, self.ndof)
+            if host is None:
+                host = build_gather_map(dof_map, self.ndof)
+            self.gather_map = torch.from_numpy(host).to(self.device)
+        return self.gather_map
 
 
 @dataclass

@@ -10,8 +10,9 @@ increment.
 
 Every method of the JAX driver is ported: "nr"; "gd" and "hybrid";
 "full-nr" (classic NR with scalar materials, the coupled (u, theta)
-Newton with NN fields); and "gn".  The JAX driver's checkpoint_dir /
-resume wait for ROADMAP item 7.
+Newton with NN fields); and "gn".  So are its checkpoint_dir / resume
+(utils/checkpoint.py): the files are the JAX driver's, so either package
+resumes the other's run.
 """
 
 from __future__ import annotations
@@ -23,11 +24,12 @@ import numpy as np
 
 from ..config import SolverConfig, SolverResult
 from ..models.problem import TrussProblem
+from ..utils.checkpoint import load_increment_state, save_increment_state
 from ..utils.progress import (PACKAGE_LOGGER, ensure_console_logging,
                               log_gd_progress)
 from .full_newton import solve_full_nr
 from .gauss_newton import solve_gauss_newton
-from .gd import solve_gd
+from .gd import get_theta, set_theta, solve_gd
 from .hybrid import solve_hybrid
 from .newton import solve_nr
 
@@ -50,8 +52,15 @@ def resolve_method(problem: TrussProblem, config: SolverConfig,
 def solve(problem: TrussProblem, config: Optional[SolverConfig] = None,
           measured_disp: Optional[np.ndarray] = None,
           measured_dofs: Optional[np.ndarray] = None, verbose: bool = True,
+          checkpoint_dir: Optional[str] = None, resume: bool = False,
           device=None) -> SolverResult:
-    """Universal incremental solve on `device` ("cuda" when None)."""
+    """Universal incremental solve on `device` ("cuda" when None).
+
+    With checkpoint_dir set, (u, theta) is saved after every converged
+    increment; with resume=True a saved state is restored (u, and theta
+    into the material) and the run goes on after its increment, or
+    re-runs the last increment when the saved run had finished.
+    """
     config = config or SolverConfig()
     method = resolve_method(problem, config, measured_disp, measured_dofs)
     if method not in METHODS:
@@ -62,7 +71,20 @@ def solve(problem: TrussProblem, config: Optional[SolverConfig] = None,
 
     result: Optional[SolverResult] = None
     u_current: Optional[np.ndarray] = None
-    for iinc in range(1, config.n_increments + 1):
+    start_increment = 1
+    if checkpoint_dir and resume:
+        restored = load_increment_state(checkpoint_dir,
+                                        get_theta(problem.material))
+        if restored is not None:
+            done_inc, u_current, theta = restored
+            if theta:
+                problem.material = set_theta(problem.material, theta)
+            start_increment = min(done_inc + 1, config.n_increments)
+            if verbose:
+                logger.info("[resume] restored checkpoint after increment %d",
+                            done_inc)
+
+    for iinc in range(start_increment, config.n_increments + 1):
         load_factor = config.load_factor_initial + (iinc / config.n_increments) * (
             config.load_factor_final - config.load_factor_initial
         )
@@ -101,6 +123,10 @@ def solve(problem: TrussProblem, config: Optional[SolverConfig] = None,
             log_gd_progress(result.history, config.print_every)
             status = "CONVERGED" if result.converged else "FAILED"
             logger.info("%4d | %12.6f | %10s", iinc, load_factor, status)
+        if checkpoint_dir and result.converged:
+            save_increment_state(
+                checkpoint_dir, iinc, u_current, get_theta(problem.material),
+                meta={"method": method, "load_factor": load_factor})
         if not result.converged:
             if verbose:
                 logger.warning("Increment %d did not converge, stopping.", iinc)

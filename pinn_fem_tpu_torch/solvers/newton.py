@@ -5,16 +5,20 @@ Same update rule, convergence criteria, reactions and single-entry history
 solver.  Up to DENSE_DOF_LIMIT DOFs the tangent is a dense Cholesky solve;
 above it, on a banded mesh, each Newton iteration assembles the DIA
 diagonals and solves with the fused two-kernel Jacobi-PCG: the CUDA
-kernels on a card, their plain twins on the CPU.  The Newton loops are
-Python loops that read one flag per Newton iteration; the PCG loop inside
-keeps its state on the device.  Geometric nonlinearity (Green-Lagrange)
-takes the dense path only, as in the JAX package.  Prescribed nonzero
-displacements of fixed DOFs (support settlement) take either path.
+kernels on a card, their plain twins on the CPU.  A mesh whose numbering
+gives no banded layout takes the gather-based matrix-free PCG (ops/cg.py,
+torch ops on every device; RCM, ops/reorder.py, can renumber such a mesh
+back onto the banded operator).  The Newton loops are Python loops that
+read one flag per Newton iteration; the PCG loops inside keep their state
+on the device.  Geometric nonlinearity (Green-Lagrange) takes the dense path
+only, as in the JAX package.  Prescribed nonzero displacements of fixed
+DOFs (support settlement) take every path.
 
-As in the JAX package, the banded path divides the free residual by
-max(||lf f_free||, min_denominator): a settlement document with no load on
-a free DOF divides by min_denominator, so its relative residual stays far
-above tol and the increment reports converged = false (ROADMAP fault 3.9).
+As in the JAX package, the banded and gather paths divide the free
+residual by max(||lf f_free||, min_denominator): a settlement document
+with no load on a free DOF divides by min_denominator, so its relative
+residual stays far above tol and the increment reports converged = false
+(ROADMAP fault 3.9).
 """
 
 from __future__ import annotations
@@ -77,31 +81,20 @@ def _dia_layout_of(problem: TrussProblem, data: ProblemData):
     return layout
 
 
-def _nr_dia_core(layout, data: ProblemData, material: Material,
-                 u0: torch.Tensor, load_factor: torch.Tensor, max_iter: int,
-                 tol: float, min_denom: float, cg_tol: float,
-                 cg_max_iter: int, precond: str = "jacobi"):
-    """One load increment of Newton-Raphson on the banded operator, with
-    the fused PCG (ops/kernels/cg_kernel.fused_cg_solve) as inner solve.
+def _force_newton(assemble, data: ProblemData, u0: torch.Tensor,
+                  load_factor: torch.Tensor, max_iter: int, tol: float,
+                  min_denom: float):
+    """The Newton loop of the banded and gather cores: one load increment
+    with an iterative inner solve.  assemble() gives (matvec, solve) for
+    the current material: K v, and the masked PCG solution of K du = rhs.
 
-    Convergence is on the true force residual |R_free| / |lf F_free|: the
-    dense path's ||du|| / ||u|| criterion is out of reach with iterative
-    inner solves.  A step that does not reduce the residual is rejected
-    and ends the loop (float32 floor); the increment counts as converged
-    when the residual reached is at most sqrt(tol).
+    Convergence is on the true force residual |R_free| / max(|lf F_free|,
+    min_denom): the dense path's ||du|| / ||u|| criterion is out of reach
+    with iterative inner solves.  A step that does not reduce the residual
+    is rejected and ends the loop (float32 floor); the increment counts as
+    converged when the residual reached is at most sqrt(tol).
     """
-    from ..ops.cg import stiffness_coefficients
-    from ..ops.dia import assemble_dia, dia_matvec
-    from ..ops.kernels import fused_cg_solve
-
-    if precond != "jacobi":
-        raise NotImplementedError(
-            f"preconditioner {precond!r}: only Jacobi is ported; multigrid "
-            "(ops/mg.py) is ROADMAP item 13")
     dt, dev = u0.dtype, u0.device
-    if dev.type == "cuda":
-        require_float32(dt, "banded Newton (kernels 1-3: dia_matvec, "
-                        "dia_dir_matvec, cg_update)")
     f_ext = load_factor * data.loads
     f_norm = torch.clamp_min(torch.linalg.vector_norm(f_ext * data.free_mask),
                              min_denom)
@@ -110,13 +103,9 @@ def _nr_dia_core(layout, data: ProblemData, material: Material,
     res = torch.tensor(float("inf"), dtype=dt, device=dev)
     it, stop = 0, False
     while it < max_iter and not stop:
-        s = stiffness_coefficients(data, material, load_factor)
-        diags = assemble_dia(layout, s, data.gvec)
-        rhs = f_ext - dia_matvec(layout, diags, u)
-        du, _, _ = fused_cg_solve(layout, diags, rhs, data.free_mask,
-                                  tol=cg_tol, max_iter=cg_max_iter)
-        u_new = u + du
-        r = (f_ext - dia_matvec(layout, diags, u_new)) * data.free_mask
+        matvec, solve = assemble()
+        u_new = u + solve(f_ext - matvec(u))
+        r = (f_ext - matvec(u_new)) * data.free_mask
         res_new = torch.linalg.vector_norm(r) / f_norm
         # Monotone acceptance: reject steps that do not reduce the true
         # force residual (iterating on float32 noise diverges).
@@ -127,11 +116,60 @@ def _nr_dia_core(layout, data: ProblemData, material: Material,
         it += 1
     conv = bool(res <= torch.sqrt(tol_t))
 
-    s = stiffness_coefficients(data, material, load_factor)
-    diags = assemble_dia(layout, s, data.gvec)
-    reactions = (dia_matvec(layout, diags, u) - f_ext) * data.fixed_mask
+    matvec, _ = assemble()
+    reactions = (matvec(u) - f_ext) * data.fixed_mask
     strain = torch.sum(data.gvec * u[data.dof_map], dim=-1) * data.inv_len
     return u, reactions, it, res, conv, torch.max(torch.abs(strain))
+
+
+def _nr_dia_core(layout, data: ProblemData, material: Material,
+                 u0: torch.Tensor, load_factor: torch.Tensor, max_iter: int,
+                 tol: float, min_denom: float, cg_tol: float,
+                 cg_max_iter: int, precond: str = "jacobi"):
+    """One load increment of Newton-Raphson on the banded operator, with
+    the fused PCG (ops/kernels/cg_kernel.fused_cg_solve) as inner solve."""
+    from ..ops.cg import stiffness_coefficients
+    from ..ops.dia import assemble_dia, dia_matvec
+    from ..ops.kernels import fused_cg_solve
+
+    if precond != "jacobi":
+        raise NotImplementedError(
+            f"preconditioner {precond!r}: only Jacobi is ported; multigrid "
+            "(ops/mg.py) is ROADMAP item 13")
+    if u0.device.type == "cuda":
+        require_float32(u0.dtype, "banded Newton (kernels 1-3: dia_matvec, "
+                        "dia_dir_matvec, cg_update)")
+
+    def assemble():
+        s = stiffness_coefficients(data, material, load_factor)
+        diags = assemble_dia(layout, s, data.gvec)
+        return (lambda v: dia_matvec(layout, diags, v),
+                lambda rhs: fused_cg_solve(layout, diags, rhs, data.free_mask,
+                                           tol=cg_tol,
+                                           max_iter=cg_max_iter)[0])
+
+    return _force_newton(assemble, data, u0, load_factor, max_iter, tol,
+                         min_denom)
+
+
+def _nr_core_cg(data: ProblemData, material: Material, u0: torch.Tensor,
+                load_factor: torch.Tensor, max_iter: int, tol: float,
+                min_denom: float, cg_tol: float, cg_max_iter: int):
+    """One load increment of Newton-Raphson with the gather-based
+    matrix-free PCG (ops/cg.cg_solve) as inner solve: K is never formed.
+    No repo kernel is on this path (kernel 4 only where the material is an
+    MLP, which solve_nr refuses), so it runs in any dtype on every
+    device."""
+    from ..ops.cg import apply_stiffness, cg_solve, stiffness_coefficients
+
+    def assemble():
+        s = stiffness_coefficients(data, material, load_factor)
+        return (lambda v: apply_stiffness(data, s, v),
+                lambda rhs: cg_solve(data, s, rhs, tol=cg_tol,
+                                     max_iter=cg_max_iter)[0])
+
+    return _force_newton(assemble, data, u0, load_factor, max_iter, tol,
+                         min_denom)
 
 
 def solve_nr(
@@ -148,10 +186,10 @@ def solve_nr(
 ) -> SolverResult:
     """Single-increment NR solve (driven by solvers.driver.solve).
 
-    linear_solver: "dense" (Cholesky on the assembled K), "cg-dia" (banded
-    operator), or "auto" (banded above DENSE_DOF_LIMIT).  "cg" prefers the
-    banded operator and needs the gather-based PCG only for meshes without
-    a banded layout.
+    linear_solver: "dense" (Cholesky on the assembled K), "cg" (the
+    banded operator when the numbering gives a banded layout, else the
+    gather-based matrix-free PCG), "cg-dia" (banded operator only), or
+    "auto" ("cg" above DENSE_DOF_LIMIT, else "dense").
     geometric_nonlinear: opt-in Green-Lagrange kinematics (2D / 3D, dense
     solver only).
     prescribed_u: (ndof,) values of the fixed DOFs (support settlement).
@@ -187,11 +225,7 @@ def solve_nr(
         linear_solver = "dense"
     elif linear_solver == "auto":
         linear_solver = "cg" if problem.ndof > DENSE_DOF_LIMIT else "dense"
-    if linear_solver == "cg":
-        if _dia_layout_of(problem, data) is None:
-            raise NotImplementedError(
-                "meshes without a banded layout need the gather-based PCG, "
-                "not yet ported, ROADMAP item 10")
+    if linear_solver == "cg" and _dia_layout_of(problem, data) is not None:
         linear_solver = "cg-dia"
 
     if linear_solver == "cg-dia":
@@ -206,6 +240,13 @@ def solve_nr(
             cg_tol=max(config.tolerance * 0.1, 5e-8),
             cg_max_iter=min(max(20 * problem.ndof, 1000), 100_000),
             precond=cg_precond,
+        )
+    elif linear_solver == "cg":
+        out = _nr_core_cg(
+            data, problem.material, u0, lf, config.max_iterations,
+            config.tolerance, config.min_denominator,
+            cg_tol=max(config.tolerance * 0.1, 5e-8),
+            cg_max_iter=max(20 * problem.ndof, 1000),
         )
     elif linear_solver == "dense":
         out = _nr_core(data, problem.material, u0, lf, config.max_iterations,

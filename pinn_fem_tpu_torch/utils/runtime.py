@@ -8,7 +8,8 @@ Float64 is the JAX package's opt-in (PINN_FEM_TPU_X64=1,
 pinn_fem_tpu/utils/runtime.py), a cross-check mode.  The port reads the
 variable at each call of `default_dtype`.  Under it the CPU runs every
 path in float64 and the card runs the paths that use no repo kernel (the
-dense Newton path, the torch forms); the CUDA kernels compute in float32
+dense Newton path, the gather-based PCG of meshes without a banded
+layout, the torch forms); the CUDA kernels compute in float32
 only, and a float64 tensor at their dispatch raises `require_float32`'s
 error instead of running anywhere else.
 """
@@ -39,7 +40,8 @@ def require_float32(dtype: torch.dtype, kernel: str) -> None:
             f"{kernel}: the CUDA kernel computes in float32, got {dtype}. "
             f"{X64_VARIABLE}=1 computes in float64 on the CPU and, on a "
             "card, only on paths without a repo kernel (the dense Newton "
-            f"path); unset {X64_VARIABLE} to run this path on the card")
+            "path, the gather-based PCG); unset "
+            f"{X64_VARIABLE} to run this path on the card")
 
 
 def resolve_device(name: DeviceLike = None) -> torch.device:

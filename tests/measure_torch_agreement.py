@@ -33,7 +33,14 @@ Parts (all by default), one JSON line each:
           (first row and all, against each column's largest value),
           nn_parameters, E*A, iteration counts;
   x64     example1 / example2 / example7-P through both CLIs, both in
-          float64 (tests/test_torch_x64.py): iterations, u, nn_parameters.
+          float64 (tests/test_torch_x64.py): iterations, u, nn_parameters;
+  gather  the gather-based PCG on shuffled grids, port vs JAX
+          (tests/test_torch_gather.py): segment sums, K u, diag(K), the
+          PCG, solve_nr(linear_solver="cg") plain / thermal / settlement,
+          the shuffled 24 x 48 document through both CLIs (each against
+          float64 too) and the RCM-reordered banded solve;
+  checkpoint  resumes across the packages and the GD resume
+          (tests/test_torch_checkpoint.py): u and theta gaps.
 Not collected by pytest (no test_ prefix).  fnr_drift imports no JAX, so
 it also runs where JAX is not installed.
 """
@@ -477,10 +484,154 @@ def x64():
     del os.environ[X.X64_VARIABLE]
 
 
+def gather():
+    import json as _json
+    import logging
+    import tempfile
+
+    import jax.numpy as jnp
+    import torch
+
+    import test_torch_gather as G
+
+    line = printer("gather")
+    worst = 0.0
+    for dim in (1, 2, 3):
+        for seed in range(20):
+            elements, ndof = G.random_mesh(dim, seed)
+            dof_map = G.dof_map_of(elements, dim)
+            gm = G.t_scatter.build_gather_map(dof_map, ndof)
+            fe = np.random.default_rng(seed).standard_normal(
+                dof_map.shape).astype(np.float32)
+            ours = G.t_scatter.segment_sum_dofs(torch.from_numpy(fe),
+                                                torch.from_numpy(gm))
+            theirs = G.j_scatter.segment_sum_dofs(
+                jnp.asarray(fe), jnp.asarray(gm), jnp.asarray(dof_map))
+            worst = max(worst, rel_max(ours, theirs))
+    line("segment_sum random meshes", rel=worst)
+
+    doc = G.shuffled(10, 16)
+    jpp, tpp = G.parsed_both(doc)
+    jd, td = jpp.problem.to_device(), tpp.problem.to_device("cpu")
+    rng = np.random.default_rng(0)
+    u = rng.standard_normal(tpp.problem.ndof).astype(np.float32)
+    s = rng.uniform(0.5, 2.0, tpp.problem.nelm).astype(np.float32)
+    b = np.asarray(doc["loads"], np.float32)
+    x_t, it_t, _ = G.t_cg.cg_solve(td, torch.from_numpy(s),
+                                   torch.from_numpy(b), 1e-6, 5000)
+    x_j, it_j, _ = G.j_cg.cg_solve(jd, jnp.asarray(s), jnp.asarray(b),
+                                   tol=1e-6, max_iter=5000)
+    line("operator 10x16",
+         ku_rel=rel_max(G.t_cg.apply_stiffness(td, torch.from_numpy(s),
+                                               torch.from_numpy(u)),
+                        G.j_cg.apply_stiffness(jd, jnp.asarray(s),
+                                               jnp.asarray(u))),
+         diag_rel=rel_max(G.t_cg.stiffness_diagonal(td, torch.from_numpy(s)),
+                          G.j_cg.stiffness_diagonal(jd, jnp.asarray(s))),
+         pcg_iterations=[int(it_j), int(it_t)], x_rel=rel_max(x_t, x_j))
+
+    for kind in ("plain", "thermal", "settlement"):
+        doc = G.shuffled(12, 24, kind, seed=2)
+        jpp, tpp = G.parsed_both(doc)
+        r_j = G.jp.solve_nr(jpp.problem, G.jp.SolverConfig(tolerance=1e-5),
+                            1.0, linear_solver="cg",
+                            prescribed_u=jpp.prescribed)
+        r_t = G.t_newton.solve_nr(tpp.problem,
+                                  G.tp.SolverConfig(tolerance=1e-5), 1.0,
+                                  linear_solver="cg",
+                                  prescribed_u=tpp.prescribed, device="cpu")
+        line(f"newton 12x24 {kind}",
+             iterations=[r_j.history[0]["iterations"],
+                         r_t.history[0]["iterations"]],
+             u_rel=rel_max(r_t.displacements, r_j.displacements),
+             reactions_rel=rel_max(r_t.reactions, r_j.reactions))
+
+    doc = G.shuffled(24, 48, tolerance=1e-5, n_increments=2)
+    u64 = G.eg.float64_solution(doc["nodes"], doc["elements"],
+                                np.asarray(doc["loads"], float),
+                                doc["fixed_dofs"])
+    outs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, cli in (("jax", G.jax_cli), ("torch", G.torch_cli)):
+            path = Path(tmp) / f"{tag}.json"
+            path.write_text(_json.dumps(doc))
+            outs.append(cli.run(str(path)) if tag == "jax"
+                        else cli.run(str(path), device="cpu"))
+    logging.getLogger("pinn_fem_tpu").handlers.clear()
+    j, t = (np.asarray(o["displacements"], float).reshape(-1) for o in outs)
+    line("cli 24x48 shuffled", converged=[o["converged"] for o in outs],
+         iterations=[[h["iterations"] for h in o["history"]] for o in outs],
+         port_vs_jax=rel_max(t, j), port_vs_f64=rel_max(t, u64),
+         jax_vs_f64=rel_max(j, u64))
+
+    doc = G.shuffled(24, 48, seed=6)
+    _, tpp = G.parsed_both(doc)
+    cfg = G.tp.SolverConfig(tolerance=1e-5)
+    gathered = G.t_newton.solve_nr(tpp.problem, cfg, 1.0, device="cpu")
+    p2, order = G.t_reorder.reorder_problem(tpp.problem)
+    banded = G.t_newton.solve_nr(p2, cfg, 1.0, device="cpu")
+    u_b = G.t_reorder.restore_field(banded.displacements.reshape(-1),
+                                    order, 2)
+    u64 = G.eg.float64_solution(doc["nodes"], doc["elements"],
+                                np.asarray(doc["loads"], float),
+                                doc["fixed_dofs"])
+    line("rcm banded 24x48", u_rel_vs_gather=rel_max(
+        u_b, gathered.displacements.reshape(-1)),
+         u_rel_vs_f64=rel_max(u_b, u64),
+         gather_vs_f64=rel_max(gathered.displacements.reshape(-1), u64))
+
+
+def checkpoint():
+    import json as _json
+    import tempfile
+
+    import test_torch_checkpoint as C
+
+    line = printer("checkpoint")
+    with tempfile.TemporaryDirectory() as tmp:
+        for writer, reader, tag in ((C.jp, C.tp, "jax-to-port"),
+                                    (C.tp, C.jp, "port-to-jax")):
+            ckpt = str(Path(tmp) / tag)
+            C._solve(writer, config=writer.SolverConfig(
+                method="nr", n_increments=1, load_factor_final=0.5),
+                checkpoint_dir=ckpt)
+            resumed = C._solve(reader, config=reader.SolverConfig(
+                method="nr", n_increments=2), checkpoint_dir=ckpt,
+                resume=True)
+            whole = C._solve(reader, config=reader.SolverConfig(
+                method="nr", n_increments=2))
+            line(f"nr resume {tag}", u_rel=rel_max(resumed.displacements,
+                                                   whole.displacements))
+        doc = _json.loads((C.CORPUS / "example3.json").read_text())
+        doc["solver_config"] = {"n_increments": 2}
+
+        def run(config=None, **kw):
+            parsed = C.parse_problem_dict(doc)
+            for key, value in (config or {}).items():
+                setattr(parsed.config, key, value)
+            res = C.tp.solve(parsed.problem, parsed.config,
+                             parsed.measured_disp, parsed.measured_dofs,
+                             verbose=False, device="cpu", **kw)
+            return parsed.problem, res
+
+        ckpt = str(Path(tmp) / "gd")
+        run({"n_increments": 1, "load_factor_final": 0.5},
+            checkpoint_dir=ckpt)
+        resumed, r2 = run(checkpoint_dir=ckpt, resume=True)
+        whole, r3 = run()
+        theta = max(rel_max(a, b) for a, b in zip(
+            C.leaves(C.get_theta(resumed.material)),
+            C.leaves(C.get_theta(whole.material))))
+        line("gd resume example3", u_rel=rel_max(r2.displacements,
+                                                 r3.displacements),
+             theta_rel=theta, rows=[len(r2.history), len(r3.history)])
+
+
 if __name__ == "__main__":
     parts = {"corpus": corpus, "grid": grid, "grad": grad, "drift": drift,
              "second_order": second_order, "fnr_drift": fnr_drift,
-             "truss_ext": truss_ext, "legacy": legacy, "x64": x64}
+             "truss_ext": truss_ext, "legacy": legacy, "x64": x64,
+             "gather": gather, "checkpoint": checkpoint}
     for part in sys.argv[1:] or list(parts):
         name, _, arg = part.partition("=")
         parts[name](*([arg] if arg else []))

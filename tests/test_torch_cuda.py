@@ -14,7 +14,8 @@ views, a ragged end and a system below one tile.  The material kernels
 (forward) and to 1e-4 of the largest gradient entry (backward); the
 backward (4b) also to its plain version, within 1e-5 of the largest
 gradient entry, as one device kernel per call, and on two streams at
-once.
+once.  The gather-based PCG (no repo kernel) is held to the same functions
+on the CPU, and a resumed Newton run to the uninterrupted one.
 """
 
 import numpy as np
@@ -678,3 +679,72 @@ def test_legacy_gd_launches_the_material_kernels_once_an_iteration(
     first_card = np.array(list(card.history[0].values()))
     assert np.abs(first_card - first_cpu).max() <= 1e-5 * np.abs(
         first_cpu).max()
+
+
+def test_gather_operator_on_card_equals_cpu(cuda_device):
+    """The gather-based K u, diag(K) and PCG (ops/cg.py: torch ops, no
+    repo kernel) on the card against the same functions on the CPU, on the
+    shuffled 24 x 48 grid: K u and diag(K) within 1e-6 of the largest
+    entry (float32 terms summed in float64 on both), the device-flag PCG
+    loop to its tolerance with x within 1e-4 of the CPU's plain loop."""
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import cg
+
+    doc, _ = eg.shuffled_document(eg.grid_document(24, 48), seed=3)
+    problem = parse_problem_dict(doc).problem
+    rng = np.random.default_rng(3)
+    u = torch.tensor(rng.standard_normal(problem.ndof), dtype=torch.float32)
+    s = torch.tensor(rng.uniform(0.5, 2.0, problem.nelm),
+                     dtype=torch.float32)
+    b = torch.tensor(doc["loads"], dtype=torch.float32)
+    out = {}
+    kernels.reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        data = problem.to_device(dev)
+        out[str(dev)] = (
+            cg.apply_stiffness(data, s.to(dev), u.to(dev)).cpu(),
+            cg.stiffness_diagonal(data, s.to(dev)).cpu(),
+            cg.cg_solve(data, s.to(dev), b.to(dev), tol=1e-6,
+                        max_iter=20_000))
+    assert not any(kernels.launch_counts().values())
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    for a, want in zip(card[:2], cpu[:2]):
+        assert (a - want).abs().max() <= 1e-6 * want.abs().max()
+    x_cpu, it_cpu, res_cpu = cpu[2]
+    x_card, it_card, res_card = card[2]
+    assert float(res_card) <= 1e-6 and float(res_cpu) <= 1e-6
+    assert int(it_card) > 10 and int(it_cpu) > 10
+    x_card = x_card.cpu()
+    assert (x_card - x_cpu).abs().max() <= 1e-4 * x_cpu.abs().max()
+
+
+def test_resume_on_card(cuda_device, tmp_path):
+    """The 24 x 48 grid as an nr run on the card: the driver's state after
+    increment 1, resumed, gives the uninterrupted run's u within 1e-5 of
+    its largest entry, with kernels 1-3 launched for the one re-run
+    increment only; the state on disk holds u in float64."""
+    from pinn_fem_tpu_torch.utils.checkpoint import load_increment_state
+
+    def run(n_increments, lf=1.0, **kw):
+        cfg = T.SolverConfig(method="nr", tolerance=1e-5,
+                             n_increments=n_increments, load_factor_final=lf)
+        kernels.reset_launch_counts()
+        res = T.solve(grid_problem(24, 48), cfg, verbose=False,
+                      device=cuda_device, **kw)
+        return res, kernels.launch_counts()
+
+    whole, launches_whole = run(2)
+    ckpt = str(tmp_path / "ckpt")
+    run(1, 0.5, checkpoint_dir=ckpt)
+    inc, u1, _ = load_increment_state(ckpt, [])
+    assert inc == 1 and u1.dtype == np.float64
+    resumed, launches = run(2, checkpoint_dir=ckpt, resume=True)
+    assert resumed.converged and whole.converged
+    want = whole.displacements
+    assert np.abs(resumed.displacements - want).max() <= 1e-5 * np.abs(
+        want).max()
+    newton = int(resumed.history[0]["iterations"])
+    assert launches["dia_matvec"] == 2 * newton + 1
+    assert 0 < launches["cg_update"] < launches_whole["cg_update"]
+    assert load_increment_state(ckpt, [])[0] == 2
