@@ -112,7 +112,32 @@ code is not 0 and no result line is printed:
      u within 1e-5 with kernels 1-3 for the re-run increment only (the
      state written as half of the final u, as tests/test_aux.py does,
      within 1e-3), and the PINN grid's GD run of 2 increments saves theta,
-     which loads back on the card bit for bit and resumes.
+     which loads back on the card bit for bit and resumes;
+ 13. truss dynamics: (a) the 100 x 200 grid as a transient document
+     (central, dt "auto", damping [0.05, 0], a step load, 2,000 steps
+     recorded every 20) through main() on cuda twice (cold and warm ms):
+     kernel 1 launched exactly 1 + n + 2n/r times and no other kernel,
+     the history within 1e-3 of the float64 transcription
+     (examples_grid.float64_transient) and its first 200 steps within
+     1e-5 of the CPU twin, ms a step and the device's idle share over
+     200 profiled steps; (b) the 2,000,002-DOF chain at bench.py's
+     setting (dt = stable_dt, one record, one probe, fetch_state=False):
+     ms a step by (t(4000) - t(400)) / 3600, medians of 3, the idle share
+     over 200 steps, kernel 1's n + 3 launches, and tests/
+     test_dynamics.py's wave-front check after a 10-step pulse; (c)
+     Newmark on the grid through main() at 10x its stable step (damping
+     [0.05, 1e-3], 200 steps): kernels 2 and 3 once each per PCG round,
+     PCG iterations and flag reads a step, ms a step, u within 2e-3 of
+     the CPU twin (20 steps) and 1e-3 of a float64 Newmark (one sparse
+     LU); (d) "prestress": true (the banded static Newton on kernels
+     1-3) and a moving load across the top row through main(), then the
+     same transient from the card's prestress state within 1e-4 of the
+     CPU twin; (e) (a)'s document with a checkpoint every 500 steps: the
+     records within 1e-6 of (a)'s, a run stopped at 1,000 steps resumed
+     to (a)'s tail, transient.npz read by numpy; (f) Green-Lagrange
+     central and Newmark on the 32 x 32 grid (dense) against the CPU
+     twin, ms a step; and PINN_FEM_TPU_X64=1: a banded transient on the
+     card refused.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -125,7 +150,8 @@ loop calls it, and for the material kernels the host us per wrapper call
 (the backward also its twin's ms and the s-only call's ms and bound;
 kernel 4 also its launches on phase 9's paths, kernels 1-3 theirs on
 phase 10's documents, kernels 4 and 4b theirs on phase 11's legacy
-paths, every kernel its launches on phase 12's paths); the last is
+paths, every kernel its launches on phase 12's paths and, as
+launches_dynamics, on phase 13's); the last is
 {"ok": true,
 "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -2476,6 +2502,466 @@ def phase_meshes(workdir: Path, dev, card: str, phase4: dict) -> dict:
     return launches
 
 
+TRANSIENT_STEPS = 2000
+TRANSIENT_EVERY = 20
+TRANSIENT_CPU_STEPS = 200
+TRANSIENT_F64_RTOL = 1e-3
+TRANSIENT_CPU_RTOL = 1e-5
+IDLE_STEPS = 200
+CHAIN_STEPS = (4000, 400)
+NEWMARK_STEPS = 200
+NEWMARK_EVERY = 10
+NEWMARK_DT_FACTOR = 10.0
+NEWMARK_CPU_STEPS = 20
+NEWMARK_CPU_RTOL = 2e-3
+NEWMARK_F64_RTOL = 1e-3
+MOVING_STEPS = 400
+MOVING_CPU_STEPS = 200
+MOVING_CPU_RTOL = 1e-4
+CHECKPOINT_EVERY = 500
+CHECKPOINT_RTOL = 1e-6
+GL_DYN_GRID = (32, 32)
+GL_DYN_LOAD = 0.05
+GL_DYN_STEPS = 200
+GL_NEWMARK_STEPS = 10
+GL_DYN_RTOL = 1e-4
+GL_NEWMARK_RTOL = 2e-3
+
+
+def transient_document(workdir: Path, name: str, doc: dict, twice=False,
+                       records=None):
+    """A transient document through main() (twice: cold and warm):
+    (result, all five kernels' launches in the first run, its s, the
+    warm run's s or None).  records: the history's length (default all
+    n_steps / record_every snapshots)."""
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.ops import kernels
+
+    path = workdir / f"{name}.json"
+    path.write_text(json.dumps(doc))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = main([str(path)])
+    first_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    require(rc == 0, f"{name}: exit code 0")
+    warm_s = None
+    if twice:
+        t0 = time.perf_counter()
+        require(main([str(path)]) == 0, f"{name}: warm exit code 0")
+        warm_s = time.perf_counter() - t0
+    out = json.loads((workdir / f"{name}.res.json").read_text())
+    u = out["displacements"]
+    an = doc["analysis"]
+    n_rec = records or an["n_steps"] // an["record_every"]
+    import numpy as np
+
+    require(np.asarray(u).shape[0] == n_rec
+            and bool(np.all(np.isfinite(u))),
+            f"{name}: finite history of {n_rec} records")
+    return out, launches, first_s, warm_s
+
+
+def history_gap(a, b) -> float:
+    """max |a - b| over max |b| of two records (u or v histories)."""
+    return rel_err(a, b)
+
+
+def cpu_twin(problem_doc: dict, n_steps: int, dt: float, **analysis):
+    """The document's transient on the CPU (the kernels' twins) for
+    n_steps at dt: the run_analysis result dict."""
+    from pinn_fem_tpu_torch.io.analysis import run_analysis
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+
+    an = dict(problem_doc["analysis"], n_steps=n_steps, dt=dt, **analysis)
+    an.pop("checkpoint", None)
+    return run_analysis(parse_problem_dict(problem_doc).problem, an, "cpu")
+
+
+def phase_transient_grid(workdir: Path, dev, card: str) -> dict:
+    """13(a): the 100 x 200 grid as a central transient document."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch import solve_transient
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+
+    n, every = TRANSIENT_STEPS, TRANSIENT_EVERY
+    doc = eg.transient_grid_document(*GRID, n_steps=n, record_every=every)
+    out, launches, first_s, warm_s = transient_document(
+        workdir, "transient_grid", doc, twice=True)
+    t0 = time.perf_counter()
+    ref = eg.float64_transient(doc, out["dt"])
+    f64_s = time.perf_counter() - t0
+    f64_gap = history_gap(out["displacements"], ref["displacements"])
+    f64_v_gap = history_gap(out["velocities"], ref["velocities"])
+    k = TRANSIENT_CPU_STEPS // every
+    t0 = time.perf_counter()
+    cpu = cpu_twin(doc, TRANSIENT_CPU_STEPS, out["dt"])
+    cpu_s = time.perf_counter() - t0
+    cpu_gap = history_gap(np.asarray(out["displacements"])[:k],
+                          cpu["displacements"])
+    problem = parse_problem_dict(doc).problem
+    data = problem.to_device(dev)
+    probe = np.asarray(out["probe_dofs"])
+
+    def steps(count):
+        return solve_transient(problem, out["dt"], count, data=data,
+                               damping=tuple(doc["analysis"]["damping"]),
+                               record_every=count, probe_dofs=probe,
+                               fetch_state=False)
+
+    steps(IDLE_STEPS)
+    idle = idle_profile(lambda: steps(IDLE_STEPS))
+    expected = 1 + n + 2 * n // every
+    log("phase13_transient_grid", card=card, ndof=problem.ndof,
+        dt=out["dt"], n_steps=n, record_every=every,
+        first_in_process_s=first_s, warm_s=warm_s,
+        warm_ms_per_step=1e3 * warm_s / n, launches=launches,
+        predicted_dia_matvec=expected, u_rel_err_vs_float64=f64_gap,
+        v_rel_err_vs_float64=f64_v_gap, float64_s=f64_s,
+        u_rel_err_vs_cpu_twin_first_steps=cpu_gap, cpu_twin_s=cpu_s,
+        profile_steps=IDLE_STEPS,
+        ms_per_step_profiled=idle["wall_ms"] / IDLE_STEPS, **idle)
+    require(launches["dia_matvec"] == expected,
+            f"transient grid: kernel 1 launched 1 + n + 2n/r = {expected}")
+    require(not any(launches[k] for k in launches if k != "dia_matvec"),
+            "transient grid: kernels 2, 3, 4 and 4b not launched")
+    require(f64_gap <= TRANSIENT_F64_RTOL,
+            f"transient grid: u within {TRANSIENT_F64_RTOL} of float64")
+    require(cpu_gap <= TRANSIENT_CPU_RTOL,
+            f"transient grid: first {TRANSIENT_CPU_STEPS} steps within "
+            f"{TRANSIENT_CPU_RTOL} of the CPU twin")
+    return {"doc": doc, "out": out, "launches": launches}
+
+
+def phase_transient_chain(dev, card: str) -> dict:
+    """13(b): the 2,000,002-DOF chain at bench.py's setting, and the
+    wave-front check of tests/test_dynamics.py after a short pulse."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import TrussProblem, solve_transient, stable_dt
+    from pinn_fem_tpu_torch.examples_grid import chain_problem
+    from pinn_fem_tpu_torch.ops import kernels
+
+    p = chain_problem(CHAIN_NODES)
+    data = p.to_device(dev)
+    dt = stable_dt(p, data)
+    probe = np.array([p.ndof - 2])
+
+    def run(n):
+        res = solve_transient(p, dt=dt, n_steps=n, method="central",
+                              record_every=n, probe_dofs=probe, data=data,
+                              fetch_state=False)
+        return res.displacements
+
+    long, short = CHAIN_STEPS
+    kernels.reset_launch_counts()
+    run(long)
+    launches = kernels.launch_counts()
+    run(short)
+
+    def med(n):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(n)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    t_long, t_short = med(long), med(short)
+    ms_step = 1e3 * (t_long - t_short) / (long - short)
+    idle = idle_profile(lambda: run(IDLE_STEPS))
+
+    # Wave front: a 10-step pulse at node 1's x-DOF, 0.5 x stable_dt; the
+    # front moves at c = 1 (E = rho = 1).
+    loads = np.zeros(p.ndof)
+    loads[2] = 1.0
+    kick = TrussProblem(p.nodes, p.elements, p.material, loads,
+                        p.fixed_dofs, 2)
+    kick_data = kick.to_device(dev)
+    n_wave = 200
+    amp = np.zeros(n_wave)
+    amp[:10] = 1.0
+    wave_dt = 0.5 * dt
+    axial = 2 * np.arange(2000)
+    res = solve_transient(kick, wave_dt, n_wave, amplitude=amp,
+                          record_every=n_wave, probe_dofs=axial,
+                          data=kick_data, fetch_state=False)
+    u = res.displacements[-1]
+    front = int(np.ceil(wave_dt * n_wave)) + 2
+    arrived = float(np.abs(u[:front]).max())
+    beyond = float(np.abs(u[2 * front:]).max())
+    log("phase13_transient_chain", card=card, ndof=p.ndof, dt=dt,
+        steps=[long, short], median_s=[t_long, t_short],
+        ms_per_step=ms_step, launches=launches,
+        predicted_dia_matvec=long + 3, profile_steps=IDLE_STEPS,
+        ms_per_step_profiled=idle["wall_ms"] / IDLE_STEPS, **idle,
+        wave_front_node=front, wave_max_behind=arrived,
+        wave_max_beyond_twice=beyond)
+    require(launches["dia_matvec"] == long + 3,
+            "chain: kernel 1 launched 1 + n + 2 times (one record)")
+    require(bool(np.isfinite(arrived)) and arrived > 1e-6,
+            "chain: the wave arrived behind the front")
+    require(beyond < 1e-8, "chain: quiet beyond twice the front")
+    return launches
+
+
+def phase_newmark_grid(workdir: Path, dev, card: str) -> dict:
+    """13(c): Newmark on the 100 x 200 grid through main()."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch import solve_transient, stable_dt
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+
+    damping = [0.05, 1e-3]
+    problem = eg.grid_problem(*GRID)
+    dt = NEWMARK_DT_FACTOR * stable_dt(problem, damping=tuple(damping),
+                                       device=dev)
+    n, every = NEWMARK_STEPS, NEWMARK_EVERY
+    doc = eg.transient_grid_document(*GRID, method="newmark", dt=dt,
+                                     damping=damping, n_steps=n,
+                                     record_every=every)
+    out, launches, first_s, _ = transient_document(workdir, "newmark_grid",
+                                                   doc)
+    problem = parse_problem_dict(doc).problem
+    data = problem.to_device(dev)
+    import torch
+
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Spy(dia, "dia_cg_solve") as solves:
+        solve_transient(problem, dt, n, method="newmark", data=data,
+                        damping=tuple(damping), record_every=every,
+                        probe_dofs=np.asarray(out["probe_dofs"]))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    stats_launches = kernels.launch_counts()
+    iters = torch.stack([r[1] for _, _, r in solves]).cpu().numpy()
+    # The fused PCG reads its flag every CHECK_EVERY = 32 iterations, so
+    # it runs the iterations rounded up to 32 (the last rounds frozen).
+    rounds = 32 * np.ceil(iters / 32)
+    ref = eg.float64_transient(doc, dt)
+    f64_gap = history_gap(out["displacements"], ref["displacements"])
+    k = NEWMARK_CPU_STEPS // every
+    t0 = time.perf_counter()
+    cpu = cpu_twin(doc, NEWMARK_CPU_STEPS, dt)
+    cpu_s = time.perf_counter() - t0
+    cpu_gap = history_gap(np.asarray(out["displacements"])[:k],
+                          cpu["displacements"])
+    log("phase13_newmark_grid", card=card, ndof=problem.ndof, dt=dt,
+        n_steps=n, first_in_process_s=first_s, warm_s=warm_s,
+        warm_ms_per_step=1e3 * warm_s / n, launches=launches,
+        launches_timed_run=stats_launches,
+        pcg_iterations_per_step=[int(iters.min()), float(iters.mean()),
+                                 int(iters.max())],
+        pcg_rounds_per_step=float(rounds.mean()),
+        flag_reads_per_step=float((rounds / 32 + 1).mean()),
+        u_rel_err_vs_float64=f64_gap, u_rel_err_vs_cpu_twin=cpu_gap,
+        cpu_twin_steps=NEWMARK_CPU_STEPS, cpu_twin_s=cpu_s)
+    require(stats_launches["dia_dir_matvec"] == stats_launches["cg_update"]
+            == int(rounds.sum()) and len(iters) == n,
+            "newmark: kernels 2 and 3 once each per PCG round (the "
+            "iterations rounded up to CHECK_EVERY), one PCG a step")
+    require(launches["dia_dir_matvec"] == launches["cg_update"] > 0
+            and launches["cg_update"] % 32 == 0,
+            "newmark document: kernels 2 and 3 in whole rounds of 32")
+    require(launches["dia_matvec"] > 0 and not launches[
+        "material_coefficients"], "newmark: kernel 1, not kernel 4")
+    require(cpu_gap <= NEWMARK_CPU_RTOL,
+            f"newmark: u within {NEWMARK_CPU_RTOL} of the CPU twin")
+    require(f64_gap <= NEWMARK_F64_RTOL,
+            f"newmark: u within {NEWMARK_F64_RTOL} of float64")
+    return launches
+
+
+def phase_moving_prestressed(workdir: Path, dev, card: str) -> dict:
+    """13(d): prestress (the banded static Newton) and a moving load
+    across the top row of the 100 x 200 grid, through main(); then the
+    same transient from the card's prestress state against the CPU twin,
+    every DOF recorded (the document's right-edge probes are still at
+    rest when the twin's run ends)."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch import moving_load_force_fn, solve_transient
+    from pinn_fem_tpu_torch.io._common import _prestress_state
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+
+    rows, cols = GRID
+    top = (rows - 1) * cols + np.arange(cols)
+    load = {"type": "moving", "path_nodes": top.tolist(), "speed": 0.5,
+            "magnitude": -1e-2, "component": 1}
+    doc = eg.transient_grid_document(*GRID, prestress=True, load=load,
+                                     n_steps=MOVING_STEPS, record_every=20)
+    del doc["analysis"]["amplitude"]
+    out, launches, first_s, _ = transient_document(workdir, "moving_grid",
+                                                   doc)
+    problem = parse_problem_dict(doc).problem
+    pre = _prestress_state(problem, True, dev)
+    runs = {}
+    for where in (dev, "cpu"):
+        force = moving_load_force_fn(problem, top, 0.5, -1e-2, out["dt"],
+                                     device=where)
+        runs[str(where)] = solve_transient(
+            problem, out["dt"], MOVING_CPU_STEPS, record_every=20,
+            damping=(0.05, 0.0), prestress_u=pre, force_fn=force,
+            device=where)
+    gap = history_gap(runs[str(dev)].displacements,
+                      runs["cpu"].displacements)
+    log("phase13_moving_prestressed", card=card, dt=out["dt"],
+        prestressed=out["prestressed"], load_type=out["load_type"],
+        first_in_process_s=first_s, launches=launches,
+        u_rel_err_vs_cpu_twin=gap, cpu_twin_steps=MOVING_CPU_STEPS)
+    require(out["prestressed"] and out["moving_load"],
+            "moving load on the prestressed grid")
+    require(all(launches[k] > 0 for k in BANDED),
+            "prestress: the banded static Newton on kernels 1-3")
+    require(gap <= MOVING_CPU_RTOL,
+            f"moving load: u within {MOVING_CPU_RTOL} of the CPU twin")
+    return launches
+
+
+def phase_transient_checkpoint(workdir: Path, card: str, grid: dict) -> dict:
+    """13(e): (a)'s document with a checkpoint every CHECKPOINT_EVERY
+    steps; a run stopped at half of its steps and resumed."""
+    import numpy as np
+
+    doc, whole = grid["doc"], grid["out"]
+    n, every = TRANSIENT_STEPS, TRANSIENT_EVERY
+    ckpt = workdir / "transient_ckpt"
+    full = dict(doc, analysis=dict(doc["analysis"], checkpoint={
+        "dir": str(ckpt), "every": CHECKPOINT_EVERY}))
+    out, launches, first_s, _ = transient_document(workdir, "ckpt_full",
+                                                   full)
+    gap = history_gap(out["displacements"], whole["displacements"])
+    meta = json.loads((ckpt / "transient_meta.json").read_text())
+    with np.load(ckpt / "transient.npz") as z:
+        files = {k: [list(z[k].shape), str(z[k].dtype)] for k in z.files}
+    half = workdir / "transient_half"
+    first = dict(doc, analysis=dict(doc["analysis"], n_steps=n // 2,
+                                    checkpoint={"dir": str(half),
+                                                "every": CHECKPOINT_EVERY}))
+    transient_document(workdir, "ckpt_first_half", first)
+    second = dict(doc, analysis=dict(doc["analysis"], checkpoint={
+        "dir": str(half), "every": CHECKPOINT_EVERY}))
+    k = n // 2 // every
+    tail, _, _, _ = transient_document(workdir, "ckpt_resumed", second,
+                                       records=n // every - k)
+    tail_gap = history_gap(tail["displacements"],
+                           np.asarray(whole["displacements"])[k:])
+    log("phase13_checkpoint", card=card, first_in_process_s=first_s,
+        launches=launches, u_rel_gap_vs_uncheckpointed=gap, meta=meta,
+        npz=files, resumed_records=len(tail["displacements"]),
+        resumed_tail_rel_gap=tail_gap)
+    require(meta["step"] == n and files["u"][0] == files["v"][0]
+            == [len(doc["loads"])], "transient.npz holds u and v, meta "
+            "step n")
+    require(gap <= CHECKPOINT_RTOL,
+            f"checkpointed records within {CHECKPOINT_RTOL} of (a)'s")
+    require(len(tail["displacements"]) == n // every - k
+            and tail_gap <= CHECKPOINT_RTOL,
+            "resumed run gives (a)'s tail")
+    return launches
+
+
+def phase_transient_green_lagrange(dev, card: str) -> dict:
+    """13(f): Green-Lagrange central and Newmark on the 32 x 32 grid
+    (2,048 DOFs, dense) against the CPU twin."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import TrussProblem, solve_transient, stable_dt
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.models.fields import Material
+    from pinn_fem_tpu_torch.ops import kernels
+
+    nodes, elements, loads, fixed = eg.grid_arrays(*GL_DYN_GRID)
+    problem = TrussProblem(nodes=nodes, elements=elements,
+                           material=Material(young=1.0, area=1.0,
+                                             density=1.0),
+                           loads=loads * GL_DYN_LOAD, fixed_dofs=fixed,
+                           dimension=2)
+    dt = 0.5 * stable_dt(problem)
+    fields = {}
+    kernels.reset_launch_counts()
+    for method, n, every, bound in (
+            ("central", GL_DYN_STEPS, 20, GL_DYN_RTOL),
+            ("newmark", GL_NEWMARK_STEPS, 5, GL_NEWMARK_RTOL)):
+        step = dt if method == "central" else 4.0 * dt
+        kw = dict(method=method, record_every=every, damping=(0.05, 0.0),
+                  geometric_nonlinear=True)
+        solve_transient(problem, step, every, device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_res = solve_transient(problem, step, n, device=dev, **kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n
+        cpu_res = solve_transient(problem, step, n, device="cpu", **kw)
+        gap = history_gap(card_res.displacements, cpu_res.displacements)
+        fields[method] = {"ms_per_step": ms, "u_rel_err_vs_cpu_twin": gap,
+                          "max_u": float(np.abs(card_res.displacements)
+                                         .max()), "n_steps": n}
+        require(gap <= bound,
+                f"Green-Lagrange {method}: within {bound} of the CPU twin")
+    launches = kernels.launch_counts()
+    log("phase13_green_lagrange", card=card, grid=list(GL_DYN_GRID),
+        ndof=problem.ndof, dt=dt, launches=launches, **fields)
+    require(not any(launches.values()),
+            "Green-Lagrange dynamics (dense): no repo kernel")
+    return launches
+
+
+def phase_transient_x64(dev, card: str) -> None:
+    """PINN_FEM_TPU_X64=1: a banded transient on the card is refused."""
+    from pinn_fem_tpu_torch import solve_transient
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels
+
+    os.environ["PINN_FEM_TPU_X64"] = "1"
+    kernels.reset_launch_counts()
+    try:
+        solve_transient(grid_problem(*GRID), 0.1, 10, device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    finally:
+        del os.environ["PINN_FEM_TPU_X64"]
+    log("phase13_x64", card=card, refused=refused,
+        launches=kernels.launch_counts())
+    require(refused is not None and "PINN_FEM_TPU_X64" in refused
+            and "dia_matvec" in refused,
+            "float64 banded transient refused, naming the variable and "
+            "kernel 1")
+    require(not any(kernels.launch_counts().values()),
+            "no launch before the refusal")
+
+
+def phase_dynamics(workdir: Path, dev, card: str) -> dict:
+    """Phase 13: truss dynamics on the card.  Returns the kernels'
+    launches on each of its paths."""
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    grid = phase_transient_grid(workdir, dev, card)
+    launches = {"transient_40k": grid["launches"]}
+    launches["chain_2M"] = phase_transient_chain(dev, card)
+    launches["newmark_40k"] = phase_newmark_grid(workdir, dev, card)
+    launches["prestress_moving_40k"] = phase_moving_prestressed(
+        workdir, dev, card)
+    launches["checkpoint_40k"] = phase_transient_checkpoint(workdir, card,
+                                                            grid)
+    launches["green_lagrange_32x32"] = phase_transient_green_lagrange(
+        dev, card)
+    phase_transient_x64(dev, card)
+    return launches
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -2494,6 +2980,7 @@ def main() -> int:
         truss_ext = phase_truss_extensions(Path(tmp), dev, card)
         legacy = phase_api(Path(tmp), dev, card)
         meshes = phase_meshes(Path(tmp), dev, card, phase4)
+        dynamics = phase_dynamics(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -2523,6 +3010,8 @@ def main() -> int:
                 doc: counts[name] for doc, counts in truss_ext.items()}
         entries[-1]["launches_meshes"] = {
             path: counts[name] for path, counts in meshes.items()}
+        entries[-1]["launches_dynamics"] = {
+            path: counts[name] for path, counts in dynamics.items()}
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,11 @@ cli/api_pinn_gd.py, cli/api_pinn_nr.py, cli/legacy_generic.py).  Meshes
 whose numbering gives no banded layout take the gather-based PCG
 (ops/cg.py), and RCM (ops/reorder.py) renumbers them; solve's
 checkpoint_dir / resume write and read the JAX package's checkpoint files
-(utils/checkpoint.py).  ROADMAP.md lists what is still to port.
+(utils/checkpoint.py).  Truss dynamics run too: solve_transient (central
+difference on the stencil kernel, Newmark on the fused PCG above the dense
+limit), its checkpointed form, stable_dt, moving-load and base-excitation
+loads, the mass matrices, and "transient" analysis documents through the
+CLI.  ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -43,8 +47,17 @@ from .models.fields import (  # noqa: E402
     to_field,
 )
 from .models.problem import ProblemData, TrussProblem  # noqa: E402
+from .ops.mass import consistent_mass, lumped_mass, total_mass  # noqa: E402
 from .ops.thermal import thermal_free_strains, thermal_loads  # noqa: E402
 from .solvers.driver import solve  # noqa: E402
+from .solvers.dynamics import (  # noqa: E402
+    TransientResult,
+    base_excitation_force_fn,
+    moving_load_force_fn,
+    solve_transient,
+    solve_transient_checkpointed,
+    stable_dt,
+)
 from .solvers.full_newton import solve_full_nr  # noqa: E402
 from .solvers.gauss_newton import solve_gauss_newton  # noqa: E402
 from .solvers.gd import solve_gd  # noqa: E402
@@ -63,9 +76,12 @@ from .solvers.newton import solve_nr  # noqa: E402
 __all__ = [
     "LegacySolverConfig", "Material", "MLPField", "PINNGradientDescentConfig",
     "PINNSolverConfig", "PINNSolverResult", "ProblemData", "ScalarField",
-    "SolverConfig", "SolverResult", "TrussProblem", "make_mlp_field",
-    "material_from_numpy", "solve", "solve_full_nr", "solve_gauss_newton",
-    "solve_gd", "solve_hybrid", "solve_incremental_newton", "solve_nr",
+    "SolverConfig", "SolverResult", "TransientResult", "TrussProblem",
+    "base_excitation_force_fn", "consistent_mass", "lumped_mass",
+    "make_mlp_field", "material_from_numpy", "moving_load_force_fn",
+    "solve", "solve_full_nr", "solve_gauss_newton", "solve_gd",
+    "solve_hybrid", "solve_incremental_newton", "solve_nr",
     "solve_pinn_gradient_descent", "solve_pinn_newton_raphson",
-    "thermal_free_strains", "thermal_loads", "to_field",
+    "solve_transient", "solve_transient_checkpointed", "stable_dt",
+    "thermal_free_strains", "thermal_loads", "to_field", "total_mass",
 ]

@@ -15,9 +15,11 @@ pinn_fem_tpu/cli/generic.py).
 
 The device comes from PINN_FEM_TORCH_DEVICE (default "cuda"); asking for
 CUDA without a card is an error, not a CPU run.  PINN_FEM_TPU_SEED seeds
-the NN initialisation, as in the JAX CLI.  Element-family documents
-("element_type") and "analysis" documents (routed, as in the JAX CLI, on
-the parsed document's meta["analysis"]) are not yet ported and exit 1.
+the NN initialisation, as in the JAX CLI.  An "analysis" document
+(routed, as in the JAX CLI, on the parsed document's meta["analysis"])
+runs io/analysis.run_analysis and writes its result dict; of the analysis
+types only "transient" is ported (the others exit 1, ROADMAP item 17).
+Element-family documents ("element_type") are not yet ported and exit 1.
 """
 
 from __future__ import annotations
@@ -84,15 +86,6 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
             f"{_ELEMENT_FAMILIES[family]}")
     parsed = parse_problem_dict(raw, seed=seed)
     problem, config = parsed.problem, parsed.config
-    if parsed.meta.get("analysis"):
-        if parsed.prescribed is not None:
-            # The prescribed DOFs joined fixed_dofs, but their nonzero
-            # values reach only the Newton settlement route: an analysis
-            # would clamp them at zero.
-            raise ValueError("prescribed_displacements cannot be combined "
-                             "with an analysis block")
-        raise NotImplementedError(
-            '"analysis" documents are not yet ported, ROADMAP item 17')
 
     logger.info("Device: %s", device)
     logger.info("Nodes: %d", problem.nnode)
@@ -109,6 +102,27 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
     if output_file is None:
         p = Path(problem_file)
         output_file = str(p.parent / f"{p.stem}.res.json")
+
+    analysis = parsed.meta.get("analysis")
+    if analysis and parsed.prescribed is not None:
+        # The prescribed DOFs joined fixed_dofs, but their nonzero values
+        # reach only the Newton settlement route: an analysis would clamp
+        # them at zero.
+        raise ValueError("prescribed_displacements cannot be combined "
+                         "with an analysis block")
+    if analysis:
+        from ..io.analysis import run_analysis
+
+        logger.info("Analysis block: %s", analysis.get("type"))
+        output = run_analysis(problem, analysis, device)
+        with open(output_file, "w") as f:
+            json.dump(output, f, indent=2)
+        logger.info("%s", "=" * 60)
+        logger.info("ANALYSIS SUMMARY (%s):", output["analysis"])
+        logger.info("  Steps: %d (dt=%.3e, method=%s)",
+                    output["n_steps"], output["dt"], output["method"])
+        logger.info("Results written to %s", output_file)
+        return output
 
     if parsed.prescribed is not None:
         # Support settlement: one Newton solve at the full load, with the

@@ -15,6 +15,10 @@ and a support-settlement document, with float64 references
 force from a solution.  `shuffled_document` renumbers any of these
 documents' nodes by a seeded random permutation: the same mesh, whose
 numbering gives no banded layout (the gather-based PCG's case).
+`transient_grid_document` makes the grid a transient analysis document,
+and `float64_transient` integrates such a document's central-difference
+or Newmark recurrence in float64 on scipy's sparse K (Newmark with one
+sparse LU of its effective stiffness).
 """
 
 from __future__ import annotations
@@ -296,3 +300,106 @@ def pinn_grid_document(rows: int, cols: int, max_iterations: int = 500,
                         "alpha_data": 100.0, "print_every": 100,
                         "preconditioning": False},
     }
+
+
+def transient_grid_document(rows: int, cols: int, **analysis) -> dict:
+    """The grid document (`grid_document`) with a transient "analysis"
+    block: central difference at dt "auto", damping [0.05, 0], a unit
+    step load, 200 steps recorded every 20, probing the right edge's
+    bottom, middle and top nodes; `analysis` overrides any key."""
+    doc = grid_document(rows, cols)
+    nid = np.arange(rows * cols).reshape(rows, cols)
+    doc["description"] += ", transient step load"
+    doc["analysis"] = {
+        "type": "transient", "method": "central", "dt": "auto",
+        "n_steps": 200, "record_every": 20, "damping": [0.05, 0.0],
+        "amplitude": {"type": "step"},
+        "probe_nodes": [int(nid[0, -1]), int(nid[rows // 2, -1]),
+                        int(nid[-1, -1])],
+        **analysis}
+    return doc
+
+
+def float64_lumped_mass(nodes, elements) -> np.ndarray:
+    """Lumped mass of a 2D truss with rho = A = 1: half of each element's
+    length on every DOF of its two nodes."""
+    nodes, el = np.asarray(nodes, float), np.asarray(elements)
+    length = np.linalg.norm(nodes[el[:, 1]] - nodes[el[:, 0]], axis=1)
+    m = np.zeros(2 * nodes.shape[0])
+    np.add.at(m, _dofs_2d(el), np.repeat(0.5 * length[:, None], 4, 1))
+    return m
+
+
+def float64_transient(doc: dict, dt: float, n_steps=None) -> dict:
+    """A 2D transient grid document (E = A = rho = 1, no prestress, no
+    "load" spec) integrated in float64 at step dt: {"times",
+    "displacements", "velocities"} at its probes, as the port records
+    them (central: the consistent start and the centred peek velocity;
+    newmark: the average-acceleration recurrence by default).  n_steps
+    cuts the run (a multiple of record_every)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    from .io._common import _amplitude_array, _probe_dofs
+
+    an = doc["analysis"]
+    n_steps = int(an["n_steps"]) if n_steps is None else int(n_steps)
+    every = int(an.get("record_every", 1))
+    alpha, beta = (float(c) for c in an.get("damping", [0.0, 0.0]))
+    amp = _amplitude_array(an.get("amplitude"), int(an["n_steps"]), dt)
+    k = float64_stiffness(doc["nodes"], doc["elements"])
+    f = np.asarray(doc["loads"], float)
+    mask = np.ones(f.size)
+    mask[np.asarray(doc["fixed_dofs"], int)] = 0.0
+    m = float64_lumped_mass(doc["nodes"], doc["elements"]) * mask \
+        + (1.0 - mask)
+    probe = _probe_dofs(an, TrussProblem(
+        np.asarray(doc["nodes"], float), np.asarray(doc["elements"]),
+        Material(young=1.0, area=1.0, density=1.0), f, doc["fixed_dofs"]))
+
+    def force(i):
+        return amp[min(i, amp.size - 1)] * f
+
+    def c_apply(v):
+        return alpha * (m * v) + beta * (k @ v)
+
+    us, vs = [], []
+    u, v = np.zeros(f.size), np.zeros(f.size)
+    if an.get("method", "central") == "central":
+        def step(i, u, u_prev):
+            v_lag = (u - u_prev) / dt
+            return (2.0 * u - u_prev + dt * dt / m
+                    * (force(i) - k @ u - c_apply(v_lag))) * mask
+
+        u_prev = u - dt * v + 0.5 * dt * dt / m * (
+            force(0) - k @ u - c_apply(v)) * mask
+        for i in range(n_steps):
+            u, u_prev = step(i, u, u_prev), u
+            if (i + 1) % every == 0:
+                peek = step(i + 1, u, u_prev)
+                us.append(u[probe])
+                vs.append(((peek - u_prev) / (2.0 * dt))[probe])
+    else:
+        nb = float(an.get("newmark_beta", 0.25))
+        ng = float(an.get("newmark_gamma", 0.5))
+        a0, a1, a2 = 1 / (nb * dt * dt), ng / (nb * dt), 1 / (nb * dt)
+        a3, a4 = 1 / (2 * nb) - 1, ng / nb - 1
+        a5, a6, a7 = 0.5 * dt * (ng / nb - 2), dt * (1 - ng), ng * dt
+        free = np.flatnonzero(mask)
+        k_eff = ((1 + a1 * beta) * k + sp.diags((a0 + a1 * alpha) * m)
+                 ).tocsc()[free][:, free]
+        lu = spl.splu(k_eff.tocsc())
+        a = (force(0) - k @ u - c_apply(v)) * mask / m
+        for i in range(n_steps):
+            rhs = (force(i + 1) + m * (a0 * u + a2 * v + a3 * a)
+                   + c_apply(a1 * u + a4 * v + a5 * a))
+            u_new = np.zeros(f.size)
+            u_new[free] = lu.solve(rhs[free])
+            a_new = (a0 * (u_new - u) - a2 * v - a3 * a) * mask
+            v = (v + a6 * a + a7 * a_new) * mask
+            u, a = u_new, a_new
+            if (i + 1) % every == 0:
+                us.append(u[probe])
+                vs.append(v[probe])
+    return {"times": dt * every * np.arange(1, len(us) + 1),
+            "displacements": np.asarray(us), "velocities": np.asarray(vs)}

@@ -29,9 +29,10 @@ class ProblemData:
     gather_map, the (ndof, V) int32 transposed incidence of the
     gather-based PCG (ops/scatter.py), is built at its first need by
     `ensure_gather_map` and kept here, so a solve that never takes the
-    gather path (the banded and dense Newton, GD) never builds it.  The
-    payload mass per DOF (point_mass) comes with the dynamics family,
-    ROADMAP item 14.
+    gather path (the banded and dense Newton, GD) never builds it.
+    point_mass is the payload mass per DOF (each node's point mass on
+    every one of its translational DOFs), None when the problem has none;
+    ops/mass.py adds it to the lumped and consistent mass.
     """
 
     dof_map: torch.Tensor     # (nelm, 2*dim) int64 global DOF per element
@@ -43,6 +44,7 @@ class ProblemData:
     fixed_mask: torch.Tensor  # (ndof,) 1.0 on fixed DOFs
     dimension: int = 2
     gather_map: Optional[torch.Tensor] = None
+    point_mass: Optional[torch.Tensor] = None   # (ndof,) payload mass
 
     @property
     def ndof(self) -> int:
@@ -82,7 +84,7 @@ class TrussProblem:
     loads: np.ndarray          # (ndof,)
     fixed_dofs: np.ndarray     # (nfixed,) int
     dimension: int = 2
-    # (nnode,) payload masses: validated here, used by the dynamics family.
+    # (nnode,) payload masses (each acts on all of its node's DOFs).
     point_masses: Optional[np.ndarray] = None
 
     def __post_init__(self) -> None:
@@ -148,6 +150,13 @@ class TrussProblem:
         """(nnode, dim) view of node coordinates regardless of dimension."""
         return self.nodes.reshape(self.nnode, self.dimension)
 
+    def point_mass_dof(self) -> np.ndarray:
+        """(ndof,) payload mass per DOF (each node's point mass on all of
+        its translational DOFs); zeros when absent."""
+        if self.point_masses is None:
+            return np.zeros(self.ndof)
+        return np.repeat(self.point_masses, self.dimension)
+
     def element_midpoints(self) -> np.ndarray:
         coords = self.node_coords_2d
         i, j = self.elements[:, 0], self.elements[:, 1]
@@ -193,4 +202,6 @@ class TrussProblem:
             free_mask=put(free_mask),
             fixed_mask=put(1.0 - free_mask),
             dimension=self.dimension,
+            point_mass=(None if self.point_masses is None
+                        else put(self.point_mass_dof())),
         )

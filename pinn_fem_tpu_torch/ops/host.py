@@ -1,0 +1,168 @@
+"""Host-side (numpy, float64) dense operators: the part of
+pinn_fem_tpu/ops/host.py that the dynamics family calls.
+
+The JAX package built this module to keep small analyses off the TPU,
+where every new program paid a remote compile.  Its dense float64
+operators stay part of the contract all the same: `stable_dt` takes its
+small-mesh bound from them on every backend, and the prestress of a small
+transient document comes from `host_static_solve`.  Each function mirrors
+a device op of the port (host_stiffness <-> ops/assembly.assemble_system,
+host_lumped_mass <-> ops/mass.lumped_mass, host_geometric_stiffness <->
+ops/geometric.assemble_geometric), in float64.
+
+MLP fields are evaluated here in numpy from float64 copies of their
+weights.  The rest of the JAX module (consistent mass, the nonlinear and
+plastic systems of the analysis family) comes with ROADMAP item 17.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.fields import MLPField, ScalarField
+from ..models.problem import TrussProblem
+
+
+def _numpy64(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().double().numpy()
+    return np.asarray(t, dtype=np.float64)
+
+
+def eval_field_host(field, x: np.ndarray) -> np.ndarray:
+    """Numpy float64 form of Field.eval_batch: (n, k) inputs -> (n,)
+    values, with the input adaptation, tanh hidden layers, softplus and
+    scale of models/fields.py."""
+    x = np.asarray(x, dtype=np.float64)
+    if isinstance(field, ScalarField):
+        return np.full(x.shape[0], float(_numpy64(field.value)))
+    if not isinstance(field, MLPField):
+        return _numpy64(field.eval_batch(torch.from_numpy(x)))
+    width = x.shape[1]
+    if field.input_dim < width:
+        cols = np.concatenate([x[:, 1:], x[:, :1]], axis=1)
+        x = cols[:, : field.input_dim]
+    elif field.input_dim > width:
+        x = np.concatenate(
+            [x, np.zeros((x.shape[0], field.input_dim - width))], axis=1)
+    layers = [(_numpy64(w), _numpy64(b)) for w, b in field.layers]
+    h = x
+    for w, b in layers[:-1]:
+        h = np.tanh(h @ w + b)
+    w, b = layers[-1]
+    out = h @ w + b
+    if field.enforce_positive:
+        out = np.logaddexp(0.0, out)          # softplus without overflow
+    return (out * float(_numpy64(field.scale)))[:, 0]
+
+
+def _geometry(problem: TrussProblem):
+    """(dof_map, gvec, inv_len, mid) in numpy float64, cached on the
+    problem."""
+    cached = getattr(problem, "_host_geometry_cache", None)
+    if cached is not None:
+        return cached
+    coords = problem.node_coords_2d.astype(np.float64)
+    i, j = problem.elements[:, 0], problem.elements[:, 1]
+    dx = coords[j] - coords[i]
+    lengths = np.linalg.norm(dx, axis=1)
+    if np.any(lengths <= 0.0):
+        raise ValueError("Element with zero initial length detected")
+    cosines = dx / lengths[:, None]
+    gvec = np.concatenate([-cosines, cosines], axis=1)
+    mid = 0.5 * (coords[i] + coords[j])
+    if problem.dimension == 1:
+        dof_map = np.stack([i, j], axis=1)
+    else:
+        d = problem.dimension
+        dof_map = np.concatenate(
+            [np.stack([d * n + c for c in range(d)], axis=1) for n in (i, j)],
+            axis=1)
+    out = (dof_map.astype(np.int64), gvec, 1.0 / lengths, mid)
+    problem._host_geometry_cache = out
+    return out
+
+
+def _assembly_inputs(problem: TrussProblem, load_factor: float) -> np.ndarray:
+    _, _, _, mid = _geometry(problem)
+    lf = np.full((mid.shape[0], 1), float(load_factor))
+    return np.concatenate([lf, mid[:, : problem.dimension]], axis=1)
+
+
+def material_values_host(problem: TrussProblem, load_factor: float = 1.0
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """(young, area) at element midpoints, numpy float64."""
+    x = _assembly_inputs(problem, load_factor)
+    return (eval_field_host(problem.material.young, x),
+            eval_field_host(problem.material.area, x))
+
+
+def _scatter_blocks(problem: TrussProblem, ke: np.ndarray) -> np.ndarray:
+    """(nelm, 2d, 2d) element blocks -> dense (ndof, ndof) matrix."""
+    dof_map = _geometry(problem)[0]
+    k = np.zeros((problem.ndof, problem.ndof))
+    np.add.at(k, (dof_map[:, :, None], dof_map[:, None, :]), ke)
+    return k
+
+
+def host_stiffness(problem: TrussProblem,
+                   load_factor: float = 1.0) -> np.ndarray:
+    """Dense linear stiffness K (ndof, ndof), float64."""
+    _, gvec, inv_len, _ = _geometry(problem)
+    young, area = material_values_host(problem, load_factor)
+    s = young * area * inv_len
+    return _scatter_blocks(
+        problem, s[:, None, None] * gvec[:, :, None] * gvec[:, None, :])
+
+
+def host_lumped_mass(problem: TrussProblem) -> np.ndarray:
+    """(ndof,) lumped mass vector, payload mass included."""
+    dof_map, _, inv_len, _ = _geometry(problem)
+    x = _assembly_inputs(problem, 1.0)
+    m_e = (eval_field_host(problem.material.density, x)
+           * eval_field_host(problem.material.area, x) / inv_len)
+    m = np.zeros(problem.ndof)
+    np.add.at(m, dof_map, np.broadcast_to((0.5 * m_e)[:, None],
+                                          dof_map.shape))
+    return m + problem.point_mass_dof()
+
+
+def host_axial_forces(problem: TrussProblem, u: np.ndarray,
+                      load_factor: float = 1.0) -> np.ndarray:
+    """(nelm,) N_e = E A eps at the state u."""
+    dof_map, gvec, inv_len, _ = _geometry(problem)
+    young, area = material_values_host(problem, load_factor)
+    u_e = np.asarray(u, dtype=np.float64).reshape(-1)[dof_map]
+    return young * area * np.sum(gvec * u_e, axis=-1) * inv_len
+
+
+def host_geometric_stiffness(problem: TrussProblem,
+                             n_e: np.ndarray) -> np.ndarray:
+    """Dense (ndof, ndof) geometric stiffness from element axial forces."""
+    inv_len = _geometry(problem)[2]
+    eye = np.eye(problem.dimension)
+    pattern = np.block([[eye, -eye], [-eye, eye]])
+    coef = np.asarray(n_e, dtype=np.float64) * inv_len
+    return _scatter_blocks(problem, coef[:, None, None] * pattern[None])
+
+
+def host_masks(problem: TrussProblem) -> np.ndarray:
+    """(ndof,) free mask (1.0 free, 0.0 fixed)."""
+    mask = np.ones(problem.ndof)
+    if problem.fixed_dofs.size:
+        mask[np.unique(problem.fixed_dofs)] = 0.0
+    return mask
+
+
+def host_static_solve(problem: TrussProblem,
+                      loads: Optional[np.ndarray] = None,
+                      k: Optional[np.ndarray] = None) -> np.ndarray:
+    """Masked linear static solve K u = f (zeros on fixed DOFs)."""
+    mask = host_masks(problem)
+    k = host_stiffness(problem) if k is None else k
+    f = problem.loads if loads is None else np.asarray(loads, dtype=float)
+    km = mask[:, None] * k * mask[None, :] + np.diag(1.0 - mask)
+    return np.linalg.solve(km, f * mask) * mask

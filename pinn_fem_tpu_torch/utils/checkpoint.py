@@ -18,8 +18,9 @@ u is stored as the driver holds it (float64 from the result, as the JAX
 driver's np.asarray(u, dtype=float)) and theta's leaves in the working
 dtype (float32, or float64 under PINN_FEM_TPU_X64).
 
-The transient state (save_transient_state / load_transient_state) comes
-with the dynamics family, ROADMAP item 14.
+The transient state of solvers/dynamics.solve_transient_checkpointed is
+the JAX package's too: transient.npz (numpy's savez of u and v, written to
+.transient.tmp and renamed) and transient_meta.json ({"step": n, **meta}).
 """
 
 from __future__ import annotations
@@ -170,3 +171,34 @@ def load_increment_state(directory, theta_template: Any):
                                      ext_hook=_ext_unpack, raw=False))
     theta = _restore(theta_template, state["theta"], "theta")
     return int(meta["increment"]), np.array(state["u"]), theta
+
+
+def save_transient_state(directory, step: int, u, v,
+                         meta: Optional[Dict] = None) -> Path:
+    """Persist (step, u, v) of a transient integration (atomic rename)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    u, v = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x) for x in (u, v))
+    tmp = directory / ".transient.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, u=u, v=v)
+    path = directory / "transient.npz"
+    tmp.replace(path)
+    (directory / "transient_meta.json").write_text(json.dumps({
+        "step": int(step), **(meta or {})}))
+    return path
+
+
+def load_transient_state(directory):
+    """(step, u, v, meta), or None when the directory holds no transient
+    checkpoint."""
+    directory = Path(directory)
+    state_file = directory / "transient.npz"
+    meta_file = directory / "transient_meta.json"
+    if not state_file.exists() or not meta_file.exists():
+        return None
+    meta = json.loads(meta_file.read_text())
+    with np.load(state_file) as z:
+        u, v = z["u"], z["v"]
+    return int(meta["step"]), u, v, meta

@@ -41,11 +41,17 @@ Parts (all by default), one JSON line each:
           float64 too) and the RCM-reordered banded solve;
   checkpoint  resumes across the packages and the GD resume
           (tests/test_torch_checkpoint.py): u and theta gaps.
+  dynamics  the truss dynamics, port vs JAX (tests/test_torch_dynamics.py):
+          the mass and geometric ops, stable_dt of each case, each
+          solve_transient case's history gaps, exact_restart, the
+          checkpointed runs and the cross-package resumes, and the two
+          documents through both CLIs (the grid's also against float64).
 Not collected by pytest (no test_ prefix).  fnr_drift imports no JAX, so
 it also runs where JAX is not installed.
 """
 
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -627,11 +633,34 @@ def checkpoint():
              theta_rel=theta, rows=[len(r2.history), len(r3.history)])
 
 
+def dynamics():
+    import tempfile
+
+    import test_torch_dynamics as D
+
+    line = printer("dynamics")
+    line("ops", **D.ops_gaps())
+    for case in D.DT_CASES:
+        j, t = D.stable_dt_pair(case)
+        line(f"stable_dt {case}", rel=abs(t - j) / j)
+    for case in D.CASES:
+        line(f"transient {case}", **D.history_gaps(*D.transient_pair(case)))
+    line("exact_restart", **D.exact_restart_gaps())
+    os.environ["PINN_FEM_TORCH_DEVICE"] = "cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        line("checkpoint", **D.checkpoint_gaps(Path(tmp)))
+        for name, make in D.CLI_DOCS.items():
+            j, t = D.cli_pair(Path(tmp), make(), name)
+            line(f"cli {name}", **D.cli_gaps(j, t))
+    line("grid24x48 vs float64", rel=D.grid_float64_gap())
+
+
 if __name__ == "__main__":
     parts = {"corpus": corpus, "grid": grid, "grad": grad, "drift": drift,
              "second_order": second_order, "fnr_drift": fnr_drift,
              "truss_ext": truss_ext, "legacy": legacy, "x64": x64,
-             "gather": gather, "checkpoint": checkpoint}
+             "gather": gather, "checkpoint": checkpoint,
+             "dynamics": dynamics}
     for part in sys.argv[1:] or list(parts):
         name, _, arg = part.partition("=")
         parts[name](*([arg] if arg else []))

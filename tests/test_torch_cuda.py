@@ -748,3 +748,50 @@ def test_resume_on_card(cuda_device, tmp_path):
     assert launches["dia_matvec"] == 2 * newton + 1
     assert 0 < launches["cg_update"] < launches_whole["cg_update"]
     assert load_increment_state(ckpt, [])[0] == 2
+
+
+@pytest.mark.parametrize("method", ["central", "newmark"])
+def test_banded_transient_on_card_equals_cpu(cuda_device, method):
+    """solve_transient on the 24 x 48 grid (2,304 DOFs, banded): central
+    difference on kernel 1 (1 + n + 2 n / r launches with beta = 0) and
+    Newmark on the fused PCG (kernels 2 and 3 once each per round), both
+    against the CPU run (the twins): 1e-5 of max |u| for central, whose
+    recurrence is kernel 1 and elementwise ops; 2e-3 for Newmark, whose
+    PCG stops where the card's and the CPU's rounding leave it."""
+    problem = grid_problem(24, 48)
+    dt = T.stable_dt(problem, device=cuda_device)
+    n, every = 100, 10
+    kw = dict(n_steps=n, record_every=every, damping=(0.05, 0.0),
+              method=method)
+    if method == "newmark":
+        dt, kw["damping"] = 8.0 * dt, (0.05, 1e-3)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        kernels.reset_launch_counts()
+        runs[str(dev)] = T.solve_transient(problem, dt, device=dev, **kw)
+        counts = kernels.launch_counts()
+    cpu, card = runs["cpu"], runs[str(cuda_device)]
+    assert counts["material_coefficients"] == 0
+    if method == "central":
+        assert counts["dia_matvec"] == 1 + n + 2 * n // every
+        assert counts["dia_dir_matvec"] == counts["cg_update"] == 0
+        bound = 1e-5
+    else:
+        assert counts["dia_dir_matvec"] == counts["cg_update"] > 0
+        assert counts["cg_update"] % 32 == 0
+        bound = 2e-3
+    scale = np.abs(cpu.displacements).max()
+    np.testing.assert_allclose(card.displacements, cpu.displacements,
+                               rtol=0, atol=bound * scale)
+
+
+def test_x64_banded_transient_refused_on_card(cuda_device, monkeypatch):
+    """Under PINN_FEM_TPU_X64=1 a banded transient on the card raises the
+    ValueError that names PINN_FEM_TPU_X64 and kernel 1; nothing
+    launches."""
+    monkeypatch.setenv("PINN_FEM_TPU_X64", "1")
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="PINN_FEM_TPU_X64") as err:
+        T.solve_transient(grid_problem(24, 48), 0.1, 10, device=cuda_device)
+    assert "dia_matvec" in str(err.value)
+    assert not any(kernels.launch_counts().values())
