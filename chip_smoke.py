@@ -137,7 +137,27 @@ code is not 0 and no result line is printed:
      to (a)'s tail, transient.npz read by numpy; (f) Green-Lagrange
      central and Newmark on the 32 x 32 grid (dense) against the CPU
      twin, ms a step; and PINN_FEM_TPU_X64=1: a banded transient on the
-     card refused.
+     card refused;
+ 14. the banded multigrid (ops/mg.py): (a) solve_nr(linear_solver=
+     "cg-dia") on the 100 x 200 grid with cg_precond "mg" and "jacobi":
+     both converged and within 1e-3 of float64, the MG levels (ndof,
+     diagonals, bandwidth), Newton and PCG iterations, ms per hierarchy
+     build and per MG-PCG iteration, warm wall, the idle share, and kernel
+     1 launched exactly sum over solves of (1 + V)(1 + iterations) plus
+     2 a Newton iteration and 1 (V the level matvecs of a cycle); (b) the
+     PCG alone on that operator at tol 1e-6: MG iterations x 8 < Jacobi's,
+     both walls, the MG loop's idle share; (c) the V-cycle on kernel 1
+     within 1e-6 of the plain cycle (v_cycle_reference), and kernel 1
+     bit-equal to its twin at every level's shape, its ms, device us and
+     plain ms beside its byte bound; (d) the guided strip (2 x length
+     nodes numbered along its length) at lengths 2,000 (MG reaches tol:
+     gated) and 10,000 (MG capped, not gated: ROADMAP fault 3.14): Jacobi
+     and MG counts, walls, true residuals and x against float64; (e) the
+     707 x 1414 grid (1,999,396 DOFs): levels, build time, MG and Jacobi
+     PCG each capped by an iteration budget (the item near 30 s), where
+     each stops, not gated (MG breaks down there: fault 3.15); (f) float64
+     CUDA operands on the MG path (dia_cg_solve, solve_nr) refused with the
+     ValueError naming PINN_FEM_TPU_X64 and kernel 1.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -151,7 +171,8 @@ loop calls it, and for the material kernels the host us per wrapper call
 kernel 4 also its launches on phase 9's paths, kernels 1-3 theirs on
 phase 10's documents, kernels 4 and 4b theirs on phase 11's legacy
 paths, every kernel its launches on phase 12's paths and, as
-launches_dynamics, on phase 13's); the last is
+launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
+kernel 1 also its times at the multigrid's level shapes); the last is
 {"ok": true,
 "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -2962,6 +2983,411 @@ def phase_dynamics(workdir: Path, dev, card: str) -> dict:
     return launches
 
 
+MG_TOL = 1e-6               # the PCG items' tolerance (tests/test_mg.py)
+MG_CYCLE_RTOL = 1e-6
+MG_U_RTOL = 1e-3
+STRIP_LENGTHS = (2_000, 10_000)  # 2 x length nodes: 8,000, 40,000 DOFs
+STRIP_MG_CAP = 300          # MG iterations at the 40,000-DOF strip
+BIG_GRID = (707, 1414)      # 1,999,396 DOFs
+BIG_BUDGET_S = (8.0, 10.0)  # 14(e): seconds for MG, for Jacobi (the cap)
+
+
+def mg_levels(h) -> list:
+    """ndof, diagonals, bandwidth and smoothing of each level."""
+    return [{"ndof": lvl.ndof, "n_diags": len(lvl.offsets),
+             "bandwidth": lvl.layout.bandwidth, "smoothed": lvl.smoothed}
+            for lvl in h.levels]
+
+
+def synced(fn):
+    """(seconds, fn()) with the card synchronized on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+class Timed:
+    """Wraps module.name so that each call runs synchronized and records
+    (seconds, result), while in the with block."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.inner, self.calls = getattr(module, name), []
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            self.calls.append(synced(lambda: self.inner(*args, **kwargs)))
+            return self.calls[-1][1]
+
+        setattr(self.module, self.name, timed)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def mg_newton(dev, card: str) -> dict:
+    """14(a): solve_nr on the 100 x 200 grid with cg_precond "mg" and
+    "jacobi": u against float64, iterations, ms per hierarchy build and per
+    MG-PCG iteration, warm wall, idle share, and kernel 1's exact launches
+    (per MG solve (1 + V)(1 + iterations), V the level matvecs of a cycle,
+    plus 2 a Newton iteration and 1 for the reactions)."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import SolverConfig
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.ops import dia, kernels, mg
+    from pinn_fem_tpu_torch.solvers.newton import solve_nr
+
+    nodes, elements, loads, fixed = eg.grid_arrays(*GRID)
+    u_ref = eg.float64_solution(nodes, elements, loads, fixed)
+    problem = eg.grid_problem(*GRID)
+    data = problem.to_device(dev)
+    config = SolverConfig(max_iterations=20, tolerance=GRID_TOL)
+    out = {}
+    for precond in ("mg", "jacobi"):
+        def run():
+            return solve_nr(problem, config, 1.0, data=data,
+                            linear_solver="cg-dia", cg_precond=precond)
+
+        first_s, _ = synced(run)
+        kernels.reset_launch_counts()
+        with Spy(dia, "dia_cg_solve") as solves, \
+                Spy(mg, "build_hierarchy") as builds, \
+                Spy(kernels, "fused_cg_solve") as fused:
+            warm_s, res = synced(run)
+        launches = kernels.launch_counts()
+        u = res.displacements.reshape(-1)
+        err = float(np.abs(u - u_ref).max() / np.abs(u_ref).max())
+        newton = int(res.history[0]["iterations"])
+        pcg = [int(r[1]) for _, _, r in (solves if precond == "mg"
+                                         else fused)]
+        fields = dict(converged=res.converged, newton_iterations=newton,
+                      pcg_iterations=pcg, pcg_iterations_total=sum(pcg),
+                      u_rel_err_vs_float64=err, first_in_process_s=first_s,
+                      warm_s=warm_s, launches=launches,
+                      history=res.history)
+        if precond == "mg":
+            cycle = [mg.cycle_matvecs(h) for _, _, h in builds]
+            expected = sum((1 + v) * (1 + it) for v, it in zip(cycle, pcg)) \
+                + 2 * len(pcg) + 1
+            with Timed(mg, "build_hierarchy") as tb, \
+                    Timed(dia, "dia_cg_solve") as ts:
+                run()
+            build_s = [t for t, _ in tb]
+            solve_s = [t for t, _ in ts]
+            its = [int(r[1]) for _, r in ts]
+            run()
+            idle = idle_profile(run)
+            fields.update(
+                levels=mg_levels(builds[0][2]), cycle_matvecs=cycle[0],
+                predicted_dia_matvec=expected,
+                ms_per_build=1e3 * sum(build_s) / len(build_s),
+                ms_per_mg_pcg_iteration=1e3 * (sum(solve_s) - sum(build_s))
+                / max(sum(its), 1), ms_per_solve=1e3 * sum(solve_s)
+                / len(solve_s), profile=idle)
+            require(len(builds) == len(pcg) == newton,
+                    "mg Newton: one hierarchy and one MG-PCG a Newton "
+                    "iteration")
+            require(launches["dia_matvec"] == expected,
+                    f"mg Newton: kernel 1 launched sum (1 + V)(1 + it) + "
+                    f"2 N + 1 = {expected} times")
+            require(not any(launches[k] for k in launches
+                            if k != "dia_matvec"),
+                    "mg Newton: no kernel but kernel 1")
+        else:
+            require(len(fused) == newton and not solves,
+                    "jacobi Newton: the fused PCG a Newton iteration")
+            require(launches["dia_dir_matvec"] == launches["cg_update"] > 0,
+                    "jacobi Newton: kernels 2 and 3 launched")
+        log(f"phase14_newton_{precond}", card=card, ndof=problem.ndof,
+            **fields)
+        require(res.converged, f"{precond} Newton converged")
+        require(err <= MG_U_RTOL,
+                f"{precond} Newton: u within {MG_U_RTOL} of float64")
+        out[precond] = launches
+    return out
+
+
+def pcg_pair(layout, diags, rhs, mask, max_iter: dict) -> dict:
+    """Jacobi (the fused kernels) and MG PCG at MG_TOL on one operator,
+    max_iter[precond] iterations at most: iterations, relative residual,
+    warm wall; x of each."""
+    from pinn_fem_tpu_torch.ops.dia import dia_cg_solve
+
+    out = {}
+    for precond in ("jacobi", "mg"):
+        def solve():
+            return dia_cg_solve(layout, diags, rhs, mask, tol=MG_TOL,
+                                max_iter=max_iter[precond], precond=precond,
+                                components=2)
+
+        solve()
+        wall, (x, it, res) = synced(solve)
+        out[precond] = {"iterations": int(it), "rel_residual": float(res),
+                        "wall_s": wall, "x": x}
+    return out
+
+
+def true_residual(layout, diags, x, rhs, mask) -> float:
+    import torch
+
+    from pinn_fem_tpu_torch.ops.kernels import dia_kernel
+
+    r = (rhs - dia_kernel.dia_matvec_reference(layout, diags, x)) * mask
+    return float(torch.linalg.vector_norm(r)
+                 / torch.linalg.vector_norm(rhs * mask))
+
+
+def mg_pcg_and_cycle(dev, card: str) -> dict:
+    """14(b), (c): the PCG alone on the 40k operator, Jacobi against MG;
+    the V-cycle on kernel 1 against v_cycle_reference; kernel 1 against its
+    twin at each level's shape, timed beside its byte bound."""
+    import torch
+
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels, mg
+    from pinn_fem_tpu_torch.ops.dia import dia_cg_solve
+    from pinn_fem_tpu_torch.ops.kernels import dia_kernel
+
+    data, layout, diags = banded_system(grid_problem(*GRID), dev)
+    rhs, mask = data.loads, data.free_mask
+    kernels.reset_launch_counts()
+    pair = pcg_pair(layout, diags, rhs, mask,
+                    {"jacobi": 100_000, "mg": 100_000})
+    launches = kernels.launch_counts()
+    builds = sorted(synced(lambda: mg.build_hierarchy(
+        layout, diags, mask, components=2))[0] for _ in range(3))
+    h = mg.build_hierarchy(layout, diags, mask, components=2)
+    idle = idle_profile(lambda: dia_cg_solve(
+        layout, diags, rhs, mask, tol=MG_TOL, max_iter=100_000,
+        precond="mg", components=2))
+    it_j, it_m = pair["jacobi"]["iterations"], pair["mg"]["iterations"]
+    mg_iter_ms = 1e3 * (pair["mg"]["wall_s"] - builds[1]) / max(it_m, 1)
+    log("phase14_pcg_40k", card=card, ndof=layout.ndof, tol=MG_TOL,
+        levels=mg_levels(h), ms_per_build=1e3 * builds[1],
+        jacobi={k: v for k, v in pair["jacobi"].items() if k != "x"},
+        mg={k: v for k, v in pair["mg"].items() if k != "x"},
+        mg_ms_per_iteration=mg_iter_ms,
+        jacobi_ms_per_iteration=1e3 * pair["jacobi"]["wall_s"]
+        / max(it_j, 1), launches=launches, mg_profile=idle)
+    require(it_m * 8 < it_j, f"MG PCG iterations x 8 < Jacobi's "
+            f"({it_m} x 8 vs {it_j})")
+    require(pair["mg"]["rel_residual"] <= MG_TOL, "MG PCG reached tol")
+
+    # 14(c): one V-cycle, kernel 1 on every level against the twin.
+    gen = torch.Generator(device=dev).manual_seed(14)
+    b = torch.randn(layout.ndof, generator=gen, device=dev)
+    v = mg.v_cycle(h, b)
+    v_ref = mg.v_cycle_reference(h, b)
+    cycle_err = max_err(v, v_ref) / float(v_ref.abs().max())
+    shapes = []
+    for lvl in h.levels[:-1]:
+        lay = lvl.layout
+        u = torch.randn(lvl.ndof, generator=gen, device=dev)
+        y = dia_kernel.dia_matvec(lay, lvl.diags, u)
+        y_ref = dia_kernel.dia_matvec_reference(lay, lvl.diags, u)
+        plan = dia_kernel.stencil_plan(lay)
+        _, ev = profiled(lambda: [dia_kernel.dia_matvec(lay, lvl.diags, u)
+                                  for _ in range(50)])
+        shapes.append({
+            "ndof": lvl.ndof, "n_diags": lay.n_diags,
+            "bandwidth": lay.bandwidth, "bit_equal": bool(torch.equal(
+                y, y_ref)), "max_abs_err": max_err(y, y_ref),
+            "staged": plan.staged, "threads": plan.threads,
+            "tile": plan.tile, "blocks": plan.blocks,
+            "shared_bytes": plan.shared_bytes,
+            "ms": cuda_ms(lambda: dia_kernel.dia_matvec(lay, lvl.diags, u),
+                          200),
+            "plain_ms": cuda_ms(lambda: dia_kernel.dia_matvec_reference(
+                lay, lvl.diags, u), 20),
+            "device_us": per_launch_us(ev, "dia_matvec")[1],
+            **banded_bounds(lay, 1, 1)["dia_matvec"]})
+        require(shapes[-1]["bit_equal"], f"kernel 1 bit-equal to its twin "
+                f"at {lvl.ndof} DOFs, {lay.n_diags} diagonals")
+    log("phase14_v_cycle_40k", card=card, rel_err=cycle_err,
+        bit_equal=bool(torch.equal(v, v_ref)), level_shapes=shapes,
+        cycle_ms=cuda_ms(lambda: mg.v_cycle(h, b), 20),
+        plain_cycle_ms=cuda_ms(lambda: mg.v_cycle_reference(h, b), 5),
+        cycle_host_us=host_us(lambda: mg.v_cycle(h, b), 20))
+    require(cycle_err <= MG_CYCLE_RTOL,
+            f"V-cycle on kernel 1 within {MG_CYCLE_RTOL} of the plain cycle")
+    del data, diags, h
+    torch.cuda.empty_cache()
+    return {"pcg_40k": launches, "level_shapes": shapes}
+
+
+def mg_strip(dev, card: str) -> dict:
+    """14(d): the guided strip, 2 x length nodes numbered along its length:
+    Jacobi against MG PCG (counts, walls, true residual and x against
+    float64 recorded).  At STRIP_LENGTHS[0] the gate is MG's residual; at
+    the 40,000-DOF length the float32 operator (cond ~ 4e8) is past what
+    float32 resolves and MG-PCG diverges (ROADMAP fault 3.14), so MG runs
+    STRIP_MG_CAP iterations there and nothing is gated."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.ops import kernels
+
+    launches = {}
+    for length in STRIP_LENGTHS:
+        t0 = time.perf_counter()
+        problem = eg.strip_problem(length)
+        data, layout, diags = banded_system(problem, dev)
+        gated = length == STRIP_LENGTHS[0]
+        kernels.reset_launch_counts()
+        pair = pcg_pair(layout, diags, data.loads, data.free_mask,
+                        {"jacobi": 400_000,
+                         "mg": 400_000 if gated else STRIP_MG_CAP})
+        launches[length] = kernels.launch_counts()
+        u_ref = eg.float64_solution(problem.nodes, problem.elements,
+                                    problem.loads, problem.fixed_dofs)
+        fields = {}
+        for precond, r in pair.items():
+            x = r.pop("x")
+            fields[precond] = dict(r, true_rel_residual=true_residual(
+                layout, diags, x, data.loads, data.free_mask),
+                x_rel_err_vs_float64=float(
+                    np.abs(x.cpu().numpy() - u_ref).max()
+                    / np.abs(u_ref).max()))
+        log("phase14_strip", card=card, length=length, ndof=layout.ndof,
+            free_dofs=int(data.free_mask.sum()), n_diags=layout.n_diags,
+            bandwidth=layout.bandwidth, tol=MG_TOL, gated=gated,
+            launches=launches[length],
+            wall_ratio_jacobi_over_mg=fields["jacobi"]["wall_s"]
+            / fields["mg"]["wall_s"], item_s=time.perf_counter() - t0,
+            **fields)
+        if gated:
+            require(fields["mg"]["rel_residual"] <= MG_TOL,
+                    f"strip of length {length}: MG PCG reached tol")
+    return launches
+
+
+def mg_big_grid(dev, card: str) -> dict:
+    """14(e): the ~2M-DOF grid, MG against Jacobi PCG, each capped by an
+    iteration budget from a short probe so the item stays near 30 s; where
+    each stops (tol, cap, or a breakdown: r.z not finite and positive) is
+    recorded, nothing is gated."""
+    import torch
+
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels, mg
+    from pinn_fem_tpu_torch.ops.dia import dia_cg_solve
+
+    t_item = time.perf_counter()
+    data, layout, diags = banded_system(grid_problem(*BIG_GRID), dev)
+    rhs, mask = data.loads, data.free_mask
+    setup_s = time.perf_counter() - t_item
+
+    def build():
+        return mg.build_hierarchy(layout, diags, mask, components=2)
+
+    first_build_s, h = synced(build)
+    build_s, h = synced(build)          # warm: level layouts and plans made
+    levels = mg_levels(h)
+    del h
+    kernels.reset_launch_counts()
+    out = {}
+    for precond, budget, probe in (("mg", BIG_BUDGET_S[0], 4),
+                                   ("jacobi", BIG_BUDGET_S[1], 300)):
+        fixed_s = build_s if precond == "mg" else 0.0
+
+        def solve(tol, n):
+            return dia_cg_solve(layout, diags, rhs, mask, tol=tol,
+                                max_iter=n, precond=precond, components=2)
+
+        probe_s, _ = synced(lambda: solve(0.0, probe))
+        # The probe runs `probe` iterations and the setup's matvec and
+        # preconditioner apply (one more cycle), after MG's build.
+        per_it = max(probe_s - fixed_s, 1e-6) / (probe + 1)
+        cap = max(1, int((budget - fixed_s) / per_it))
+        wall, (_, it, res) = synced(lambda: solve(MG_TOL, cap))
+        stopped = ("tol" if float(res) <= MG_TOL
+                   else "cap" if int(it) >= cap else "breakdown")
+        out[precond] = {"iterations": int(it), "rel_residual": float(res),
+                        "wall_s": wall, "iteration_cap": cap,
+                        "stopped_by": stopped,
+                        "probe_ms_per_iteration": 1e3 * per_it}
+    launches = kernels.launch_counts()
+    log("phase14_grid_2M", card=card, grid=list(BIG_GRID), ndof=layout.ndof,
+        setup_s=setup_s, first_build_s=first_build_s, build_s=build_s,
+        levels=levels, tol=MG_TOL, launches=launches,
+        item_s=time.perf_counter() - t_item, **out)
+    del data, diags
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mg_x64(dev, card: str) -> None:
+    """14(f): float64 CUDA operands on the MG path are refused."""
+    import torch
+
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.ops.dia import dia_cg_solve
+    from pinn_fem_tpu_torch.solvers.newton import solve_nr
+
+    data, layout, diags = banded_system(grid_problem(8, 16), dev)
+    refused = {}
+    kernels.reset_launch_counts()
+    try:
+        dia_cg_solve(layout, diags.double(), data.loads.double(),
+                     data.free_mask.double(), precond="mg", components=2)
+    except ValueError as e:
+        refused["dia_cg_solve"] = str(e)
+    os.environ["PINN_FEM_TPU_X64"] = "1"
+    try:
+        solve_nr(grid_problem(*GRID), linear_solver="cg-dia",
+                 cg_precond="mg", device=dev)
+    except ValueError as e:
+        refused["solve_nr"] = str(e)
+    finally:
+        del os.environ["PINN_FEM_TPU_X64"]
+    launches = kernels.launch_counts()
+    log("phase14_x64", card=card, refused=refused, launches=launches)
+    for path in ("dia_cg_solve", "solve_nr"):
+        msg = refused.get(path, "")
+        require("PINN_FEM_TPU_X64" in msg and "dia_matvec" in msg,
+                f"float64 MG {path} on the card refused, naming the "
+                "variable and kernel 1")
+    require(not any(launches.values()), "no launch before the refusal")
+    del data, diags
+    torch.cuda.empty_cache()
+
+
+def phase_multigrid(dev, card: str) -> dict:
+    """Phase 14: the banded multigrid on the card.  Returns kernel
+    launches on each of its paths and kernel 1's level shapes."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    newton = mg_newton(dev, card)
+    lap("a")
+    launches = {"newton_mg_40k": newton["mg"],
+                "newton_jacobi_40k": newton["jacobi"]}
+    pcg = mg_pcg_and_cycle(dev, card)
+    lap("b_c")
+    launches["pcg_40k"] = pcg["pcg_40k"]
+    for length, counts in mg_strip(dev, card).items():
+        launches[f"strip_{4 * length}"] = counts
+    lap("d")
+    launches["grid_2M"] = mg_big_grid(dev, card)
+    lap("e")
+    mg_x64(dev, card)
+    lap("f")
+    log("phase14_done", seconds=seconds, total_s=sum(seconds.values()))
+    return {"launches": launches, "level_shapes": pcg["level_shapes"]}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -2981,6 +3407,7 @@ def main() -> int:
         legacy = phase_api(Path(tmp), dev, card)
         meshes = phase_meshes(Path(tmp), dev, card, phase4)
         dynamics = phase_dynamics(Path(tmp), dev, card)
+        multigrid = phase_multigrid(dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -3012,6 +3439,15 @@ def main() -> int:
             path: counts[name] for path, counts in meshes.items()}
         entries[-1]["launches_dynamics"] = {
             path: counts[name] for path, counts in dynamics.items()}
+        entries[-1]["launches_multigrid"] = {
+            path: counts[name]
+            for path, counts in multigrid["launches"].items()}
+        if name == "dia_matvec":
+            entries[-1]["multigrid_level_shapes"] = [
+                {k: shape[k] for k in ("ndof", "n_diags", "bandwidth", "ms",
+                                       "device_us", "plain_ms", "bound_ms",
+                                       "bound_by")}
+                for shape in multigrid["level_shapes"]]
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ force from a solution.  `shuffled_document` renumbers any of these
 documents' nodes by a seeded random permutation: the same mesh, whose
 numbering gives no banded layout (the gather-based PCG's case).
 `transient_grid_document` makes the grid a transient analysis document,
-and `float64_transient` integrates such a document's central-difference
+`strip_problem` a slender guided strip numbered along its length (where
+Jacobi-PCG needs O(n) iterations), and
+`float64_transient` integrates such a document's central-difference
 or Newmark recurrence in float64 on scipy's sparse K (Newmark with one
 sparse LU of its effective stiffness).
 """
@@ -158,6 +160,25 @@ def chain_problem(n_nodes: int) -> TrussProblem:
     return TrussProblem(nodes=nodes, elements=elements,
                         material=Material(young=1.0, area=1.0, density=1.0),
                         loads=loads, fixed_dofs=np.array([0, 1]), dimension=2)
+
+
+def strip_problem(length: int) -> TrussProblem:
+    """A cross-braced strip two nodes wide and `length` nodes long,
+    numbered along its length (node 2 r + c at row r, column c, so the
+    stiffness has offsets within +-7), clamped at row 0, pulled along its
+    axis (y) at the last row, every node's lateral (x) DOF held by a
+    roller: the slender axial case, cond ~ length^2, where Jacobi-PCG
+    needs O(length) iterations.  Without the rollers the strip is a beam
+    whose bending gives cond ~ length^4, past what float32 resolves (at
+    length 500 neither PCG reached tol 1e-6 on the CPU)."""
+    nodes, elements, _, _ = grid_arrays(length, 2)
+    ndof = 2 * nodes.shape[0]
+    loads = np.zeros(ndof)
+    loads[[-3, -1]] = 1.0                 # y of the last row's two nodes
+    fixed = np.union1d(np.arange(4), np.arange(0, ndof, 2))
+    return TrussProblem(nodes=nodes, elements=elements,
+                        material=Material(young=1.0, area=1.0, density=1.0),
+                        loads=loads, fixed_dofs=fixed, dimension=2)
 
 
 def _dofs_2d(el) -> np.ndarray:

@@ -21,6 +21,9 @@ state once the stop test holds and reads the flag every CHECK_EVERY
 iterations, as the fused banded PCG does
 (ops/kernels/cg_kernel._pcg).  Both forms run the same operations in the
 same order, so they give the same iterations and x on the same device.
+The two loops (`pcg_plain`, `pcg_flagged`) take any operator and
+preconditioner apply: the banded Jacobi twin and the multigrid PCG of
+ops/dia.py run `pcg_plain` too.
 """
 
 from __future__ import annotations
@@ -64,8 +67,8 @@ def stiffness_diagonal(data: ProblemData, s: torch.Tensor) -> torch.Tensor:
 
 def _setup(data: ProblemData, s: torch.Tensor, rhs: torch.Tensor, tol,
            x0: Optional[torch.Tensor]):
-    """The operator, the Jacobi inverse, x0, r0, z0, r0.z0, |b| and
-    tol |b| of both loop forms."""
+    """The operator, the Jacobi apply, b, x0, |b| and tol |b| of both loop
+    forms."""
     mask = data.free_mask
     fixed = 1.0 - mask
     b = rhs * mask
@@ -77,19 +80,24 @@ def _setup(data: ProblemData, s: torch.Tensor, rhs: torch.Tensor, tol,
     b_norm = torch.clamp_min(torch.linalg.vector_norm(b), 1e-30)
     tol_b = torch.as_tensor(tol, dtype=b.dtype, device=b.device) * b_norm
     x = torch.zeros_like(b) if x0 is None else x0 * mask
+    return a_op, (lambda r: inv_diag * r), b, x, b_norm, tol_b
+
+
+def _start(a_op, precond, b, x):
+    """r0 = b - A x0, p0 = z0 = M^-1 r0 and r0.z0."""
     r = b - a_op(x)
-    z = inv_diag * r
-    return a_op, inv_diag, x, r, z, torch.dot(r, z), b_norm, tol_b
+    z = precond(r)
+    return r, z, torch.dot(r, z)
 
 
-def _step(a_op, inv_diag, x, r, p, rz, tiny):
+def _step(a_op, precond, x, r, p, rz, tiny):
     """One PCG iteration: (x, r, p, r.z) after it."""
     ap = a_op(p)
     denom = torch.dot(p, ap)
     alpha = rz / torch.where(denom.abs() > 0, denom, tiny)
     x = x + alpha * p
     r = r - alpha * ap
-    z = inv_diag * r
+    z = precond(r)
     rz_new = torch.dot(r, z)
     beta = rz_new / torch.where(rz != 0, rz, tiny)
     return x, r, z + beta * p, rz_new
@@ -102,36 +110,33 @@ def _live(it, max_iter, rz, r, tol_b):
             & (torch.linalg.vector_norm(r) > tol_b))
 
 
-def cg_solve_reference(data: ProblemData, s: torch.Tensor, rhs: torch.Tensor,
-                       tol=1e-6, max_iter=10000,
-                       x0: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain loop: the condition is read on the host every
-    iteration."""
-    a_op, inv_diag, x, r, p, rz, b_norm, tol_b = _setup(data, s, rhs, tol, x0)
+def pcg_plain(a_op, precond, b: torch.Tensor, x: torch.Tensor, tol_b,
+              max_iter: int):
+    """The PCG recurrence on A = a_op with M^-1 = precond from x: the
+    condition is read on the host every iteration.  Returns (x,
+    iterations, r)."""
+    r, p, rz = _start(a_op, precond, b, x)
     tiny = torch.tensor(1e-30, dtype=rz.dtype, device=rz.device)
     it = 0
     while bool(_live(it, max_iter, rz, r, tol_b)):
-        x, r, p, rz = _step(a_op, inv_diag, x, r, p, rz, tiny)
+        x, r, p, rz = _step(a_op, precond, x, r, p, rz, tiny)
         it += 1
-    return (x * data.free_mask, torch.tensor(it, dtype=torch.int32),
-            torch.linalg.vector_norm(r) / b_norm)
+    return x, torch.tensor(it, dtype=torch.int32), r
 
 
-def cg_solve_flagged(data: ProblemData, s: torch.Tensor, rhs: torch.Tensor,
-                     tol=1e-6, max_iter=10000,
-                     x0: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The device loop, on any device: the stop test stays on the device,
-    an iteration after it leaves (x, r, p, r.z) and the count as they
-    were, and the host reads the flag every CHECK_EVERY iterations."""
-    a_op, inv_diag, x, r, p, rz, b_norm, tol_b = _setup(data, s, rhs, tol, x0)
+def pcg_flagged(a_op, precond, b: torch.Tensor, x: torch.Tensor, tol_b,
+                max_iter: int):
+    """The same recurrence as a device loop: the stop test stays on the
+    device, an iteration after it leaves (x, r, p, r.z) and the count as
+    they were, and the host reads the flag every CHECK_EVERY
+    iterations."""
+    r, p, rz = _start(a_op, precond, b, x)
     tiny = torch.tensor(1e-30, dtype=rz.dtype, device=rz.device)
     it = torch.zeros((), dtype=torch.int32, device=rz.device)
     live = _live(it, max_iter, rz, r, tol_b)
     rounds = 0
     while rounds % CHECK_EVERY or bool(live):
-        x1, r1, p1, rz1 = _step(a_op, inv_diag, x, r, p, rz, tiny)
+        x1, r1, p1, rz1 = _step(a_op, precond, x, r, p, rz, tiny)
         x = torch.where(live, x1, x)
         r = torch.where(live, r1, r)
         p = torch.where(live, p1, p)
@@ -139,8 +144,27 @@ def cg_solve_flagged(data: ProblemData, s: torch.Tensor, rhs: torch.Tensor,
         it = it + live.to(torch.int32)
         live = live & _live(it, max_iter, rz, r, tol_b)
         rounds += 1
-    return (x * data.free_mask, it.cpu(),
-            torch.linalg.vector_norm(r) / b_norm)
+    return x, it.cpu(), r
+
+
+def cg_solve_reference(data: ProblemData, s: torch.Tensor, rhs: torch.Tensor,
+                       tol=1e-6, max_iter=10000,
+                       x0: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain loop (pcg_plain)."""
+    a_op, precond, b, x, b_norm, tol_b = _setup(data, s, rhs, tol, x0)
+    x, it, r = pcg_plain(a_op, precond, b, x, tol_b, max_iter)
+    return x * data.free_mask, it, torch.linalg.vector_norm(r) / b_norm
+
+
+def cg_solve_flagged(data: ProblemData, s: torch.Tensor, rhs: torch.Tensor,
+                     tol=1e-6, max_iter=10000,
+                     x0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The device loop (pcg_flagged), on any device."""
+    a_op, precond, b, x, b_norm, tol_b = _setup(data, s, rhs, tol, x0)
+    x, it, r = pcg_flagged(a_op, precond, b, x, tol_b, max_iter)
+    return x * data.free_mask, it, torch.linalg.vector_norm(r) / b_norm
 
 
 def cg_solve(data: ProblemData, s: torch.Tensor, rhs: torch.Tensor,

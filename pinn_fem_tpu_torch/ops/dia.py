@@ -19,6 +19,8 @@ kernels of ops/kernels/ (the stencil matvec, and the fused two-kernel
 Jacobi-PCG of ops/kernels/cg_kernel.fused_cg_solve); on CPU tensors they run
 the plain PyTorch versions, `dia_matvec_reference` and
 `dia_cg_solve_reference`, which the kernels are held against.
+`dia_cg_solve(precond="mg")` preconditions with the banded multigrid of
+ops/mg.py, whose every level matvec is `dia_matvec`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.runtime import require_float32
 from .assembly import scatter_add
+from .cg import pcg_plain
 from .kernels.dia_kernel import dia_matvec, dia_matvec_reference
 
 __all__ = ["DiaLayout", "dia_layout", "assemble_dia", "assemble_dia_blocks",
@@ -44,12 +48,13 @@ class DiaLayout:
     offsets: (nd,) sorted diagonal offsets (include 0), int64.
     entry_slot: (nelm, 2d, 2d) int64: for element-local entry (a, b), the
         flat index k * ndof + row into the (nd, ndof) diagonal array.  int64
-        because nd * ndof passes 2**31 on large meshes.
+        because nd * ndof passes 2**31 on large meshes.  None for an
+        operator not assembled from elements (a multigrid level, ops/mg.py).
     ndof, bandwidth: ints.
     """
 
     offsets: np.ndarray
-    entry_slot: np.ndarray
+    entry_slot: Optional[np.ndarray]
     ndof: int
     bandwidth: int
     _on_device: dict = field(default_factory=dict, repr=False, compare=False)
@@ -77,6 +82,8 @@ class DiaLayout:
 
     def entry_slot_on(self, device) -> torch.Tensor:
         """(nelm, 2d, 2d) int64 scatter map on `device`, copied once."""
+        if self.entry_slot is None:
+            raise ValueError("this layout has no element scatter map")
         return self._tensor("entry_slot", device)
 
 
@@ -140,6 +147,23 @@ def dia_diagonal(layout: DiaLayout, diags: torch.Tensor) -> torch.Tensor:
     return diags[k0]
 
 
+def _masked_system(layout: DiaLayout, diags: torch.Tensor, rhs: torch.Tensor,
+                   free_mask: torch.Tensor, tol, x0: Optional[torch.Tensor],
+                   matvec):
+    """The masked operator M K M + (I - M) on `matvec`, b = M rhs, x0,
+    |b| and tol |b|."""
+    mask = free_mask
+
+    def a_op(x):
+        return matvec(layout, diags, x * mask) * mask + x * (1.0 - mask)
+
+    b = rhs * mask
+    b_norm = torch.clamp_min(torch.linalg.vector_norm(b), 1e-30)
+    tol_b = torch.as_tensor(tol, dtype=b.dtype, device=b.device) * b_norm
+    x = torch.zeros_like(b) if x0 is None else x0 * mask
+    return a_op, b, x, b_norm, tol_b
+
+
 def dia_cg_solve(
     layout: DiaLayout,
     diags: torch.Tensor,
@@ -149,19 +173,46 @@ def dia_cg_solve(
     max_iter: int = 100000,
     x0: Optional[torch.Tensor] = None,
     precond: str = "jacobi",
+    components: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Jacobi-PCG on the banded operator with masked BCs.
+    """PCG on the banded operator with masked BCs.
 
     Returns (x * mask, iterations, relative recurrence-residual norm), the
-    contract of pinn_fem_tpu.ops.dia.dia_cg_solve.  CPU tensors run the
-    plain recurrence (`dia_cg_solve_reference`); CUDA tensors the fused
-    kernels (ops/kernels/cg_kernel.fused_cg_solve), as the JAX package's
+    contract of pinn_fem_tpu.ops.dia.dia_cg_solve.
+
+    precond "jacobi": CPU tensors run the plain recurrence
+    (`dia_cg_solve_reference`); CUDA tensors the fused kernels
+    (ops/kernels/cg_kernel.fused_cg_solve), as the JAX package's
     use_pallas=True does on a TPU.
+
+    precond "mg": the banded smoothed-aggregation multigrid V-cycle
+    (ops/mg.py) as the preconditioner; `components` is the DOFs per node
+    its aggregation keeps apart.  The hierarchy and its coarsest Cholesky
+    factor are built once per call and reused by every iteration.  The
+    operator and every level's matvec are kernel 1 on a CUDA tensor (a
+    float64 one is refused), the twin on a CPU tensor.  The recurrence is
+    the plain one, whose stop test is computed on the device and read by
+    the host once an iteration (ops/cg.pcg_plain), on every device: a
+    V-cycle enqueues about a hundred torch ops (1-2 ms of host time at
+    40k DOFs) against tens of microseconds for a flag read, so reading
+    every iteration costs a few percent and runs no V-cycle past the stop,
+    where the frozen-state loop of ops/cg.pcg_flagged would add about ten
+    ops an iteration to save reads that cost less.  Kernel 1 thus runs
+    (1 + V)(1 + iterations) times a solve, V = mg.cycle_matvecs.
     """
     if precond == "mg":
-        raise NotImplementedError(
-            "multigrid preconditioning (ops/mg.py) is not yet ported, "
-            "ROADMAP item 13")
+        from .mg import build_hierarchy, v_cycle
+
+        if rhs.device.type == "cuda":
+            require_float32(rhs.dtype, "multigrid PCG (kernel 1: dia_matvec, "
+                            "on every level)")
+        hierarchy = build_hierarchy(layout, diags, free_mask,
+                                    components=components)
+        a_op, b, x, b_norm, tol_b = _masked_system(
+            layout, diags, rhs, free_mask, tol, x0, dia_matvec)
+        x, it, r = pcg_plain(a_op, lambda v: v_cycle(hierarchy, v), b, x,
+                             tol_b, max_iter)
+        return x * free_mask, it, torch.linalg.vector_norm(r) / b_norm
     if precond != "jacobi":
         raise ValueError(f"unknown preconditioner {precond!r}")
     if rhs.device.type == "cpu":
@@ -184,41 +235,13 @@ def dia_cg_solve_reference(
     """The plain Jacobi-PCG recurrence of pinn_fem_tpu.ops.dia.dia_cg_solve
     in PyTorch, on any device.  The loop tests its condition on the host
     every iteration; the fused kernel form keeps it on the device.
+    Float32 breakdown guards as in the reference: the loop trusts the
+    recurrence residual and stops when r.z is no longer finite and
+    positive (ops/cg.pcg_plain).
     """
-    mask = free_mask
-    b_vec = rhs * mask
-
-    def a_op(x):
-        return (dia_matvec_reference(layout, diags, x * mask) * mask
-                + x * (1.0 - mask))
-
-    diag = dia_diagonal(layout, diags) * mask + (1.0 - mask)
-    inv_diag = 1.0 / diag
-    b_norm = torch.clamp_min(torch.linalg.vector_norm(b_vec), 1e-30)
-    tol_b = torch.as_tensor(tol, dtype=b_vec.dtype, device=b_vec.device) * b_norm
-    tiny = torch.tensor(1e-30, dtype=b_vec.dtype, device=b_vec.device)
-    x = torch.zeros_like(b_vec) if x0 is None else x0 * mask
-
-    r = b_vec - a_op(x)
-    z = inv_diag * r
-    rz = torch.dot(r, z)
-    p = z
-    it = 0
-    # Float32 breakdown guards as in the reference: the loop trusts the
-    # recurrence residual and stops when r.z is no longer finite and
-    # positive (a reliable end-of-progress signal for SPD systems).
-    while (it < max_iter and bool(torch.isfinite(rz)) and bool(rz > 0)
-           and bool(torch.linalg.vector_norm(r) > tol_b)):
-        ap = a_op(p)
-        denom = torch.dot(p, ap)
-        alpha = rz / torch.where(denom.abs() > 0, denom, tiny)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = inv_diag * r
-        rz_new = torch.dot(r, z)
-        beta = rz_new / torch.where(rz != 0, rz, tiny)
-        p = z + beta * p
-        rz = rz_new
-        it += 1
-    return (x * mask, torch.tensor(it, dtype=torch.int32),
-            torch.linalg.vector_norm(r) / b_norm)
+    a_op, b, x, b_norm, tol_b = _masked_system(
+        layout, diags, rhs, free_mask, tol, x0, dia_matvec_reference)
+    inv_diag = 1.0 / (dia_diagonal(layout, diags) * free_mask
+                      + (1.0 - free_mask))
+    x, it, r = pcg_plain(a_op, lambda v: inv_diag * v, b, x, tol_b, max_iter)
+    return x * free_mask, it, torch.linalg.vector_norm(r) / b_norm

@@ -4,7 +4,8 @@ Same update rule, convergence criteria, reactions and single-entry history
 {load_factor, iterations, residual, max_strain, converged} as the JAX
 solver.  Up to DENSE_DOF_LIMIT DOFs the tangent is a dense Cholesky solve;
 above it, on a banded mesh, each Newton iteration assembles the DIA
-diagonals and solves with the fused two-kernel Jacobi-PCG: the CUDA
+diagonals and solves with the fused two-kernel Jacobi-PCG (or, with
+cg_precond="mg", the multigrid-preconditioned PCG of ops/mg.py): the CUDA
 kernels on a card, their plain twins on the CPU.  A mesh whose numbering
 gives no banded layout takes the gather-based matrix-free PCG (ops/cg.py,
 torch ops on every device; RCM, ops/reorder.py, can renumber such a mesh
@@ -125,28 +126,39 @@ def _force_newton(assemble, data: ProblemData, u0: torch.Tensor,
 def _nr_dia_core(layout, data: ProblemData, material: Material,
                  u0: torch.Tensor, load_factor: torch.Tensor, max_iter: int,
                  tol: float, min_denom: float, cg_tol: float,
-                 cg_max_iter: int, precond: str = "jacobi"):
-    """One load increment of Newton-Raphson on the banded operator, with
-    the fused PCG (ops/kernels/cg_kernel.fused_cg_solve) as inner solve."""
+                 cg_max_iter: int, precond: str = "jacobi",
+                 components: int = 1):
+    """One load increment of Newton-Raphson on the banded operator.  The
+    inner solve is the fused Jacobi PCG (ops/kernels/cg_kernel.
+    fused_cg_solve) or, with precond "mg", the multigrid-preconditioned
+    PCG (ops/dia.dia_cg_solve, kernel 1 on every level), its hierarchy
+    built once per Newton iteration."""
     from ..ops.cg import stiffness_coefficients
-    from ..ops.dia import assemble_dia, dia_matvec
+    from ..ops.dia import assemble_dia, dia_cg_solve, dia_matvec
     from ..ops.kernels import fused_cg_solve
 
-    if precond != "jacobi":
-        raise NotImplementedError(
-            f"preconditioner {precond!r}: only Jacobi is ported; multigrid "
-            "(ops/mg.py) is ROADMAP item 13")
+    if precond not in ("jacobi", "mg"):
+        raise ValueError(f"unknown preconditioner {precond!r}")
     if u0.device.type == "cuda":
         require_float32(u0.dtype, "banded Newton (kernels 1-3: dia_matvec, "
-                        "dia_dir_matvec, cg_update)")
+                        "dia_dir_matvec, cg_update)" if precond == "jacobi"
+                        else "banded Newton with multigrid (kernel 1: "
+                        "dia_matvec, on every level)")
+
+    def solver(diags):
+        if precond == "mg":
+            return lambda rhs: dia_cg_solve(
+                layout, diags, rhs, data.free_mask, tol=cg_tol,
+                max_iter=cg_max_iter, precond="mg",
+                components=components)[0]
+        return lambda rhs: fused_cg_solve(layout, diags, rhs, data.free_mask,
+                                          tol=cg_tol,
+                                          max_iter=cg_max_iter)[0]
 
     def assemble():
         s = stiffness_coefficients(data, material, load_factor)
         diags = assemble_dia(layout, s, data.gvec)
-        return (lambda v: dia_matvec(layout, diags, v),
-                lambda rhs: fused_cg_solve(layout, diags, rhs, data.free_mask,
-                                           tol=cg_tol,
-                                           max_iter=cg_max_iter)[0])
+        return lambda v: dia_matvec(layout, diags, v), solver(diags)
 
     return _force_newton(assemble, data, u0, load_factor, max_iter, tol,
                          min_denom)
@@ -190,6 +202,11 @@ def solve_nr(
     banded operator when the numbering gives a banded layout, else the
     gather-based matrix-free PCG), "cg-dia" (banded operator only), or
     "auto" ("cg" above DENSE_DOF_LIMIT, else "dense").
+    cg_precond: the banded PCG's preconditioner: "jacobi" (the fused
+    kernels 2-3), "mg" (the banded smoothed-aggregation multigrid of
+    ops/mg.py, aggregating `problem.dimension` components per node) or
+    "auto" ("jacobi", the JAX package's default).  The other paths ignore
+    it.
     geometric_nonlinear: opt-in Green-Lagrange kinematics (2D / 3D, dense
     solver only).
     prescribed_u: (ndof,) values of the fixed DOFs (support settlement).
@@ -239,7 +256,7 @@ def solve_nr(
             config.tolerance, config.min_denominator,
             cg_tol=max(config.tolerance * 0.1, 5e-8),
             cg_max_iter=min(max(20 * problem.ndof, 1000), 100_000),
-            precond=cg_precond,
+            precond=cg_precond, components=problem.dimension,
         )
     elif linear_solver == "cg":
         out = _nr_core_cg(

@@ -46,6 +46,14 @@ Parts (all by default), one JSON line each:
           solve_transient case's history gaps, exact_restart, the
           checkpointed runs and the cross-package resumes, and the two
           documents through both CLIs (the grid's also against float64).
+  mg      the banded multigrid, port vs JAX (tests/test_torch_mg.py): the
+          building blocks, the 20 x 40 grid's and the chain's levels and
+          Cholesky factor, one V-cycle, the MG-PCG, solve_nr(cg_precond=
+          "mg") on the 16 x 32 grid at tol 1e-5 and 1e-4 (Newton counts,
+          residuals, u; also the port on JAX-assembled diagonals), and
+          both packages' Jacobi and MG PCG on the guided 2 x 2,000 and
+          2 x 10,000 strips (MG capped at 200 iterations there) in float32
+          against float64 (fault 3.14).
 Not collected by pytest (no test_ prefix).  fnr_drift imports no JAX, so
 it also runs where JAX is not installed.
 """
@@ -655,12 +663,128 @@ def dynamics():
     line("grid24x48 vs float64", rel=D.grid_float64_gap())
 
 
+def mg():
+    import jax.numpy as jnp
+    import torch
+
+    import pinn_fem_tpu as jp
+    import pinn_fem_tpu_torch as tp
+    import test_torch_mg as M
+    from pinn_fem_tpu.ops import dia as j_dia
+    from pinn_fem_tpu.ops.cg import stiffness_coefficients as j_coeffs
+    from pinn_fem_tpu.solvers import newton as j_newton
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.ops import dia as t_dia
+    from pinn_fem_tpu_torch.ops import mg as t_mg
+    from pinn_fem_tpu_torch.ops.cg import stiffness_coefficients as t_coeffs
+    from pinn_fem_tpu_torch.solvers import newton as t_newton
+
+    line = printer("mg")
+    rng = np.random.default_rng(0)
+    da, db = M.random_dia(rng), M.random_dia(rng)
+    j = M.j_mg.dia_mul(M.OFFSETS, jnp.asarray(da), M.OFFSETS,
+                       jnp.asarray(db), M.N)
+    t = t_mg.dia_mul(M.OFFSETS, torch.as_tensor(da), M.OFFSETS,
+                     torch.as_tensor(db), M.N)
+    line("dia_mul", rel=rel_max(t[1], j[1]))
+    for comp in (1, 2):
+        d = M.random_dia(np.random.default_rng(1))
+        j = M.j_mg.coarsen(M.OFFSETS, jnp.asarray(d), M.N, components=comp)
+        t = t_mg.coarsen(M.OFFSETS, torch.as_tensor(d), M.N, components=comp)
+        line(f"coarsen components={comp}", rel=rel_max(t[1], j[1]))
+
+    ops = M.make_operators()
+    jax_pcg = M.jax_grid_solve(ops)
+    hier = M.make_hierarchies(ops, jax_pcg)
+    for name, (jh, th) in hier.items():
+        line(f"hierarchy {name}", levels=[
+            [lvl.ndof, len(lvl.offsets), lvl.smoothed] for lvl in th.levels],
+            level_rel=[rel_max(a.diags, np.asarray(b.diags))
+                       for a, b in zip(th.levels, jh.levels)],
+            chol_rel=rel_max(th.chol, np.tril(np.asarray(jh.chol))))
+    jh, th = hier["grid20x40"]
+    b = np.random.default_rng(5).normal(size=th.levels[0].ndof)
+    b = b.astype(np.float32)
+    line("v_cycle grid20x40", rel=rel_max(
+        t_mg.v_cycle(th, torch.from_numpy(b)),
+        np.asarray(M.j_mg.v_cycle(jh, jnp.asarray(b)))))
+    op = ops["grid20x40"]
+    x_j, it_j, _ = jax_pcg[1]
+    args = (op["t_layout"], *M.t_args(op, "diags", "loads", "mask"))
+    x_t, it_t, _ = t_dia.dia_cg_solve(*args, tol=1e-6, max_iter=20000,
+                                      precond="mg", components=2)
+    _, it_jac, _ = t_dia.dia_cg_solve(*args, tol=1e-6, max_iter=20000)
+    line("mg pcg grid20x40", iterations=[int(it_t), int(it_j)],
+         jacobi_iterations=int(it_jac), x_rel=rel_max(x_t, np.asarray(x_j)))
+
+    def jax_assembled(layout, s, gvec):
+        lay = j_dia.DiaLayout(offsets=layout.offsets,
+                              entry_slot=layout.entry_slot.astype(np.int32),
+                              ndof=layout.ndof, bandwidth=layout.bandwidth)
+        return torch.as_tensor(np.array(j_dia.assemble_dia(
+            lay, jnp.asarray(s.numpy()), jnp.asarray(gvec.numpy()))))
+
+    for tol in (1e-5, 1e-4):
+        jprob, tprob = M.grid_problems(16, 32)
+        kw = dict(linear_solver="cg-dia", cg_precond="mg")
+        want = j_newton.solve_nr(jprob, jp.SolverConfig(
+            max_iterations=20, tolerance=tol), 1.0, **kw)
+        got = t_newton.solve_nr(tprob, tp.SolverConfig(
+            max_iterations=20, tolerance=tol), 1.0, device="cpu", **kw)
+        assembled = t_dia.assemble_dia
+        t_dia.assemble_dia = jax_assembled
+        try:
+            on_jax = t_newton.solve_nr(M.grid_problems(16, 32)[1],
+                                       tp.SolverConfig(max_iterations=20,
+                                                       tolerance=tol), 1.0,
+                                       device="cpu", **kw)
+        finally:
+            t_dia.assemble_dia = assembled
+        line(f"solve_nr mg 16x32 tol {tol}",
+             newton=[got.history[0]["iterations"],
+                     want.history[0]["iterations"],
+                     on_jax.history[0]["iterations"]],
+             residual=[got.history[0]["residual"],
+                       want.history[0]["residual"],
+                       on_jax.history[0]["residual"]],
+             u_rel=rel_max(got.displacements, want.displacements))
+
+    for length, mg_cap in ((2000, 200_000), (10_000, 200)):
+        problem = eg.strip_problem(length)
+        u_ref = eg.float64_solution(problem.nodes, problem.elements,
+                                    problem.loads, problem.fixed_dofs)
+        jprob = jp.TrussProblem(
+            nodes=problem.nodes, elements=problem.elements,
+            material=jp.Material(young=1.0, area=1.0, density=1.0),
+            loads=problem.loads, fixed_dofs=problem.fixed_dofs, dimension=2)
+        jd = jprob.to_device()
+        j_layout = j_dia.dia_layout(np.asarray(jd.dof_map), jprob.ndof)
+        j_diags = j_dia.assemble_dia(
+            j_layout, j_coeffs(jd, jprob.material, 1.0), jd.gvec)
+        td = problem.to_device("cpu")
+        t_layout = t_dia.dia_layout(td.dof_map.numpy(), problem.ndof)
+        t_diags = t_dia.assemble_dia(
+            t_layout, t_coeffs(td, problem.material, 1.0), td.gvec)
+        for precond in ("jacobi", "mg"):
+            kw = dict(tol=1e-6, precond=precond, components=2,
+                      max_iter=200_000 if precond == "jacobi" else mg_cap)
+            xj, itj, rj = j_dia.dia_cg_solve(j_layout, j_diags,
+                                             jnp.asarray(jd.loads),
+                                             jd.free_mask, **kw)
+            xt, itt, rt = t_dia.dia_cg_solve(t_layout, t_diags, td.loads,
+                                             td.free_mask, **kw)
+            line(f"strip 2x{length} {precond}", max_iter=kw["max_iter"],
+                 iterations=[int(itt), int(itj)],
+                 rel_residual=[float(rt), float(rj)],
+                 x_rel_vs_float64=[rel_max(xt, u_ref),
+                                   rel_max(np.asarray(xj), u_ref)])
+
 if __name__ == "__main__":
     parts = {"corpus": corpus, "grid": grid, "grad": grad, "drift": drift,
              "second_order": second_order, "fnr_drift": fnr_drift,
              "truss_ext": truss_ext, "legacy": legacy, "x64": x64,
              "gather": gather, "checkpoint": checkpoint,
-             "dynamics": dynamics}
+             "dynamics": dynamics, "mg": mg}
     for part in sys.argv[1:] or list(parts):
         name, _, arg = part.partition("=")
         parts[name](*([arg] if arg else []))

@@ -15,7 +15,9 @@ views, a ragged end and a system below one tile.  The material kernels
 backward (4b) also to its plain version, within 1e-5 of the largest
 gradient entry, as one device kernel per call, and on two streams at
 once.  The gather-based PCG (no repo kernel) is held to the same functions
-on the CPU, and a resumed Newton run to the uninterrupted one.
+on the CPU, and a resumed Newton run to the uninterrupted one.  The
+multigrid V-cycle (kernel 1 on every level) is held bit for bit to the
+plain cycle, its PCG to the CPU solve, and its float64 refusal.
 """
 
 import numpy as np
@@ -793,5 +795,65 @@ def test_x64_banded_transient_refused_on_card(cuda_device, monkeypatch):
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="PINN_FEM_TPU_X64") as err:
         T.solve_transient(grid_problem(24, 48), 0.1, 10, device=cuda_device)
+    assert "dia_matvec" in str(err.value)
+    assert not any(kernels.launch_counts().values())
+
+
+def test_mg_on_card_equals_plain_cycle_and_cpu(cuda_device):
+    """The multigrid (ops/mg.py) on the card: every level's matvec is
+    kernel 1, bit-equal to its twin, so the V-cycle equals the plain cycle
+    on the same hierarchy; the MG-PCG launches kernel 1 exactly
+    (1 + V)(1 + iterations) times and lands within 1e-3 of max |x| of the
+    CPU solve (two solves that each meet tol 1e-6 differ by up to cond(K)
+    times that), and the hierarchy within 1e-5 of the CPU's."""
+    from pinn_fem_tpu_torch.ops import mg
+    from pinn_fem_tpu_torch.ops.dia import dia_cg_solve
+
+    data, layout, d = system("grid16x72", cuda_device)
+    h = mg.build_hierarchy(layout, d, data.free_mask, components=2)
+    h_cpu = mg.build_hierarchy(layout, d.cpu(), data.free_mask.cpu(),
+                               components=2)
+    for lvl, ref in zip(h.levels, h_cpu.levels):
+        assert lvl.offsets == ref.offsets and lvl.ndof == ref.ndof
+        scale = float(ref.diags.abs().max())
+        assert float((lvl.diags.cpu() - ref.diags).abs().max()) \
+            <= 1e-5 * scale
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b = torch.randn(layout.ndof, device=cuda_device, generator=gen)
+    kernels.reset_launch_counts()
+    v = mg.v_cycle(h, b)
+    assert kernels.launch_counts()["dia_matvec"] == mg.cycle_matvecs(h)
+    assert torch.equal(v, mg.v_cycle_reference(h, b))
+
+    kernels.reset_launch_counts()
+    x, it, res = dia_cg_solve(layout, d, data.loads, data.free_mask,
+                              tol=1e-6, precond="mg", components=2)
+    counts = kernels.launch_counts()
+    assert counts["dia_matvec"] == (1 + mg.cycle_matvecs(h)) * (1 + int(it))
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == 0
+    x_cpu, _, _ = dia_cg_solve(layout, d.cpu(), data.loads.cpu(),
+                               data.free_mask.cpu(), tol=1e-6, precond="mg",
+                               components=2)
+    assert float(res) <= 1e-6
+    assert float((x.cpu() - x_cpu).abs().max()) \
+        <= 1e-3 * float(x_cpu.abs().max())
+
+
+def test_x64_mg_refused_on_card(cuda_device, monkeypatch):
+    """A float64 CUDA operand on the multigrid path (dia_cg_solve and the
+    banded Newton) raises the ValueError naming PINN_FEM_TPU_X64 and
+    kernel 1; nothing launches."""
+    from pinn_fem_tpu_torch.ops.dia import dia_cg_solve
+
+    data, layout, d = system("grid16x72", cuda_device)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="PINN_FEM_TPU_X64") as err:
+        dia_cg_solve(layout, d.double(), data.loads.double(),
+                     data.free_mask.double(), precond="mg", components=2)
+    assert "dia_matvec" in str(err.value)
+    monkeypatch.setenv("PINN_FEM_TPU_X64", "1")
+    with pytest.raises(ValueError, match="PINN_FEM_TPU_X64") as err:
+        T.solve_nr(grid_problem(24, 48), linear_solver="cg-dia",
+                   cg_precond="mg", device=cuda_device)
     assert "dia_matvec" in str(err.value)
     assert not any(kernels.launch_counts().values())

@@ -272,13 +272,25 @@ def test_banded_newton_solves_with_the_fused_pcg(monkeypatch):
     assert all(d.type == "cpu" for d in calls)
 
 
-def test_unported_solver_options_raise():
+def test_unknown_preconditioner_raises():
+    """dia_cg_solve and the banded Newton take "jacobi" and "mg" (and
+    solve_nr "auto"); any other preconditioner raises ValueError."""
     from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops.cg import stiffness_coefficients
+    from pinn_fem_tpu_torch.ops.dia import (assemble_dia, dia_cg_solve,
+                                            dia_layout)
     from pinn_fem_tpu_torch.solvers.newton import solve_nr
 
     p = grid_problem(3, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        solve_nr(p, linear_solver="cg-dia", cg_precond="mg", device="cpu")
+    data = p.to_device("cpu")
+    layout = dia_layout(data.dof_map.numpy(), p.ndof)
+    diags = assemble_dia(layout, stiffness_coefficients(data, p.material),
+                         data.gvec)
+    with pytest.raises(ValueError, match="unknown preconditioner 'ilu'"):
+        dia_cg_solve(layout, diags, data.loads, data.free_mask,
+                     precond="ilu")
+    with pytest.raises(ValueError, match="unknown preconditioner 'ilu'"):
+        solve_nr(p, linear_solver="cg-dia", cg_precond="ilu", device="cpu")
 
 
 def test_port_never_imports_jax(tmp_path):
