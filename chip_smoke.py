@@ -157,7 +157,36 @@ code is not 0 and no result line is printed:
      PCG each capped by an iteration budget (the item near 30 s), where
      each stops, not gated (MG breaks down there: fault 3.15); (f) float64
      CUDA operands on the MG path (dia_cg_solve, solve_nr) refused with the
-     ValueError naming PINN_FEM_TPU_X64 and kernel 1.
+     ValueError naming PINN_FEM_TPU_X64 and kernel 1;
+ 15. batched solving (parallel/batched.py): (a) kernels 4 and 4b with a
+     member axis at the PINN grid's 79,102 midpoints, B = 1, 8 and 32
+     members of their own weights and load factors: one launch each for
+     all members, each member's forward bit-equal to the one-member kernel
+     and within the twin's bounds, its gradient within 1e-5 of max|grad|
+     of the one-member kernel and of the plain batched version, bit for
+     bit across two calls, B = 1 bit-equal to the one-member launch; ms,
+     device us, B one-member launches' ms and the bound at B; (b)
+     solve_gd_batched on the 40k PINN grid, 8 members at load scales
+     0.5-2.0 (their float64 fields), 200 iterations: one launch of kernel
+     4 and one of 4b an iteration for all members (and kernel 4 once for
+     the reactions), ms an iteration and the idle share for 8 members and
+     for one, beside phase 7's GD, every member's loss falling, member 3
+     against a batch of member 3 alone; (c) solve_nr_batched on the 32 x
+     32 grid: 256 load scales on one factorization (problems/s, all
+     converged, three rows within 1e-3 of float64) and 16 distinct load
+     factors (per-member tangents); (d) solve_gd_batched_incremental, 16
+     members of the 8 x 16 PINN grid, 2 increments: converged and
+     total_iterations per member, two members against driver.solve; (e)
+     the 32 x 64 grid as an ensemble document (64 seeded amplitude
+     histories, 2,048 central steps recorded every 32 at 4 probe DOFs)
+     through main(): ms a step, the idle share, two rows within 1e-5 of
+     the unbatched solve_transient, the envelope; a Green-Lagrange
+     ensemble (16 members, 32 x 32) against the unbatched run; an
+     include_stress_envelope document; (f) cli.api_batch: nr and gd
+     payloads exit 0 with the four keys, an unresolvable measured_batch
+     exits 1 with {error, type}; (g) float64 CUDA operands at the batched
+     material dispatch refused with the ValueError naming PINN_FEM_TPU_X64
+     and kernels 4 and 4b, and mesh= refused.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -172,7 +201,9 @@ kernel 4 also its launches on phase 9's paths, kernels 1-3 theirs on
 phase 10's documents, kernels 4 and 4b theirs on phase 11's legacy
 paths, every kernel its launches on phase 12's paths and, as
 launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
-kernel 1 also its times at the multigrid's level shapes); the last is
+as launches_batched on phase 15's, kernel 1 also its times at the
+multigrid's level shapes, kernels 4 and 4b their member-axis times at
+B = 1, 8 and 32 as members); the last is
 {"ok": true,
 "device": {...}}.  Needs one card; imports no JAX.
 """
@@ -316,6 +347,7 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 }
 BANDED = ("dia_matvec", "dia_dir_matvec", "cg_update")
 MATERIAL = ("material_coefficients", "material_coefficients_backward")
+PHASE7 = {}   # phase 7's ms per GD iteration, beside phase 15(b)'s
 
 
 def log(phase: str, **fields) -> None:
@@ -1331,6 +1363,7 @@ def phase_gd_main_path(workdir: Path, dev):
                    parsed.measured_dofs, data=data)
     torch.cuda.synchronize()
     ms_per_iter = 1e3 * (time.perf_counter() - t0) / len(res.history)
+    PHASE7["ms"] = ms_per_iter
     profile = gd_profile(doc, dev)
 
     # The same document on the CPU (the twin) for CPU_ROWS iterations.
@@ -3388,6 +3421,675 @@ def phase_multigrid(dev, card: str) -> dict:
     return {"launches": launches, "level_shapes": pcg["level_shapes"]}
 
 
+BATCH_MEMBERS = (1, 8, 32)      # 15(a): members of the batched kernels
+BATCH_GD_MEMBERS = 8            # 15(b)
+BATCH_GD_ITERS = 200
+BATCH_GD_PROFILE_ITERS = 20
+BATCH_GD_MEMBER = 3
+# 15(b, d): a member of a batch against the member alone (a B = 1 batch,
+# or driver.solve), u and theta relative to their largest entries.  On
+# the CPU the two are bit-equal (tests/test_torch_batched.py), and the
+# backward's float64 sums over another partition of the elements (the
+# card's blocks a member change with B) moved u and theta 1.8e-7 in 200
+# GD iterations (a 16 x 32 PINN grid, 15 against 4 blocks).  On the card
+# 200 iterations of the 40k grid moved theta 7.5e-8 and u 8.9e-4: Adam
+# turns last-bit noise in near-zero u gradients into full steps, as the
+# card-vs-CPU drift of phase 7 shows (u_norm 6.3e-3 in 50 rows, theta_norm
+# 1.9e-5).  Bounds: theta 1e-4 (phase 7's theta_norm gate), u 1e-2; a
+# leak between members moves both by O(1).
+BATCH_MEMBER_U_RTOL = 1e-2
+BATCH_MEMBER_THETA_RTOL = 1e-4
+NR_BATCH_GRID = (32, 32)        # 15(c): 2,048 DOFs, dense
+NR_BATCH = 256                  # benchmarks/scaling.py:296-302's batch
+NR_PER_MEMBER_BATCH = 16
+NR_BATCH_RTOL = 1e-3
+INC_GRID = (8, 16)              # 15(d)
+INC_BATCH = 16
+INC_ITERS = 100
+INC_TOL = 1e-2                  # 4 of 16 members converge (the CPU)
+INC_CHECK_MEMBERS = (3, 5)      # one converged, one frozen (the CPU)
+ENSEMBLE_GRID = (32, 64)        # 15(e): 4,096 DOFs
+ENSEMBLE_BATCH = 64
+ENSEMBLE_STEPS = 2048           # 64 records of 32 steps
+ENSEMBLE_EVERY = 32
+ENSEMBLE_IDLE_STEPS = 200
+# A row of the ensemble against the unbatched solve_transient (kernel 1
+# on the banded operator) of its amplitude: the CPU measured 1.8e-6
+# after 2,048 steps on this grid; bound 1e-5.
+ENSEMBLE_ROW_RTOL = 1e-5
+GL_ENSEMBLE_BATCH = 16
+GL_ENSEMBLE_STEPS = 200
+
+
+def member_operands(base, members: int, seed: int, n: int, dev):
+    """(B, P) parameters (base perturbed by 10 % seeded noise a member),
+    (B,) load factors in [0.2, 1.2) and (4, B, n) upstream gradients."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = (base * (1.0 + 0.1 * torch.randn(members, base.numel(),
+                                              device=dev, generator=gen))
+              ).contiguous()
+    lfs = 0.2 + torch.rand(members, device=dev, generator=gen)
+    c = torch.randn(4, members, n, device=dev, generator=gen)
+    return params, lfs, c
+
+
+def batched_kernels(dev, card: str) -> dict:
+    """15(a): kernels 4 and 4b with a member axis at the PINN grid's
+    79,102 midpoints (widths 20 / 15 / 10, two hidden layers), B = 1, 8,
+    32: each member against the one-member kernels (forward bit-equal,
+    backward within 1e-5 of max|grad|) and the plain batched backward,
+    bit for bit across two calls, B = 1 bit-equal to the one-member
+    launch; ms, device us per launch, B one-member launches' ms and the
+    bound at B (B x the one-member bound)."""
+    import torch
+
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.ops.kernels import material_kernel as mk
+
+    data = grid_problem(*GRID).to_device(dev)
+    n = data.nelm
+    mat = mlp_material(2, dev)
+    fields = mk._fields(mat)
+    base = torch.cat([t.reshape(-1) for f in fields
+                      for t in f.trainable_params()])
+    scales = torch.stack([f.scale for f in fields])
+    widths = mk._widths(mat)
+    p = base.numel()
+    fw = [(h, h) for h in (20, 15, 10)]
+    one_fwd = bound(4 * (2 * n + n + 4 * n) + 4 * p + 12,
+                    n * mlp_ops(fw, backward=False))
+    one_bwd = bound(4 * (2 * n + 3 * n + 4 * n) + 8 * p + 12,
+                    n * mlp_ops(fw, backward=True))
+    stats = {}
+    for members in BATCH_MEMBERS:
+        params, lfs, c = member_operands(base, members, 100 + members, n,
+                                         dev)
+        lf_host = lfs.tolist()
+
+        def forward():
+            return mk.material_coefficients_batched(
+                data.mid, data.inv_len, lfs, params, scales, widths)
+
+        kernels.reset_launch_counts()
+        got = forward()
+
+        def backward():
+            return mk.material_coefficients_backward_batched(
+                data.mid, data.inv_len, lfs, params, scales, widths, got[0],
+                got[1], tuple(c))
+
+        grad = backward()
+        counts = kernels.launch_counts()
+        require(counts["material_coefficients"] == 1
+                and counts["material_coefficients_backward"] == 1,
+                f"B = {members}: one launch of each kernel, got {counts}")
+        require(all(torch.equal(a, b) for a, b in zip(got, forward()))
+                and torch.equal(grad, backward()),
+                f"B = {members}: bit for bit across two calls")
+        plain = mk.material_coefficients_backward_batched_reference(
+            data.mid, data.inv_len, lfs, params, scales, widths, got[0],
+            got[1], tuple(c))
+        twin = mk.material_coefficients_batched_reference(
+            data.mid, data.inv_len, lfs, params, scales, widths)
+        for k, (a, b) in enumerate(zip(got, twin)):
+            rtol = 3e-5 if k == 3 else 2e-5
+            require(bool(((a - b).abs() <= 1e-6 + rtol * b.abs()).all()),
+                    f"B = {members}: forward output {k} within rtol {rtol} "
+                    "/ atol 1e-6 of the batched twin")
+        worst_single = worst_plain = 0.0
+        for b in range(members):
+            one = mk.material_coefficients(data.mid, data.inv_len,
+                                           lf_host[b], params[b], scales,
+                                           widths)
+            require(all(torch.equal(x[b], y) for x, y in zip(got, one)),
+                    f"B = {members}: member {b}'s forward bit-equal to the "
+                    "one-member kernel")
+            single = mk.material_coefficients_backward(
+                data.mid, data.inv_len, lf_host[b], params[b], scales,
+                widths, got[0][b], got[1][b], tuple(c[:, b]))
+            scale = float(single.abs().max())
+            worst_single = max(worst_single,
+                               max_err(grad[b], single) / scale)
+            worst_plain = max(worst_plain, max_err(grad[b], plain[b])
+                              / float(plain[b].abs().max()))
+            if members == 1:
+                require(torch.equal(grad[0], single),
+                        "B = 1: backward bit-equal to the one-member launch")
+        require(worst_single <= 1e-5 and worst_plain <= 1e-5,
+                f"B = {members}: each member's gradient within 1e-5 of "
+                f"max|grad| of the one-member kernel ({worst_single}) and "
+                f"of the plain batched version ({worst_plain})")
+        entry = {}
+        for label, fn, single_fn, symbol, one_bound in (
+                ("forward", forward,
+                 lambda: [mk.material_coefficients(
+                     data.mid, data.inv_len, lf_host[b], params[b], scales,
+                     widths) for b in range(members)],
+                 "material_forward_kernel", one_fwd),
+                ("backward", backward,
+                 lambda: [mk.material_coefficients_backward(
+                     data.mid, data.inv_len, lf_host[b], params[b], scales,
+                     widths, got[0][b], got[1][b], tuple(c[:, b]))
+                     for b in range(members)],
+                 "material_grad_kernel", one_bwd)):
+            ev, windows = recorded_window(
+                lambda: [fn() for _ in range(10)], tries=5,
+                enough=lambda ev: sum(launched(e.name, symbol)
+                                      for e in ev) >= 8)
+            mine = [e.device_time_total for e in ev
+                    if launched(e.name, symbol)]
+            entry[label] = {
+                "ms": cuda_ms(fn, 50),
+                # None: no profiler window recorded the kernel (on the
+                # card a window now and then comes back without it).
+                "device_us": sum(mine) / len(mine) if mine else None,
+                "profiler_windows": windows,
+                "single_launches_ms": cuda_ms(single_fn, 5),
+                "bound_ms": members * one_bound["bound_ms"],
+                "bound_by": one_bound["bound_by"]}
+        card_dev = data.mid.device
+        plan = mk._forward_plan(card_dev, widths, n, members)[0]
+        gplan = mk._grad_plan(
+            card_dev, torch.cuda.current_stream(card_dev).cuda_stream,
+            widths, n, members)[0]
+        entry.update(forward_blocks_a_member=plan.blocks,
+                     forward_threads=plan.threads,
+                     backward_blocks_a_member=gplan.blocks,
+                     grad_rel_err_vs_one_member=worst_single,
+                     grad_rel_err_vs_plain=worst_plain)
+        stats[members] = entry
+        log("phase15a_batched_kernels", card=card, elements=n,
+            members=members, **entry)
+    del data
+    torch.cuda.empty_cache()
+    return stats
+
+
+def flat_theta(theta) -> "torch.Tensor":
+    """(B, P) of a stacked theta (leaves (B, ...)), in theta order."""
+    import torch
+
+    leaves = [t for net in theta for layer in net for t in layer]
+    return torch.cat([t.reshape(t.shape[0], -1) for t in leaves], dim=1)
+
+
+def batch_losses(problem, data, material, loads, meas, mdofs, u, params,
+                 config) -> list:
+    """Each member's GD loss alpha_p ||r||^2 / 2 + alpha_d mean((meas -
+    u_m)^2) at (u, params), load factor 1."""
+    import torch
+
+    from pinn_fem_tpu_torch.ops.assembly import \
+        internal_force_and_strain_batched
+
+    with torch.no_grad():
+        lfs = torch.ones(u.shape[0], dtype=u.dtype, device=u.device)
+        f_int, _ = internal_force_and_strain_batched(data, material, u, lfs,
+                                                     params)
+        r = (f_int - loads) * data.free_mask
+        rd = meas - u[:, mdofs]
+        loss = (config.alpha_physics * 0.5 * torch.sum(r * r, dim=1)
+                + config.alpha_data * torch.mean(rd * rd, dim=1))
+    return loss.tolist()
+
+
+def batched_gd(dev, card: str, single_ms) -> dict:
+    """15(b): solve_gd_batched on the 40k PINN grid, B = 8 members at load
+    scales 0.5-2.0 with their float64 fields (the document's measured u
+    scaled: a linear truss), 200 iterations: one launch of kernel 4 and
+    one of 4b an iteration for all members (and kernel 4 once for the
+    reactions), ms an iteration and the idle share beside phase 7's
+    one-member GD, every member's loss falling, member 3 against a B = 1
+    batch of member 3."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.examples_grid import pinn_grid_document
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.parallel.batched import solve_gd_batched
+    from pinn_fem_tpu_torch.solvers.phases import gd_phase_batched
+
+    doc = pinn_grid_document(*GRID, max_iterations=BATCH_GD_ITERS)
+    parsed = parse_problem_dict(doc)
+    problem = parsed.problem
+    scales = np.linspace(0.5, 2.0, BATCH_GD_MEMBERS)
+    loads = scales[:, None] * problem.loads[None]
+    meas = scales[:, None] * parsed.measured_disp[None]
+
+    def run(rows, iters=BATCH_GD_ITERS):
+        return solve_gd_batched(
+            problem, loads[rows], parsed.config.with_(max_iterations=iters),
+            measured_batch=meas[rows], measured_dofs=parsed.measured_dofs,
+            device=dev)
+
+    every = slice(None)
+    run(every, 5)
+    run([BATCH_GD_MEMBER], 5)
+    kernels.reset_launch_counts()
+    solve_s, out = synced(lambda: run(every))
+    launches = kernels.launch_counts()
+    iters = out["iterations"].tolist()
+    require(iters == [BATCH_GD_ITERS] * BATCH_GD_MEMBERS,
+            f"every member ran {BATCH_GD_ITERS} iterations: {iters}")
+    require(launches["material_coefficients"] == BATCH_GD_ITERS + 1
+            and launches["material_coefficients_backward"] == BATCH_GD_ITERS,
+            "one kernel 4 and one kernel 4b launch an iteration for all "
+            f"members, kernel 4 once for the reactions: {launches}")
+    alone = run([BATCH_GD_MEMBER])
+
+    # The phase alone (no setup, no reactions): ms an iteration and the
+    # idle share, B members and one.
+    data = problem.to_device(dev)
+    material = problem.material.to(dev)
+    loads_t = torch.as_tensor(loads, dtype=torch.float32, device=dev)
+    meas_t = torch.as_tensor(meas, dtype=torch.float32, device=dev)
+    mdofs = torch.as_tensor(parsed.measured_dofs, device=dev)
+    base = torch.cat([t.reshape(-1) for t in material.trainable_params()])
+    params0 = base.expand(BATCH_GD_MEMBERS, -1).contiguous()
+    cfg = parsed.config
+
+    def phase(rows, iters):
+        return gd_phase_batched(
+            data, material, loads_t[rows], torch.zeros_like(loads_t[rows]),
+            params0[rows], torch.ones_like(loads_t[rows, 0]), meas_t[rows],
+            mdofs, True, iters, cfg.tolerance, cfg.learning_rate_u,
+            cfg.learning_rate_theta, cfg.alpha_physics, cfg.alpha_data)
+
+    one = [BATCH_GD_MEMBER]
+    seconds, _ = synced(lambda: phase(every, BATCH_GD_ITERS))
+    one_s, _ = synced(lambda: phase(one, BATCH_GD_ITERS))
+    profile = idle_profile(lambda: phase(every, BATCH_GD_PROFILE_ITERS))
+    profile_one = idle_profile(lambda: phase(one, BATCH_GD_PROFILE_ITERS))
+    first = batch_losses(problem, data, material, loads_t, meas_t, mdofs,
+                         torch.zeros_like(loads_t), params0, parsed.config)
+    last = batch_losses(problem, data, material, loads_t, meas_t, mdofs,
+                        out["u"], flat_theta(out["theta"]), parsed.config)
+    require(all(np.isfinite(last)) and all(b < a for a, b in
+                                           zip(first, last)),
+            f"every member's loss falls: {first} -> {last}")
+    m = BATCH_GD_MEMBER
+    u_gap = rel_err(out["u"][m].cpu().numpy(), alone["u"][0].cpu().numpy())
+    th_b, th_1 = flat_theta(out["theta"])[m], flat_theta(alone["theta"])[0]
+    th_gap = max_err(th_b, th_1) / float(th_1.abs().max())
+    fields = dict(
+        members=BATCH_GD_MEMBERS, iterations=BATCH_GD_ITERS,
+        solve_s=solve_s, ms_per_iteration=1e3 * seconds / BATCH_GD_ITERS,
+        ms_per_iteration_one_member_batch=1e3 * one_s / BATCH_GD_ITERS,
+        ms_per_iteration_phase7_single=single_ms,
+        member_iterations_per_s=BATCH_GD_MEMBERS * BATCH_GD_ITERS / seconds,
+        profile=profile, profile_one_member_batch=profile_one,
+        launches=launches, first_losses=first, last_losses=last,
+        member_u_rel_err_vs_alone=u_gap,
+        member_theta_rel_err_vs_alone=th_gap)
+    log("phase15b_gd_batched", card=card, ndof=problem.ndof,
+        elements=problem.nelm, **fields)
+    require(u_gap <= BATCH_MEMBER_U_RTOL and th_gap <= BATCH_MEMBER_THETA_RTOL,
+            f"member {m} within {BATCH_MEMBER_U_RTOL} (u: {u_gap}) and "
+            f"{BATCH_MEMBER_THETA_RTOL} (theta: {th_gap}) of a batch of it "
+            "alone")
+    return launches
+
+
+def batched_nr(dev, card: str) -> dict:
+    """15(c): solve_nr_batched on the 32 x 32 grid (2,048 DOFs, dense):
+    B = 256 load scales with one shared factorization (problems/s, every
+    member converged, three rows within 1e-3 of float64), and B = 16
+    distinct load factors (per-member tangents)."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.parallel.batched import solve_nr_batched
+
+    nodes, elements, loads, fixed = eg.grid_arrays(*NR_BATCH_GRID)
+    problem = eg.grid_problem(*NR_BATCH_GRID)
+    u_unit = eg.float64_solution(nodes, elements, loads, fixed)
+    scales = np.linspace(0.1, 2.0, NR_BATCH)
+    loads_b = scales[:, None] * problem.loads[None]
+    solve_nr_batched(problem, loads_b[:4], device=dev)
+    launches = {}
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(3):
+        t, out = synced(lambda: solve_nr_batched(problem, loads_b,
+                                                 device=dev))
+        times.append(t)
+    launches["nr_batched_32x32"] = kernels.launch_counts()
+    u = out["u"].cpu().numpy()
+    rows = (0, NR_BATCH // 2, NR_BATCH - 1)
+    gaps = [rel_err(u[b], scales[b] * u_unit) for b in rows]
+    conv = out["converged"].tolist()
+    per = slice(0, NR_BATCH, NR_BATCH // NR_PER_MEMBER_BATCH)
+    lfs = np.linspace(0.5, 1.5, NR_PER_MEMBER_BATCH)
+    solve_nr_batched(problem, loads_b[per][:2], load_factors=lfs[:2],
+                     device=dev)
+    kernels.reset_launch_counts()
+    t_per, per_out = synced(lambda: solve_nr_batched(
+        problem, loads_b[per], load_factors=lfs, device=dev))
+    launches["nr_per_member_32x32"] = kernels.launch_counts()
+    u_per = per_out["u"].cpu().numpy()
+    per_gaps = [rel_err(u_per[k], lfs[k] * scales[per][k] * u_unit)
+                for k in range(NR_PER_MEMBER_BATCH)]
+    t_med = float(np.median(times))
+    log("phase15c_nr_batched", card=card, ndof=problem.ndof,
+        members=NR_BATCH, seconds=times, problems_per_s=NR_BATCH / t_med,
+        iterations=sorted(set(out["iterations"].tolist())),
+        u_rel_err_vs_float64_rows=dict(zip(map(str, rows), gaps)),
+        per_member_members=NR_PER_MEMBER_BATCH, per_member_s=t_per,
+        per_member_problems_per_s=NR_PER_MEMBER_BATCH / t_per,
+        per_member_iterations=per_out["iterations"].tolist(),
+        per_member_max_u_rel_err=max(per_gaps), launches=launches)
+    require(all(conv) and all(per_out["converged"].tolist()),
+            "every batched Newton member converged")
+    require(max(gaps) <= NR_BATCH_RTOL and max(per_gaps) <= NR_BATCH_RTOL,
+            f"batched Newton rows within {NR_BATCH_RTOL} of float64")
+    return launches
+
+
+def batched_incremental(dev, card: str) -> dict:
+    """15(d): solve_gd_batched_incremental, B = 16 load scales of the
+    8 x 16 PINN grid, 2 increments of at most 100 iterations: converged and
+    total_iterations per member; members 3 and 5 against the port's
+    driver.solve(method="gd") of the same row on the card."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.examples_grid import pinn_grid_document
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.parallel.batched import \
+        solve_gd_batched_incremental
+    from pinn_fem_tpu_torch.solvers.driver import solve
+
+    doc = pinn_grid_document(*INC_GRID, max_iterations=INC_ITERS,
+                             tolerance=INC_TOL)
+    doc["solver_config"] = {"n_increments": 2}
+    parsed = parse_problem_dict(doc)
+    scales = np.linspace(0.1, 2.0, INC_BATCH)
+    loads = scales[:, None] * parsed.problem.loads[None]
+    meas = scales[:, None] * parsed.measured_disp[None]
+    kernels.reset_launch_counts()
+    seconds, out = synced(lambda: solve_gd_batched_incremental(
+        parsed.problem, loads, parsed.config, measured_batch=meas,
+        measured_dofs=parsed.measured_dofs, device=dev))
+    launches = kernels.launch_counts()
+    conv = out["converged"].tolist()
+    total = out["total_iterations"].tolist()
+    gaps = {}
+    for m in INC_CHECK_MEMBERS:
+        single = parse_problem_dict(doc)
+        single.problem.loads = loads[m]
+        res = solve(single.problem, single.config, meas[m],
+                    single.measured_dofs, verbose=False, device=dev)
+        require(res.converged == conv[m],
+                f"member {m}: converged as driver.solve ({res.converged})")
+        gaps[m] = rel_err(out["u"][m].cpu().numpy(),
+                          res.displacements.reshape(-1))
+    log("phase15d_gd_incremental", card=card, members=INC_BATCH,
+        seconds=seconds, converged=conv, total_iterations=total,
+        u_rel_err_vs_driver=gaps, launches=launches)
+    require(any(conv) and not all(conv),
+            "some members converge, others freeze at a failed increment")
+    require(max(gaps.values()) <= BATCH_MEMBER_U_RTOL,
+            f"members' u within {BATCH_MEMBER_U_RTOL} of driver.solve")
+    return launches
+
+
+def batched_transients(workdir: Path, dev, card: str) -> dict:
+    """15(e): the ensemble through cli.generic (B = 64 seeded amplitude
+    histories, 2,048 central steps recorded every 32 at 4 probe DOFs, the
+    32 x 64 grid), ms a step and the idle share, two rows against the
+    unbatched solve_transient, the envelope; a Green-Lagrange ensemble
+    (B = 16, 32 x 32 grid) against the unbatched Green-Lagrange run; an
+    include_stress_envelope single run."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import TrussProblem, solve_transient, stable_dt
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.models.fields import Material
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.parallel.batched import solve_transient_batched
+
+    launches = {}
+    rng = np.random.default_rng(15)
+    amps = rng.uniform(0.0, 1.5, (ENSEMBLE_BATCH, ENSEMBLE_STEPS))
+    doc = eg.transient_grid_document(
+        *ENSEMBLE_GRID, n_steps=ENSEMBLE_STEPS, record_every=ENSEMBLE_EVERY,
+        amplitudes=amps.tolist())
+    doc["analysis"].pop("amplitude")
+    nid = np.arange(ENSEMBLE_GRID[0] * ENSEMBLE_GRID[1]).reshape(
+        ENSEMBLE_GRID)
+    doc["analysis"]["probe_nodes"] = [int(nid[0, -1]), int(nid[-1, -1])]
+    path = workdir / "ensemble.json"
+    path.write_text(json.dumps(doc))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = main([str(path)])
+    cli_s = time.perf_counter() - t0
+    launches["ensemble_32x64"] = kernels.launch_counts()
+    require(rc == 0, "ensemble document: exit code 0")
+    out = json.loads((workdir / "ensemble.res.json").read_text())
+    n_rec = ENSEMBLE_STEPS // ENSEMBLE_EVERY
+    disp = np.asarray(out["displacements"])
+    env = np.asarray(out["max_stress"])
+    problem = parse_problem_dict(doc).problem
+    require(out["ensemble"] is True and out["batch"] == ENSEMBLE_BATCH
+            and disp.shape == (ENSEMBLE_BATCH, n_rec, 4)
+            and bool(np.all(np.isfinite(disp))),
+            "ensemble: finite records of (B, n_rec, 4)")
+    require(env.shape == (ENSEMBLE_BATCH, problem.nelm)
+            and bool(np.all(np.isfinite(env))) and float(env.min()) >= 0.0,
+            "ensemble: the envelope written, finite, non-negative")
+    dt, probe = out["dt"], np.asarray(out["probe_dofs"])
+    damping = tuple(doc["analysis"]["damping"])
+    data = problem.to_device(dev)
+
+    def steps(count):
+        return solve_transient_batched(
+            problem, dt, count, amplitudes=amps[:, :count], damping=damping,
+            probe_dofs=probe, record_every=count, device=dev)
+
+    steps(ENSEMBLE_IDLE_STEPS)
+    seconds, _ = synced(lambda: steps(ENSEMBLE_STEPS))
+    idle = idle_profile(lambda: steps(ENSEMBLE_IDLE_STEPS))
+    row_gaps = []
+    for b in (0, ENSEMBLE_BATCH - 1):
+        res = solve_transient(problem, dt, ENSEMBLE_STEPS,
+                              amplitude=amps[b], damping=damping,
+                              record_every=ENSEMBLE_EVERY, probe_dofs=probe,
+                              data=data)
+        row_gaps.append(rel_err(disp[b], res.displacements))
+
+    nodes, elements, loads, fixed = eg.grid_arrays(*GL_DYN_GRID)
+    gl = TrussProblem(nodes=nodes, elements=elements,
+                      material=Material(young=1.0, area=1.0, density=1.0),
+                      loads=loads * GL_DYN_LOAD, fixed_dofs=fixed,
+                      dimension=2)
+    gl_dt = 0.5 * stable_dt(gl)
+    gl_amps = rng.uniform(0.0, 1.0, (GL_ENSEMBLE_BATCH, GL_ENSEMBLE_STEPS))
+    kw = dict(damping=(0.05, 0.0), record_every=20,
+              probe_dofs=np.array([gl.ndof - 2, gl.ndof - 1]))
+    kernels.reset_launch_counts()
+    gl_s, gl_out = synced(lambda: solve_transient_batched(
+        gl, gl_dt, GL_ENSEMBLE_STEPS, amplitudes=gl_amps,
+        geometric_nonlinear=True, device=dev, **kw))
+    launches["green_lagrange_ensemble_32x32"] = kernels.launch_counts()
+    gl_one = solve_transient(gl, gl_dt, GL_ENSEMBLE_STEPS,
+                             amplitude=gl_amps[0], geometric_nonlinear=True,
+                             device=dev, **kw)
+    gl_gap = rel_err(gl_out["displacements"][0].cpu().numpy(),
+                     gl_one.displacements)
+
+    env_doc = eg.transient_grid_document(
+        *ENSEMBLE_GRID, n_steps=400, record_every=20,
+        include_stress_envelope=True)
+    env_path = workdir / "envelope.json"
+    env_path.write_text(json.dumps(env_doc))
+    kernels.reset_launch_counts()
+    require(main([str(env_path)]) == 0, "envelope document: exit code 0")
+    launches["envelope_32x64"] = kernels.launch_counts()
+    single_env = np.asarray(json.loads(
+        (workdir / "envelope.res.json").read_text())["max_stress"])
+    log("phase15e_ensemble", card=card, ndof=problem.ndof,
+        members=ENSEMBLE_BATCH, n_steps=ENSEMBLE_STEPS,
+        record_every=ENSEMBLE_EVERY, dt=dt, cli_s=cli_s,
+        ms_per_step=1e3 * seconds / ENSEMBLE_STEPS,
+        member_steps_per_s=ENSEMBLE_BATCH * ENSEMBLE_STEPS / seconds,
+        idle=idle, row_rel_err_vs_unbatched=row_gaps,
+        max_envelope=float(env.max()),
+        green_lagrange={"members": GL_ENSEMBLE_BATCH,
+                        "n_steps": GL_ENSEMBLE_STEPS,
+                        "ms_per_step": 1e3 * gl_s / GL_ENSEMBLE_STEPS,
+                        "row0_rel_err_vs_unbatched": gl_gap},
+        envelope_single={"elements": int(single_env.size),
+                         "max": float(single_env.max())},
+        launches=launches)
+    require(max(row_gaps) <= ENSEMBLE_ROW_RTOL,
+            f"ensemble rows within {ENSEMBLE_ROW_RTOL} of the unbatched run")
+    require(gl_gap <= GL_DYN_RTOL
+            and all(bool(t.isfinite().all()) for t in gl_out.values()),
+            f"Green-Lagrange ensemble row within {GL_DYN_RTOL} of the "
+            "unbatched run")
+    require(single_env.shape == (problem.nelm,)
+            and bool(np.all(np.isfinite(single_env)))
+            and float(single_env.min()) >= 0.0,
+            "include_stress_envelope: one finite envelope an element")
+    return launches
+
+
+def batched_api(workdir: Path, card: str) -> dict:
+    """15(f): cli.api_batch on the card: an nr and a gd payload exit 0 with
+    the four keys, an unresolvable measured_batch exits 1 with {error,
+    type}."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.cli import api_batch
+    from pinn_fem_tpu_torch.ops import kernels
+
+    keys = ["batch", "converged", "iterations", "displacements"]
+    nr_doc = eg.grid_document(*NR_BATCH_GRID)
+    nr_loads = np.asarray(nr_doc["loads"])
+    gd_doc = eg.pinn_grid_document(*INC_GRID, max_iterations=50)
+    gd_loads = np.asarray(gd_doc["loads"])
+    gd_meas = np.asarray(gd_doc["measured_displacements"]["measured_u"])
+    payloads = {
+        "api_batch_nr": {"problem": nr_doc, "loads_batch": [
+            (s * nr_loads).tolist() for s in np.linspace(0.5, 2.0, 16)]},
+        "api_batch_gd": {"problem": gd_doc, "loads_batch": [
+            (s * gd_loads).tolist() for s in (0.5, 1.0, 1.5, 2.0)],
+            "measured_batch": [(s * gd_meas).tolist()
+                               for s in (0.5, 1.0, 1.5, 2.0)]},
+        "api_batch_unresolvable": {
+            "problem": dict(gd_doc, solver_type="fem"),
+            "loads_batch": [gd_loads.tolist()],
+            "measured_batch": [gd_meas.tolist()]},
+    }
+    launches, fields = {}, {}
+    for name, payload in payloads.items():
+        kernels.reset_launch_counts()
+        rc, out = run_api(api_batch, workdir, name, payload)
+        launches[name] = kernels.launch_counts()
+        fields[name] = {"exit_code": rc, "keys": list(out)}
+        if name == "api_batch_unresolvable":
+            require(rc == 1 and list(out) == ["error", "type"]
+                    and out["type"] == "ValueError",
+                    f"{name}: exit 1 with {{error, type}}, got {rc} {out}")
+            continue
+        require(rc == 0 and list(out) == keys
+                and out["batch"] == len(payload["loads_batch"]),
+                f"{name}: exit 0 with {keys}, got {rc} {list(out)}")
+        fields[name].update(converged=out["converged"],
+                            iterations=out["iterations"])
+    require(all(launches["api_batch_gd"][k] > 0 for k in MATERIAL),
+            "the gd payload runs kernels 4 and 4b")
+    log("phase15f_api_batch", card=card, launches=launches, **fields)
+    return {k: v for k, v in launches.items()
+            if k != "api_batch_unresolvable"}
+
+
+def batched_refusals(dev, card: str) -> None:
+    """15(g): float64 CUDA operands at the batched material dispatch raise
+    the ValueError naming PINN_FEM_TPU_X64 and kernels 4 / 4b; mesh=
+    raises NotImplementedError."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.examples_grid import pinn_grid_document
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.parallel import batched
+
+    doc = pinn_grid_document(4, 6, max_iterations=3)
+    refused = {}
+    os.environ["PINN_FEM_TPU_X64"] = "1"
+    kernels.reset_launch_counts()
+    try:
+        parsed = parse_problem_dict(doc)
+        batched.solve_gd_batched(
+            parsed.problem, np.stack([parsed.problem.loads] * 2),
+            parsed.config, device=dev)
+        refused["x64"] = None
+    except ValueError as e:
+        refused["x64"] = str(e)
+    finally:
+        del os.environ["PINN_FEM_TPU_X64"]
+    x64_launches = kernels.launch_counts()
+    parsed = parse_problem_dict(doc)
+    for fn in ("solve_gd_batched", "solve_nr_batched",
+               "solve_gd_batched_incremental"):
+        try:
+            getattr(batched, fn)(parsed.problem, parsed.problem.loads[None],
+                                 mesh=object(), device=dev)
+            refused[fn] = None
+        except NotImplementedError as e:
+            refused[fn] = str(e)
+    log("phase15g_refusals", card=card, refused=refused,
+        x64_launches=x64_launches)
+    require(refused["x64"] is not None and "PINN_FEM_TPU_X64" in refused["x64"]
+            and "kernels 4 and 4b" in refused["x64"],
+            "float64 batched material dispatch refused, naming the variable "
+            "and kernels 4 / 4b")
+    require(not any(x64_launches.values()), "no launch before the refusal")
+    require(all(refused[fn] and "item 15" in refused[fn]
+                for fn in refused if fn != "x64"), "mesh= refused")
+
+
+def phase_batched(workdir: Path, dev, card: str) -> dict:
+    """Phase 15: batched solving on the card.  Returns the kernels'
+    launches on each of its paths and (a)'s member-axis times."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    members = batched_kernels(dev, card)
+    lap("a")
+    launches = {"gd_batched_40k": batched_gd(dev, card, PHASE7.get("ms"))}
+    lap("b")
+    launches.update(batched_nr(dev, card))
+    lap("c")
+    launches["gd_incremental_8x16"] = batched_incremental(dev, card)
+    lap("d")
+    launches.update(batched_transients(workdir, dev, card))
+    lap("e")
+    launches.update(batched_api(workdir, card))
+    lap("f")
+    batched_refusals(dev, card)
+    lap("g")
+    log("phase15_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return {"launches": launches, "members": members}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -3408,6 +4110,7 @@ def main() -> int:
         meshes = phase_meshes(Path(tmp), dev, card, phase4)
         dynamics = phase_dynamics(Path(tmp), dev, card)
         multigrid = phase_multigrid(dev, card)
+        batched = phase_batched(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -3442,6 +4145,15 @@ def main() -> int:
         entries[-1]["launches_multigrid"] = {
             path: counts[name]
             for path, counts in multigrid["launches"].items()}
+        entries[-1]["launches_batched"] = {
+            path: counts[name]
+            for path, counts in batched["launches"].items()}
+        if name in MATERIAL:
+            side = ("forward" if name == "material_coefficients"
+                    else "backward")
+            entries[-1]["members"] = {
+                str(b): batched["members"][b][side]
+                for b in BATCH_MEMBERS}
         if name == "dia_matvec":
             entries[-1]["multigrid_level_shapes"] = [
                 {k: shape[k] for k in ("ndof", "n_diags", "bandwidth", "ms",

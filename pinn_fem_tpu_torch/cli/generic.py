@@ -119,8 +119,13 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
             json.dump(output, f, indent=2)
         logger.info("%s", "=" * 60)
         logger.info("ANALYSIS SUMMARY (%s):", output["analysis"])
+        # An ensemble result has no "method" (central only): the JAX CLI
+        # raises KeyError on it after writing the result (ROADMAP fault
+        # 3.16); here it logs the batch instead.
         logger.info("  Steps: %d (dt=%.3e, method=%s)",
-                    output["n_steps"], output["dt"], output["method"])
+                    output["n_steps"], output["dt"],
+                    output.get("method",
+                               f"central, ensemble of {output.get('batch')}"))
         logger.info("Results written to %s", output_file)
         return output
 

@@ -3,12 +3,12 @@ of pinn_fem_tpu/io/transient_io.py).
 
 Central-difference or Newmark integration of the document's truss
 (solvers/dynamics.py) with its amplitude, damping, prestress, moving-load
-or base-excitation load and checkpoint specs; the result dict has the JAX
+or base-excitation load and checkpoint specs, the ensemble of (B, n_steps)
+"amplitudes" and the "include_stress_envelope" of a single run
+(parallel/batched.solve_transient_batched); the result dict has the JAX
 package's keys.  Not yet ported, and refused by name: "plasticity"
 (solvers/plasticity.py) and "probe_elements" / "fatigue"
-(solvers/harmonic.py, solvers/fatigue.py), ROADMAP item 17; the ensemble
-"amplitudes" and "include_stress_envelope" (parallel/batched.py), ROADMAP
-item 15.
+(solvers/harmonic.py, solvers/fatigue.py), ROADMAP item 17.
 """
 
 from __future__ import annotations
@@ -26,20 +26,54 @@ from ._common import (_SHAPES_JSON_DOF_LIMIT, _amplitude_array,
 # Transient keys whose modules are not yet ported, by ROADMAP item.
 _NOT_PORTED = (
     ("plasticity", "solvers/plasticity.py", 17),
-    ("amplitudes", "the ensemble, parallel/batched.py", 15),
-    ("include_stress_envelope", "parallel/batched.py", 15),
     ("probe_elements", "solvers/harmonic.py", 17),
     ("fatigue", "solvers/fatigue.py", 17),
 )
 
 
-def _refuse_unported(analysis: Dict) -> None:
+def _refuse_unported(analysis: Dict, keys) -> None:
     for key, module, item in _NOT_PORTED:
-        if key in analysis and (key != "include_stress_envelope"
-                                or analysis[key]):
+        if key in keys and key in analysis:
             raise NotImplementedError(
                 f'transient "{key}" ({module}) is not yet ported, ROADMAP '
                 f"item {item}")
+
+
+def _run_transient_ensemble(problem, analysis, dt, n_steps, method,
+                            damping, record_every, probe, device) -> Dict:
+    """(B, n_steps) amplitude histories as one batched integration
+    (parallel/batched.solve_transient_batched): per-row probe records and
+    whole-history per-element |stress| envelopes."""
+    from ..parallel.batched import solve_transient_batched
+
+    if method != "central":
+        raise ValueError("ensemble transient supports method='central'")
+    amps = np.asarray(analysis["amplitudes"], dtype=float)
+    if amps.ndim != 2 or amps.shape[1] != n_steps:
+        raise ValueError(f"amplitudes must be (B, n_steps={n_steps})")
+    nonlinear = bool(analysis.get("geometric_nonlinear", False))
+    out = solve_transient_batched(
+        problem, dt, n_steps, amplitudes=amps,
+        damping=(float(damping[0]), float(damping[1])),
+        probe_dofs=np.asarray(probe), record_every=record_every,
+        geometric_nonlinear=nonlinear, device=device)
+    return {
+        "success": True,
+        "analysis": "transient",
+        "ensemble": True,
+        "geometric_nonlinear": nonlinear,
+        "batch": int(amps.shape[0]),
+        "dt": float(dt),
+        "n_steps": n_steps,
+        "record_every": record_every,
+        "probe_dofs": np.asarray(probe).tolist(),
+        "times": (dt * record_every
+                  * np.arange(1, n_steps // record_every + 1)).tolist(),
+        "displacements": out["displacements"].cpu().numpy().astype(
+            float).tolist(),
+        "max_stress": out["max_stress"].cpu().numpy().astype(
+            float).tolist(),
+    }
 
 
 def _transient_force_fn(problem, analysis, dt, device=None):
@@ -82,7 +116,7 @@ def _transient_force_fn(problem, analysis, dt, device=None):
 def run_transient(problem, analysis: Dict, device=None) -> Dict:
     """Execute a transient analysis block on `device` ("cuda" when None);
     JSON-serializable result dict."""
-    _refuse_unported(analysis)
+    _refuse_unported(analysis, ("plasticity",))
     n_steps = int(analysis["n_steps"])
     method = analysis.get("method", "central")
     dt_spec = analysis.get("dt", "auto")
@@ -111,8 +145,44 @@ def run_transient(problem, analysis: Dict, device=None) -> Dict:
             f"{probe.size} DOFs x {n_steps // record_every} snapshots to "
             "JSON; give probe_nodes/probe_dofs (or a larger record_every) "
             "to bound the payload")
+    if "probe_elements" in analysis and "amplitudes" in analysis:
+        raise ValueError("probe_elements composes with single-run "
+                         "transients; the ensemble path reports the "
+                         "stress envelope instead "
+                         "(include_stress_envelope)")
+    _refuse_unported(analysis, ("probe_elements", "fatigue"))
     force_fn = _transient_force_fn(problem, analysis, dt, device)
     checkpoint = analysis.get("checkpoint")
+    if analysis.get("include_stress_envelope", False):
+        # Validated before integrating: the batched envelope core carries
+        # neither K_g(u0) nor a moving load, and a checkpointed response
+        # holds only the resumed segments.
+        if method != "central":
+            raise ValueError("include_stress_envelope supports the "
+                             "central method")
+        if prestress_u is not None or force_fn is not None \
+                or checkpoint is not None:
+            raise ValueError("include_stress_envelope supports the plain "
+                             "amplitude contract only (no prestress, "
+                             "moving load or checkpointing — the batched "
+                             "envelope core integrates K u under "
+                             "amplitude * loads)")
+    if "amplitudes" in analysis:         # ensemble mode
+        if prestress_u is not None or force_fn is not None or checkpoint:
+            raise ValueError("ensemble transient composes with "
+                             "geometric_nonlinear only; run prestress/"
+                             "moving-load/checkpoint cases unbatched")
+        b = len(analysis["amplitudes"])
+        if (b * probe.size * (n_steps // record_every)
+                > 4 * _SHAPES_JSON_DOF_LIMIT):
+            raise ValueError(
+                f"ensemble history would serialize {b} x {probe.size} "
+                f"DOFs x {n_steps // record_every} snapshots to JSON; "
+                "reduce the batch, give probe_nodes/probe_dofs, or raise "
+                "record_every")
+        return _run_transient_ensemble(problem, analysis, dt, n_steps,
+                                       method, damping, record_every, probe,
+                                       device)
     amplitude = _amplitude_array(analysis.get("amplitude"), n_steps, dt)
     kw = dict(
         amplitude=amplitude,
@@ -161,6 +231,19 @@ def run_transient(problem, analysis: Dict, device=None) -> Dict:
         "displacements": np.asarray(res.displacements, dtype=float).tolist(),
         "velocities": np.asarray(res.velocities, dtype=float).tolist(),
     }
+    if analysis.get("include_stress_envelope", False):
+        # Per-element |stress| envelope over every step (the design-check
+        # quantity) by the batched core with B = 1.
+        from ..parallel.batched import solve_transient_batched
+
+        env = solve_transient_batched(
+            problem, dt, n_steps, amplitudes=amplitude[None, :n_steps],
+            damping=(float(damping[0]), float(damping[1])),
+            probe_dofs=probe, record_every=record_every,
+            geometric_nonlinear=bool(analysis.get("geometric_nonlinear",
+                                                  False)),
+            device=device)["max_stress"]
+        out["max_stress"] = env[0].cpu().numpy().astype(float).tolist()
     if analysis.get("include_final",
                     problem.ndof <= _SHAPES_JSON_DOF_LIMIT):
         out["u_final"] = res.u_final.tolist()

@@ -21,6 +21,14 @@ solution on an H100, against 1.1e-4 on the CPU with its sequential order;
 on the 50 x 100 grid, float64 accumulation brings the CPU's 6.5e-5 to
 3.0e-5.  This is a divergence from the JAX package, whose float32 scatter
 rounds in XLA's order.
+
+The `*_batched` functions take B members on one mesh, the JAX package's
+vmap over a batch of problems (parallel/batched.py): u (B, ndof), load
+factors (B,) and, for the MLP fields, flat parameters (B, P) in theta
+order.  Kernel 4's fields take one batched launch for all members
+(`fused_material_coefficients_batched`); other fields evaluate member by
+member.  The members' forces are one float64 scatter over B * ndof slots
+(member b's at offset b * ndof), rounded once.
 """
 
 from __future__ import annotations
@@ -29,11 +37,12 @@ from typing import Tuple
 
 import torch
 
-from ..models.fields import Material, assembly_inputs
+from ..models.fields import Material, MLPField, assembly_inputs
 from ..models.problem import ProblemData
 from .elements import truss2d_green_lagrange_batch, truss_linear_batch
 from .kernels.material_kernel import (fused_coefficients_supported,
                                       fused_material_coefficients,
+                                      fused_material_coefficients_batched,
                                       material_coefficients_reference)
 
 
@@ -142,3 +151,101 @@ def internal_force_and_strain(data: ProblemData, material: Material,
     gu = torch.sum(data.gvec * u_e, dim=-1)
     fe = (s * gu)[:, None] * data.gvec
     return _scatter_dofs(data, fe), gu * data.inv_len
+
+
+# --------------------------------------------------------- B members at once
+
+def member_material(material: Material, flat: torch.Tensor) -> Material:
+    """The material with its MLP fields' layers taken from `flat`, one
+    member's parameters in theta order (young, area, density; W then b a
+    layer), as views of it."""
+    fields, k = {}, 0
+    for name in ("young", "area", "density"):
+        f = getattr(material, name)
+        if isinstance(f, MLPField):
+            layers = []
+            for w, b in f.layers:
+                nw, nb = w.numel(), b.numel()
+                layers.append((flat[k:k + nw].view(w.shape),
+                               flat[k + nw:k + nw + nb].view(b.shape)))
+                k += nw + nb
+            f = f.replace(layers=layers)
+        fields[name] = f
+    return Material(**fields)
+
+
+def material_coefficients_batched(data: ProblemData, material: Material,
+                                  load_factors: torch.Tensor,
+                                  params=None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """(young, area, s), each (B, nelm), of B members: member b is the
+    material with its MLP fields' parameters params[b] ((B, P), None: the
+    material's own) at load factor load_factors[b].
+
+    Fields that kernel 4 takes run its batched launch (the batched twin on
+    the CPU); other fields evaluate member by member in torch ops, and a
+    material without MLP fields once for all members (its values do not
+    depend on the load factor)."""
+    members = load_factors.shape[0]
+    if fused_coefficients_supported(material, data.dimension):
+        if params is None:
+            params = torch.cat([t.reshape(-1)
+                                for t in material.trainable_params()])
+            params = params.expand(members, -1).contiguous()
+        young, area, _, s = fused_material_coefficients_batched(
+            data, material, load_factors, params)
+        return young, area, s
+    if not material.has_trainable_params:
+        young, area, s = material_coefficients(data, material, 1.0)
+        return tuple(t.expand(members, -1) for t in (young, area, s))
+    rows = []
+    for b in range(members):
+        mat = material if params is None else member_material(material,
+                                                              params[b])
+        x = assembly_inputs(data.mid, data.dimension, load_factors[b])
+        young, area = mat.young.eval_batch(x), mat.area.eval_batch(x)
+        rows.append((young, area, young * area * data.inv_len))
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def scatter_add_members(size: int, index: torch.Tensor, values: torch.Tensor
+                        ) -> torch.Tensor:
+    """`scatter_add` of each member: out[b, index[i]] += values[b, i] into
+    zero (B, size), one float64 index_add_ over B * size slots (member b's
+    at offset b * size), rounded once to values.dtype."""
+    members = values.shape[0]
+    offsets = torch.arange(members, device=values.device) * size
+    flat = (index.reshape(1, -1) + offsets[:, None]).reshape(-1)
+    out = torch.zeros(members * size, dtype=torch.float64,
+                      device=values.device)
+    out.index_add_(0, flat, values.reshape(-1).double())
+    return out.view(members, size).to(values.dtype)
+
+
+def internal_force_and_strain_batched(data: ProblemData, material: Material,
+                                      u: torch.Tensor,
+                                      load_factors: torch.Tensor,
+                                      params=None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`internal_force_and_strain` of B members: f_int (B, ndof) and the
+    element strains (B, nelm) at u (B, ndof), each member with its own
+    parameters params[b] and load factor load_factors[b]."""
+    _, _, s = material_coefficients_batched(data, material, load_factors,
+                                            params)
+    u_e = u[:, data.dof_map]                               # (B, nelm, 2d)
+    gu = torch.sum(data.gvec * u_e, dim=-1)
+    fe = (s * gu)[..., None] * data.gvec
+    return (scatter_add_members(data.ndof, data.dof_map, fe),
+            gu * data.inv_len)
+
+
+def assemble_stiffness_batched(data: ProblemData, young: torch.Tensor,
+                               area: torch.Tensor) -> torch.Tensor:
+    """Dense K (B, ndof, ndof) of B members from their element values
+    (B, nelm): `assemble_system`'s K for each, one float64 scatter."""
+    ndof = data.ndof
+    s = young * area * data.inv_len
+    ke = s[..., None, None] * data.gvec[:, :, None] * data.gvec[:, None, :]
+    slots = data.dof_map[:, :, None] * ndof + data.dof_map[:, None, :]
+    return scatter_add_members(ndof * ndof, slots, ke).view(-1, ndof, ndof)

@@ -85,6 +85,16 @@
 // exactly zero, which the kernel writes without computing it: the same
 // function, not an approximation.
 //
+// Members.  Both kernels take B members in one launch (gridDim.y = B): B
+// problems on one mesh (the same midpoints and lengths), each with its own
+// flat parameters (row b of a (B, n_params) array) and its own load factor
+// (lfs[b], or lf for all when lfs is null).  Block (x, b) stages member b's
+// weights and writes row b of each (B, n) output; the backward gives each
+// member its own float64 partials, group sums and tickets, so one
+// member's last block never sums another member's rows.  Within a member
+// the partition and the order of every sum are those of a one-member
+// launch with the same x-grid, so B = 1 is the one-member launch itself.
+//
 // Numerics: float32 with the accurate tanhf/expf/log1pf (no fast-math
 // approximations) and no tensor cores.  The library is built with
 // --fmad=false; the dot products here ask for fused multiply-adds
@@ -392,7 +402,8 @@ struct ForwardArgs {
   float* a;
   float* rho;
   float* s;
-  int64_t n;
+  const float* lfs;    // (members,) load factors, or null: lf for all
+  int64_t n;          // elements a member
   Nets nets;
   float lf;
   int dim;
@@ -484,6 +495,14 @@ material_forward_kernel(ForwardArgs a) {
       (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int64_t e0 = warp * a.n / warps;
   const int64_t e1 = (warp + 1) * a.n / warps;
+  // Member blockIdx.y: its parameters, load factor and output rows.
+  const int64_t member = blockIdx.y;
+  const float* params = a.params + member * a.nets.n_params;
+  const float lf = a.lfs != nullptr ? a.lfs[member] : a.lf;
+  float* out_e = a.e + member * a.n;
+  float* out_a = a.a + member * a.n;
+  float* out_rho = a.rho + member * a.n;
+  float* out_s = a.s + member * a.n;
 
   // The first elements' inputs load while the weights are staged.
   float x1[E], x2[E], il[E];
@@ -492,7 +511,7 @@ material_forward_kernel(ForwardArgs a) {
     forward_inputs(a, e0 + lane_id + 32 * e, e1, x1[e], x2[e], il[e]);
   int wofs[kFields];
   padded_offsets(a.nets, wofs);
-  stage_weights(w, a.params, a.nets, wofs, a.weight_floats, threadIdx.x,
+  stage_weights(w, params, a.nets, wofs, a.weight_floats, threadIdx.x,
                 blockDim.x);
   const float scale0 = a.scales[0], scale1 = a.scales[1];
   const float scale2 = a.scales[2];
@@ -510,7 +529,7 @@ material_forward_kernel(ForwardArgs a) {
       float o[E];
       net_output<E, kQuads>(
           net_shape(pick(a.nets.h1, f), pick(a.nets.h2, f)),
-          w + pick(wofs, f), a.lf, x1, x2, o);
+          w + pick(wofs, f), lf, x1, x2, o);
       const float scale = f == 0 ? scale0 : (f == 1 ? scale1 : scale2);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
@@ -518,16 +537,16 @@ material_forward_kernel(ForwardArgs a) {
         const int64_t i = base + lane_id + 32 * e;
         if (f == 0) ve[e] = v;
         else if (f == 1) va[e] = v;
-        else if (i < e1) a.rho[i] = v;
+        else if (i < e1) out_rho[i] = v;
       }
     }
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int64_t i = base + lane_id + 32 * e;
       if (i < e1) {
-        a.e[i] = ve[e];
-        a.a[i] = va[e];
-        a.s[i] = ve[e] * va[e] * il[e];
+        out_e[i] = ve[e];
+        out_a[i] = va[e];
+        out_s[i] = ve[e] * va[e] * il[e];
       }
       x1[e] = nx1[e];
       x2[e] = nx2[e];
@@ -736,19 +755,20 @@ __device__ __forceinline__ int param_entry(const NetShape& g, int h1, int h2,
 struct GradArgs {
   const float* mid;
   const float* inv_len;
-  const float* params;
+  const float* params;   // (members, n_params)
   const float* scales;
-  const float* e;
+  const float* e;        // (members, n), as the upstream gradients
   const float* a;
   const float* g_e;
   const float* g_a;
   const float* g_rho;
   const float* g_s;
-  double* partial;       // (blocks, n_params)
-  double* group_part;    // (groups, n_params)
-  unsigned int* tickets; // groups + 1, zero between launches
-  float* grad;           // (n_params,)
-  int64_t n;
+  const float* lfs;      // (members,) load factors, or null: lf for all
+  double* partial;       // (members, blocks, n_params)
+  double* group_part;    // (members, groups, n_params)
+  unsigned int* tickets; // (members, groups + 1), zero between launches
+  float* grad;           // (members, n_params)
+  int64_t n;             // elements a member
   Nets nets;
   float lf;
   int dim;
@@ -756,14 +776,15 @@ struct GradArgs {
   int group_size;
 };
 
-// Upstream gradient of field f's value at element i.
+// Upstream gradient of field f's value at element i of the member whose
+// rows start at m (m = member * n).
 __device__ __forceinline__ float upstream(const GradArgs& a, int f,
-                                          int64_t i) {
-  if (f == 2) return a.g_rho[i];
-  const float gs = a.g_s != nullptr ? a.g_s[i] : 0.0f;
+                                          int64_t i, int64_t m) {
+  if (f == 2) return a.g_rho[m + i];
+  const float gs = a.g_s != nullptr ? a.g_s[m + i] : 0.0f;
   const float* g = f == 0 ? a.g_e : a.g_a;
   const float* other = f == 0 ? a.a : a.e;
-  return (g != nullptr ? g[i] : 0.0f) + gs * other[i] * a.inv_len[i];
+  return (g != nullptr ? g[m + i] : 0.0f) + gs * other[m + i] * a.inv_len[i];
 }
 
 __device__ __forceinline__ bool net_on(const GradArgs& a, int f) {
@@ -831,10 +852,19 @@ material_grad_kernel(GradArgs a) {
   // This block's elements, taken kTile at a time from e0.
   const int64_t e0 = blockIdx.x * a.n / gridDim.x;
   const int64_t e1 = (blockIdx.x + 1) * a.n / gridDim.x;
+  // Member blockIdx.y: its rows, parameters, load factor and scratch.
+  const int64_t member = blockIdx.y;
+  const int64_t m = member * a.n;
+  const float lf = a.lfs != nullptr ? a.lfs[member] : a.lf;
+  const int n_groups = ((int)gridDim.x + a.group_size - 1) / a.group_size;
+  double* partial = a.partial + member * gridDim.x * n_params;
+  double* group_part = a.group_part + member * n_groups * n_params;
+  unsigned int* tickets = a.tickets + member * (n_groups + 1);
 
   int wofs[kFields];
   padded_offsets(a.nets, wofs);
-  stage_weights(w, a.params, a.nets, wofs, a.weight_floats, t, kTile);
+  stage_weights(w, a.params + member * n_params, a.nets, wofs,
+                a.weight_floats, t, kTile);
 
   for (int f = 0; f < kFields; ++f) {
     if (!net_on(a, f)) continue;
@@ -856,11 +886,11 @@ material_grad_kernel(GradArgs a) {
 
     // The element's inputs are loaded a tile ahead: they arrive while the
     // previous tile's parameter pass runs.
-    float x[kInputs] = {a.lf, 0.0f, 0.0f};
+    float x[kInputs] = {lf, 0.0f, 0.0f};
     float dv = 0.0f;
     if (e0 + t < e1) {
-      load_input(a.mid, a.dim, a.lf, e0 + t, x);
-      dv = upstream(a, f, e0 + t);
+      load_input(a.mid, a.dim, lf, e0 + t, x);
+      dv = upstream(a, f, e0 + t, m);
     }
     for (int64_t base = e0; base < e1; base += kTile) {
       // Rows past the block's last element are neither written nor read.
@@ -869,8 +899,8 @@ material_grad_kernel(GradArgs a) {
         element_pass(g, wf, x[0], x[1], x[2], dv, scale, tab + t * g.stride);
       __syncthreads();
       if (base + kTile + t < e1) {
-        load_input(a.mid, a.dim, a.lf, base + kTile + t, x);
-        dv = upstream(a, f, base + kTile + t);
+        load_input(a.mid, a.dim, lf, base + kTile + t, x);
+        dv = upstream(a, f, base + kTile + t, m);
       }
       if (owner) {
         float s[kJobSize];
@@ -900,7 +930,7 @@ material_grad_kernel(GradArgs a) {
     }
     __syncthreads();
     // Written parameter by parameter: coalesced stores.
-    double* out = a.partial + (int64_t)blockIdx.x * n_params + offset;
+    double* out = partial + (int64_t)blockIdx.x * n_params + offset;
     const int count = net_params(h1, h2);
     for (int j = t; j < count; j += kTile) {
       const int entry = param_entry(g, h1, h2, j);
@@ -911,33 +941,33 @@ material_grad_kernel(GradArgs a) {
     }
   }
 
-  // Groups of group_size blocks: the last block of a group to finish sums
-  // the group's partials in block order; the last group to finish sums the
-  // groups in group order.
+  // Groups of group_size blocks of this member: the last block of a group
+  // to finish sums the group's partials in block order; the last group to
+  // finish sums the groups in group order.
   __threadfence();
   __syncthreads();
   const int group = blockIdx.x / a.group_size;
   const int b0 = group * a.group_size;
-  const int members = min(a.group_size, (int)gridDim.x - b0);
-  const int n_groups = ((int)gridDim.x + a.group_size - 1) / a.group_size;
+  const int in_group = min(a.group_size, (int)gridDim.x - b0);
   if (t == 0)
-    s_last = atomicAdd(&a.tickets[group], 1u) == (unsigned int)(members - 1);
+    s_last = atomicAdd(&tickets[group], 1u) == (unsigned int)(in_group - 1);
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  sum_rows(a, a.partial, b0, b0 + members,
-           a.group_part + (int64_t)group * n_params, nullptr);
+  sum_rows(a, partial, b0, b0 + in_group,
+           group_part + (int64_t)group * n_params, nullptr);
   __threadfence();
   __syncthreads();
   if (t == 0) {
-    a.tickets[group] = 0;  // every member has taken its ticket
-    s_last = atomicAdd(&a.tickets[n_groups], 1u) == (unsigned int)(n_groups - 1);
+    tickets[group] = 0;  // every block of the group has taken its ticket
+    s_last = atomicAdd(&tickets[n_groups], 1u) == (unsigned int)(n_groups - 1);
   }
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  sum_rows(a, a.group_part, 0, n_groups, nullptr, a.grad);
-  if (t == 0) a.tickets[n_groups] = 0;
+  sum_rows(a, group_part, 0, n_groups, nullptr,
+           a.grad + member * n_params);
+  if (t == 0) tickets[n_groups] = 0;
 }
 
 // Nets from the host's widths array [h1_0, h2_0, h1_1, h2_1, h1_2, h2_2];
@@ -1003,19 +1033,23 @@ int pft_material_forward_occupancy(int device, int per_thread, int threads,
   return 0;
 }
 
-// (E, A, rho, s) at n elements in `blocks` blocks of `threads` threads,
-// per_thread elements a thread at a time (material_kernel.forward_plan).
+// (E, A, rho, s) at n elements of `members` members in `blocks` x
+// `members` blocks of `threads` threads, per_thread elements a thread at a
+// time (material_kernel.forward_plan).  params (members, n_params); lfs
+// (members,) on the device, or null: lf for every member; outputs
+// (members, n).
 int pft_material_forward(int device, const float* mid, int dim,
-                         const float* inv_len, float lf, int64_t n,
-                         const float* params, const float* scales,
-                         const int* widths, int per_thread, int threads,
-                         int blocks, float* e, float* a, float* rho,
-                         float* s, void* stream) {
+                         const float* inv_len, float lf, const float* lfs,
+                         int members, int64_t n, const float* params,
+                         const float* scales, const int* widths,
+                         int per_thread, int threads, int blocks, float* e,
+                         float* a, float* rho, float* s, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   ForwardArgs args;
   if (!make_nets(widths, &args.nets) || dim < 1 || dim > 2 || n < 0 ||
-      !forward_form_ok(args.nets, per_thread, threads) || blocks < 1)
+      !forward_form_ok(args.nets, per_thread, threads) || blocks < 1 ||
+      members < 1 || members > 65535)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
   args.mid = mid;
@@ -1026,6 +1060,7 @@ int pft_material_forward(int device, const float* mid, int dim,
   args.a = a;
   args.rho = rho;
   args.s = s;
+  args.lfs = lfs;
   args.n = n;
   args.lf = lf;
   args.dim = dim;
@@ -1033,35 +1068,41 @@ int pft_material_forward(int device, const float* mid, int dim,
   args.weight_floats = padded_floats(args.nets);
   void* launch_args[] = {&args};
   err = cudaLaunchKernel((const void*)forward_kernel(args.nets),
-                         dim3(blocks), dim3(threads), launch_args,
+                         dim3(blocks, members), dim3(threads), launch_args,
                          sizeof(float) * args.weight_floats,
                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The backward's launch, planned once per device, widths and n
+// The backward's launch, planned once per device, widths, n and members
 // (GradPlan in ops/kernels/material_kernel.py mirrors this layout).
 struct GradPlan {
   int device, blocks, group_size, shared_bytes;
   int widths[2 * kFields];
   int64_t n;
-  double* partial;         // (blocks, n_params) float64
-  double* group_part;      // (ceil(blocks / group_size), n_params) float64
-  unsigned int* tickets;   // ceil(blocks / group_size) + 1, zeroed once
+  double* partial;         // (members, blocks, n_params) float64
+  double* group_part;      // (members, ceil(blocks / group_size), n_params)
+  unsigned int* tickets;   // (members, ceil(blocks / group_size) + 1), zeroed once
+  int members;             // gridDim.y
+  int pad;
 };
 
-static_assert(sizeof(GradPlan) == 72,
+static_assert(sizeof(GradPlan) == 80,
               "the ctypes mirror in material_kernel.py assumes this layout");
 
-// Fills plan->blocks, group_size and shared_bytes for n elements on the
-// device (and raises the kernel's shared-memory limit there); sizes gets
-// the float64 entries of partial and group_part and the tickets' count.
+// Fills plan->blocks, group_size and shared_bytes for n elements of
+// plan->members members on the device (and raises the kernel's
+// shared-memory limit there); sizes gets the float64 entries of partial
+// and group_part and the tickets' count.  The blocks a member are the
+// blocks the card holds at once shared out over the members (at least one
+// a member, at most one a tile): one member gets the one-member grid.
 int pft_material_grad_plan(GradPlan* plan, int64_t* sizes) {
   cudaError_t err = use_device(plan->device);
   if (err != cudaSuccess) return (int)err;
   Nets nets;
-  if (!make_nets(plan->widths, &nets) || plan->n < 0)
+  if (!make_nets(plan->widths, &nets) || plan->n < 0 || plan->members < 1 ||
+      plan->members > 65535)
     return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(material_grad_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1077,7 +1118,8 @@ int pft_material_grad_plan(GradPlan* plan, int64_t* sizes) {
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int64_t tiles = (plan->n + kTile - 1) / kTile;
-  const int64_t cap = (int64_t)per_sm * sms;
+  int64_t cap = (int64_t)per_sm * sms / plan->members;
+  if (cap < 1) cap = 1;
   const int blocks = (int)(tiles < cap ? (tiles > 0 ? tiles : 1) : cap);
   int group = 1;
   while (group * group < blocks) ++group;
@@ -1085,19 +1127,22 @@ int pft_material_grad_plan(GradPlan* plan, int64_t* sizes) {
   plan->blocks = blocks;
   plan->group_size = group;
   plan->shared_bytes = smem;
-  sizes[0] = (int64_t)blocks * nets.n_params;
-  sizes[1] = (int64_t)groups * nets.n_params;
-  sizes[2] = groups + 1;
+  sizes[0] = (int64_t)plan->members * blocks * nets.n_params;
+  sizes[1] = (int64_t)plan->members * groups * nets.n_params;
+  sizes[2] = (int64_t)plan->members * (groups + 1);
   return 0;
 }
 
-// Absent upstream gradients are null; grad: (n_params,) float32.
+// plan->members members: params (members, n_params), e, a and the
+// upstream gradients (members, n), absent ones null; lfs (members,) on the
+// device, or null: lf for every member; grad (members, n_params) float32.
 int pft_material_backward(const GradPlan* plan, const float* mid, int dim,
-                          const float* inv_len, float lf, int64_t n,
-                          const float* params, const float* scales,
-                          const float* e, const float* a, const float* g_e,
-                          const float* g_a, const float* g_rho,
-                          const float* g_s, float* grad, void* stream) {
+                          const float* inv_len, float lf, const float* lfs,
+                          int64_t n, const float* params,
+                          const float* scales, const float* e,
+                          const float* a, const float* g_e, const float* g_a,
+                          const float* g_rho, const float* g_s, float* grad,
+                          void* stream) {
   cudaError_t err = use_device(plan->device);
   if (err != cudaSuccess) return (int)err;
   GradArgs args;
@@ -1114,6 +1159,7 @@ int pft_material_backward(const GradPlan* plan, const float* mid, int dim,
   args.g_a = g_a;
   args.g_rho = g_rho;
   args.g_s = g_s;
+  args.lfs = lfs;
   args.partial = plan->partial;
   args.group_part = plan->group_part;
   args.tickets = plan->tickets;
@@ -1123,8 +1169,8 @@ int pft_material_backward(const GradPlan* plan, const float* mid, int dim,
   args.dim = dim;
   args.weight_floats = padded_floats(args.nets);
   args.group_size = plan->group_size;
-  material_grad_kernel<<<plan->blocks, kTile, plan->shared_bytes,
-                         (cudaStream_t)stream>>>(args);
+  material_grad_kernel<<<dim3(plan->blocks, plan->members), kTile,
+                         plan->shared_bytes, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,13 @@ differentiated path, so its gradient is a kernel too:
   material_coefficients_backward  d loss / d theta from the upstream
                                   gradients of (E, A, rho, s): one launch
 
-`MaterialCoefficients` binds the two as one autograd.Function.  The TPU
+`MaterialCoefficients` binds the two as one autograd.Function.  Both
+kernels also take a member axis (`material_coefficients_batched`,
+`material_coefficients_backward_batched`, bound as
+`MaterialCoefficientsBatched`): B parameter rows (B, P) and B load factors
+on one mesh in one launch each, the JAX package's vmap of the material
+over a batch of problems (parallel/batched.py).  A batched launch counts
+once on the single wrapper's counter.  The TPU
 layout (8 x TILE lane packing, weights zero-padded to 32) is not carried:
 both kernels pad each net to a multiple of 4 and run it through one
 routine that keeps the activations in registers; the backward sums its
@@ -25,9 +31,11 @@ streams never share scratch.
 `fused_material_coefficients(data, material, load_factor)` is the entry the
 assembly calls when `fused_coefficients_supported` holds: CUDA tensors take
 the kernels, CPU tensors the twin `material_coefficients_reference`, whose
-autograd is the backward's twin.  `material_coefficients_backward_reference`
-is the backward's plain form, the kernel's arithmetic and summation order
-in torch ops; the tests and chip_smoke.py hold the kernel to it, the main
+autograd is the backward's twin (`fused_material_coefficients_batched` and
+`material_coefficients_batched_reference` for B members).
+`material_coefficients_backward_reference` is the backward's plain form,
+the kernel's arithmetic and summation order in torch ops (its batched
+form too); the tests and chip_smoke.py hold the kernel to it, the main
 path never calls it.  A 3D truss never takes the kernels: the kernel
 feeds each net (lf, x, y), as the TPU kernel does, while the assembly gives
 an input_dim=3 net on a 3D truss (x, y, z) (ROADMAP fault 3.6).
@@ -102,18 +110,53 @@ def material_coefficients_reference(mid: torch.Tensor, inv_len: torch.Tensor,
     The kernel's arithmetic in torch ops, softplus(o) written as
     log1p(exp(-|o|)) + max(o, 0); autograd through it is the twin of the
     backward kernel."""
-    x = _kernel_inputs(mid, load_factor)
+    fields = _fields(material)
+    params = torch.cat([p.reshape(-1) for f in fields
+                        for p in f.trainable_params()])
+    return _forward_from_params(mid, inv_len, load_factor, params,
+                                torch.stack([f.scale for f in fields]),
+                                _widths(material))
+
+
+def _forward_from_params(mid: torch.Tensor, inv_len: torch.Tensor,
+                         load_factor, params: torch.Tensor,
+                         scales: torch.Tensor, widths
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The forward twin of one member given as flat parameters (the
+    kernels' layout), a (3,) scale vector and its widths; load_factor a
+    number or a 0-d tensor."""
+    x = _kernel_inputs(mid, 0.0)
+    x[:, 0] = load_factor
     values = []
-    for field in _fields(material):
-        h = x
-        for w, b in field.layers[:-1]:
-            h = torch.tanh(h @ w + b)
-        w, b = field.layers[-1]
-        o = (h @ w + b)[:, 0]
+    for f, (h1, h2, off, count) in enumerate(_nets(widths)):
+        p = params[off:off + count]
+        h = torch.tanh(x @ p[:3 * h1].reshape(3, h1) + p[3 * h1:4 * h1])
+        q = p[4 * h1:]
+        if h2:
+            h = torch.tanh(h @ q[:h1 * h2].reshape(h1, h2)
+                           + q[h1 * h2:h1 * h2 + h2])
+            q = q[h1 * h2 + h2:]
+        o = (h @ q[:-1].reshape(-1, 1) + q[-1:])[:, 0]
         values.append((torch.log1p(torch.exp(-o.abs())) + o.clamp_min(0.0))
-                      * field.scale)
+                      * scales[f])
     e, a, rho = values
     return e, a, rho, e * a * inv_len
+
+
+def material_coefficients_batched_reference(mid: torch.Tensor,
+                                            inv_len: torch.Tensor,
+                                            load_factors: torch.Tensor,
+                                            params: torch.Tensor,
+                                            scales: torch.Tensor, widths
+                                            ) -> Tuple[torch.Tensor, ...]:
+    """Plain twin of the batched forward: (E, A, rho, s), each (B, n), member
+    b from params[b] (flat) at load factor load_factors[b]; member by member,
+    each exactly the one-member twin.  Autograd through it is the batched
+    backward's twin."""
+    rows = [_forward_from_params(mid, inv_len, load_factors[b], params[b],
+                                 scales, widths)
+            for b in range(params.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*rows))
 
 
 def _widths(material: Material) -> Tuple[int, ...]:
@@ -297,6 +340,38 @@ def material_coefficients_backward_reference(mid, inv_len, load_factor,
     return grad
 
 
+def batched_grad_blocks(n: int, members: int, capacity: int) -> int:
+    """The backward's blocks a member (pft_material_grad_plan): the
+    `capacity` blocks the card holds at once shared out over the members,
+    at least one and at most one a tile."""
+    tiles = -(-n // TILE)
+    return max(1, min(tiles, max(1, capacity // members)))
+
+
+def material_coefficients_backward_batched_reference(
+        mid, inv_len, load_factors, params, scales, widths, e, a, grads,
+        blocks=None) -> torch.Tensor:
+    """Plain version of the batched backward: (B, n_params), member b by
+    `material_coefficients_backward_reference` on row b of params, e, a and
+    each upstream gradient (B, n) at load_factors[b], in the kernel's
+    per-member partition and float64 order.  blocks: the blocks a member
+    (default: the batched plan on a CUDA device, else
+    `batched_grad_blocks` of CPU_BLOCKS)."""
+    members, n = params.shape[0], inv_len.shape[0]
+    widths = tuple(widths)
+    if blocks is None:
+        blocks = (_grad_plan(mid.device, _build.current_stream(mid.device),
+                             widths, n, members)[0].blocks
+                  if mid.device.type == "cuda"
+                  else batched_grad_blocks(n, members, CPU_BLOCKS))
+    return torch.stack([
+        material_coefficients_backward_reference(
+            mid, inv_len, load_factors[b], params[b], scales, widths, e[b],
+            a[b], [None if g is None else g[b] for g in grads],
+            blocks=blocks)
+        for b in range(members)])
+
+
 # --------------------------------------------------- the forward's grid
 
 class ForwardPlan(NamedTuple):
@@ -353,6 +428,14 @@ def forward_plan(n: int, resident: int, sms: int, per_thread: int,
     return ForwardPlan(per_thread, threads, sms * best_m)
 
 
+def member_plan(plan: ForwardPlan, members: int) -> ForwardPlan:
+    """The x-grid a member of a batched forward: `plan`, made for the
+    members' elements together, with its blocks shared out over the
+    members (gridDim.y), so the launch fills the card as one launch of
+    that many elements would, and no more.  One member: `plan`."""
+    return plan._replace(blocks=max(1, -(-plan.blocks // members)))
+
+
 # ------------------------------------------------------------ the kernels
 
 class GradPlan(ctypes.Structure):
@@ -362,10 +445,11 @@ class GradPlan(ctypes.Structure):
                 ("group_size", ctypes.c_int), ("shared_bytes", ctypes.c_int),
                 ("widths", ctypes.c_int * 6), ("n", ctypes.c_int64),
                 ("partial", ctypes.c_void_p), ("group_part", ctypes.c_void_p),
-                ("tickets", ctypes.c_void_p)]
+                ("tickets", ctypes.c_void_p), ("members", ctypes.c_int),
+                ("pad", ctypes.c_int)]
 
 
-assert ctypes.sizeof(GradPlan) == 72
+assert ctypes.sizeof(GradPlan) == 80
 
 
 def _check(mid: torch.Tensor, vectors=(), others=()) -> None:
@@ -386,8 +470,8 @@ def _check(mid: torch.Tensor, vectors=(), others=()) -> None:
 
 
 _WIDTHS = {}   # (widths, n_params) -> ctypes int[6], checked by the library
-_FORWARD_PLANS = {}  # (device, widths, n) -> (ForwardPlan, occupancy)
-_PLANS = {}    # (device, stream, widths, n) -> (GradPlan, its scratch)
+_FORWARD_PLANS = {}  # (device, widths, n, members) -> (ForwardPlan, occupancy)
+_PLANS = {}    # (device, stream, widths, n, members) -> (GradPlan, scratch)
 _PLANS_LOCK = threading.Lock()
 
 
@@ -405,14 +489,16 @@ def _library(widths, n_params: int):
     return lib, arr
 
 
-def _grad_plan(device: torch.device, stream: int, widths, n: int):
-    """The backward's plan for one device, stream, widths and n, made
-    once: the grid from the card's occupancy, the float64 partials, the
-    group sums and the zeroed tickets (reset by the kernel's last block).
-    Launches on one stream run in turn, so each stream's scratch is used
-    by one launch at a time; launches on two streams may overlap and get
-    two scratch sets.  The plans are never freed."""
-    key = (device.index, stream, tuple(widths), n)
+def _grad_plan(device: torch.device, stream: int, widths, n: int,
+               members: int = 1):
+    """The backward's plan for one device, stream, widths, n and member
+    count, made once: the grid from the card's occupancy, the float64
+    partials, the group sums and the zeroed tickets (reset by the kernel's
+    last block), each per member.  Launches on one stream run in turn, so
+    each stream's scratch is used by one launch at a time; launches on two
+    streams may overlap and get two scratch sets.  The plans are never
+    freed."""
+    key = (device.index, stream, tuple(widths), n, members)
     entry = _PLANS.get(key)
     if entry is not None:
         return entry
@@ -422,7 +508,7 @@ def _grad_plan(device: torch.device, stream: int, widths, n: int):
             return entry
         lib = _build.load_library()
         plan = GradPlan(device=device.index, widths=(ctypes.c_int * 6)(
-            *key[2]), n=n)
+            *key[2]), n=n, members=members)
         sizes = (ctypes.c_int64 * 3)()
         _build.check(lib.pft_material_grad_plan(ctypes.byref(plan), sizes),
                      "material_coefficients_backward plan")
@@ -446,20 +532,22 @@ def _forward_occupancy(device: torch.device, form, widths):
     return tuple(occ)
 
 
-def _forward_plan(device: torch.device, widths, n: int):
+def _forward_plan(device: torch.device, widths, n: int, members: int = 1):
     """(ForwardPlan, occupancy) of the forward kernel for one device,
-    widths and n, made once (occupancy: `_forward_occupancy` of the
-    plan's form)."""
-    key = (device.index, tuple(widths), n)
+    widths, n and member count, made once (occupancy: `_forward_occupancy`
+    of the plan's form): the plan of the members' n * members elements,
+    its blocks shared out over the members (`member_plan`)."""
+    key = (device.index, tuple(widths), n, members)
     entry = _FORWARD_PLANS.get(key)
     if entry is None:
+        total = n * members
         first = (forward_elements(key[1]), 128)
         occ = _forward_occupancy(device, first, key[1])
-        form = forward_form(n, first[0], occ[0], occ[1])
+        form = forward_form(total, first[0], occ[0], occ[1])
         if form != first:
             occ = _forward_occupancy(device, form, key[1])
-        entry = _FORWARD_PLANS[key] = (forward_plan(n, occ[0], occ[1], *form),
-                                       occ)
+        plan = forward_plan(total, occ[0], occ[1], *form)
+        entry = _FORWARD_PLANS[key] = (member_plan(plan, members), occ)
     return entry
 
 
@@ -471,23 +559,54 @@ def material_coefficients(mid: torch.Tensor, inv_len: torch.Tensor,
 
     params: the three nets' flat parameters (theta order); scales: (3,);
     widths: from `_widths`."""
-    n = inv_len.shape[0]
     _check(mid, (inv_len,), (params, scales))
-    lib, arr = _library(widths, params.numel())
-    out = [torch.empty_like(inv_len) for _ in range(4)]
-    if n == 0:
-        return tuple(out)
-    plan, _ = _forward_plan(mid.device, widths, n)
-    _build.check(lib.pft_material_forward(
-        mid.device.index, mid.data_ptr(), mid.shape[1], inv_len.data_ptr(),
-        float(load_factor), n, params.data_ptr(), scales.data_ptr(), arr,
-        *plan, *(t.data_ptr() for t in out),
-        _build.current_stream(mid.device)), "material_coefficients")
-    material_coefficients.launches += 1
-    return tuple(out)
+    return _forward_launch(mid, inv_len, float(load_factor), None, params,
+                           scales, widths, (inv_len.shape[0],))
 
 
 material_coefficients.launches = 0
+
+
+def material_coefficients_batched(mid: torch.Tensor, inv_len: torch.Tensor,
+                                  load_factors: torch.Tensor,
+                                  params: torch.Tensor, scales: torch.Tensor,
+                                  widths) -> Tuple[torch.Tensor, ...]:
+    """Forward kernel with a member axis: (E, A, rho, s), each (B, n), one
+    launch for B members.  params (B, P): each member's flat parameters;
+    load_factors (B,) float32 on the card; mid, inv_len and scales are
+    shared.  Counts one launch of `material_coefficients`."""
+    _check_members(mid, inv_len, load_factors, params, scales)
+    return _forward_launch(mid, inv_len, 0.0, load_factors, params, scales,
+                           widths, (params.shape[0], inv_len.shape[0]))
+
+
+def _check_members(mid, inv_len, load_factors, params, scales) -> None:
+    _check(mid, (inv_len,), (load_factors, params, scales))
+    members = params.shape[0] if params.dim() == 2 else 0
+    if not 1 <= members <= 65535 or load_factors.shape != (members,):
+        raise ValueError("batched operands: params (B, P) and load factors "
+                         "(B,), 1 <= B <= 65535")
+
+
+def _forward_launch(mid, inv_len, load_factor: float, load_factors, params,
+                    scales, widths, shape) -> Tuple[torch.Tensor, ...]:
+    """The forward's launch on checked operands: outputs of `shape`, (n,)
+    or (B, n); load_factors None takes load_factor for the one member."""
+    n = inv_len.shape[0]
+    members = 1 if load_factors is None else shape[0]
+    lib, arr = _library(widths, params.numel() // members)
+    out = [inv_len.new_empty(shape) for _ in range(4)]
+    if n == 0:
+        return tuple(out)
+    plan, _ = _forward_plan(mid.device, widths, n, members)
+    _build.check(lib.pft_material_forward(
+        mid.device.index, mid.data_ptr(), mid.shape[1], inv_len.data_ptr(),
+        load_factor, None if load_factors is None else load_factors.data_ptr(),
+        members, n, params.data_ptr(), scales.data_ptr(), arr, *plan,
+        *(t.data_ptr() for t in out), _build.current_stream(mid.device)),
+        "material_coefficients")
+    material_coefficients.launches += 1
+    return tuple(out)
 
 
 def material_coefficients_backward(mid, inv_len, load_factor: float,
@@ -499,28 +618,51 @@ def material_coefficients_backward(mid, inv_len, load_factor: float,
     _check(mid, (inv_len, e, a, *(g for g in grads if g is not None)),
            (params, scales))
     _library(widths, params.numel())
-    return _backward_launch(mid, inv_len, load_factor, params, scales,
+    return _backward_launch(mid, inv_len, load_factor, None, params, scales,
                             widths, e, a, grads)
 
 
-def _backward_launch(mid, inv_len, load_factor, params, scales, widths, e,
-                     a, grads) -> torch.Tensor:
+material_coefficients_backward.launches = 0
+
+
+def material_coefficients_backward_batched(mid, inv_len, load_factors,
+                                           params, scales, widths, e, a,
+                                           grads) -> torch.Tensor:
+    """Backward kernel with a member axis, one launch: the (B, n_params)
+    gradient of each member's flat parameters.  e, a and the upstream
+    gradients (gE, gA, grho, gs) are (B, n), each gradient or None.
+    Counts one launch of `material_coefficients_backward`."""
+    grads = [None if g is None else g.contiguous() for g in grads]
+    _check_members(mid, inv_len, load_factors, params, scales)
+    shape = (params.shape[0], inv_len.shape[0])
+    for t in (e, a, *(g for g in grads if g is not None)):
+        _check(mid, (), (t,))
+        if t.shape != shape:
+            raise ValueError(f"per-member vectors must be {shape}")
+    _library(widths, params.shape[1])
+    return _backward_launch(mid, inv_len, 0.0, load_factors, params, scales,
+                            widths, e, a, grads)
+
+
+def _backward_launch(mid, inv_len, load_factor, load_factors, params, scales,
+                     widths, e, a, grads) -> torch.Tensor:
     """The launch itself, on operands the forward has checked (grads
-    contiguous and of the outputs' shape)."""
+    contiguous and of the outputs' shape); load_factors None takes
+    load_factor for the one member."""
     stream = _build.current_stream(mid.device)
-    plan, _ = _grad_plan(mid.device, stream, widths, inv_len.shape[0])
+    members = 1 if load_factors is None else params.shape[0]
+    plan, _ = _grad_plan(mid.device, stream, widths, inv_len.shape[0],
+                         members)
     grad = torch.empty_like(params)
     _build.check(_build.load_library().pft_material_backward(
         ctypes.byref(plan), mid.data_ptr(), mid.shape[1], inv_len.data_ptr(),
-        float(load_factor), inv_len.shape[0], params.data_ptr(),
-        scales.data_ptr(), e.data_ptr(), a.data_ptr(),
-        *(None if g is None else g.data_ptr() for g in grads),
+        float(load_factor),
+        None if load_factors is None else load_factors.data_ptr(),
+        inv_len.shape[0], params.data_ptr(), scales.data_ptr(), e.data_ptr(),
+        a.data_ptr(), *(None if g is None else g.data_ptr() for g in grads),
         grad.data_ptr(), stream), "material_coefficients_backward")
     material_coefficients_backward.launches += 1
     return grad
-
-
-material_coefficients_backward.launches = 0
 
 
 class MaterialCoefficients(torch.autograd.Function):
@@ -544,7 +686,35 @@ class MaterialCoefficients(torch.autograd.Function):
         grad = None
         if ctx.needs_input_grad[2]:
             grad = _backward_launch(
-                mid, inv_len, ctx.load_factor, params, scales, ctx.widths,
+                mid, inv_len, ctx.load_factor, None, params, scales,
+                ctx.widths, e, a, [None if g is None else g.contiguous()
+                                   for g in (g_e, g_a, g_rho, g_s)])
+        return None, None, grad, None, None, None
+
+
+class MaterialCoefficientsBatched(torch.autograd.Function):
+    """(E, A, rho, s), each (B, n) = batched kernel(mid, 1/L, lfs; params
+    (B, P)), differentiable in the parameters only: one launch of each
+    kernel for the B members."""
+
+    @staticmethod
+    def forward(ctx, mid, inv_len, params, scales, load_factors, widths):
+        e, a, rho, s = material_coefficients_batched(
+            mid, inv_len, load_factors, params, scales, widths)
+        ctx.save_for_backward(mid, inv_len, params, scales, load_factors,
+                              e, a)
+        ctx.widths = widths
+        ctx.set_materialize_grads(False)
+        return e, a, rho, s
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_e, g_a, g_rho, g_s):
+        mid, inv_len, params, scales, load_factors, e, a = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[2]:
+            grad = _backward_launch(
+                mid, inv_len, 0.0, load_factors, params, scales, ctx.widths,
                 e, a, [None if g is None else g.contiguous()
                        for g in (g_e, g_a, g_rho, g_s)])
         return None, None, grad, None, None, None
@@ -574,3 +744,33 @@ def fused_material_coefficients(data, material: Material, load_factor
     return MaterialCoefficients.apply(data.mid, data.inv_len, params,
                                       scales.to(dev), float(load_factor),
                                       _widths(material))
+
+
+def fused_material_coefficients_batched(data, material: Material,
+                                        load_factors: torch.Tensor,
+                                        params: torch.Tensor
+                                        ) -> Tuple[torch.Tensor, ...]:
+    """(E, A, rho, s) of B members, each (B, nelm): member b is `material`
+    with its MLP fields' parameters replaced by params[b] (flat, in theta
+    order: young, area, density, W and b a layer) at load factor
+    load_factors[b] ((B,) tensor).
+
+    Requires fused_coefficients_supported(material, data.dimension).  CPU
+    tensors take the twin (`material_coefficients_batched_reference`);
+    CUDA tensors the batched kernels, one launch each for all members (or
+    raise), float32 only."""
+    dev = data.inv_len.device
+    fields = _fields(material)
+    scales = torch.stack([f.scale for f in fields]).detach().to(
+        device=dev, dtype=data.inv_len.dtype)
+    widths = _widths(material)
+    if dev.type == "cpu":
+        return material_coefficients_batched_reference(
+            data.mid, data.inv_len, load_factors, params, scales, widths)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    for t in (data.inv_len, params, load_factors):
+        require_float32(t.dtype, "material_coefficients (kernels 4 and 4b, "
+                        "the material fields)")
+    return MaterialCoefficientsBatched.apply(data.mid, data.inv_len, params,
+                                             scales, load_factors, widths)

@@ -30,9 +30,8 @@ def masked_solve(k: torch.Tensor, rhs: torch.Tensor, free_mask: torch.Tensor,
     K_bc is not positive definite (JAX's cho_factor returns NaN there), and
     du is then meaningless.  Reading info is left to the caller, so the
     solve itself never waits for the device."""
-    k_bc = apply_bc_operator(k, free_mask)
+    k_bc, chol, info = factor_masked(k, free_mask)
     rhs_bc = rhs * free_mask
-    chol, info = torch.linalg.cholesky_ex(k_bc)
 
     def solve(b):
         return torch.cholesky_solve(b[:, None], chol)[:, 0]
@@ -42,3 +41,35 @@ def masked_solve(k: torch.Tensor, rhs: torch.Tensor, free_mask: torch.Tensor,
         r = (rhs_bc - k_bc @ du) * free_mask
         du = du + solve(r)
     return du * free_mask, info
+
+
+def factor_masked(k: torch.Tensor, free_mask: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(K_bc, its Cholesky factor, cholesky_ex's info) of one K (ndof,
+    ndof) or of B of them (B, ndof, ndof): `masked_solve`'s factorization,
+    kept for `solve_factored`."""
+    k_bc = apply_bc_operator(k, free_mask)
+    chol, info = torch.linalg.cholesky_ex(k_bc)
+    return k_bc, chol, info
+
+
+def solve_factored(k_bc: torch.Tensor, chol: torch.Tensor, rhs: torch.Tensor,
+                   free_mask: torch.Tensor) -> torch.Tensor:
+    """`masked_solve` (one sweep of refinement) of B right-hand sides rhs
+    (B, ndof) with factors from `factor_masked`: one shared K (ndof, ndof)
+    for all members, or each member's own (B, ndof, ndof).  du is 0 on
+    fixed DOFs."""
+    shared = k_bc.dim() == 2
+
+    def solve(b):
+        if shared:
+            return torch.cholesky_solve(b.T, chol).T
+        return torch.cholesky_solve(b[..., None], chol)[..., 0]
+
+    def apply(x):
+        return x @ k_bc.T if shared else (k_bc @ x[..., None])[..., 0]
+
+    rhs_bc = rhs * free_mask
+    du = solve(rhs_bc)
+    du = du + solve((rhs_bc - apply(du)) * free_mask)
+    return du * free_mask

@@ -1,6 +1,7 @@
 """Solver phases (counterpart of pinn_fem_tpu/solvers/phases.py: GD_HIST_COLS,
 GDPhaseOut, gd_phase, NRPhaseOut, nr_phase, reactions_of, ZPhaseOut,
-full_nr_phase, gn_phase).
+full_nr_phase, gn_phase), and the batched phases of
+pinn_fem_tpu/parallel/batched.py (its vmap of gd_phase and nr_phase).
 
 The JAX phases run inside lax.while_loop; here each is a Python loop that
 reads its convergence test on the host once per iteration (one device sync
@@ -14,6 +15,13 @@ from the torch form under torch.func; every value-only evaluation (the
 history row, the LM trial losses, the line-search and stall residual
 norms) takes the value route, kernel 4 on a card.  Two values compared
 with each other always come from the same route.
+
+The batched phases (`gd_phase_batched`, `nr_phase_batched`) run B
+members on one mesh with vmap's meaning for lax.while_loop: the loop runs
+while any member is active, and a member that has stopped keeps its whole
+state (u, theta, both Adam moments, its iteration count, converged and
+the last residual norm) through a device mask.  The batched GD reads the
+mask on the host every GD_CHECK_EVERY iterations, never in between.
 """
 
 from __future__ import annotations
@@ -26,9 +34,12 @@ import torch
 
 from ..models.fields import Material
 from ..models.problem import ProblemData
-from ..ops.assembly import (assemble_system, assemble_system_nonlinear,
-                             internal_force_and_strain, scatter_add)
-from ..ops.linalg import masked_solve
+from ..ops.assembly import (assemble_stiffness_batched, assemble_system,
+                             assemble_system_nonlinear,
+                             internal_force_and_strain,
+                             internal_force_and_strain_batched,
+                             material_coefficients_batched, scatter_add)
+from ..ops.linalg import factor_masked, masked_solve, solve_factored
 
 # GD history columns (reference solve_gd history keys, solver.py:308-322).
 GD_HIST_COLS = 7  # iteration, loss_total, loss_physics, loss_data, u_norm,
@@ -57,10 +68,19 @@ class Adam:
         self.np_dtype = (np.float64 if like.dtype == torch.float64
                          else np.float32)
 
-    def direction(self, g: torch.Tensor) -> torch.Tensor:
-        """The step direction mu_hat / (sqrt(nu_hat) + eps) for gradient g."""
-        self.mu = (1 - ADAM_B1) * g + ADAM_B1 * self.mu
-        self.nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * self.nu
+    def direction(self, g: torch.Tensor,
+                  live: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The step direction mu_hat / (sqrt(nu_hat) + eps) for gradient g.
+        live (B,) bool, for B members (the rows of g): the moments of the
+        members where it is false stay as they are.  The count is the
+        live members' own: they all started together."""
+        mu = (1 - ADAM_B1) * g + ADAM_B1 * self.mu
+        nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * self.nu
+        if live is not None:
+            keep = live.view(-1, *([1] * (g.dim() - 1)))
+            mu = torch.where(keep, mu, self.mu)
+            nu = torch.where(keep, nu, self.nu)
+        self.mu, self.nu = mu, nu
         self.count += 1
         # Bias corrections in the working precision, as optax takes them.
         dt = self.np_dtype
@@ -222,6 +242,202 @@ def reactions_of(data: ProblemData, material: Material, u: torch.Tensor,
     with torch.no_grad():
         f_int, _ = internal_force_and_strain(data, material, u, load_factor)
         return (f_int - load_factor * data.loads) * data.fixed_mask
+
+
+# ------------------------------------------------------ B members at once
+
+# Iterations of the batched GD between two reads of its active mask: the
+# results are those of a test every iteration, since a stopped member's
+# state does not change; at most CHECK_EVERY - 1 iterations run after the
+# last member has stopped.
+GD_CHECK_EVERY = 32
+
+# float64 bytes of one chunk of the batched dense assembly (per-member
+# tangents are assembled and factored this many members at a time).
+DENSE_CHUNK_BYTES = 1 << 30
+
+
+class BatchedGDPhaseOut(NamedTuple):
+    u: torch.Tensor            # (B, ndof)
+    theta: Optional[torch.Tensor]  # (B, P) flat parameters, None without
+    n_iters: torch.Tensor      # (B,) int32 iterations each member ran
+    converged: torch.Tensor    # (B,) bool
+    rnorm: torch.Tensor        # (B,) ||r|| at each member's last iteration
+                               # (inf where it ran none)
+
+
+def gd_phase_batched(data: ProblemData, material: Material,
+                     loads: torch.Tensor, u0: torch.Tensor,
+                     params0: Optional[torch.Tensor],
+                     load_factors: torch.Tensor,
+                     measured_vals: Optional[torch.Tensor],
+                     measured_dofs: Optional[torch.Tensor], has_meas: bool,
+                     max_iter: int, tol: float, lr_u: float,
+                     lr_theta: float, alpha_physics: float,
+                     alpha_data: float, active: Optional[torch.Tensor] = None
+                     ) -> BatchedGDPhaseOut:
+    """`gd_phase` for B members at once, as the JAX package vmaps it:
+    loads (B, ndof), u0 (B, ndof), params0 (B, P) flat theta (None when
+    the material has no MLP field), load_factors (B,), measured_vals
+    (B, m) at the shared measured_dofs.
+
+    Member b runs the single phase's iteration (dual Adam, BC projection,
+    the gate after iteration 10 on ||r|| < tol or loss < tol) until it
+    converges or reaches max_iter; from then on its u, theta, Adam moments,
+    count, converged flag and ||r|| stay as they were.  active (B,) bool:
+    members that run at all (default all); the others keep u0 and params0
+    and end with 0 iterations, converged false and ||r|| inf.  One
+    evaluation of the members' loss an iteration: kernel 4 once and 4b
+    once for all members on a card.  The mask is read on the host every
+    GD_CHECK_EVERY iterations."""
+    dt, dev = u0.dtype, u0.device
+    members = u0.shape[0]
+    tol_w = in_working_precision(tol, dt)
+    f_ext = load_factors[:, None] * loads
+    u = u0.detach().clone()
+    th = None if params0 is None else params0.detach().clone()
+    if th is not None and th.device != dev:
+        raise ValueError("theta and u lie on different devices")
+    opt_u = Adam(u)
+    opt_th = Adam(th) if th is not None else None
+    live = (torch.ones(members, dtype=torch.bool, device=dev)
+            if active is None else active.to(dev).clone())
+    iters = torch.zeros(members, dtype=torch.int32, device=dev)
+    conv = torch.zeros(members, dtype=torch.bool, device=dev)
+    rnorm = torch.full((members,), float("inf"), dtype=dt, device=dev)
+    it = 0
+    while it < max_iter:
+        u = u.requires_grad_()
+        wrt = [u]
+        if th is not None:
+            th = th.requires_grad_()
+            wrt.append(th)
+        f_int, _ = internal_force_and_strain_batched(data, material, u,
+                                                     load_factors, th)
+        r = (f_int - f_ext) * data.free_mask
+        loss_p = 0.5 * torch.sum(r * r, dim=1)
+        if has_meas:
+            rd = measured_vals - u[:, measured_dofs]
+            loss = (alpha_physics * loss_p
+                    + alpha_data * torch.mean(rd * rd, dim=1))
+        else:
+            loss = alpha_physics * loss_p
+        # The members are independent: the gradient of the sum is each
+        # member's own.
+        grads = torch.autograd.grad(torch.sum(loss), wrt, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(wrt, grads)]
+
+        with torch.no_grad():
+            step = live[:, None]
+            u_new = (u - lr_u * opt_u.direction(grads[0], live)) \
+                * data.free_mask
+            u = torch.where(step, u_new, u)
+            if th is not None:
+                th = torch.where(
+                    step, th - lr_theta * opt_th.direction(grads[1], live), th)
+            rn = torch.linalg.vector_norm(r, dim=1)
+            stop = (it > 10) & ((rn < tol_w)
+                                | (~torch.isnan(loss) & (loss < tol_w)))
+            rnorm = torch.where(live, rn, rnorm)
+            conv = torch.where(live, stop, conv)
+            iters = iters + live.to(torch.int32)
+            live = live & ~stop
+        it += 1
+        if it % GD_CHECK_EVERY == 0 and not bool(live.any()):
+            break
+    return BatchedGDPhaseOut(u=u.detach(),
+                             theta=None if th is None else th.detach(),
+                             n_iters=iters, converged=conv, rnorm=rnorm)
+
+
+class BatchedNRPhaseOut(NamedTuple):
+    u: torch.Tensor            # (B, ndof)
+    n_iters: torch.Tensor      # (B,) int32
+    residual: torch.Tensor     # (B,)
+    converged: torch.Tensor    # (B,) bool
+
+
+def nr_phase_batched(data: ProblemData, material: Material,
+                     loads: torch.Tensor, u0: torch.Tensor,
+                     load_factors: torch.Tensor, max_iter: int, tol: float,
+                     min_denom: float,
+                     tangent_load_factor: Optional[float] = None
+                     ) -> BatchedNRPhaseOut:
+    """`nr_phase` (linear elements, dense) for B members at once: loads
+    (B, ndof), u0 (B, ndof), load_factors (B,).
+
+    The linear tangent does not depend on u, so it is assembled and
+    factored once for the phase (the JAX loop refactors the same matrix
+    every iteration).  tangent_load_factor: the load factor every member
+    shares; then one tangent serves all members (one factorization, B
+    right-hand sides), as vmap leaves an unbatched K.  None: each member's
+    own tangent at its load factor (a (B, ndof, ndof) factorization,
+    assembled DENSE_CHUNK_BYTES at a time).  A member whose tangent does
+    not factor ends with u all NaN, residual NaN, converged false and
+    max_iter iterations, as JAX's NaN factor runs its member to max_iter;
+    nothing raises.  One flag read an iteration (a Newton iteration is a
+    dense solve; the single nr_phase reads once an iteration too)."""
+    dt, dev = u0.dtype, u0.device
+    members, ndof = u0.shape
+    mask = data.free_mask
+    if tangent_load_factor is not None:
+        k = assemble_system(data, material, u0[0], tangent_load_factor)[0]
+        factors = factor_masked(k, mask)
+        failed = (factors[2] != 0).expand(members)
+    else:
+        young, area, _ = material_coefficients_batched(data, material,
+                                                       load_factors)
+        chunk = max(1, DENSE_CHUNK_BYTES // (8 * ndof * ndof))
+        parts = [factor_masked(assemble_stiffness_batched(
+            data, young[b:b + chunk], area[b:b + chunk]), mask)
+            for b in range(0, members, chunk)]
+        factors = tuple(torch.cat(col) for col in zip(*parts))
+        failed = factors[2] != 0
+    tol_t = torch.tensor(tol, dtype=dt, device=dev)
+    min_denom_t = torch.tensor(min_denom, dtype=dt, device=dev)
+    u = u0.clone()
+    live = ~failed
+    iters = torch.zeros(members, dtype=torch.int32, device=dev)
+    conv = torch.zeros(members, dtype=torch.bool, device=dev)
+    res = torch.full((members,), float("inf"), dtype=dt, device=dev)
+    it = 0
+    while it < max_iter:
+        f_int, _ = internal_force_and_strain_batched(data, material, u,
+                                                     load_factors)
+        du = solve_factored(*factors[:2], load_factors[:, None] * loads
+                            - f_int, mask)
+        u_new = u + du
+        r_new = (torch.linalg.vector_norm(du, dim=1)
+                 / torch.maximum(torch.linalg.vector_norm(u_new, dim=1),
+                                 min_denom_t))
+        stop = r_new <= tol_t
+        u = torch.where(live[:, None], u_new, u)
+        res = torch.where(live, r_new, res)
+        conv = torch.where(live, stop, conv)
+        iters = iters + live.to(torch.int32)
+        live = live & ~stop
+        it += 1
+        if not bool(live.any()):
+            break
+    nan = torch.tensor(float("nan"), dtype=dt, device=dev)
+    return BatchedNRPhaseOut(
+        u=torch.where(failed[:, None], nan, u),
+        n_iters=torch.where(failed, max_iter, iters).to(torch.int32),
+        residual=torch.where(failed, nan, res),
+        converged=conv & ~failed)
+
+
+def reactions_of_batched(data: ProblemData, material: Material,
+                         loads: torch.Tensor, u: torch.Tensor,
+                         load_factors: torch.Tensor, params=None
+                         ) -> torch.Tensor:
+    """`reactions_of` of B members: (B, ndof), each at its own u, loads,
+    load factor and parameters (no autograd graph)."""
+    with torch.no_grad():
+        f_int, _ = internal_force_and_strain_batched(data, material, u,
+                                                     load_factors, params)
+        return (f_int - load_factors[:, None] * loads) * data.fixed_mask
 
 
 _LM_TRIES = 16   # full-NR lambda escalations before the gradient fallback

@@ -14,7 +14,8 @@ views, a ragged end and a system below one tile.  The material kernels
 (forward) and to 1e-4 of the largest gradient entry (backward); the
 backward (4b) also to its plain version, within 1e-5 of the largest
 gradient entry, as one device kernel per call, and on two streams at
-once.  The gather-based PCG (no repo kernel) is held to the same functions
+once; with a member axis (B = 1, 3, 32), each member against the
+one-member kernels and the plain batched version.  The gather-based PCG (no repo kernel) is held to the same functions
 on the CPU, and a resumed Newton run to the uninterrupted one.  The
 multigrid V-cycle (kernel 1 on every level) is held bit for bit to the
 plain cycle, its PCG to the CPU solve, and its float64 refusal.
@@ -573,6 +574,127 @@ def test_material_backward_kernel_matches_plain_version(cuda_device, case):
             break
     assert len(device_ops) == 1
     assert "material_grad_kernel" in device_ops[0].name
+
+
+def member_params(mat, members, seed):
+    """(B, P) flat parameters: the material's, each member's perturbed by
+    seeded noise of 10 % of each entry's size, and (B,) load factors."""
+    fields = material_kernel._fields(mat)
+    base = torch.cat([t.reshape(-1) for f in fields
+                      for t in f.trainable_params()])
+    rng = np.random.default_rng(seed)
+    noise = torch.from_numpy(rng.normal(
+        size=(members, base.numel())).astype(np.float32)).to(base.device)
+    params = (base * (1.0 + 0.1 * noise)).contiguous()
+    lfs = torch.from_numpy(rng.uniform(0.2, 1.2, members).astype(
+        np.float32)).to(base.device)
+    return params, lfs
+
+
+@pytest.mark.parametrize("members", [1, 3, 32])
+@pytest.mark.parametrize("hidden_layers", [1, 2])
+def test_material_kernels_member_axis_on_card(cuda_device, members,
+                                              hidden_layers):
+    """Kernels 4 and 4b with a member axis: one counted launch each for B
+    members; each member's forward rows bit-equal to the one-member kernel
+    on that member and within the single kernel's twin bounds; each
+    member's gradient within 1e-5 of its max|grad| of the plain batched
+    version (the per-member partition) and of the one-member kernel;
+    bit for bit across two calls; B = 1 bit-equal to the one-member
+    launch.  The 1,001 elements make every member's blocks finish in one
+    wave, where tickets shared between members would mix their rows."""
+    dev = cuda_device
+    n = 1001
+    rng = np.random.default_rng(5)
+    mid = torch.from_numpy(rng.uniform(0, 50, (n, 2)).astype(np.float32))
+    inv_len = torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32))
+    mid, inv_len = mid.to(dev), inv_len.to(dev)
+    mat = mlp_material(hidden_layers, dev)
+    fields = material_kernel._fields(mat)
+    scales = torch.stack([f.scale for f in fields])
+    widths = material_kernel._widths(mat)
+    params, lfs = member_params(mat, members, members + hidden_layers)
+    c = torch.from_numpy(rng.normal(size=(4, members, n)).astype(
+        np.float32)).to(dev)
+
+    def forward():
+        return material_kernel.material_coefficients_batched(
+            mid, inv_len, lfs, params, scales, widths)
+
+    before = kernels.launch_counts()
+    got = forward()
+    e, a = got[0], got[1]
+
+    def backward():
+        return material_kernel.material_coefficients_backward_batched(
+            mid, inv_len, lfs, params, scales, widths, e, a, tuple(c))
+
+    grad = backward()
+    after = kernels.launch_counts()
+    assert after["material_coefficients"] == \
+        before["material_coefficients"] + 1
+    assert after["material_coefficients_backward"] == \
+        before["material_coefficients_backward"] + 1
+    assert all(t.shape == (members, n) for t in got)
+    assert grad.shape == params.shape
+    plain = material_kernel.material_coefficients_backward_batched_reference(
+        mid, inv_len, lfs, params, scales, widths, e, a, tuple(c))
+    for b in range(members):
+        lf = float(lfs[b])
+        one = material_kernel.material_coefficients(
+            mid, inv_len, lf, params[b], scales, widths)
+        assert all(torch.equal(x[b], y) for x, y in zip(got, one)), b
+        want = material_kernel.material_coefficients_batched_reference(
+            mid, inv_len, lfs[b:b + 1], params[b:b + 1], scales, widths)
+        for k, (x, y) in enumerate(zip(got, want)):
+            torch.testing.assert_close(x[b], y[0],
+                                       rtol=3e-5 if k == 3 else 2e-5,
+                                       atol=1e-6)
+        scale = float(plain[b].abs().max())
+        assert float((grad[b] - plain[b]).abs().max()) <= 1e-5 * scale, b
+        single = material_kernel.material_coefficients_backward(
+            mid, inv_len, lf, params[b], scales, widths, e[b], a[b],
+            tuple(c[:, b]))
+        assert float((grad[b] - single).abs().max()) <= 1e-5 * scale, b
+        if members == 1:
+            assert torch.equal(grad[0], single)
+    assert all(torch.equal(x, y) for x, y in zip(got, forward()))
+    assert torch.equal(grad, backward())
+
+
+def test_batched_material_dispatch_on_card(cuda_device):
+    """fused_material_coefficients_batched on the card: one launch of each
+    kernel for B = 4 members of the 16 x 72 grid, values and the (B, P)
+    autograd gradient within the single kernel's bounds of the CPU twin's
+    (material_coefficients_batched_reference) on the same inputs."""
+    data = grid_problem(16, 72).to_device(cuda_device)
+    mat = mlp_material(2, cuda_device)
+    params, lfs = member_params(mat, 4, 9)
+    c = torch.randn(4, 4, data.nelm, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3))
+
+    def run(dev):
+        d = data if dev.type == "cuda" else grid_problem(16, 72).to_device(
+            "cpu")
+        th = params.to(dev).requires_grad_()
+        out = material_kernel.fused_material_coefficients_batched(
+            d, mat.to(dev), lfs.to(dev), th)
+        loss = sum(torch.sum(ci.to(dev) * o) for ci, o in zip(c, out))
+        return [o.detach().cpu() for o in out], \
+            torch.autograd.grad(loss, th)[0].cpu()
+
+    kernels.reset_launch_counts()
+    got, g_got = run(cuda_device)
+    counts = kernels.launch_counts()
+    assert counts["material_coefficients"] == 1
+    assert counts["material_coefficients_backward"] == 1
+    want, g_want = run(torch.device("cpu"))
+    for k, (a, b) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, b, rtol=3e-5 if k == 3 else 2e-5,
+                                   atol=1e-6)
+    for b in range(4):
+        scale = float(g_want[b].abs().max())
+        assert float((g_got[b] - g_want[b]).abs().max()) <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("kind", ["thermal", "settlement"])

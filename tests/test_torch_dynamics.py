@@ -523,8 +523,6 @@ def test_unported_solver_options_refused(kw, item):
 
 @pytest.mark.parametrize("extra, item", [
     ({"plasticity": {"sigma_y": 1.0}}, 17),
-    ({"amplitudes": [[1.0] * 10]}, 15),
-    ({"include_stress_envelope": True}, 15),
     ({"probe_elements": [0]}, 17),
     ({"fatigue": {"sn": {"exponent": 3, "coefficient": 1e12}}}, 17),
 ])

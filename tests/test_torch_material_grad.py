@@ -298,3 +298,111 @@ def test_grad_plans_per_stream_under_threads(monkeypatch):
     assert all(len(ids) == 1 for ids in by_stream.values())
     first = {s: next(p for q, p in plans if q == s) for s in (0, 1)}
     assert first[0][0].partial != first[1][0].partial
+
+
+# ------------------------------------------------------- the member axis
+
+MEMBERS = 3
+
+
+def member_inputs(tmat, td, members=MEMBERS, seed=5):
+    """(B, P) flat parameters (the nets' weights, each member's perturbed
+    by 10 % seeded noise), (B,) load factors and (B, 4, n) upstream
+    gradients, from numpy."""
+    params, scales, widths, _, _ = flat_inputs(tmat, td)
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(size=(members, params.numel())).astype(np.float32)
+    flat = params * (1.0 + 0.1 * torch.from_numpy(noise))
+    lfs = torch.from_numpy(rng.uniform(0.2, 1.2, members).astype(np.float32))
+    c = rng.normal(size=(members, 4, td.nelm)).astype(np.float32)
+    return flat, lfs, c, scales, widths
+
+
+def jax_layers(tmat, flat):
+    """Member b's layers in the JAX package's form, stacked over members
+    (leaves (B, ...))."""
+    from pinn_fem_tpu_torch.parallel.batched import _unflat_members
+
+    stacked = _unflat_members(flat, get_theta(tmat))
+    return [[(jnp.asarray(w.numpy()), jnp.asarray(b.numpy()))
+             for w, b in net] for net in stacked]
+
+
+def jax_vmap_grad(jmat, jd, layers_b, lfs, c):
+    """jax.vmap over members of jax.grad of sum_k c_k * field_k at the
+    member's load factor, flattened (B, P) in theta order."""
+    def loss(layers, lf, cm):
+        mat = J.Material(young=jmat.young.replace(layers=layers[0]),
+                         area=jmat.area.replace(layers=layers[1]),
+                         density=jmat.density.replace(layers=layers[2]))
+        e, a = j_material_values(jd, mat, lf)
+        rho = mat.density.eval_batch(j_inputs(jd.mid, 2, lf))
+        s = j_coeffs(jd, mat, lf)
+        return sum(jnp.sum(cm[k] * v) for k, v in enumerate((e, a, rho, s)))
+
+    grads = jax.vmap(jax.grad(loss))(layers_b, jnp.asarray(lfs.numpy()),
+                                     jnp.asarray(c))
+    return np.concatenate([np.asarray(t).reshape(MEMBERS, -1)
+                           for net in grads for layer in net for t in layer],
+                          axis=1)
+
+
+@pytest.mark.parametrize("hidden_layers", [1, 2])
+def test_batched_twins_equal_member_twins_and_jax_vmap_grad(hidden_layers):
+    """Kernels 4 and 4b's member axis on the CPU, B = 3 members on 300
+    elements, each with its own weights and load factor: the batched
+    forward twin equals the one-member twin of each member bit for bit; the
+    plain batched backward equals the plain one-member backward of each
+    member in the batched partition (batched_grad_blocks) bit for bit; the
+    batched autograd gradient and the plain batched backward lie within
+    1e-5 of each member's max|grad| of JAX's vmap(grad) of
+    material_values."""
+    from pinn_fem_tpu_torch.ops.assembly import member_material
+
+    jmat, tmat = both_materials(hidden_layers=hidden_layers)
+    jd, td = both_data(jmat, tmat, n_nodes=301)
+    flat, lfs, c, scales, widths = member_inputs(tmat, td)
+    got = tmk.material_coefficients_batched_reference(
+        td.mid, td.inv_len, lfs, flat, scales, widths)
+    assert all(t.shape == (MEMBERS, td.nelm) for t in got)
+    blocks = tmk.batched_grad_blocks(td.nelm, MEMBERS, tmk.CPU_BLOCKS)
+    plain = tmk.material_coefficients_backward_batched_reference(
+        td.mid, td.inv_len, lfs, flat, scales, widths, got[0], got[1],
+        [torch.from_numpy(c[:, k]) for k in range(4)])
+    for b in range(MEMBERS):
+        one = tmk.material_coefficients_reference(
+            td.mid, td.inv_len, float(lfs[b]), member_material(tmat, flat[b]))
+        assert all(torch.equal(x[b], y) for x, y in zip(got, one)), b
+        single = tmk.material_coefficients_backward_reference(
+            td.mid, td.inv_len, float(lfs[b]), flat[b], scales, widths,
+            got[0][b], got[1][b], [torch.from_numpy(c[b, k])
+                                   for k in range(4)], blocks=blocks)
+        assert torch.equal(plain[b], single), b
+    th = flat.clone().requires_grad_()
+    out = tmk.material_coefficients_batched_reference(
+        td.mid, td.inv_len, lfs, th, scales, widths)
+    loss = sum(torch.sum(torch.from_numpy(c[:, k]) * out[k])
+               for k in range(4))
+    twin = torch.autograd.grad(loss, th)[0].numpy()
+    want = jax_vmap_grad(jmat, jd, jax_layers(tmat, flat), lfs, c)
+    for b in range(MEMBERS):
+        scale = np.abs(want[b]).max()
+        np.testing.assert_allclose(twin[b], want[b], rtol=0,
+                                   atol=BOUND * scale)
+        np.testing.assert_allclose(plain[b].numpy(), want[b], rtol=0,
+                                   atol=BOUND * scale)
+
+
+def test_batched_plan_shares_the_card_out():
+    """The batched backward's blocks a member: the one-member grid at
+    B = 1, the resident blocks shared out over the members, at least one
+    and at most one a tile; the forward's x-grid likewise
+    (member_plan)."""
+    assert tmk.batched_grad_blocks(79102, 1, 396) == 396
+    assert tmk.batched_grad_blocks(79102, 8, 396) == 49
+    assert tmk.batched_grad_blocks(79102, 1000, 396) == 1
+    assert tmk.batched_grad_blocks(300, 2, 396) == 3
+    plan = tmk.forward_plan(8 * 79102, 4, 132, 2, 256)
+    assert tmk.member_plan(plan, 1) == plan
+    assert tmk.member_plan(plan, 8).blocks == -(-plan.blocks // 8)
+    assert tmk.member_plan(tmk.ForwardPlan(2, 128, 3), 8).blocks == 1
