@@ -186,7 +186,32 @@ code is not 0 and no result line is printed:
      payloads exit 0 with the four keys, an unresolvable measured_batch
      exits 1 with {error, type}; (g) float64 CUDA operands at the batched
      material dispatch refused with the ValueError naming PINN_FEM_TPU_X64
-     and kernels 4 and 4b, and mesh= refused.
+     and kernels 4 and 4b, and mesh= refused;
+ 16. modal and buckling analyses: (a) dyn-modal.json and dyn-buckling.json
+     through main() on cuda (the dense float64 path, torch on the card),
+     each within 1e-10 of the port's CPU run of the document (|shapes|
+     within 1e-8), no repo kernel; (b) modal_analysis of the 100 x 200
+     grid at the JAX defaults (6 modes, lumped, n_iter 25, cg_tol 1e-8):
+     16 block columns, one fused PCG each a subspace iteration, kernel 1
+     exactly 25 x 16 + 6 times and kernels 2 and 3 each the sum over the
+     solves of 32 ceil(iterations / 32), the PCG iterations (sum, largest
+     and smallest column, stalls at max_iter), wall, residuals, ok and the
+     Ritz change, the eigenvalues within 1e-2 of scipy's float64
+     shift-invert eigsh, and the last block solve bit-equal to the twin
+     recurrence (fused_cg_solve_reference) on the card; (c)
+     buckling_analysis of a 32 x 36 cross-braced strip in compression
+     (2,304 DOFs, above the dense limit; kappa(K_ff) computed in float64
+     and logged, eps32 kappa <= 1e-2): kernel 1 exactly 4 x 30 x 8 times,
+     kernels 2 and 3 as in (b), load factors within max(1e-3, 10 eps32
+     kappa) of scipy's dense float64 eigh, a block solve bit-equal to the
+     twin; (d) solve_transient(method="modal", 6 modes) on the 100 x 200
+     grid under a load in the span of its three lowest float64 modes,
+     2,000 steps at the central step, against method="central": u within
+     2e-3 of max |u| and KE within 1e-2 of its max (tests/test_dynamics.py
+     :380), ms a step of the modal integration (no repo kernel) and its
+     idle share; (e) float64 CUDA operands on the banded modal and
+     buckling paths refused with the ValueError naming PINN_FEM_TPU_X64
+     and kernels 1-3.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -201,7 +226,8 @@ kernel 4 also its launches on phase 9's paths, kernels 1-3 theirs on
 phase 10's documents, kernels 4 and 4b theirs on phase 11's legacy
 paths, every kernel its launches on phase 12's paths and, as
 launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
-as launches_batched on phase 15's, kernel 1 also its times at the
+as launches_batched on phase 15's, as launches_eigen on phase 16's,
+kernel 1 also its times at the
 multigrid's level shapes, kernels 4 and 4b their member-axis times at
 B = 1, 8 and 32 as members); the last is
 {"ok": true,
@@ -4090,6 +4116,379 @@ def phase_batched(workdir: Path, dev, card: str) -> dict:
     return {"launches": launches, "members": members}
 
 
+# Phase 16: modal and buckling analyses.
+EIGEN_DOCS = {"dyn-modal": ("eigenvalues", "omegas", "frequencies_hz"),
+              "dyn-buckling": ("load_factors", "axial_forces", "u_base")}
+EIGEN_DOC_RTOL = 1e-10          # card against the port's CPU run, float64
+EIGEN_SHAPE_ATOL = 1e-8         # |phi|, card against CPU (signs arbitrary)
+MODAL_MODES = 6                 # 16(b): n_iter 25, cg_tol 1e-8 (defaults)
+MODAL_ITERS = 25
+MODAL_RTOL = 1e-2               # pinn_fem_tpu/solvers/modal.py:29-31
+BUCKLING_STRIP = (32, 36)       # 16(c): 2,304 DOFs, kappa(K_ff) ~ 1.4e4
+BUCKLING_YOUNG = 100.0
+BUCKLING_MODES = 2
+BUCKLING_ITERS = 30             # buckling_analysis's default
+EPS32 = 2.0 ** -23
+MODAL_TRANSIENT_STEPS = 2000    # 16(d)
+MODAL_TRANSIENT_EVERY = 20
+MODAL_TRANSIENT_ALPHA = 2e-4    # Rayleigh alpha: zeta_1 ~ 0.08
+MODAL_CENTRAL_U_ATOL = 2e-3     # tests/test_dynamics.py:380-390's bounds,
+MODAL_CENTRAL_KE_ATOL = 1e-2    # of max |u| and of max KE
+
+
+def pcg_rounds(solves) -> int:
+    """Kernels 2 and 3's launches over fused PCG solves (Spy records):
+    whole rounds of CHECK_EVERY iterations until the flag read finds the
+    solve stopped."""
+    from pinn_fem_tpu_torch.ops.kernels import cg_kernel
+
+    every = cg_kernel.CHECK_EVERY
+    return sum(every * -(-int(res[1]) // every) for _, _, res in solves)
+
+
+def solve_stats(solves) -> dict:
+    its = [int(res[1]) for _, _, res in solves]
+    return {"solves": len(its), "pcg_iterations": sum(its),
+            "largest_column": max(its), "smallest_column": min(its),
+            "max_iter": solves[0][1]["max_iter"],
+            "stalled": sum(it >= solves[0][1]["max_iter"] for it in its)}
+
+
+def eigen_documents(workdir: Path, card: str) -> dict:
+    """16(a): dyn-modal.json and dyn-buckling.json through main() on the
+    card (the dense float64 path: torch on the card, no repo kernel),
+    each against the port's own CPU run of the document."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.analysis import run_analysis
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    launches, gaps = {}, {}
+    for name, keys in EIGEN_DOCS.items():
+        doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                         .read_text())
+        path = workdir / f"{name}.json"
+        path.write_text(json.dumps(doc))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        require(main([str(path)]) == 0, f"{name}: exit code 0")
+        card_s = time.perf_counter() - t0
+        launches[name] = kernels.launch_counts()
+        got = json.loads((workdir / f"{name}.res.json").read_text())
+        want = run_analysis(parse_problem_dict(doc).problem,
+                            doc["analysis"], "cpu")
+        shapes = "mode_shapes" if "modal" in name else "buckling_modes"
+        gaps[name] = {key: rel_err(got[key], want[key]) for key in keys}
+        gaps[name]["abs_shapes"] = float(np.abs(
+            np.abs(np.asarray(got[shapes])) - np.abs(np.asarray(
+                want[shapes]))).max())
+        gaps[name]["s"] = card_s
+        require(list(got) == list(want) and got["ok"] == want["ok"] is True,
+                f"{name}: the CPU run's keys and ok")
+        require(max(gaps[name][key] for key in keys) <= EIGEN_DOC_RTOL,
+                f"{name}: within {EIGEN_DOC_RTOL} of the CPU run")
+        require(gaps[name]["abs_shapes"] <= EIGEN_SHAPE_ATOL,
+                f"{name}: |shapes| within {EIGEN_SHAPE_ATOL} of the CPU run")
+    log("phase16a_documents", card=card, gaps=gaps, launches=launches)
+    return launches
+
+
+def float64_grid_modes(problem, n_modes: int):
+    """The lowest (eigenvalues, M-orthonormal shapes (ndof, n)) of the
+    E = A = rho = 1 grid by scipy's shift-invert Lanczos in float64."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    from pinn_fem_tpu_torch.examples_grid import (float64_lumped_mass,
+                                                  float64_stiffness)
+
+    k = float64_stiffness(problem.nodes, problem.elements)
+    m = float64_lumped_mass(problem.nodes, problem.elements)
+    free = problem.free_fixed()[0]
+    w, v = spl.eigsh(k[free][:, free].tocsc(), k=n_modes,
+                     M=sp.diags(m[free]).tocsc(), sigma=0, which="LM")
+    order = np.argsort(w)
+    shapes = np.zeros((problem.ndof, n_modes))
+    shapes[free] = v[:, order]
+    return w[order], shapes, m
+
+
+def modal_grid(dev, card: str) -> dict:
+    """16(b): banded modal analysis of the 100 x 200 grid at the JAX
+    defaults (lumped, n_iter 25, cg_tol 1e-8), against float64 eigsh."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import modal_analysis
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import dia, kernels
+    from pinn_fem_tpu_torch.ops.kernels import fused_cg_solve_reference
+    from pinn_fem_tpu_torch.solvers import modal
+
+    problem = grid_problem(*GRID)
+    data = problem.to_device(dev)
+    k = min(2 * MODAL_MODES + 4, problem.free_fixed()[0].size)
+    with Spy(dia, "dia_cg_solve") as solves, \
+            Spy(modal, "_subspace_iteration") as subspace:
+        kernels.reset_launch_counts()
+        wall, res = synced(lambda: modal_analysis(
+            problem, n_modes=MODAL_MODES, data=data))
+        launches = kernels.launch_counts()
+    stats = solve_stats(solves)
+    ritz_change = subspace[0][2][2].cpu().numpy()
+    t0 = time.perf_counter()
+    w64, shapes64, mass = float64_grid_modes(problem, MODAL_MODES)
+    f64_s = time.perf_counter() - t0
+    gap = np.abs(res.eigenvalues / w64 - 1.0)
+    mac = np.diag(modal.mac(res.shapes, shapes64))
+    args, kwargs, (x, it, _) = solves[-1]
+    twin_s, (x_twin, it_twin, _) = synced(
+        lambda: fused_cg_solve_reference(*args, **kwargs))
+    expected = {"dia_matvec": MODAL_ITERS * k + MODAL_MODES,
+                "dia_dir_matvec": pcg_rounds(solves),
+                "cg_update": pcg_rounds(solves)}
+    log("phase16b_modal_grid", card=card, ndof=problem.ndof,
+        n_modes=MODAL_MODES, n_iter=MODAL_ITERS, block_columns=k, wall_s=wall,
+        ms_per_pcg_iteration=1e3 * wall / max(stats["pcg_iterations"], 1),
+        launches=launches, predicted=expected, **stats,
+        eigenvalues=res.eigenvalues.tolist(), float64=w64.tolist(),
+        rel_gap=gap.tolist(), mac_vs_float64=mac.tolist(),
+        residuals=res.residuals.tolist(), ok=res.ok,
+        ritz_change=ritz_change.tolist(), float64_s=f64_s,
+        twin_column={"iterations": int(it_twin), "s": twin_s,
+                     "bit_equal": bool(torch_equal(x, x_twin))})
+    require(launches == dict(expected, material_coefficients=0,
+                             material_coefficients_backward=0),
+            "16(b): kernels 1-3 launched as the block solves count")
+    require(int(it) == int(it_twin) and torch_equal(x, x_twin),
+            "16(b): a block solve bit-equal to the twin recurrence")
+    require(float(gap.max()) <= MODAL_RTOL,
+            f"16(b): eigenvalues within {MODAL_RTOL} of float64 eigsh")
+    require(bool(np.all(np.isfinite(res.shapes)))
+            and res.shapes.shape == (problem.ndof, MODAL_MODES),
+            "16(b): finite shapes of the expected shape")
+    return {"launches": launches, "shapes64": shapes64, "mass": mass}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def float64_strip_buckling(problem, young: float, n_modes: int):
+    """(load factors, kappa(K_ff)) of a 2D truss with A = 1 and Young's
+    modulus `young`, by a sparse float64 static solve and scipy's dense
+    generalized eigh of (-K_g, K) on the free block."""
+    import numpy as np
+    import scipy.linalg as sl
+    import scipy.sparse.linalg as spl
+
+    from pinn_fem_tpu_torch.examples_grid import float64_stiffness
+
+    nodes, el = problem.nodes, problem.elements
+    k = young * float64_stiffness(nodes, el)
+    free = problem.free_fixed()[0]
+    u = np.zeros(problem.ndof)
+    u[free] = spl.spsolve(k[free][:, free].tocsc(), problem.loads[free])
+    dx = nodes[el[:, 1]] - nodes[el[:, 0]]
+    length = np.linalg.norm(dx, axis=1)
+    g = np.concatenate([-dx, dx], axis=1) / length[:, None]
+    dof = np.concatenate([2 * el[:, :1], 2 * el[:, :1] + 1,
+                          2 * el[:, 1:], 2 * el[:, 1:] + 1], axis=1)
+    n_e = young * np.sum(g * u[dof], axis=1) / length
+    eye = np.eye(2)
+    pattern = np.block([[eye, -eye], [-eye, eye]])
+    kg = np.zeros((problem.ndof, problem.ndof))
+    np.add.at(kg, (dof[:, :, None], dof[:, None, :]),
+              (n_e / length)[:, None, None] * pattern)
+    k_ff = k[free][:, free].toarray()
+    mu = sl.eigh(-kg[np.ix_(free, free)], k_ff, eigvals_only=True)[::-1]
+    w = sl.eigvalsh(k_ff)
+    return 1.0 / mu[mu > 0][:n_modes], float(w[-1] / w[0])
+
+
+def buckling_strip(dev, card: str) -> dict:
+    """16(c): banded buckling of a compressed cross-braced strip above the
+    dense limit, against dense float64."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import Material, TrussProblem, buckling_analysis
+    from pinn_fem_tpu_torch.examples_grid import grid_arrays
+    from pinn_fem_tpu_torch.ops import dia, kernels
+    from pinn_fem_tpu_torch.ops.kernels import fused_cg_solve_reference
+    from pinn_fem_tpu_torch.solvers import newton
+
+    rows, cols = BUCKLING_STRIP
+    nodes, elements, _, fixed = grid_arrays(rows, cols)
+    loads = np.zeros(2 * rows * cols)
+    loads[2 * (np.arange(rows) * cols + cols - 1)] = -1.0   # compression
+    problem = TrussProblem(nodes, elements,
+                           Material(young=BUCKLING_YOUNG, area=1.0,
+                                    density=1.0), loads, fixed, 2)
+    require(problem.ndof > newton.DENSE_DOF_LIMIT,
+            "16(c): the strip is above the dense limit")
+    data = problem.to_device(dev)
+    k = min(2 * BUCKLING_MODES + 4, problem.free_fixed()[0].size)
+    with Spy(dia, "dia_cg_solve") as solves:
+        kernels.reset_launch_counts()
+        wall, res = synced(lambda: buckling_analysis(
+            problem, n_modes=BUCKLING_MODES, data=data))
+        launches = kernels.launch_counts()
+    stats = solve_stats(solves)
+    t0 = time.perf_counter()
+    lam64, kappa = float64_strip_buckling(problem, BUCKLING_YOUNG,
+                                          BUCKLING_MODES)
+    f64_s = time.perf_counter() - t0
+    gap = np.abs(res.load_factors / lam64 - 1.0)
+    bound_ = max(1e-3, 10.0 * EPS32 * kappa)
+    args, kwargs, (x, it, _) = solves[-1]
+    x_twin, it_twin, _ = fused_cg_solve_reference(*args, **kwargs)
+    expected = {"dia_matvec": 4 * BUCKLING_ITERS * k,
+                "dia_dir_matvec": pcg_rounds(solves),
+                "cg_update": pcg_rounds(solves)}
+    log("phase16c_buckling_strip", card=card, rows=rows, cols=cols,
+        ndof=problem.ndof, n_modes=BUCKLING_MODES, n_iter=BUCKLING_ITERS,
+        block_columns=k, wall_s=wall, launches=launches, predicted=expected,
+        **stats, load_factors=res.load_factors.tolist(),
+        float64=lam64.tolist(), rel_gap=gap.tolist(), kappa_k_ff=kappa,
+        eps32_kappa=EPS32 * kappa, gate=bound_, ok=res.ok, float64_s=f64_s,
+        twin_column_bit_equal=torch_equal(x, x_twin))
+    require(EPS32 * kappa <= 1e-2, "16(c): eps32 kappa(K_ff) <= 1e-2")
+    require(launches == dict(expected, material_coefficients=0,
+                             material_coefficients_backward=0),
+            "16(c): kernels 1-3 launched as the solves and products count")
+    require(int(it) == int(it_twin) and torch_equal(x, x_twin),
+            "16(c): a block solve bit-equal to the twin recurrence")
+    require(float(gap.max()) <= bound_,
+            "16(c): load factors within max(1e-3, 10 eps32 kappa) of "
+            "dense float64")
+    require(res.ok and bool(np.all(np.isfinite(res.modes))),
+            "16(c): converged, finite modes")
+    return launches
+
+
+def modal_transient_grid(dev, card: str, shapes64, mass) -> dict:
+    """16(d): solve_transient(method="modal") on the 100 x 200 grid against
+    the central method's probe history, under a load in the span of the
+    three lowest float64 modes (M phi_1 + M phi_2 / 2 + M phi_3 / 4), so
+    that the six retained modes carry the whole response."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import TrussProblem, solve_transient, stable_dt
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers import dynamics
+
+    base = grid_problem(*GRID)
+    loads = mass * (shapes64[:, :3] @ np.array([1.0, 0.5, 0.25]))
+    problem = TrussProblem(base.nodes, base.elements, base.material, loads,
+                           base.fixed_dofs, 2)
+    data = problem.to_device(dev)
+    nid = np.arange(GRID[0] * GRID[1]).reshape(GRID)
+    probe = np.array([2 * nid[-1, -1], 2 * nid[-1, -1] + 1,
+                      2 * nid[GRID[0] // 2, -1] + 1])
+    dt = stable_dt(problem, data=data)
+    kw = dict(record_every=MODAL_TRANSIENT_EVERY, probe_dofs=probe,
+              damping=(MODAL_TRANSIENT_ALPHA, 0.0), data=data)
+    n = MODAL_TRANSIENT_STEPS
+    central_s, central = synced(lambda: solve_transient(
+        problem, dt, n, method="central", **kw))
+    with Spy(dynamics, "_modal_run") as runs:
+        kernels.reset_launch_counts()
+        wall, modal = synced(lambda: solve_transient(
+            problem, dt, n, method="modal", n_modes=MODAL_MODES, **kw))
+        launches = kernels.launch_counts()
+    args, kwargs, _ = runs[0]
+    kernels.reset_launch_counts()
+    run_s, _ = synced(lambda: dynamics._modal_run(*args, **kwargs))
+    run_launches = kernels.launch_counts()
+    idle = idle_profile(lambda: dynamics._modal_run(*args, **kwargs))
+    scale = float(np.abs(central.displacements).max())
+    u_gap = float(np.abs(modal.displacements - central.displacements).max())
+    ke_gap = float(np.abs(modal.kinetic_energy
+                          - central.kinetic_energy).max())
+    ke_scale = float(central.kinetic_energy.max())
+    log("phase16d_modal_transient", card=card, ndof=problem.ndof, dt=dt,
+        n_steps=n, record_every=MODAL_TRANSIENT_EVERY, n_modes=MODAL_MODES,
+        modal_s=wall, central_s=central_s, integration_s=run_s,
+        ms_per_step=1e3 * run_s / n,
+        central_ms_per_step=1e3 * central_s / n, launches=launches,
+        integration_launches=run_launches,
+        u_gap_over_max=u_gap / scale, ke_gap_over_max=ke_gap / ke_scale,
+        **idle)
+    require(bool(np.all(np.isfinite(modal.displacements)))
+            and modal.displacements.shape == central.displacements.shape,
+            "16(d): finite records of the central run's shape")
+    require(u_gap <= MODAL_CENTRAL_U_ATOL * scale,
+            f"16(d): u within {MODAL_CENTRAL_U_ATOL} of max |u| of central")
+    require(ke_gap <= MODAL_CENTRAL_KE_ATOL * ke_scale,
+            f"16(d): KE within {MODAL_CENTRAL_KE_ATOL} of central's max")
+    require(not any(run_launches.values()),
+            "16(d): the modal integration launches no repo kernel")
+    return launches
+
+
+def eigen_refusals(dev, card: str) -> None:
+    """16(e): float64 CUDA operands on the banded modal and buckling paths
+    raise the ValueError naming PINN_FEM_TPU_X64 and kernels 1-3."""
+    import torch
+
+    from pinn_fem_tpu_torch import buckling_analysis, modal_analysis
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels
+
+    problem = grid_problem(*GRID)
+    data = problem.to_device(dev, torch.float64)
+    refused = {}
+    kernels.reset_launch_counts()
+    for fn in (modal_analysis, buckling_analysis):
+        try:
+            fn(problem, n_modes=2, data=data)
+            refused[fn.__name__] = None
+        except ValueError as e:
+            refused[fn.__name__] = str(e)
+    launches = kernels.launch_counts()
+    log("phase16e_refusals", card=card, refused=refused, launches=launches)
+    for name, msg in refused.items():
+        require(msg is not None and "PINN_FEM_TPU_X64" in msg
+                and "kernels 1-3" in msg,
+                f"16(e): float64 {name} refused, naming the variable and "
+                "kernels 1-3")
+    require(not any(launches.values()), "16(e): no launch before refusal")
+
+
+def phase_eigen(workdir: Path, dev, card: str) -> dict:
+    """Phase 16: modal and buckling analyses on the card.  Returns the
+    kernels' launches on each of its paths."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    launches = eigen_documents(workdir, card)
+    lap("a")
+    grid = modal_grid(dev, card)
+    launches["modal_40k"] = grid["launches"]
+    lap("b")
+    launches["buckling_strip"] = buckling_strip(dev, card)
+    lap("c")
+    launches["modal_transient_40k"] = modal_transient_grid(
+        dev, card, grid["shapes64"], grid["mass"])
+    lap("d")
+    eigen_refusals(dev, card)
+    lap("e")
+    log("phase16_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return launches
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -4111,6 +4510,7 @@ def main() -> int:
         dynamics = phase_dynamics(Path(tmp), dev, card)
         multigrid = phase_multigrid(dev, card)
         batched = phase_batched(Path(tmp), dev, card)
+        eigen = phase_eigen(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -4148,6 +4548,8 @@ def main() -> int:
         entries[-1]["launches_batched"] = {
             path: counts[name]
             for path, counts in batched["launches"].items()}
+        entries[-1]["launches_eigen"] = {
+            path: counts[name] for path, counts in eigen.items()}
         if name in MATERIAL:
             side = ("forward" if name == "material_coefficients"
                     else "backward")

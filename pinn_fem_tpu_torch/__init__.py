@@ -24,7 +24,10 @@ checkpoint_dir / resume write and read the JAX package's checkpoint files
 difference on the stencil kernel, Newmark on the fused PCG above the dense
 limit), its checkpointed form, stable_dt, moving-load and base-excitation
 loads, the mass matrices, and "transient" analysis documents through the
-CLI.  ROADMAP.md lists what is still to port.
+CLI.  Modal and linearized-buckling analyses (solvers/modal.py,
+solvers/buckling.py) run dense in float64 and banded on the fused PCG,
+through "modal" and "buckling" documents and solve_transient(method=
+"modal").  ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -46,9 +49,26 @@ from .models.fields import (  # noqa: E402
     material_from_numpy,
     to_field,
 )
-from .models.problem import ProblemData, TrussProblem  # noqa: E402
+from .models.problem import (  # noqa: E402
+    ProblemData,
+    TrussProblem,
+    element_dofs,
+    free_and_fixed_dofs,
+    split_element_data,
+)
+from .ops.assembly import (  # noqa: E402
+    assemble_system,
+    compute_residual_and_jacobian,
+    element_strain_stress,
+    internal_force_and_strain,
+)
 from .ops.mass import consistent_mass, lumped_mass, total_mass  # noqa: E402
 from .ops.thermal import thermal_free_strains, thermal_loads  # noqa: E402
+from .solvers.buckling import (  # noqa: E402
+    BucklingResult,
+    buckling_analysis,
+    buckling_eigenvalues,
+)
 from .solvers.driver import solve  # noqa: E402
 from .solvers.dynamics import (  # noqa: E402
     TransientResult,
@@ -71,17 +91,31 @@ from .solvers.legacy import (  # noqa: E402
     solve_pinn_gradient_descent,
     solve_pinn_newton_raphson,
 )
+from .solvers.modal import (  # noqa: E402
+    ModalResult,
+    mac,
+    modal_analysis,
+    modal_eigenpairs,
+    modal_eigenvalues,
+    rayleigh_coefficients,
+)
 from .solvers.newton import solve_nr  # noqa: E402
 
 __all__ = [
-    "LegacySolverConfig", "Material", "MLPField", "PINNGradientDescentConfig",
-    "PINNSolverConfig", "PINNSolverResult", "ProblemData", "ScalarField",
-    "SolverConfig", "SolverResult", "TransientResult", "TrussProblem",
-    "base_excitation_force_fn", "consistent_mass", "lumped_mass",
-    "make_mlp_field", "material_from_numpy", "moving_load_force_fn",
+    "BucklingResult", "LegacySolverConfig", "Material", "MLPField",
+    "ModalResult", "PINNGradientDescentConfig", "PINNSolverConfig",
+    "PINNSolverResult", "ProblemData", "ScalarField", "SolverConfig",
+    "SolverResult", "TransientResult", "TrussProblem", "assemble_system",
+    "base_excitation_force_fn", "buckling_analysis", "buckling_eigenvalues",
+    "compute_residual_and_jacobian", "consistent_mass", "element_dofs",
+    "element_strain_stress", "free_and_fixed_dofs",
+    "internal_force_and_strain", "lumped_mass", "mac", "make_mlp_field",
+    "material_from_numpy", "modal_analysis", "modal_eigenpairs",
+    "modal_eigenvalues", "moving_load_force_fn", "rayleigh_coefficients",
     "solve", "solve_full_nr", "solve_gauss_newton", "solve_gd",
     "solve_hybrid", "solve_incremental_newton", "solve_nr",
     "solve_pinn_gradient_descent", "solve_pinn_newton_raphson",
-    "solve_transient", "solve_transient_checkpointed", "stable_dt",
-    "thermal_free_strains", "thermal_loads", "to_field", "total_mass",
+    "solve_transient", "solve_transient_checkpointed", "split_element_data",
+    "stable_dt", "thermal_free_strains", "thermal_loads", "to_field",
+    "total_mass",
 ]

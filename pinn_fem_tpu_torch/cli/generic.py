@@ -18,7 +18,8 @@ CUDA without a card is an error, not a CPU run.  PINN_FEM_TPU_SEED seeds
 the NN initialisation, as in the JAX CLI.  An "analysis" document
 (routed, as in the JAX CLI, on the parsed document's meta["analysis"])
 runs io/analysis.run_analysis and writes its result dict; of the analysis
-types only "transient" is ported (the others exit 1, ROADMAP item 17).
+types "transient", "modal" and "buckling" are ported (the others exit 1,
+naming their ROADMAP item).
 Element-family documents ("element_type") are not yet ported and exit 1.
 """
 
@@ -119,13 +120,20 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
             json.dump(output, f, indent=2)
         logger.info("%s", "=" * 60)
         logger.info("ANALYSIS SUMMARY (%s):", output["analysis"])
-        # An ensemble result has no "method" (central only): the JAX CLI
-        # raises KeyError on it after writing the result (ROADMAP fault
-        # 3.16); here it logs the batch instead.
-        logger.info("  Steps: %d (dt=%.3e, method=%s)",
-                    output["n_steps"], output["dt"],
-                    output.get("method",
-                               f"central, ensemble of {output.get('batch')}"))
+        if output["analysis"] == "modal":
+            logger.info("  Frequencies (Hz): %s",
+                        ["%.6g" % f for f in output["frequencies_hz"]])
+        elif output["analysis"] == "buckling":
+            logger.info("  Critical load factors: %s",
+                        output["load_factors"])
+        else:
+            # An ensemble result has no "method" (central only): the JAX
+            # CLI raises KeyError on it after writing the result (ROADMAP
+            # fault 3.16); here it logs the batch instead.
+            logger.info("  Steps: %d (dt=%.3e, method=%s)",
+                        output["n_steps"], output["dt"],
+                        output.get("method", "central, ensemble of "
+                                   f"{output.get('batch')}"))
         logger.info("Results written to %s", output_file)
         return output
 

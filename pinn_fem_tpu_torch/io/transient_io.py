@@ -1,8 +1,8 @@
 """Transient ("analysis": {"type": "transient"}) JSON runner (counterpart
 of pinn_fem_tpu/io/transient_io.py).
 
-Central-difference or Newmark integration of the document's truss
-(solvers/dynamics.py) with its amplitude, damping, prestress, moving-load
+Central-difference, Newmark or modal-superposition integration of the
+document's truss (solvers/dynamics.py) with its amplitude, damping, prestress, moving-load
 or base-excitation load and checkpoint specs, the ensemble of (B, n_steps)
 "amplitudes" and the "include_stress_envelope" of a single run
 (parallel/batched.solve_transient_batched); the result dict has the JAX

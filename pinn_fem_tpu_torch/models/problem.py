@@ -22,6 +22,35 @@ from ..utils.runtime import default_dtype, resolve_device
 from .fields import Material
 
 
+def element_dofs(node_i: int, node_j: int) -> np.ndarray:
+    """2D element DOF map (reference geometry.py:8-9)."""
+    return np.array([2 * node_i, 2 * node_i + 1, 2 * node_j, 2 * node_j + 1],
+                    dtype=int)
+
+
+def free_and_fixed_dofs(ndof: int, fixed_dofs: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Partition DOFs into (free, fixed) index arrays (reference
+    boundary.py:8-13)."""
+    fixed = np.unique(np.asarray(fixed_dofs, dtype=int).reshape(-1))
+    mask = np.ones(ndof, dtype=bool)
+    mask[fixed] = False
+    return np.flatnonzero(mask), fixed
+
+
+def split_element_data(nodes: np.ndarray, disp: np.ndarray, node_i: int,
+                       node_j: int
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                  np.ndarray]:
+    """(x_i0, x_j0, u_i, u_j) for one 2D element (reference
+    geometry.py:12-18)."""
+    x_i0 = nodes[node_i]
+    x_j0 = nodes[node_j]
+    u_i = np.array([disp[2 * node_i], disp[2 * node_i + 1]], dtype=float)
+    u_j = np.array([disp[2 * node_j], disp[2 * node_j + 1]], dtype=float)
+    return x_i0, x_j0, u_i, u_j
+
+
 @dataclass
 class ProblemData:
     """Device-resident structure of arrays of a truss problem.

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..models.fields import Material, MLPField, assembly_inputs
@@ -151,6 +152,42 @@ def internal_force_and_strain(data: ProblemData, material: Material,
     gu = torch.sum(data.gvec * u_e, dim=-1)
     fe = (s * gu)[:, None] * data.gvec
     return _scatter_dofs(data, fe), gu * data.inv_len
+
+
+def compute_residual_and_jacobian(data: ProblemData, material: Material,
+                                  u: torch.Tensor, f_ext: torch.Tensor,
+                                  free_idx, load_factor=1.0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R_free, K_ff): the residual (f_int(u) - f_ext)[free] and the
+    tangent K(u)[free, :][:, free], the reference's exported
+    nn_assembly.py:234-261 helper.  free_idx: the free DOFs
+    (TrussProblem.free_fixed()[0]); f_ext carries any load factor, which
+    load_factor forwards to load-factor-aware NN fields.  Differentiable
+    in u and in the material parameters."""
+    k_global, f_int, _ = assemble_system(data, material, u, load_factor)
+    free = torch.as_tensor(np.asarray(free_idx, dtype=np.int64)).to(u.device)
+    return (f_int - f_ext)[free], k_global[free][:, free]
+
+
+def element_strain_stress(data: ProblemData, material: Material,
+                          u: torch.Tensor, engineering: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-element strain and stress sigma = E eps.  engineering: eps =
+    (L - L0) / L0 on the deformed chord (api_fem_solver's
+    compute_element_stresses); otherwise the linear strain g.u_e / L0."""
+    u_e = u[data.dof_map]                                   # (nelm, 2d)
+    dim = data.dimension
+    du = u_e[:, dim:] - u_e[:, :dim]                        # (nelm, dim)
+    # Rest chord = direction cosines * L0 = gvec[:, dim:] / inv_len.
+    dx0 = data.gvec[:, dim:] / data.inv_len[:, None]
+    if engineering:
+        l_def = torch.linalg.vector_norm(dx0 + du, dim=1)
+        eps = (l_def - 1.0 / data.inv_len) * data.inv_len
+    else:
+        eps = torch.sum(data.gvec * u_e, dim=-1) * data.inv_len
+    x = assembly_inputs(data.mid, dim, 1.0)
+    young = material.young.eval_batch(x)
+    return eps, young * eps
 
 
 # --------------------------------------------------------- B members at once

@@ -7,12 +7,15 @@ operators stay part of the contract all the same: `stable_dt` takes its
 small-mesh bound from them on every backend, and the prestress of a small
 transient document comes from `host_static_solve`.  Each function mirrors
 a device op of the port (host_stiffness <-> ops/assembly.assemble_system,
-host_lumped_mass <-> ops/mass.lumped_mass, host_geometric_stiffness <->
-ops/geometric.assemble_geometric), in float64.
+host_lumped_mass <-> ops/mass.lumped_mass, host_consistent_mass <->
+ops/mass.consistent_mass, host_geometric_stiffness <->
+ops/geometric.assemble_geometric), in float64.  The dense modal and
+buckling analyses (solvers/modal.py, solvers/buckling.py) build their
+float64 operators here and solve them with torch on the caller's device.
 
 MLP fields are evaluated here in numpy from float64 copies of their
-weights.  The rest of the JAX module (consistent mass, the nonlinear and
-plastic systems of the analysis family) comes with ROADMAP item 17.
+weights.  The rest of the JAX module (the nonlinear and plastic systems
+of the analysis family) comes with ROADMAP item 17.
 """
 
 from __future__ import annotations
@@ -128,6 +131,18 @@ def host_lumped_mass(problem: TrussProblem) -> np.ndarray:
     np.add.at(m, dof_map, np.broadcast_to((0.5 * m_e)[:, None],
                                           dof_map.shape))
     return m + problem.point_mass_dof()
+
+
+def host_consistent_mass(problem: TrussProblem) -> np.ndarray:
+    """Dense (ndof, ndof) consistent mass, payload mass on the diagonal."""
+    _, _, inv_len, _ = _geometry(problem)
+    x = _assembly_inputs(problem, 1.0)
+    m_e = (eval_field_host(problem.material.density, x)
+           * eval_field_host(problem.material.area, x) / inv_len)
+    eye = np.eye(problem.dimension)
+    pattern = np.block([[2.0 * eye, eye], [eye, 2.0 * eye]]) / 6.0
+    return (_scatter_blocks(problem, m_e[:, None, None] * pattern[None])
+            + np.diag(problem.point_mass_dof()))
 
 
 def host_axial_forces(problem: TrussProblem, u: np.ndarray,

@@ -31,14 +31,7 @@ from ..models.problem import TrussProblem
 from ..solvers.gd import get_theta
 from ..solvers.phases import (gd_phase_batched, nr_phase_batched,
                               reactions_of_batched, theta_param_list)
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the batch sharded over a device mesh: parallel/mesh.py, "
-            "sharded.py, dia_sharded.py) is not yet ported, ROADMAP item 15's "
-            "multi-device row; give mesh=None")
+from . import refuse_mesh
 
 
 def _stack(xs):
@@ -137,7 +130,7 @@ def solve_gd_batched(problem: TrussProblem, loads_batch: np.ndarray,
         dict with u (B, ndof), theta (stacked), reactions, iterations,
         converged, residual_norm: all batched.
     """
-    _refuse_mesh(mesh)
+    refuse_mesh(mesh)
     config = config or SolverConfig()
     data, material, loads_b, params, theta0, has_meas, mvals, mdofs = \
         _members(problem, loads_batch, config, thetas, measured_batch,
@@ -177,7 +170,7 @@ def solve_gd_batched_incremental(problem: TrussProblem,
     theta, reactions, converged (no increment failed), residual_norm (the
     last increment the member ran), total_iterations: all batched (B, ...).
     """
-    _refuse_mesh(mesh)
+    refuse_mesh(mesh)
     config = config or SolverConfig()
     data, material, loads_b, params, theta0, has_meas, mvals, mdofs = \
         _members(problem, loads_batch, config, thetas, measured_batch,
@@ -223,7 +216,7 @@ def solve_nr_batched(problem: TrussProblem, loads_batch: np.ndarray,
     one tangent, factored once; otherwise each member factors its own.
     A member whose tangent does not factor returns u all NaN and
     converged false; nothing raises."""
-    _refuse_mesh(mesh)
+    refuse_mesh(mesh)
     config = config or SolverConfig()
     data = problem.to_device(device)
     dtype, dev = data.loads.dtype, data.device
@@ -279,7 +272,7 @@ def solve_transient_batched(problem: TrussProblem, dt: float, n_steps: int,
     from ..ops.elements import truss2d_green_lagrange_batch
     from ..ops.mass import lumped_mass
 
-    _refuse_mesh(mesh)
+    refuse_mesh(mesh)
     if amplitudes is None and loads_batch is None:
         raise ValueError("give amplitudes (B, n_steps) and/or "
                          "loads_batch (B, ndof)")

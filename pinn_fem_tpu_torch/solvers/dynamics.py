@@ -22,11 +22,16 @@ and moving-load weights are host numbers, snapshots stay on the device
 and come to the host once at the end.  The banded Newmark step reads its
 PCG's stop flag every CHECK_EVERY iterations, as every fused PCG does.
 
+method="modal" integrates the lowest modes of solvers/modal.py exactly:
+each mode is an SDOF with a closed-form 2 x 2 propagator, and because the
+recurrence is linear the states at the snapshots come from one einsum of
+the amplitudes and a log2(n_rec)-round doubling scan on the device
+(`_modal_run`), with no per-step loop.
+
 Boundary conditions by masking, as everywhere else.  Green-Lagrange
 kinematics (geometric_nonlinear) take the gather form for f_int; their
 Newmark is dense only, a fixed _NL_NEWMARK_NEWTON_ITERS Newton
-iterations a step.  method="modal" (solvers/modal.py) and the float64
-host tier (host=True) are ROADMAP item 17.
+iterations a step.  The float64 host tier (host=True) is ROADMAP item 17.
 """
 
 from __future__ import annotations
@@ -455,6 +460,126 @@ def _newmark_nl_run(problem, data, k_mat, m, mask, loads, amp, dt, alpha,
     return u, v
 
 
+def _propagators(omegas: np.ndarray, zetas: np.ndarray,
+                 times: np.ndarray) -> np.ndarray:
+    """(T, J, 2, 2) exact SDOF propagators e^{M t} for each time t,
+    M = [[0, 1], [-w^2, -2 zeta w]].
+
+    With s = zeta w, (M + sI)^2 = -wd^2 I, wd^2 = w^2 (1 - zeta^2), so
+    e^{M t} = e^{-s t} (c I + s1 (M + s I)) with c = cos(wd t), s1 =
+    sin(wd t) / wd underdamped, cosh / sinh overdamped (written as sums
+    of exponentials, finite at any t), and the second-order series near
+    critical damping, where an eigendecomposition breaks down."""
+    w = np.asarray(omegas, dtype=float)[None, :]
+    z = np.asarray(zetas, dtype=float)[None, :]
+    t = np.asarray(times, dtype=float).reshape(-1, 1)
+    s = z * w
+    wd2 = w * w * (1.0 - z * z)
+    x2 = wd2 * t * t                        # (wd t)^2, sign carries regime
+    trig = x2 > 1e-8
+    hyp = x2 < -1e-8
+    near = ~(trig | hyp)                    # defective neighbourhood
+    wd = np.sqrt(np.abs(wd2)) + 0.0 * t
+    ec = np.zeros_like(x2)                  # e^{-s t} c
+    es1 = np.zeros_like(x2)                 # e^{-s t} s1
+    decay = np.exp(-s * t)
+    arg = wd * t
+    ec[trig] = (decay * np.cos(arg))[trig]
+    es1[trig] = (decay * np.sin(arg))[trig] / wd[trig]
+    grow = np.exp(np.where(hyp, (wd - s) * t, 0.0))
+    fall = np.exp(np.where(hyp, -(wd + s) * t, 0.0))
+    ec[hyp] = (0.5 * (grow + fall))[hyp]
+    es1[hyp] = (0.5 * (grow - fall))[hyp] / wd[hyp]
+    tt = t + 0.0 * x2
+    ec[near] = (decay * (1.0 + 0.5 * x2))[near]
+    es1[near] = (decay * tt * (1.0 + x2 / 6.0))[near]
+    s = s + 0.0 * t
+    out = np.empty(x2.shape + (2, 2))
+    out[..., 0, 0] = ec + s * es1
+    out[..., 0, 1] = es1
+    out[..., 1, 0] = -(w * w) * es1
+    out[..., 1, 1] = ec - s * es1
+    return out
+
+
+def _modal_propagators(omegas: np.ndarray, zetas: np.ndarray,
+                       dt: float) -> np.ndarray:
+    """(J, 2, 2) exact SDOF propagators e^{M dt} (the JAX package's
+    function of this name)."""
+    return _propagators(omegas, zetas, np.array([dt]))[0]
+
+
+def _modal_run(omegas, zetas, dt: float, amp: np.ndarray, q_stat, q0, qd0,
+               n_rec: int, record_every: int) -> torch.Tensor:
+    """Exact modal-superposition integration: (n_rec + 1, J, 2) modal
+    states (q, q') after 0, r, 2r, ... steps, r = record_every.
+
+    Each mode's step is s_{n+1} = A (s_n - s_p) + s_p with A = e^{M dt}
+    and s_p = (a_n q_stat, 0), the JAX package's recurrence, exact for a
+    per-step-constant load at any dt.  It is linear, so a chunk of r steps
+    is s -> P s + F_c with P = A^r = e^{M r dt} and F_c = sum_i a_(cr+i)
+    e^{M (r-1-i) dt} (I - A) s_p(1): all chunks' F in one einsum, then the
+    chunk recurrence as a doubling (Hillis-Steele) scan with the exact
+    powers e^{M 2^k r dt}, about log2(n_rec) rounds of three torch ops.
+    The propagators come from `_propagators` in float64 and are rounded
+    once to the working dtype."""
+    dev, dtype = q_stat.device, q_stat.dtype
+
+    def on_device(a):
+        return torch.as_tensor(a, dtype=dtype).to(dev)
+
+    a1 = _modal_propagators(omegas, zetas, dt)
+    unit = np.stack([1.0 - a1[:, 0, 0], -a1[:, 1, 0]], axis=1)   # (I - A) e1
+    powers = _propagators(omegas, zetas,
+                          dt * np.arange(record_every - 1, -1, -1))
+    g = on_device(np.einsum("rjab,jb->rja", powers, unit)) \
+        * q_stat[None, :, None]                                  # (r, J, 2)
+    chunks = on_device(amp[:n_rec * record_every].reshape(n_rec,
+                                                           record_every))
+    x = torch.cat([torch.stack([q0, qd0], dim=1)[None],
+                   torch.einsum("ci,ija->cja", chunks, g)])
+    shift = 1
+    while shift <= n_rec:
+        p = on_device(_modal_propagators(omegas, zetas,
+                                         shift * record_every * dt))
+        x = torch.cat([x[:shift], x[shift:] + torch.einsum(
+            "jab,cjb->cja", p, x[:-shift])])
+        shift *= 2
+    return x
+
+
+def _modal_transient(problem, data, m, dt: float, amplitude, damping, u0,
+                     v0, records: _Records, n_rec: int, record_every: int,
+                     n_modes: int, prestress_u):
+    """method="modal": the n_modes lowest modes of modal_analysis (dense
+    float64 on data's device, or the banded subspace iteration), exact
+    modal damping zeta = (alpha / w + beta w) / 2, the M-orthonormal
+    projections q = phi^T M u, and `_modal_run`.  Returns (u_final,
+    v_final)."""
+    from .modal import modal_analysis
+
+    n_modes = min(n_modes, problem.free_fixed()[0].size)
+    mres = modal_analysis(problem, n_modes=n_modes, data=data,
+                          prestress_u=prestress_u)
+    omegas = np.maximum(np.asarray(mres.omegas, dtype=float), 1e-30)
+    zetas = 0.5 * (float(damping[0]) / omegas + float(damping[1]) * omegas)
+    dtype, dev = data.loads.dtype, data.device
+    phi = torch.as_tensor(mres.shapes, dtype=dtype).to(dev)    # (ndof, J)
+    w2 = torch.as_tensor(omegas ** 2, dtype=dtype).to(dev)
+    q_stat = (phi.T @ (data.loads * data.free_mask)) / w2
+    states = _modal_run(omegas, zetas, dt, amplitude, q_stat,
+                        phi.T @ (m * u0), phi.T @ (m * v0), n_rec,
+                        record_every)
+    q, qd = states[1:, :, 0], states[1:, :, 1]
+    phi_probe = phi[records.probe]
+    records.us.copy_(q @ phi_probe.T)
+    records.vs.copy_(qd @ phi_probe.T)
+    # M-orthonormal modal coordinates: KE = sum qd^2 / 2, SE = sum w^2 q^2 / 2.
+    records.kes.copy_(0.5 * torch.sum(qd * qd, dim=1))
+    records.ses.copy_(0.5 * torch.sum(q * q * w2, dim=1))
+    return phi @ states[-1, :, 0], phi @ states[-1, :, 1]
+
+
 def solve_transient(
     problem: TrussProblem,
     dt: float,
@@ -485,8 +610,9 @@ def solve_transient(
         amplitude: (n_steps,) or (n_steps + 1,) load scale (default a unit
             step; the extra sample feeds the last snapshot's peek).
         damping: Rayleigh (alpha, beta).
-        method: "central" (explicit, see stable_dt) or "newmark"
-            (implicit); "modal" is ROADMAP item 17 (solvers/modal.py).
+        method: "central" (explicit, see stable_dt), "newmark"
+            (implicit) or "modal" (the n_modes lowest modes of
+            solvers/modal.modal_analysis, integrated exactly).
         record_every: snapshot stride; n_steps must be a multiple.
         probe_dofs: DOFs to record (default all).
         exact_restart: (u0, v0) are a previous segment's (u_final,
@@ -500,7 +626,7 @@ def solve_transient(
         host: True asks for the float64 host tier, ROADMAP item 17; None
             and False take this path (as the JAX package does off a TPU).
     The port's own: device, where to solve when `data` is not given
-    ("cuda" when None).  n_modes is accepted for the modal method.
+    ("cuda" when None).
     """
     if n_steps % record_every:
         raise ValueError("n_steps must be a multiple of record_every")
@@ -523,11 +649,7 @@ def solve_transient(
         raise NotImplementedError(
             "the float64 host transient tier (host=True) is not yet ported, "
             "ROADMAP item 17")
-    if method == "modal":
-        raise NotImplementedError(
-            "method='modal' (solvers/modal.py) is not yet ported, ROADMAP "
-            "item 17")
-    if method not in ("central", "newmark"):
+    if method not in ("central", "newmark", "modal"):
         raise ValueError("method must be 'central', 'newmark' or 'modal'")
 
     from . import newton
@@ -549,10 +671,14 @@ def solve_transient(
     dt_w = float(npf(dt))
     amp = amplitude.astype(npf)
     n_rec = n_steps // record_every
-    op = _operator(problem, data, prestress_u)
     records = _Records(n_rec, probe, mask)
+    op = None if method == "modal" else _operator(problem, data, prestress_u)
 
-    if method == "central":
+    if method == "modal":
+        u_f, v_f = _modal_transient(problem, data, m, float(dt), amplitude,
+                                    damping, u0, v0, records, n_rec,
+                                    record_every, n_modes, prestress_u)
+    elif method == "central":
         f_apply = se_apply = None
         if geometric_nonlinear:
             f_apply, se_apply = _nl_apply_fn(problem, data)

@@ -18,7 +18,10 @@ once; with a member axis (B = 1, 3, 32), each member against the
 one-member kernels and the plain batched version.  The gather-based PCG (no repo kernel) is held to the same functions
 on the CPU, and a resumed Newton run to the uninterrupted one.  The
 multigrid V-cycle (kernel 1 on every level) is held bit for bit to the
-plain cycle, its PCG to the CPU solve, and its float64 refusal.
+plain cycle, its PCG to the CPU solve, and its float64 refusal.  The
+banded modal and buckling eigensolvers launch kernels 1-3 exactly as
+their block solves and products count, a block solve bit-equal to the
+twin recurrence, their eigenvalues within 1e-3 of the CPU and dense runs.
 """
 
 import numpy as np
@@ -27,7 +30,8 @@ import torch
 
 import pinn_fem_tpu_torch as T
 
-from pinn_fem_tpu_torch.examples_grid import chain_problem, grid_problem
+from pinn_fem_tpu_torch.examples_grid import (chain_problem, grid_arrays,
+                                              grid_problem)
 from pinn_fem_tpu_torch.ops import kernels
 from pinn_fem_tpu_torch.ops.cg import stiffness_coefficients
 from pinn_fem_tpu_torch.ops.dia import assemble_dia, dia_layout
@@ -54,6 +58,17 @@ def system(mesh, dev, problem=None):
     diags = assemble_dia(layout, stiffness_coefficients(data, p.material, 1.0),
                          data.gvec)
     return data, layout, diags
+
+
+def compressed_strip(rows, cols):
+    """Cross-braced grid strip, left edge fixed, unit compression on each
+    right-edge node's x-DOF (tests/test_buckling.py's compressed_grid)."""
+    nodes, elements, _, fixed = grid_arrays(rows, cols)
+    loads = np.zeros(2 * rows * cols)
+    loads[2 * (np.arange(rows) * cols + cols - 1)] = -1.0
+    return T.TrussProblem(nodes, elements,
+                          T.Material(young=100.0, area=1.0, density=1.0),
+                          loads, fixed, 2)
 
 
 def band_layout(n, offsets=range(-3, 4)):
@@ -978,4 +993,117 @@ def test_x64_mg_refused_on_card(cuda_device, monkeypatch):
         T.solve_nr(grid_problem(24, 48), linear_solver="cg-dia",
                    cg_precond="mg", device=cuda_device)
     assert "dia_matvec" in str(err.value)
+    assert not any(kernels.launch_counts().values())
+
+
+def spy_solves(monkeypatch):
+    """Records (args, kwargs, result) of every ops.dia.dia_cg_solve call,
+    the banded eigensolvers' block solves included."""
+    from pinn_fem_tpu_torch.ops import dia
+
+    calls, inner = [], dia.dia_cg_solve
+
+    def spy(*args, **kwargs):
+        result = inner(*args, **kwargs)
+        calls.append((args, kwargs, result))
+        return result
+
+    monkeypatch.setattr(dia, "dia_cg_solve", spy)
+    return calls
+
+
+def pcg_rounds(calls) -> int:
+    """Kernels 2 and 3's launches over fused PCG solves: the loop runs in
+    whole rounds of CHECK_EVERY iterations until its flag read finds the
+    solve stopped."""
+    every = cg_kernel.CHECK_EVERY
+    return sum(every * -(-int(res[1]) // every) for _, _, res in calls)
+
+
+def check_block_solve_against_twin(calls):
+    """The last block solve again on the twin recurrence, on the card:
+    the same iterations and x bit for bit."""
+    args, kwargs, (x, it, _) = calls[-1]
+    x_twin, it_twin, _ = kernels.fused_cg_solve_reference(*args, **kwargs)
+    assert int(it) == int(it_twin) and torch.equal(x, x_twin)
+
+
+def test_banded_modal_on_card(cuda_device, monkeypatch):
+    """modal_analysis on the 6 x 12 grid (144 DOFs) with DENSE_DOF_LIMIT
+    below it: each of the n_iter x k block solves is one fused PCG
+    (kernel 1 for its warm start, kernels 2-3 in whole rounds), the
+    residual check one kernel 1 a mode; a block solve bit-equal to the
+    twin recurrence; eigenvalues within 1e-3 of the CPU run (the plain
+    recurrence) and of the dense float64 path."""
+    from pinn_fem_tpu_torch.solvers import newton
+
+    problem = grid_problem(6, 12)
+    dense = T.modal_analysis(problem, n_modes=3, device=cuda_device)
+    monkeypatch.setattr(newton, "DENSE_DOF_LIMIT", 64)
+    calls = spy_solves(monkeypatch)
+    n_modes, n_iter, k = 3, 12, 10
+    kernels.reset_launch_counts()
+    card = T.modal_analysis(problem, n_modes=n_modes, n_iter=n_iter,
+                            device=cuda_device)
+    counts = kernels.launch_counts()
+    assert len(calls) == n_iter * k
+    assert counts["dia_matvec"] == n_iter * k + n_modes
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == pcg_rounds(
+        calls)
+    assert counts["material_coefficients"] == 0
+    check_block_solve_against_twin(calls)
+    cpu = T.modal_analysis(problem, n_modes=n_modes, n_iter=n_iter,
+                           device="cpu")
+    np.testing.assert_allclose(card.eigenvalues, cpu.eigenvalues, rtol=1e-3)
+    np.testing.assert_allclose(card.eigenvalues, dense.eigenvalues,
+                               rtol=1e-3)
+    assert card.ok
+
+
+def test_banded_buckling_on_card(cuda_device, monkeypatch):
+    """buckling_analysis on the 4 x 16 compressed grid strip (128 DOFs)
+    with DENSE_DOF_LIMIT below it: the base state one fused PCG from
+    zero (no kernel 1), then per iteration k block solves and 3k banded
+    block products (kernel 1 each); a block solve bit-equal to the twin
+    recurrence; the critical factor within 1e-3 of the CPU run and of the
+    dense float64 path."""
+    from pinn_fem_tpu_torch.solvers import newton
+
+    problem = compressed_strip(4, 16)
+    dense = T.buckling_analysis(problem, n_modes=1, device=cuda_device)
+    monkeypatch.setattr(newton, "DENSE_DOF_LIMIT", 64)
+    calls = spy_solves(monkeypatch)
+    n_iter, k = 20, 6
+    kernels.reset_launch_counts()
+    card = T.buckling_analysis(problem, n_modes=1, n_iter=n_iter,
+                               device=cuda_device)
+    counts = kernels.launch_counts()
+    assert len(calls) == 1 + n_iter * k
+    assert counts["dia_matvec"] == 4 * n_iter * k
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == pcg_rounds(
+        calls)
+    check_block_solve_against_twin(calls)
+    cpu = T.buckling_analysis(problem, n_modes=1, n_iter=n_iter,
+                              device="cpu")
+    np.testing.assert_allclose(card.load_factors, cpu.load_factors,
+                               rtol=1e-3)
+    np.testing.assert_allclose(card.load_factors, dense.load_factors,
+                               rtol=1e-3)
+    assert card.ok
+
+
+def test_x64_banded_eigensolvers_refused_on_card(cuda_device, monkeypatch):
+    """Float64 CUDA operands on the banded modal and buckling paths raise
+    the ValueError naming PINN_FEM_TPU_X64 and kernels 1-3; nothing
+    launches."""
+    from pinn_fem_tpu_torch.solvers import newton
+
+    monkeypatch.setattr(newton, "DENSE_DOF_LIMIT", 64)
+    problem = grid_problem(6, 12)
+    data = problem.to_device(cuda_device, torch.float64)
+    kernels.reset_launch_counts()
+    for fn in (T.modal_analysis, T.buckling_analysis):
+        with pytest.raises(ValueError, match="PINN_FEM_TPU_X64") as err:
+            fn(problem, n_modes=2, data=data)
+        assert "kernels 1-3" in str(err.value)
     assert not any(kernels.launch_counts().values())

@@ -512,8 +512,7 @@ def test_grid_document_against_float64():
 # ------------------------------------------------------------ refusals
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(method="modal"), "17"),
-    (dict(host=True), "17"),
+    pytest.param(dict(host=True), "17", id="kw1-17"),
 ])
 def test_unported_solver_options_refused(kw, item):
     _, tprob = both_problems()
@@ -533,13 +532,18 @@ def test_unported_transient_keys_refused(extra, item):
         run_analysis(tprob, analysis, "cpu")
 
 
-@pytest.mark.parametrize("kind", ["modal", "buckling", "harmonic",
-                                  "spectrum", "continuation", "plastic",
-                                  "random", "reduction", "identification",
-                                  "sizing", "reliability"])
+UNPORTED_ITEMS = {"harmonic": 17, "spectrum": 17, "continuation": 17,
+                  "plastic": 17, "random": 17, "reduction": 17,
+                  "identification": 23, "sizing": 24, "reliability": 24}
+
+
+@pytest.mark.parametrize("kind", list(UNPORTED_ITEMS))
 def test_other_analysis_types_refused(kind):
+    """Each type not yet ported names its ROADMAP item: the truss
+    identification, sizing and reliability solvers are items 23 and 24."""
     _, tprob = both_problems()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP item {UNPORTED_ITEMS[kind]}$"):
         run_analysis(tprob, {"type": kind}, "cpu")
 
 
