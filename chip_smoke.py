@@ -211,7 +211,40 @@ code is not 0 and no result line is printed:
      :380), ms a step of the modal integration (no repo kernel) and its
      idle share; (e) float64 CUDA operands on the banded modal and
      buckling paths refused with the ValueError naming PINN_FEM_TPU_X64
-     and kernels 1-3.
+     and kernels 1-3;
+ 17. frequency-domain analyses: (a) dyn-harmonic, dyn-random, dyn-fatigue
+     and dyn-spectrum.json through main() on cuda (the dense float64
+     tiers, no repo kernel), each within 1e-10 of the port's CPU run; on
+     the 100 x 200 grid, against a float64 reference of scipy eigsh's 12
+     lowest modes computed once: (b) a "harmonic" document, method
+     "modal" with 12 modes (28 block columns), Rayleigh zeta 0.05 on
+     modes 1 and 12, 200 frequencies, 4 probe nodes and 8 probe elements:
+     kernel 1 exactly 25 x 28 + 12 times, kernels 2 and 3 each the sum
+     of 32 ceil(iterations / 32), amplitudes and member forces within
+     2e-2 of each probe's peak and the truncation residual within 1e-3 of
+     the float64 superposition, TF32 off, the wall split into modal solve
+     and sweep; (c) a "random" document (6 modes, white noise, a Dirlik
+     fatigue block, m = 3, and a first-passage block): launches as in
+     16(b), rms within 2e-2 and damage rates within 6e-2 of float64; (d)
+     "spectrum" documents with 4 modes on the grid turned on its side
+     (200 x 100, 40,000 DOFs: the 100 x 200 strip is refused by the
+     mechanism guard of the JAX contract), CQC on a tabulated Sa, then
+     SRSS and a history Sa on the same modes: kernel 1 exactly 25 x 12 +
+     4 times, peaks and member forces within 1e-2 of their max and the
+     mass fraction within 1e-3 of the float64 combination of eigsh's 4
+     modes; (e) the direct
+     float32 sweep of the 32 x 32 grid (2,048 DOFs, 120 frequencies, 4
+     chunks of 32 block systems of 4,096 x 4,096): each residual within a
+     factor 2 (or 1e-6) of its float64 recomputation from the returned
+     X, unflagged points within 1e-2 of the float64 dense tier, ms a
+     frequency; (f) a 2,000-step central transient of the grid under a
+     sine load recording 8 members every step with a rainflow fatigue
+     block: kernel 1 exactly
+     1 + n + 2n times, forces within 1e-6 of a float64 recovery from the
+     recorded element DOFs, damage equal to rainflow_damage on them, u
+     within 2e-3 of the CPU twin; (g) float64 CUDA operands on the banded
+     modal sweep refused (the ValueError naming PINN_FEM_TPU_X64 and
+     kernels 1-3), mesh= refused (item 15).
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -227,6 +260,7 @@ phase 10's documents, kernels 4 and 4b theirs on phase 11's legacy
 paths, every kernel its launches on phase 12's paths and, as
 launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
 as launches_batched on phase 15's, as launches_eigen on phase 16's,
+as launches_frequency on phase 17's,
 kernel 1 also its times at the
 multigrid's level shapes, kernels 4 and 4b their member-axis times at
 B = 1, 8 and 32 as members); the last is
@@ -4489,6 +4523,703 @@ def phase_eigen(workdir: Path, dev, card: str) -> dict:
     return launches
 
 
+# Phase 17: frequency-domain analyses.
+FREQ_DOCS = ("dyn-harmonic", "dyn-random", "dyn-fatigue", "dyn-spectrum")
+FREQ_DOC_RTOL = 1e-10           # card against the port's CPU run, float64
+ZERO_FORCE = 1e-10              # below it a member's stress RMS is noise
+HARMONIC_MODES = 12             # 17(b): run_harmonic's default n_modes
+FREQ_ZETA = 0.05                # Rayleigh, on modes 1 and 12
+HARMONIC_FREQS = 200
+# Phase 16(b)'s worst eigenvalue gap from eigsh (4.4e-4, lambda_1) over
+# 2 zeta is 4.4e-3 of a peak; the gate keeps a margin of 4.5 over it.
+HARMONIC_RTOL = 2e-2
+HARMONIC_RESIDUAL_ATOL = 1e-3
+RANDOM_MODES = 6                # 17(c)
+RANDOM_PSD = 1.0                # white noise S0
+RANDOM_RTOL = 2e-2
+DAMAGE_RTOL = 3 * RANDOM_RTOL   # Basquin m = 3 triples a stress error
+SN = {"exponent": 3.0, "coefficient": 1e10}
+SPECTRUM_MODES = 4              # 17(d)
+# The grid on its side: 200 rows of 100 nodes, 40,000 DOFs and 79,102
+# elements as GRID, pinned along its long edge.  GRID's own lambda_1 /
+# lambda_bound is 6.4e-7, below response_spectrum's mechanism guard
+# (1e-6, the JAX contract), which refuses it in both packages; this
+# orientation's is 1.2e-5.
+SPECTRUM_GRID = (200, 100)
+SPECTRUM_RTOL = 1e-2
+MASS_FRACTION_ATOL = 1e-3
+SPECTRUM_TABLE = {"omegas": [0.0, 0.01, 0.05, 0.2, 1.0],
+                  "values": [1.0, 2.5, 2.0, 0.8, 0.2]}
+DIRECT_GRID = (32, 32)          # 17(e): 2,048 DOFs, the dense limit
+DIRECT_FREQS = 120
+DIRECT_MODES = 10
+DIRECT_ZETA = 0.02
+DIRECT_RTOL = 1e-2
+FATIGUE_STEPS = 2000            # 17(f): full-rate records for rainflow
+# A sine load at 0.05 rad/s, above the grid's 12 lowest modes (omega_1 =
+# 1.2e-3): about 18 load cycles in the 2,000 auto steps (dt 1.16 s).
+FATIGUE_LOAD_HZ = 0.008
+FATIGUE_FORCE_RTOL = 1e-6
+FATIGUE_CPU_STEPS = 200
+FATIGUE_CPU_RTOL = 2e-3
+
+
+def zero_launches(launches: dict) -> bool:
+    return not any(launches.values())
+
+
+def freq_probes():
+    """(4 probe nodes, 8 probe elements) of the 100 x 200 grid, each with a
+    response above 5 % of the largest of its kind in the float64
+    reference (the gates hold each to its own peak; a near-zero one, such
+    as a y DOF next to the mid-height line or the diagonal into a loaded
+    corner, 1e-3 and 4e-5 of the largest, sits at the float32 floor): the
+    loaded edge's bottom, quarter height and top and the quarter height's
+    middle; horizontal members at the pinned edge (rows 0, 50, 99), the
+    two diagonals of its bottom bay, a vertical at the centre, a
+    horizontal at the bottom's middle and a diagonal at the quarter
+    height's middle."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.examples_grid import grid_arrays
+
+    rows, cols = GRID
+    _, elements, _, _ = grid_arrays(rows, cols)
+    nid = np.arange(rows * cols).reshape(rows, cols)
+    r2, r4, c2 = rows // 2, rows // 4, cols // 2
+    pairs = [(nid[0, 0], nid[0, 1]), (nid[r2, 0], nid[r2, 1]),
+             (nid[-1, 0], nid[-1, 1]), (nid[0, 0], nid[1, 1]),
+             (nid[0, 1], nid[1, 0]), (nid[r2, c2], nid[r2 + 1, c2]),
+             (nid[0, c2], nid[0, c2 + 1]), (nid[r4, c2], nid[r4 + 1, c2 + 1])]
+    index = {(int(a), int(b)): e for e, (a, b) in enumerate(elements)}
+    elms = [index[(int(a), int(b))] for a, b in pairs]
+    nodes = [nid[0, -1], nid[r4, -1], nid[-1, -1], nid[r4, c2]]
+    return [int(n) for n in nodes], elms
+
+
+def element_force_rows(nodes, elements, elms):
+    """(dofs (n, 4), g / L (n, 4)): N_e = (g / L) . u_e of E = A = 1
+    members, in float64."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.examples_grid import _dofs_2d
+
+    nodes = np.asarray(nodes, float)
+    el = np.asarray(elements)[elms]
+    dx = nodes[el[:, 1]] - nodes[el[:, 0]]
+    length = np.linalg.norm(dx, axis=1)
+    g = np.concatenate([-dx, dx], axis=1) / length[:, None]
+    return _dofs_2d(el), g / length[:, None]
+
+
+def float64_frf(w2, shapes, mass, loads, mask, om, damping, probe, dofs,
+                g_over_l):
+    """Float64 modal superposition of eigsh's modes with exact Rayleigh
+    modal damping: (X at the probe DOFs, member forces, truncation
+    residual ||F - M Phi q|| / ||F||), X and forces (n_freq, n) complex."""
+    import numpy as np
+
+    alpha, beta = damping
+    f = loads * mask
+    q = shapes.T @ f
+    den = (w2[None, :] - (om * om)[:, None]
+           + 1j * om[:, None] * (alpha + beta * w2)[None, :])
+    c = q[None, :] / den                                   # (n_freq, J)
+    x = c @ shapes[probe].T
+    modal_forces = np.einsum("ek,ekj->ej", g_over_l, shapes[dofs])
+    forces = c @ modal_forces.T
+    residual = np.linalg.norm(f - mass * mask * (shapes @ q)) \
+        / np.linalg.norm(f)
+    return x, forces, residual
+
+
+def tree_gaps(got, want, path=""):
+    """{path: max |got - want| / max |want|} over the numeric lists of two
+    result dicts, keys and other values required equal; modal
+    participations by magnitude (signs are arbitrary); a zero-force
+    member's fatigue statistics left out."""
+    import numpy as np
+
+    gaps = {}
+    if isinstance(want, dict):
+        require(list(got) == list(want), f"{path}: the CPU run's keys")
+        live = None
+        if "stress_rms" in want:
+            rms = np.asarray(want["stress_rms"], float)
+            live = rms > ZERO_FORCE * rms.max()
+        for key in want:
+            g, w = got[key], want[key]
+            if key == "participation":
+                g, w = np.abs(g).tolist(), np.abs(w).tolist()
+            if live is not None and key in (
+                    "nu0_hz", "nu_peak_hz", "alpha2", "damage_rate",
+                    "life_s", "peak_factor", "expected_peak_stress"):
+                g = np.asarray(g, float)[live].tolist()
+                w = np.asarray(w, float)[live].tolist()
+            gaps.update(tree_gaps(g, w, f"{path}/{key}"))
+    elif isinstance(want, list) and want and not isinstance(want[0], str):
+        a, b = np.asarray(got, float), np.asarray(want, float)
+        require(a.shape == b.shape, f"{path}: shape of the CPU run's")
+        gaps[path] = (float(np.abs(a - b).max()
+                            / max(np.abs(b).max(), 1e-300))
+                      if b.size else 0.0)
+    elif isinstance(want, float):
+        gaps[path] = abs(got - want) / max(abs(want), 1e-300)
+    else:
+        require(got == want, f"{path}: equal to the CPU run's")
+    return gaps
+
+
+def frequency_documents(workdir: Path, card: str) -> dict:
+    """17(a): the four corpus documents through main() on the card (the
+    dense float64 tiers: torch on the card, no repo kernel), each against
+    the port's own CPU run."""
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.analysis import run_analysis
+    from pinn_fem_tpu_torch.io.schema import parse_problem_dict
+    from pinn_fem_tpu_torch.ops import kernels
+
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    launches, gaps = {}, {}
+    for name in FREQ_DOCS:
+        doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                         .read_text())
+        path = workdir / f"{name}.json"
+        path.write_text(json.dumps(doc))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        require(main([str(path)]) == 0, f"{name}: exit code 0")
+        card_s = time.perf_counter() - t0
+        launches[name] = kernels.launch_counts()
+        got = json.loads((workdir / f"{name}.res.json").read_text())
+        want = run_analysis(parse_problem_dict(doc).problem,
+                            doc["analysis"], "cpu")
+        doc_gaps = tree_gaps(got, json.loads(json.dumps(want)))
+        gaps[name] = {"max": max(doc_gaps.values()),
+                      "worst": max(doc_gaps, key=doc_gaps.get), "s": card_s}
+        require(gaps[name]["max"] <= FREQ_DOC_RTOL,
+                f"17(a) {name}: within {FREQ_DOC_RTOL} of the CPU run")
+        require(zero_launches(launches[name]),
+                f"17(a) {name}: no repo kernel")
+    log("phase17a_documents", card=card, gaps=gaps, launches=launches)
+    return launches
+
+
+def run_cli_document(workdir: Path, name: str, doc: dict):
+    """(result, kernels' launches, seconds, dia_cg_solve records, seconds
+    in modal_analysis) of one document through main() on the card."""
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.ops import dia, kernels
+    from pinn_fem_tpu_torch.solvers import modal
+
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    path = workdir / f"{name}.json"
+    path.write_text(json.dumps(doc))
+    with Spy(dia, "dia_cg_solve") as solves, \
+            Timed(modal, "modal_analysis") as modal_calls:
+        kernels.reset_launch_counts()
+        wall, rc = synced(lambda: main([str(path)]))
+        launches = kernels.launch_counts()
+    require(rc == 0, f"{name}: exit code 0")
+    out = json.loads((workdir / f"{name}.res.json").read_text())
+    return out, launches, wall, solves, sum(s for s, _ in modal_calls)
+
+
+def banded_expected(n_modes: int, solves) -> dict:
+    """Kernels' launches of one banded modal solve: kernel 1 n_iter k +
+    n_modes, kernels 2 and 3 whole rounds of 32 over the block solves."""
+    k = 2 * n_modes + 4
+    return {"dia_matvec": MODAL_ITERS * k + n_modes,
+            "dia_dir_matvec": pcg_rounds(solves),
+            "cg_update": pcg_rounds(solves),
+            "material_coefficients": 0,
+            "material_coefficients_backward": 0}
+
+
+def harmonic_grid(workdir: Path, card: str, ref: dict) -> dict:
+    """17(b): a "harmonic" document on the 100 x 200 grid, method "modal"
+    with 12 modes (28 block columns), Rayleigh zeta 0.05 on modes 1 and
+    12, 200 frequencies from 0.5 omega_1 to 1.2 omega_12, 4 probe nodes
+    and 8 probe elements, through main(); against the float64
+    superposition of eigsh's 12 modes."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.examples_grid import grid_document
+
+    w64 = np.sqrt(ref["w2"])
+    damping = ref["damping"]
+    om = np.linspace(0.5 * w64[0], 1.2 * w64[HARMONIC_MODES - 1],
+                     HARMONIC_FREQS)
+    doc = grid_document(*GRID)
+    doc["analysis"] = {
+        "type": "harmonic", "method": "modal", "n_modes": HARMONIC_MODES,
+        "damping": list(damping), "omegas": om.tolist(),
+        "probe_nodes": ref["nodes"], "probe_elements": ref["elms"]}
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32,
+            "17(b): TF32 off for the float32 contractions")
+    out, launches, wall, solves, modal_s = run_cli_document(
+        workdir, "harmonic_grid", doc)
+    stats = solve_stats(solves)
+    probe = np.asarray(out["probe_dofs"])
+    x64, n64, res64 = float64_frf(
+        ref["w2"][:HARMONIC_MODES], ref["shapes"][:, :HARMONIC_MODES],
+        ref["mass"], ref["loads"], ref["mask"], om, damping, probe,
+        ref["dofs"], ref["g_over_l"])
+    amp, famp = (np.asarray(out[k]) for k in ("amplitude",
+                                               "force_amplitude"))
+    amp_gap = np.abs(amp - np.abs(x64)).max(0) / np.abs(x64).max(0)
+    force_gap = np.abs(famp - np.abs(n64)).max(0) / np.abs(n64).max(0)
+    res_gap = float(np.abs(np.asarray(out["residual"]) - res64).max())
+    expected = banded_expected(HARMONIC_MODES, solves)
+    log("phase17b_harmonic_grid", card=card, ndof=2 * GRID[0] * GRID[1],
+        n_modes=HARMONIC_MODES, block_columns=2 * HARMONIC_MODES + 4,
+        n_freq=HARMONIC_FREQS, damping=list(damping), wall_s=wall,
+        modal_solve_s=modal_s, sweep_and_output_s=wall - modal_s,
+        ms_per_pcg_iteration=1e3 * modal_s / max(stats["pcg_iterations"], 1),
+        launches=launches, predicted=expected, **stats,
+        amplitude_gap_per_probe=amp_gap.tolist(),
+        force_gap_per_element=force_gap.tolist(),
+        probe_peak_over_largest=(np.abs(x64).max(0)
+                                 / np.abs(x64).max()).tolist(),
+        element_peak_over_largest=(np.abs(n64).max(0)
+                                   / np.abs(n64).max()).tolist(),
+        residual=out["residual"][0], residual_float64=res64,
+        flagged=len(out["flagged_indices"]),
+        eigen_gap_12_13=float(ref["w2"][12] / ref["w2"][11] - 1.0))
+    require(launches == expected,
+            "17(b): kernels 1-3 launched as the block solves count")
+    require(bool(np.all(np.isfinite(amp))) and amp.shape == x64.shape,
+            "17(b): finite amplitudes of the expected shape")
+    require(float(amp_gap.max()) <= HARMONIC_RTOL
+            and float(force_gap.max()) <= HARMONIC_RTOL,
+            f"17(b): amplitudes within {HARMONIC_RTOL} of each probe's "
+            "peak, against float64")
+    require(res_gap <= HARMONIC_RESIDUAL_ATOL,
+            f"17(b): residual within {HARMONIC_RESIDUAL_ATOL} of float64")
+    return launches
+
+
+def random_grid(workdir: Path, card: str, ref: dict) -> dict:
+    """17(c): a "random" document, white noise over 200 frequencies, 6
+    modes, 8 probe elements with a Dirlik fatigue block (m = 3) and a
+    first-passage block, through main(); rms and damage rates against the
+    float64 superposition of eigsh's 6 modes."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.examples_grid import grid_document
+    from pinn_fem_tpu_torch.solvers.fatigue import spectral_fatigue
+
+    w64 = np.sqrt(ref["w2"])
+    om = np.linspace(0.5 * w64[0], 1.2 * w64[RANDOM_MODES - 1],
+                     HARMONIC_FREQS)
+    probe = np.stack([2 * np.asarray(ref["nodes"]),
+                      2 * np.asarray(ref["nodes"]) + 1], 1).reshape(-1)
+    x64, n64, _ = float64_frf(
+        ref["w2"][:RANDOM_MODES], ref["shapes"][:, :RANDOM_MODES],
+        ref["mass"], ref["loads"], ref["mask"], om, ref["damping"], probe,
+        ref["dofs"], ref["g_over_l"])
+    psd64 = np.abs(x64) ** 2 * RANDOM_PSD
+    rms64 = np.sqrt(np.trapezoid(psd64, om, axis=0))
+    stress_psd64 = np.abs(n64) ** 2 * RANDOM_PSD        # A = 1
+    sf64 = spectral_fatigue(om, stress_psd64, SN["exponent"],
+                            SN["coefficient"], method="dirlik")
+    doc = grid_document(*GRID)
+    doc["analysis"] = {
+        "type": "random", "method": "modal", "n_modes": RANDOM_MODES,
+        "psd": RANDOM_PSD, "damping": list(ref["damping"]),
+        "omegas": om.tolist(), "probe_nodes": ref["nodes"],
+        "probe_elements": ref["elms"],
+        "fatigue": {"sn": SN, "method": "dirlik", "duration": 3600.0},
+        "first_passage": {"barrier": (3.0 * rms64).tolist(),
+                          "duration": 3600.0}}
+    out, launches, wall, solves, modal_s = run_cli_document(
+        workdir, "random_grid", doc)
+    stats = solve_stats(solves)
+    rms_gap = rel_err(out["rms"], rms64)
+    damage = np.asarray(out["fatigue"]["damage_rate"])
+    damage_gap = np.abs(damage / sf64.damage_rate - 1.0)
+    pf = np.asarray(out["first_passage"]["pf"])
+    expected = banded_expected(RANDOM_MODES, solves)
+    log("phase17c_random_grid", card=card, n_modes=RANDOM_MODES,
+        wall_s=wall, modal_solve_s=modal_s, launches=launches,
+        predicted=expected, **stats, rms_gap=rms_gap,
+        force_rms_gap=rel_err(out["force_rms"],
+                              np.sqrt(np.trapezoid(stress_psd64, om,
+                                                   axis=0))),
+        damage_rate=damage.tolist(),
+        damage_rate_float64=sf64.damage_rate.tolist(),
+        damage_rel_gap=damage_gap.tolist(), first_passage_pf=pf.tolist())
+    require(launches == expected,
+            "17(c): kernels 1-3 launched as the block solves count")
+    require(rms_gap <= RANDOM_RTOL,
+            f"17(c): rms within {RANDOM_RTOL} of float64")
+    require(float(damage_gap.max()) <= DAMAGE_RTOL,
+            f"17(c): damage rates within {DAMAGE_RTOL} of float64 Dirlik")
+    require(bool(np.all((pf >= 0) & (pf <= 1))) and pf.size == probe.size,
+            "17(c): first-passage probabilities in [0, 1]")
+    return launches
+
+
+class Memo:
+    """module.name returning its first result for every later call while
+    in the with block (the spectrum variants reuse one modal solve)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.inner, self.result = getattr(module, name), None
+
+    def __enter__(self):
+        def memo(*args, **kwargs):
+            if self.result is None:
+                self.result = self.inner(*args, **kwargs)
+            return self.result
+
+        setattr(self.module, self.name, memo)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def float64_spectrum(ref: dict, sa, combination: str):
+    """(peak displacements, member forces of every element, mass
+    fraction) of the float64 modal combination of eigsh's modes in `ref`
+    (SPECTRUM_GRID's) under ground motion along x."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.examples_grid import grid_arrays
+
+    w2, phi, m = ref["w2"], ref["shapes"], ref["mass"]
+    w = np.sqrt(w2)
+    r = np.tile([1.0, 0.0], phi.shape[0] // 2) * ref["mask"]
+    gamma = phi.T @ (m * r)
+    peaks = (gamma * sa(w) / w2)[:, None] * phi.T
+    nodes, elements, _, _ = grid_arrays(*SPECTRUM_GRID)
+    dofs, g_over_l = element_force_rows(nodes, elements,
+                                        np.arange(len(elements)))
+    forces = np.einsum("ek,jek->je", g_over_l, peaks[:, dofs])
+    if combination == "srss":
+        rho = np.eye(w.size)
+    else:
+        z = FREQ_ZETA
+        ratio = w[None, :] / w[:, None]
+        rho = (8.0 * z * z * (1.0 + ratio) * ratio ** 1.5
+               / ((1.0 - ratio ** 2) ** 2
+                  + 4.0 * z * z * ratio * (1.0 + ratio) ** 2))
+    combine = (lambda p: np.sqrt(np.maximum(
+        np.einsum("ij,ik,jk->k", rho, p, p), 0.0)))
+    return (combine(peaks), combine(forces),
+            float(np.sum(gamma ** 2) / np.sum(m * r * r)))
+
+
+def spectrum_grid(workdir: Path, card: str) -> dict:
+    """17(d): a "spectrum" document on SPECTRUM_GRID, 4 modes (12 block
+    columns), CQC on a tabulated Sa, through main(); then SRSS and the
+    history form of Sa on the same modes (modal_analysis memoized: the
+    combinations are host work); each against the float64 combination of
+    eigsh's 4 modes."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.examples_grid import grid_document, grid_problem
+    from pinn_fem_tpu_torch.solvers import modal
+    from pinn_fem_tpu_torch.solvers.spectrum import spectrum_from_history
+
+    problem = grid_problem(*SPECTRUM_GRID)
+    t0 = time.perf_counter()
+    w2, shapes, mass = float64_grid_modes(problem, SPECTRUM_MODES)
+    mask = np.ones(problem.ndof)
+    mask[problem.fixed_dofs] = 0.0
+    ref = {"w2": w2, "shapes": shapes, "mass": mass, "mask": mask}
+    f64_s = time.perf_counter() - t0
+    w1 = float(np.sqrt(w2[0]))
+    history = {"history": {"type": "sine",
+                           "frequency_hz": w1 / (2.0 * np.pi)},
+               "dt": 0.25 * 2.0 * np.pi / w1 / 20.0, "n_steps": 1600,
+               "scale": 0.5}
+    record = history["scale"] * np.sin(
+        w1 * history["dt"] * np.arange(history["n_steps"]))
+    variants = {
+        "cqc_tabulated": ("cqc", SPECTRUM_TABLE,
+                          lambda om: np.interp(om, SPECTRUM_TABLE["omegas"],
+                                               SPECTRUM_TABLE["values"])),
+        "srss_tabulated": ("srss", SPECTRUM_TABLE,
+                           lambda om: np.interp(om, SPECTRUM_TABLE["omegas"],
+                                                SPECTRUM_TABLE["values"])),
+        "cqc_history": ("cqc", history,
+                        lambda om: spectrum_from_history(
+                            record, history["dt"], om, FREQ_ZETA).psa),
+    }
+    result, launches = {}, None
+    with Memo(modal, "modal_analysis"):
+        for name, (combination, sa, sa64) in variants.items():
+            doc = grid_document(*SPECTRUM_GRID)
+            doc["analysis"] = {
+                "type": "spectrum", "sa": sa, "direction": [1.0, 0.0],
+                "n_modes": SPECTRUM_MODES, "combination": combination,
+                "damping_ratio": FREQ_ZETA}
+            out, counts, wall, solves, modal_s = run_cli_document(
+                workdir, f"spectrum_{name}", doc)
+            u64, n64, frac64 = float64_spectrum(ref, sa64, combination)
+            gaps = {"displacements": rel_err(out["displacements"], u64),
+                    "axial_forces": rel_err(out["axial_forces"], n64),
+                    "mass_fraction_gap": abs(out["mass_fraction"] - frac64)}
+            result[name] = {"wall_s": wall, "modal_solve_s": modal_s,
+                            "launches": counts, **gaps,
+                            "mass_fraction": out["mass_fraction"],
+                            "modal_ok": out["modal_ok"]}
+            if launches is None:
+                launches = counts
+                expected = banded_expected(SPECTRUM_MODES, solves)
+                result[name].update(solve_stats(solves), predicted=expected)
+                require(counts == expected,
+                        "17(d): kernels 1-3 launched as the block solves "
+                        "count")
+            require(gaps["displacements"] <= SPECTRUM_RTOL
+                    and gaps["axial_forces"] <= SPECTRUM_RTOL,
+                    f"17(d) {name}: peaks within {SPECTRUM_RTOL} of "
+                    "float64")
+            require(gaps["mass_fraction_gap"] <= MASS_FRACTION_ATOL,
+                    f"17(d) {name}: mass fraction within "
+                    f"{MASS_FRACTION_ATOL} of float64")
+    log("phase17d_spectrum_grid", card=card, grid=list(SPECTRUM_GRID),
+        n_modes=SPECTRUM_MODES, eigenvalues_float64=w2.tolist(),
+        float64_s=f64_s, variants=result)
+    return launches
+
+
+def direct_sweep(card: str, dev) -> dict:
+    """17(e): harmonic_response(method="direct", host=False) on the 32 x 32
+    grid (2,048 DOFs): 120 frequencies over the lowest 10 resonances, 4
+    chunks of 32 float32 block systems of 4,096 x 4,096; the residuals
+    against float64 recomputations from the returned X, the unflagged
+    points against the float64 dense tier."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import (harmonic_response, modal_analysis,
+                                    rayleigh_coefficients)
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import host as H
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers import newton
+
+    problem = grid_problem(*DIRECT_GRID)
+    require(problem.ndof == newton.DENSE_DOF_LIMIT,
+            "17(e): the grid sits at the dense limit")
+    w = modal_analysis(problem, n_modes=DIRECT_MODES, device=dev).omegas
+    damping = rayleigh_coefficients(w[0], DIRECT_ZETA, w[-1], DIRECT_ZETA)
+    om = np.linspace(0.5 * w[0], 1.2 * w[-1], DIRECT_FREQS)
+    data = problem.to_device(dev)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    wall, res = synced(lambda: harmonic_response(
+        problem, om, damping=damping, host=False, data=data))
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    f64_s, ref = synced(lambda: harmonic_response(
+        problem, om, damping=damping, device=dev))
+    x = res.real.astype(float) + 1j * res.imag.astype(float)
+    x64 = ref.real + 1j * ref.imag
+    mask = H.host_masks(problem)
+    k = H.host_stiffness(problem) * mask[:, None] * mask[None, :]
+    m = H.host_lumped_mass(problem) * mask
+    f = problem.loads * mask
+    alpha, beta = damping
+    kx, mx = x @ k.T, x * m[None, :]
+    r = (kx * (1.0 + 1j * om[:, None] * beta)
+         + mx * (1j * om[:, None] * alpha - (om * om)[:, None])
+         - f[None, :])
+    res64 = np.linalg.norm(r, axis=1) / np.linalg.norm(f)
+    ratio = res.residual / res64
+    honest = ((np.abs(res.residual - res64) <= 1e-6)
+              | ((ratio <= 2.0) & (ratio >= 0.5)))
+    keep = ~res.flagged
+    gap = (float(np.abs(x[keep] - x64[keep]).max() / np.abs(x64).max())
+           if keep.any() else 0.0)
+    log("phase17e_direct_sweep", card=card, ndof=problem.ndof,
+        n_freq=DIRECT_FREQS, chunks=-(-DIRECT_FREQS // 32),
+        damping=list(damping), wall_s=wall,
+        ms_per_frequency=1e3 * wall / DIRECT_FREQS, peak_memory_gb=peak_gb,
+        float64_tier_s=f64_s, flagged=int(res.flagged.sum()),
+        residual_max=float(res.residual.max()),
+        residual_float64_max=float(res64.max()),
+        residual_ratio_range=[float(ratio.min()), float(ratio.max())],
+        unflagged_gap=gap, launches=launches)
+    require(bool(np.all(honest)),
+            "17(e): each residual within a factor 2 (or 1e-6) of float64")
+    require(gap <= DIRECT_RTOL,
+            f"17(e): unflagged points within {DIRECT_RTOL} of max |X64|")
+    require(zero_launches(launches), "17(e): no repo kernel")
+    return launches
+
+
+def transient_fatigue_grid(workdir: Path, dev, card: str) -> dict:
+    """17(f): the 100 x 200 grid's central transient under a sine load,
+    2,000 steps recorded every step, 8 probe elements and a rainflow
+    fatigue block, through
+    main(): kernel 1's launches 1 + n + 2n/r, the force histories against
+    a float64 recovery from the same run's recorded element DOFs, damage
+    against rainflow_damage on those histories, u against the CPU twin."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import examples_grid as eg
+    from pinn_fem_tpu_torch.io import transient_io
+    from pinn_fem_tpu_torch.solvers.fatigue import rainflow_damage
+
+    _, elms = freq_probes()
+    n = FATIGUE_STEPS
+    doc = eg.transient_grid_document(
+        *GRID, n_steps=n, record_every=1, probe_elements=elms,
+        amplitude={"type": "sine", "frequency_hz": FATIGUE_LOAD_HZ},
+        fatigue={"sn": SN, "method": "rainflow"})
+    with Spy(transient_io, "_element_force_histories") as recovered:
+        out, launches, first_s, _ = transient_document(
+            workdir, "transient_fatigue", doc)
+    (_, disp, rec_probe, _, _), _, _ = recovered[0]
+    dofs, g_over_l = element_force_rows(doc["nodes"], doc["elements"], elms)
+    n64 = np.einsum("ek,tek->te", g_over_l,
+                    disp[:, np.searchsorted(rec_probe, dofs)])
+    forces = np.asarray(out["force_histories"])
+    force_gap = rel_err(forces, n64)
+    fat = out["fatigue"]
+    again = [rainflow_damage(forces[:, e], fat["duration"], SN["exponent"],
+                             SN["coefficient"]) for e in range(len(elms))]
+    cpu = cpu_twin(doc, FATIGUE_CPU_STEPS, out["dt"])
+    k = FATIGUE_CPU_STEPS
+    u_gap = history_gap(np.asarray(out["displacements"])[:k],
+                        cpu["displacements"])
+    cpu_force_gap = history_gap(forces[:k], cpu["force_histories"])
+    expected = 1 + n + 2 * n
+    log("phase17f_transient_fatigue", card=card, n_steps=n, dt=out["dt"],
+        wall_s=first_s, ms_per_step=1e3 * first_s / n, launches=launches,
+        predicted_dia_matvec=expected, force_gap_vs_float64=force_gap,
+        damage_rate=fat["damage_rate"], cycle_count=fat["cycle_count"],
+        u_gap_vs_cpu_twin=u_gap, force_gap_vs_cpu_twin=cpu_force_gap)
+    require(launches["dia_matvec"] == expected
+            and not any(launches[key] for key in launches
+                        if key != "dia_matvec"),
+            f"17(f): kernel 1 launched 1 + n + 2n/r = {expected}, no other")
+    require(force_gap <= FATIGUE_FORCE_RTOL,
+            f"17(f): force histories within {FATIGUE_FORCE_RTOL} of the "
+            "float64 recovery")
+    require([d for d, _ in again] == fat["damage_rate"]
+            and [c for _, c in again] == fat["cycle_count"],
+            "17(f): damage equal to rainflow_damage on the histories")
+    require(u_gap <= FATIGUE_CPU_RTOL,
+            f"17(f): u within {FATIGUE_CPU_RTOL} of the CPU twin")
+    return launches
+
+
+def frequency_refusals(dev, card: str) -> None:
+    """17(g): float64 CUDA operands on the banded modal sweep (harmonic,
+    random and spectrum) raise the ValueError naming PINN_FEM_TPU_X64 and
+    kernels 1-3; mesh= raises NotImplementedError (item 15)."""
+    import torch
+
+    from pinn_fem_tpu_torch import (harmonic_response, random_response,
+                                    response_spectrum)
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.ops import kernels
+
+    problem = grid_problem(*GRID)
+    data = problem.to_device(dev, torch.float64)
+    calls = {
+        "harmonic_response": lambda: harmonic_response(
+            problem, [0.01, 0.02], damping=(0.01, 0.0), method="modal",
+            n_modes=2, data=data),
+        "random_response": lambda: random_response(
+            problem, 1.0, [0.01, 0.02], damping=(0.01, 0.0), method="modal",
+            n_modes=2, data=data),
+        "response_spectrum": lambda: response_spectrum(
+            problem, 1.0, n_modes=2, data=data),
+    }
+    refused = {}
+    kernels.reset_launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except ValueError as e:
+            refused[name] = str(e)
+    launches = kernels.launch_counts()
+    try:
+        harmonic_response(problem, [0.01], mesh=object(), device=dev)
+        mesh = None
+    except NotImplementedError as e:
+        mesh = str(e)
+    log("phase17g_refusals", card=card, refused=refused, mesh=mesh,
+        launches=launches)
+    for name, msg in refused.items():
+        require(msg is not None and "PINN_FEM_TPU_X64" in msg
+                and "kernels 1-3" in msg,
+                f"17(g): float64 {name} refused, naming the variable and "
+                "kernels 1-3")
+    require(zero_launches(launches), "17(g): no launch before refusal")
+    require(mesh is not None and "item 15" in mesh,
+            "17(g): mesh= refused, naming item 15")
+
+
+def frequency_reference(dev) -> dict:
+    """The 100 x 200 grid's float64 reference shared by 17(b) and 17(c):
+    eigsh's 13 lowest modes (12 shapes), the lumped mass, the mask and
+    loads, the Rayleigh damping and the probes' element rows."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import rayleigh_coefficients
+    from pinn_fem_tpu_torch.examples_grid import grid_arrays, grid_problem
+
+    problem = grid_problem(*GRID)
+    t0 = time.perf_counter()
+    w2, shapes, mass = float64_grid_modes(problem, HARMONIC_MODES + 1)
+    nodes, elms = freq_probes()
+    nodes_xy, elements, loads, fixed = grid_arrays(*GRID)
+    dofs, g_over_l = element_force_rows(nodes_xy, elements, elms)
+    mask = np.ones(problem.ndof)
+    mask[fixed] = 0.0
+    w = np.sqrt(w2)
+    damping = rayleigh_coefficients(w[0], FREQ_ZETA, w[HARMONIC_MODES - 1],
+                                    FREQ_ZETA)
+    return {"w2": w2, "shapes": shapes[:, :HARMONIC_MODES], "mass": mass,
+            "mask": mask, "loads": loads, "damping": damping,
+            "nodes": nodes, "elms": elms, "dofs": dofs,
+            "g_over_l": g_over_l, "s": time.perf_counter() - t0}
+
+
+def phase_frequency(workdir: Path, dev, card: str) -> dict:
+    """Phase 17: frequency-domain analyses on the card.  Returns the
+    kernels' launches on each of its paths."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    launches = frequency_documents(workdir, card)
+    lap("a")
+    ref = frequency_reference(dev)
+    lap("reference")
+    launches["harmonic_modal_40k"] = harmonic_grid(workdir, card, ref)
+    lap("b")
+    launches["random_modal_40k"] = random_grid(workdir, card, ref)
+    lap("c")
+    launches["spectrum_modal_40k"] = spectrum_grid(workdir, card)
+    lap("d")
+    launches["harmonic_direct_2k"] = direct_sweep(card, dev)
+    lap("e")
+    launches["transient_fatigue_40k"] = transient_fatigue_grid(workdir, dev,
+                                                               card)
+    lap("f")
+    frequency_refusals(dev, card)
+    lap("g")
+    log("phase17_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return launches
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -4511,6 +5242,7 @@ def main() -> int:
         multigrid = phase_multigrid(dev, card)
         batched = phase_batched(Path(tmp), dev, card)
         eigen = phase_eigen(Path(tmp), dev, card)
+        frequency = phase_frequency(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -4550,6 +5282,8 @@ def main() -> int:
             for path, counts in batched["launches"].items()}
         entries[-1]["launches_eigen"] = {
             path: counts[name] for path, counts in eigen.items()}
+        entries[-1]["launches_frequency"] = {
+            path: counts[name] for path, counts in frequency.items()}
         if name in MATERIAL:
             side = ("forward" if name == "material_coefficients"
                     else "backward")

@@ -27,7 +27,12 @@ loads, the mass matrices, and "transient" analysis documents through the
 CLI.  Modal and linearized-buckling analyses (solvers/modal.py,
 solvers/buckling.py) run dense in float64 and banded on the fused PCG,
 through "modal" and "buckling" documents and solve_transient(method=
-"modal").  ROADMAP.md lists what is still to port.
+"modal").  The frequency-domain analyses run on them: harmonic response
+(solvers/harmonic.py), random vibration (solvers/random_response.py) with
+spectral and rainflow fatigue (solvers/fatigue.py), and response spectra
+(solvers/spectrum.py), through "harmonic", "random" and "spectrum"
+documents and a transient's "probe_elements" / "fatigue" keys.
+ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -78,9 +83,22 @@ from .solvers.dynamics import (  # noqa: E402
     solve_transient_checkpointed,
     stable_dt,
 )
+from .solvers.fatigue import (  # noqa: E402
+    SpectralFatigue,
+    davenport_peak_factor,
+    dirlik_damage_rate,
+    first_passage_probability,
+    narrowband_damage_rate,
+    rainflow_cycles,
+    rainflow_damage,
+    spectral_fatigue,
+    spectral_moments,
+    synthesize_gaussian_history,
+)
 from .solvers.full_newton import solve_full_nr  # noqa: E402
 from .solvers.gauss_newton import solve_gauss_newton  # noqa: E402
 from .solvers.gd import solve_gd  # noqa: E402
+from .solvers.harmonic import HarmonicResult, harmonic_response  # noqa: E402
 from .solvers.hybrid import solve_hybrid  # noqa: E402
 from .solvers.legacy import (  # noqa: E402
     LegacySolverConfig,
@@ -100,22 +118,40 @@ from .solvers.modal import (  # noqa: E402
     rayleigh_coefficients,
 )
 from .solvers.newton import solve_nr  # noqa: E402
+from .solvers.random_response import (  # noqa: E402
+    RandomResponseResult,
+    random_response,
+)
+from .solvers.spectrum import (  # noqa: E402
+    DirectionalSpectrumResult,
+    SpectrumCurve,
+    SpectrumResult,
+    directional_combination,
+    response_spectrum,
+    spectrum_from_history,
+)
 
 __all__ = [
-    "BucklingResult", "LegacySolverConfig", "Material", "MLPField",
-    "ModalResult", "PINNGradientDescentConfig", "PINNSolverConfig",
-    "PINNSolverResult", "ProblemData", "ScalarField", "SolverConfig",
-    "SolverResult", "TransientResult", "TrussProblem", "assemble_system",
+    "BucklingResult", "DirectionalSpectrumResult", "HarmonicResult",
+    "LegacySolverConfig", "Material", "MLPField", "ModalResult",
+    "PINNGradientDescentConfig", "PINNSolverConfig", "PINNSolverResult",
+    "ProblemData", "RandomResponseResult", "ScalarField", "SolverConfig",
+    "SolverResult", "SpectralFatigue", "SpectrumCurve", "SpectrumResult",
+    "TransientResult", "TrussProblem", "assemble_system",
     "base_excitation_force_fn", "buckling_analysis", "buckling_eigenvalues",
-    "compute_residual_and_jacobian", "consistent_mass", "element_dofs",
-    "element_strain_stress", "free_and_fixed_dofs",
-    "internal_force_and_strain", "lumped_mass", "mac", "make_mlp_field",
-    "material_from_numpy", "modal_analysis", "modal_eigenpairs",
-    "modal_eigenvalues", "moving_load_force_fn", "rayleigh_coefficients",
-    "solve", "solve_full_nr", "solve_gauss_newton", "solve_gd",
-    "solve_hybrid", "solve_incremental_newton", "solve_nr",
+    "compute_residual_and_jacobian", "consistent_mass",
+    "davenport_peak_factor", "directional_combination", "dirlik_damage_rate",
+    "element_dofs", "element_strain_stress", "first_passage_probability",
+    "free_and_fixed_dofs", "harmonic_response", "internal_force_and_strain",
+    "lumped_mass", "mac", "make_mlp_field", "material_from_numpy",
+    "modal_analysis", "modal_eigenpairs", "modal_eigenvalues",
+    "moving_load_force_fn", "narrowband_damage_rate", "rainflow_cycles",
+    "rainflow_damage", "random_response", "rayleigh_coefficients",
+    "response_spectrum", "solve", "solve_full_nr", "solve_gauss_newton",
+    "solve_gd", "solve_hybrid", "solve_incremental_newton", "solve_nr",
     "solve_pinn_gradient_descent", "solve_pinn_newton_raphson",
-    "solve_transient", "solve_transient_checkpointed", "split_element_data",
-    "stable_dt", "thermal_free_strains", "thermal_loads", "to_field",
-    "total_mass",
+    "solve_transient", "solve_transient_checkpointed", "spectral_fatigue",
+    "spectral_moments", "spectrum_from_history", "split_element_data",
+    "stable_dt", "synthesize_gaussian_history", "thermal_free_strains",
+    "thermal_loads", "to_field", "total_mass",
 ]

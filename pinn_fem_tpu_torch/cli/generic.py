@@ -18,8 +18,8 @@ CUDA without a card is an error, not a CPU run.  PINN_FEM_TPU_SEED seeds
 the NN initialisation, as in the JAX CLI.  An "analysis" document
 (routed, as in the JAX CLI, on the parsed document's meta["analysis"])
 runs io/analysis.run_analysis and writes its result dict; of the analysis
-types "transient", "modal" and "buckling" are ported (the others exit 1,
-naming their ROADMAP item).
+types "transient", "modal", "buckling", "harmonic", "random" and
+"spectrum" are ported (the others exit 1, naming their ROADMAP item).
 Element-family documents ("element_type") are not yet ported and exit 1.
 """
 
@@ -126,7 +126,22 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         elif output["analysis"] == "buckling":
             logger.info("  Critical load factors: %s",
                         output["load_factors"])
-        else:
+        elif output["analysis"] == "harmonic":
+            logger.info("  Frequencies swept: %d (%s)",
+                        len(output["omegas"]), output["method"])
+        elif output["analysis"] == "spectrum":
+            if "per_direction" in output:      # multi-direction response
+                logger.info(
+                    "  %d directions (%s rule), modal mass %s",
+                    len(output["per_direction"]),
+                    output["directional_rule"],
+                    ", ".join("%.1f%%" % (100.0 * d["mass_fraction"])
+                              for d in output["per_direction"]))
+            else:
+                logger.info("  Modal mass captured: %.1f%% (%s)",
+                            100.0 * output["mass_fraction"],
+                            output["combination"])
+        elif output["analysis"] == "transient":
             # An ensemble result has no "method" (central only): the JAX
             # CLI raises KeyError on it after writing the result (ROADMAP
             # fault 3.16); here it logs the batch instead.

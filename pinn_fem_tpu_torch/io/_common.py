@@ -1,8 +1,8 @@
 """Shared helpers of the analysis-JSON runners: the part of
-pinn_fem_tpu/io/_common.py that a transient document needs (the amplitude
-and probe parsers and the prestress state).  The strict-JSON sanitizer
-and the omega, fatigue and element-area helpers come with the runners
-that call them, ROADMAP item 17.
+pinn_fem_tpu/io/_common.py that the truss runners call (the amplitude,
+probe, omega and spectrum parsers, the prestress state, the S-N
+parameters and the element areas).  The strict-JSON sanitizer and the
+continuum runners come with the runners that call them.
 """
 
 from __future__ import annotations
@@ -62,6 +62,86 @@ def _probe_dofs(analysis: Dict, problem) -> np.ndarray:
         d = problem.dimension
         return (d * nodes[:, None] + np.arange(d)[None, :]).reshape(-1)
     return np.arange(problem.ndof)
+
+
+def _omega_array(spec) -> np.ndarray:
+    if isinstance(spec, (list, tuple)):
+        return np.asarray(spec, dtype=float)
+    if isinstance(spec, dict):
+        num = int(spec.get("num", 50))
+        start, stop = float(spec["start"]), float(spec["stop"])
+        if spec.get("spacing", "linear") == "log":
+            return np.logspace(np.log10(start), np.log10(stop), num)
+        return np.linspace(start, stop, num)
+    raise ValueError(f"bad omegas spec: {spec!r}")
+
+
+def _sn_params(fat: Dict):
+    """Basquin S-N parameters from a "fatigue" spec: {"sn": {"exponent":
+    m, "coefficient": C}} with N S^m = C, S = stress amplitude."""
+    sn = fat.get("sn")
+    if not isinstance(sn, dict) or "exponent" not in sn \
+            or "coefficient" not in sn:
+        raise ValueError('fatigue spec needs "sn": {"exponent": m, '
+                         '"coefficient": C} (Basquin N S^m = C)')
+    m = float(sn["exponent"])
+    c = float(sn["coefficient"])
+    if m <= 0.0 or c <= 0.0:
+        raise ValueError("S-N exponent and coefficient must be positive")
+    return m, c
+
+
+def _element_areas(problem, elm_sel):
+    """Cross-section areas of the selected elements (stress = N/A)."""
+    from ..ops.host import material_values_host
+
+    return material_values_host(problem, 1.0)[1][elm_sel]
+
+
+def _history_record(analysis: Dict):
+    """(a_g, dt, zeta) of a "sa": {"history": ..} spec: the scaled
+    acceleration record, its step and the oscillators' damping ratio."""
+    sa = analysis["sa"]
+    if "dt" not in sa:
+        raise ValueError('a history spectrum needs its record "dt"')
+    dt_h = float(sa["dt"])
+    hist_spec = sa["history"]
+    n = int(sa.get("n_steps",
+                   len(hist_spec)
+                   if isinstance(hist_spec, (list, tuple)) else 0))
+    if n <= 0:
+        raise ValueError('a synthetic history spectrum needs "n_steps"')
+    accel = _amplitude_array(hist_spec, n, dt_h) * float(sa.get("scale", 1.0))
+    zeta_g = float(sa.get("damping_ratio",
+                          analysis.get("damping_ratio", 0.05)))
+    return accel, dt_h, zeta_g
+
+
+def _sa_callable(analysis: Dict):
+    """Resolve the "sa" spectrum spec to Sa(omega): a flat float, a
+    tabulated curve (interpolated), or {"history": <amplitude contract>,
+    "dt": .., "n_steps": .., "scale": .., "damping_ratio": ..}, whose
+    spectrum is generated from the record and evaluated exactly at the
+    asked frequencies (spectrum_from_history's pseudo-acceleration)."""
+    sa = analysis.get("sa", 1.0)
+    if isinstance(sa, dict) and "history" in sa:
+        from ..solvers.spectrum import spectrum_from_history
+
+        accel, dt_h, zeta_g = _history_record(analysis)
+
+        def spectrum(om):
+            return spectrum_from_history(accel, dt_h, om, zeta_g).psa
+
+        return spectrum
+    if isinstance(sa, dict):
+        om_tab = np.asarray(sa["omegas"], dtype=float)
+        val_tab = np.asarray(sa["values"], dtype=float)
+
+        def spectrum(om):
+            return np.interp(om, om_tab, val_tab)
+
+        return spectrum
+    return float(sa)
 
 
 def _prestress_state(problem, spec, device=None):

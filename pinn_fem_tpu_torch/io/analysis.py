@@ -1,8 +1,8 @@
 """Dispatch of a document's "analysis" block (counterpart of
-pinn_fem_tpu/io/analysis.py).  "transient" (io/transient_io.py), "modal"
-and "buckling" run; of the other analysis types of the JAX package,
-harmonic, spectrum, continuation, plastic, random and reduction are
-ROADMAP item 17, identification item 23, sizing and reliability item 24.
+pinn_fem_tpu/io/analysis.py).  "transient" (io/transient_io.py), "modal",
+"buckling", "harmonic", "random" and "spectrum" run; of the other analysis
+types of the JAX package, continuation, plastic and reduction are ROADMAP
+item 17, identification item 23, sizing and reliability item 24.
 
     "analysis": {"type": "modal", "n_modes": 6, "lumped": true,
                  "n_iter": 25, "include_shapes": true,
@@ -13,6 +13,37 @@ ROADMAP item 17, identification item 23, sizing and reliability item 24.
                  "compare_shapes": [[..ndof..], ..]}   # MAC rows
 
     "analysis": {"type": "buckling", "n_modes": 4, "include_shapes": true}
+
+    "analysis": {"type": "harmonic", "damping": [alpha, beta],
+                 "method": "direct" | "modal", "n_modes": 12,
+                 "omegas": [..] | {"start": w0, "stop": w1, "num": 100,
+                                   "spacing": "linear" | "log"},
+                 "prestress": .., "residual_tol": 1e-3,
+                 "probe_nodes": [..] | "probe_dofs": [..],
+                 "probe_elements": [..]}      # member-force FRFs
+
+    "analysis": {"type": "random", "psd": S0 | {"omegas": [..],
+                                                "values": [..]},
+                 "omegas": {..}, "damping": [alpha, beta],
+                 "method": .., "n_modes": .., "prestress": ..,
+                 "probe_nodes": [..], "probe_elements": [..],
+                 "first_passage": {"barrier": b | [..], "duration": T,
+                                   "two_sided": true},  # Rice / Poisson
+                 "fatigue": {"sn": {"exponent": m, "coefficient": C},
+                             "method": "dirlik" | "narrowband",
+                             "duration": T}}  # spectral fatigue
+
+    "analysis": {"type": "spectrum", "sa": 2.5 | {"omegas": [..],
+                                                  "values": [..]}
+                     | {"history": <amplitude contract>, "dt": 0.01,
+                        "n_steps": 4000, "scale": 1.0,
+                        "damping_ratio": 0.05, "curve_omegas": [..]},
+                 "direction": [1, 0] | "directions": [[1, 0], [0, 1]],
+                 "directional_rule": "srss" | "100-30", "n_modes": 6,
+                 "combination": "srss" | "cqc", "damping_ratio": 0.05,
+                 "prestress": ..}
+
+Every runner takes `device` ("cuda" when None), as run_analysis does.
 """
 
 from __future__ import annotations
@@ -21,11 +52,12 @@ from typing import Dict
 
 import numpy as np
 
-from ._common import _SHAPES_JSON_DOF_LIMIT, _prestress_state
+from ._common import (_SHAPES_JSON_DOF_LIMIT, _element_areas,
+                      _history_record, _omega_array, _prestress_state,
+                      _probe_dofs, _sa_callable, _sn_params)
 
 # Analysis types whose runners are not yet ported, by ROADMAP item.
-_NOT_PORTED = {"harmonic": 17, "spectrum": 17, "continuation": 17,
-               "plastic": 17, "random": 17, "reduction": 17,
+_NOT_PORTED = {"continuation": 17, "plastic": 17, "reduction": 17,
                "identification": 23, "sizing": 24, "reliability": 24}
 
 
@@ -125,6 +157,266 @@ def run_buckling(problem, analysis: Dict, device=None) -> Dict:
     return out
 
 
+def _probe_elements(analysis: Dict, omegas, what: str):
+    """The block's probe_elements as an int array (None when absent),
+    with the JSON payload guard of the member-force quantities."""
+    elms = analysis.get("probe_elements")
+    if elms is None:
+        return None
+    elms = np.asarray(elms, dtype=int)
+    if elms.size * omegas.size > 4 * _SHAPES_JSON_DOF_LIMIT:
+        raise ValueError(
+            f"member-force {what} would serialize {elms.size} elements x "
+            f"{omegas.size} frequencies to JSON; probe fewer elements")
+    return elms
+
+
+def _guard_probe(analysis: Dict, probe, omegas, head: str) -> None:
+    """The JSON payload guard of the probe-DOF quantities; `head` opens
+    the message."""
+    if (probe.size * omegas.size > 4 * _SHAPES_JSON_DOF_LIMIT
+            and "probe_dofs" not in analysis
+            and "probe_nodes" not in analysis):
+        raise ValueError(
+            f"{head} {probe.size} DOFs x {omegas.size} "
+            "frequencies to JSON; give probe_nodes/probe_dofs to bound "
+            "the payload")
+
+
+def run_harmonic(problem, analysis: Dict, device=None) -> Dict:
+    """A harmonic (frequency-response) block on `device`."""
+    from ..solvers.harmonic import harmonic_response
+
+    omegas = _omega_array(analysis["omegas"])
+    damping = analysis.get("damping", [0.0, 0.0])
+    method = analysis.get("method", "direct")
+    probe = _probe_dofs(analysis, problem)
+    _guard_probe(analysis, probe, omegas,
+                 "harmonic response would serialize 4 x")
+    prestress_u = _prestress_state(problem, analysis.get("prestress"),
+                                   device)
+    probe_elements = _probe_elements(analysis, omegas, "FRFs")
+    residual_tol = float(analysis.get("residual_tol", 1e-3))
+    res = harmonic_response(
+        problem, omegas, damping=(float(damping[0]), float(damping[1])),
+        method=method, n_modes=int(analysis.get("n_modes", 12)),
+        probe_dofs=probe, probe_elements=probe_elements,
+        prestress_u=prestress_u, residual_tol=residual_tol, device=device)
+    flagged = np.flatnonzero(res.flagged)
+    out = {
+        "success": True,
+        "analysis": "harmonic",
+        "method": method,
+        "prestressed": prestress_u is not None,
+        "omegas": res.omegas.tolist(),
+        "probe_dofs": probe.tolist(),
+        "real": res.real.tolist(),
+        "imag": res.imag.tolist(),
+        "amplitude": res.amplitude.tolist(),
+        "phase": res.phase.tolist(),
+        # Honesty guard: the per-frequency relative residual of the
+        # returned solution and the points above residual_tol.
+        "residual": res.residual.tolist(),
+        "flagged_indices": flagged.tolist(),
+        "flagged_omegas": res.omegas[flagged].tolist(),
+        "residual_tol": residual_tol,
+    }
+    if probe_elements is not None:
+        out["probe_elements"] = probe_elements.tolist()
+        out["force_real"] = res.force_real.tolist()
+        out["force_imag"] = res.force_imag.tolist()
+        out["force_amplitude"] = res.force_amplitude.tolist()
+    return out
+
+
+def run_random(problem, analysis: Dict, device=None) -> Dict:
+    """A random-vibration block on `device` (solvers/random_response.py),
+    with its first-passage and spectral-fatigue summaries
+    (solvers/fatigue.py)."""
+    from ..solvers.fatigue import (first_passage_probability,
+                                   spectral_fatigue)
+    from ..solvers.random_response import random_response
+
+    omegas = _omega_array(analysis["omegas"])
+    damping = analysis.get("damping", [0.0, 0.0])
+    probe = _probe_dofs(analysis, problem)
+    _guard_probe(analysis, probe, omegas,
+                 "random-response PSDs would serialize")
+    psd_spec = analysis.get("psd", 1.0)
+    if isinstance(psd_spec, dict):
+        om_tab = np.asarray(psd_spec["omegas"], dtype=float)
+        val_tab = np.asarray(psd_spec["values"], dtype=float)
+
+        def load_psd(om):
+            return np.interp(om, om_tab, val_tab)
+    else:
+        load_psd = float(psd_spec)
+    prestress_u = _prestress_state(problem, analysis.get("prestress"),
+                                   device)
+    probe_elements = _probe_elements(analysis, omegas, "PSDs")
+    res = random_response(
+        problem, load_psd, omegas,
+        damping=(float(damping[0]), float(damping[1])),
+        method=analysis.get("method", "direct"),
+        n_modes=int(analysis.get("n_modes", 12)),
+        probe_dofs=probe, probe_elements=probe_elements,
+        prestress_u=prestress_u, device=device)
+    out = {
+        "success": True,
+        "analysis": "random",
+        "prestressed": prestress_u is not None,
+        "omegas": res.omegas.tolist(),
+        "probe_dofs": probe.tolist(),
+        "psd": res.psd.tolist(),
+        "rms": res.rms.tolist(),
+    }
+    if probe_elements is not None:
+        out["probe_elements"] = probe_elements.tolist()
+        out["force_psd"] = res.force_psd.tolist()
+        out["force_rms"] = res.force_rms.tolist()
+    fp = analysis.get("first_passage")
+    if fp is not None:
+        # Barrier crossing of the probe-DOF displacements: Rice rate and
+        # the Poisson approximation.
+        if fp.get("barrier") is None or fp.get("duration") is None:
+            raise ValueError('first_passage needs "barrier" and '
+                             '"duration"')
+        two_sided = bool(fp.get("two_sided", True))
+        nu_b, pf_fp = first_passage_probability(
+            res.omegas, np.asarray(res.psd, dtype=float), fp["barrier"],
+            float(fp["duration"]), two_sided=two_sided)
+        out["first_passage"] = {
+            "barrier": np.broadcast_to(
+                np.asarray(fp["barrier"], dtype=float),
+                np.atleast_1d(nu_b).shape).tolist(),
+            "duration": float(fp["duration"]),
+            "two_sided": two_sided,
+            "crossing_rate_hz": np.atleast_1d(nu_b).tolist(),
+            "pf": np.atleast_1d(pf_fp).tolist(),
+        }
+    fat = analysis.get("fatigue")
+    if fat is not None:
+        # Stress PSDs S_sigma = S_N / A^2 through Dirlik (default) or the
+        # narrow-band bound; without "sn" the summary is statistics only.
+        if probe_elements is None:
+            raise ValueError("random-block fatigue needs probe_elements "
+                             "(damage is computed from member-STRESS "
+                             "PSDs)")
+        m = c = None
+        if fat.get("sn") is not None:
+            m, c = _sn_params(fat)
+        duration = fat.get("duration")
+        areas = _element_areas(problem, probe_elements)
+        stress_psd = (np.asarray(res.force_psd, dtype=float)
+                      / (areas ** 2)[None, :])
+        sf = spectral_fatigue(
+            res.omegas, stress_psd, m, c,
+            method=fat.get("method", "dirlik"),
+            duration=None if duration is None else float(duration))
+        out["fatigue"] = {
+            "method": sf.method,
+            "probe_elements": probe_elements.tolist(),
+            "stress_rms": sf.rms.tolist(),
+            "nu0_hz": sf.nu0.tolist(),
+            "nu_peak_hz": sf.nu_peak.tolist(),
+            "alpha2": sf.alpha2.tolist(),
+        }
+        if m is not None:
+            out["fatigue"]["sn"] = {"exponent": m, "coefficient": c}
+            out["fatigue"]["damage_rate"] = sf.damage_rate.tolist()
+            out["fatigue"]["life_s"] = [
+                None if not np.isfinite(v) else float(v) for v in sf.life]
+        if duration is not None:
+            out["fatigue"]["duration"] = float(duration)
+            out["fatigue"]["peak_factor"] = sf.peak_factor.tolist()
+            out["fatigue"]["expected_peak_stress"] = \
+                sf.expected_peak.tolist()
+    return out
+
+
+def run_spectrum(problem, analysis: Dict, device=None) -> Dict:
+    """A response-spectrum block on `device` (solvers/spectrum.py).  The
+    "history" form of Sa generates the spectrum from the record and
+    evaluates it exactly at the modal frequencies."""
+    from ..solvers.spectrum import (directional_combination,
+                                    response_spectrum, spectrum_from_history)
+
+    sa = analysis.get("sa", 1.0)
+    history = isinstance(sa, dict) and "history" in sa
+    spectrum = _sa_callable(analysis)
+    prestress_u = _prestress_state(problem, analysis.get("prestress"),
+                                   device)
+    kw = dict(n_modes=int(analysis.get("n_modes", 6)),
+              combination=analysis.get("combination", "srss"),
+              damping_ratio=float(analysis.get("damping_ratio", 0.05)),
+              prestress_u=prestress_u, device=device)
+    if "directions" in analysis:
+        # SRSS over orthogonal components or the 100-30 rule, per
+        # response quantity.
+        if "direction" in analysis:
+            raise ValueError('give "direction" (single) or '
+                             '"directions" (combined), not both')
+        mres = directional_combination(
+            problem, spectrum, analysis["directions"],
+            rule=analysis.get("directional_rule", "srss"), **kw)
+        first = mres.per_direction[0]
+        return {
+            "success": True,
+            "analysis": "spectrum",
+            "prestressed": prestress_u is not None,
+            "combination": first.combination,
+            "directional_rule": mres.rule,
+            "modal_ok": bool(mres.modal_ok),
+            "omegas": first.omegas.tolist(),
+            "displacements": mres.displacements.tolist(),
+            "axial_forces": mres.axial_forces.tolist(),
+            "per_direction": [
+                {"direction": list(map(float, np.asarray(d).reshape(-1))),
+                 "participation": r.participation.tolist(),
+                 "effective_mass": r.effective_mass.tolist(),
+                 "mass_fraction": r.mass_fraction}
+                for d, r in zip(analysis["directions"],
+                                mres.per_direction)],
+            **({"sa_at_modes": np.asarray(
+                spectrum(first.omegas), dtype=float).tolist()}
+               if callable(spectrum) else {}),
+        }
+    res = response_spectrum(problem, spectrum,
+                            direction=analysis.get("direction"), **kw)
+    out = {
+        "success": True,
+        "analysis": "spectrum",
+        "prestressed": prestress_u is not None,
+        "combination": res.combination,
+        "modal_ok": bool(res.modal_ok),
+        "omegas": res.omegas.tolist(),
+        "participation": res.participation.tolist(),
+        "effective_mass": res.effective_mass.tolist(),
+        "mass_fraction": res.mass_fraction,
+        "displacements": res.displacements.tolist(),
+        # Modal member forces combined directly, per response quantity.
+        "axial_forces": res.axial_forces.tolist(),
+    }
+    if callable(spectrum):
+        out["sa_at_modes"] = np.asarray(spectrum(res.omegas),
+                                        dtype=float).tolist()
+    if history:
+        out["sa_source"] = "history"
+        if sa.get("curve_omegas") is not None:
+            accel, dt_h, zeta_g = _history_record(analysis)
+            om_c = _omega_array(sa["curve_omegas"])
+            curve = spectrum_from_history(accel, dt_h, om_c, zeta_g)
+            out["spectrum_curve"] = {
+                "omegas": om_c.tolist(),
+                "sd": curve.sd.tolist(),
+                "psv": curve.psv.tolist(),
+                "psa": curve.psa.tolist(),
+                "sa_abs": curve.sa_abs.tolist(),
+                "damping_ratio": curve.damping_ratio,
+            }
+    return out
+
+
 def run_analysis(problem, analysis: Dict, device=None) -> Dict:
     """Run an "analysis" block on `device` ("cuda" when None)."""
     kind = analysis.get("type")
@@ -136,6 +428,12 @@ def run_analysis(problem, analysis: Dict, device=None) -> Dict:
         return run_modal(problem, analysis, device)
     if kind == "buckling":
         return run_buckling(problem, analysis, device)
+    if kind == "harmonic":
+        return run_harmonic(problem, analysis, device)
+    if kind == "spectrum":
+        return run_spectrum(problem, analysis, device)
+    if kind == "random":
+        return run_random(problem, analysis, device)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f'"{kind}" analysis documents are not yet ported, ROADMAP '

@@ -5,10 +5,17 @@ Central-difference, Newmark or modal-superposition integration of the
 document's truss (solvers/dynamics.py) with its amplitude, damping, prestress, moving-load
 or base-excitation load and checkpoint specs, the ensemble of (B, n_steps)
 "amplitudes" and the "include_stress_envelope" of a single run
-(parallel/batched.solve_transient_batched); the result dict has the JAX
-package's keys.  Not yet ported, and refused by name: "plasticity"
-(solvers/plasticity.py) and "probe_elements" / "fatigue"
-(solvers/harmonic.py, solvers/fatigue.py), ROADMAP item 17.
+(parallel/batched.solve_transient_batched), and the member-force
+histories of "probe_elements" with their rainflow "fatigue" summary
+(solvers/fatigue.py); the result dict has the JAX package's keys.  Not
+yet ported, and refused by name: "plasticity" (solvers/plasticity.py),
+ROADMAP item 17.
+
+    "probe_elements": [..],            # member forces N_e(t), recovered
+                                       # from the recorded element DOFs
+    "include_force_histories": bool,   # default: when the payload fits
+    "fatigue": {"sn": {"exponent": m, "coefficient": C},
+                "method": "rainflow"}  # needs probe_elements
 """
 
 from __future__ import annotations
@@ -21,22 +28,79 @@ from ..solvers.dynamics import (base_excitation_force_fn,
                                 moving_load_force_fn, solve_transient,
                                 solve_transient_checkpointed, stable_dt)
 from ._common import (_SHAPES_JSON_DOF_LIMIT, _amplitude_array,
-                      _prestress_state, _probe_dofs)
+                      _element_areas, _prestress_state, _probe_dofs,
+                      _sn_params)
 
 # Transient keys whose modules are not yet ported, by ROADMAP item.
 _NOT_PORTED = (
     ("plasticity", "solvers/plasticity.py", 17),
-    ("probe_elements", "solvers/harmonic.py", 17),
-    ("fatigue", "solvers/fatigue.py", 17),
 )
 
 
-def _refuse_unported(analysis: Dict, keys) -> None:
+def _refuse_unported(analysis: Dict) -> None:
     for key, module, item in _NOT_PORTED:
-        if key in keys and key in analysis:
+        if key in analysis:
             raise NotImplementedError(
                 f'transient "{key}" ({module}) is not yet ported, ROADMAP '
                 f"item {item}")
+
+
+def _transient_fatigue(problem, fat: Dict, elm_sel, n_hist, times) -> Dict:
+    """Rainflow / Miner damage per probed element from its force history:
+    stress N_e(t) / A_e, ASTM E1049 rainflow cycles through the Basquin
+    curve (solvers/fatigue.py)."""
+    from ..solvers.fatigue import rainflow_damage
+
+    m, c = _sn_params(fat)
+    if fat.get("method", "rainflow") != "rainflow":
+        raise ValueError('transient fatigue is time-domain: method must '
+                         'be "rainflow" (spectral methods live on the '
+                         'random block)')
+    t = np.asarray(times, dtype=float)
+    duration = float(t[-1] - t[0])
+    if duration <= 0.0:
+        raise ValueError("fatigue needs a transient spanning > 0 s")
+    areas = _element_areas(problem, elm_sel)
+    stress = np.asarray(n_hist, dtype=float) / areas[None, :]
+    rates, counts = zip(*(rainflow_damage(stress[:, e], duration, m, c)
+                          for e in range(stress.shape[1])))
+    rates = np.asarray(rates, dtype=float)
+    with np.errstate(divide="ignore"):
+        life = np.where(rates > 0.0, 1.0 / np.maximum(rates, 1e-300),
+                        np.inf)
+    return {
+        "method": "rainflow",
+        "sn": {"exponent": m, "coefficient": c},
+        "duration": duration,
+        "probe_elements": elm_sel.tolist(),
+        "stress_rms": np.std(stress, axis=0).tolist(),
+        "cycle_count": list(counts),
+        "damage_rate": rates.tolist(),
+        "life_s": [None if not np.isfinite(v) else float(v) for v in life],
+    }
+
+
+def _element_force_histories(problem, disp, rec_probe, constants,
+                             geometric_nonlinear: bool = False):
+    """(n_rec, n_elm) member forces N_e(t) = (EA/L) g . u_e(t) from
+    displacement records `disp` (n_rec, n_probe) of the sorted DOFs
+    `rec_probe`, in float64 on the host; `constants` are the elements'
+    (sel, EA/L, g, DOFs) rows (harmonic._element_frf_constants).  With
+    geometric_nonlinear the Green-Lagrange term (EA/L) |du|^2 / (2 L) is
+    added, the force the integrator applied."""
+    from ..ops.host import _geometry
+
+    elm_sel, s_sel, gvec_sel, dm_sel = constants
+    u_e = np.asarray(disp, dtype=float)[:, np.searchsorted(rec_probe,
+                                                           dm_sel)]
+    n_hist = s_sel[None, :] * np.sum(gvec_sel[None] * u_e, axis=-1)
+    if geometric_nonlinear:
+        d = problem.dimension
+        inv_len_sel = _geometry(problem)[2][elm_sel]
+        du_rel = u_e[:, :, d:] - u_e[:, :, :d]
+        n_hist = n_hist + 0.5 * s_sel[None, :] * inv_len_sel[None, :] \
+            * np.sum(du_rel * du_rel, axis=-1)
+    return n_hist
 
 
 def _run_transient_ensemble(problem, analysis, dt, n_steps, method,
@@ -116,7 +180,7 @@ def _transient_force_fn(problem, analysis, dt, device=None):
 def run_transient(problem, analysis: Dict, device=None) -> Dict:
     """Execute a transient analysis block on `device` ("cuda" when None);
     JSON-serializable result dict."""
-    _refuse_unported(analysis, ("plasticity",))
+    _refuse_unported(analysis)
     n_steps = int(analysis["n_steps"])
     method = analysis.get("method", "central")
     dt_spec = analysis.get("dt", "auto")
@@ -145,12 +209,41 @@ def run_transient(problem, analysis: Dict, device=None) -> Dict:
             f"{probe.size} DOFs x {n_steps // record_every} snapshots to "
             "JSON; give probe_nodes/probe_dofs (or a larger record_every) "
             "to bound the payload")
-    if "probe_elements" in analysis and "amplitudes" in analysis:
-        raise ValueError("probe_elements composes with single-run "
-                         "transients; the ensemble path reports the "
-                         "stress envelope instead "
-                         "(include_stress_envelope)")
-    _refuse_unported(analysis, ("probe_elements", "fatigue"))
+    # Member-force histories: record the probed elements' DOFs beside
+    # the user's probe and recover N_e(t) on the host afterwards.
+    probe_elements = analysis.get("probe_elements")
+    elm_sel = None
+    rec_probe = probe
+    if probe_elements is not None:
+        from ..solvers.harmonic import _element_frf_constants
+
+        elm_sel = np.asarray(probe_elements, dtype=int).reshape(-1)
+        # The guard protects the JSON, not the compute: fatigue wants the
+        # full-rate history, so "include_force_histories": false computes
+        # damage on the full record and serializes only the summary.
+        hist_fits = (elm_sel.size * (n_steps // record_every)
+                     <= 4 * _SHAPES_JSON_DOF_LIMIT)
+        include_hist = analysis.get("include_force_histories")
+        if include_hist is None:
+            include_hist = hist_fits
+            if not hist_fits and "fatigue" not in analysis:
+                raise ValueError(
+                    f"member-force histories would serialize "
+                    f"{elm_sel.size} elements x "
+                    f"{n_steps // record_every} snapshots to JSON; "
+                    "probe fewer elements, raise record_every, or add a "
+                    '"fatigue" block (the summary serializes without '
+                    "the histories)")
+        else:
+            include_hist = bool(include_hist)    # explicit is trusted
+        if "amplitudes" in analysis:
+            raise ValueError("probe_elements composes with single-run "
+                             "transients; the ensemble path reports the "
+                             "stress envelope instead "
+                             "(include_stress_envelope)")
+        constants = _element_frf_constants(problem, elm_sel)
+        rec_probe = np.unique(np.concatenate([probe,
+                                              constants[3].reshape(-1)]))
     force_fn = _transient_force_fn(problem, analysis, dt, device)
     checkpoint = analysis.get("checkpoint")
     if analysis.get("include_stress_envelope", False):
@@ -187,7 +280,7 @@ def run_transient(problem, analysis: Dict, device=None) -> Dict:
     kw = dict(
         amplitude=amplitude,
         damping=(float(damping[0]), float(damping[1])),
-        method=method, record_every=record_every, probe_dofs=probe,
+        method=method, record_every=record_every, probe_dofs=rec_probe,
         newmark_beta=float(analysis.get("newmark_beta", 0.25)),
         newmark_gamma=float(analysis.get("newmark_gamma", 0.5)),
         geometric_nonlinear=bool(analysis.get("geometric_nonlinear",
@@ -228,9 +321,29 @@ def run_transient(problem, analysis: Dict, device=None) -> Dict:
         "times": res.times.tolist(),
         "kinetic_energy": res.kinetic_energy.tolist(),
         "strain_energy": res.strain_energy.tolist(),
-        "displacements": np.asarray(res.displacements, dtype=float).tolist(),
-        "velocities": np.asarray(res.velocities, dtype=float).tolist(),
     }
+    disp = np.asarray(res.displacements, dtype=float)
+    velo = np.asarray(res.velocities, dtype=float)
+    if probe_elements is None:
+        out["displacements"] = disp.tolist()
+        out["velocities"] = velo.tolist()
+    else:
+        # The solver recorded the union of the user's probe and the
+        # elements' DOFs: slice the user's view back out, and recover the
+        # member forces from the element columns.
+        pos = np.searchsorted(rec_probe, probe)
+        out["displacements"] = disp[:, pos].tolist()
+        out["velocities"] = velo[:, pos].tolist()
+        n_hist = _element_force_histories(
+            problem, disp, rec_probe, constants,
+            bool(analysis.get("geometric_nonlinear", False)))
+        out["probe_elements"] = elm_sel.tolist()
+        if include_hist:
+            out["force_histories"] = n_hist.tolist()
+        fat = analysis.get("fatigue")
+        if fat is not None:
+            out["fatigue"] = _transient_fatigue(problem, fat, elm_sel,
+                                                n_hist, res.times)
     if analysis.get("include_stress_envelope", False):
         # Per-element |stress| envelope over every step (the design-check
         # quantity) by the batched core with B = 1.

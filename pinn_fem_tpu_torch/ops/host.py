@@ -10,8 +10,9 @@ a device op of the port (host_stiffness <-> ops/assembly.assemble_system,
 host_lumped_mass <-> ops/mass.lumped_mass, host_consistent_mass <->
 ops/mass.consistent_mass, host_geometric_stiffness <->
 ops/geometric.assemble_geometric), in float64.  The dense modal and
-buckling analyses (solvers/modal.py, solvers/buckling.py) build their
-float64 operators here and solve them with torch on the caller's device.
+buckling analyses (solvers/modal.py, solvers/buckling.py) and the dense
+harmonic tier (solvers/harmonic.py) build their float64 operators here
+and solve them with torch on the caller's device.
 
 MLP fields are evaluated here in numpy from float64 copies of their
 weights.  The rest of the JAX module (the nonlinear and plastic systems
@@ -181,3 +182,9 @@ def host_static_solve(problem: TrussProblem,
     f = problem.loads if loads is None else np.asarray(loads, dtype=float)
     km = mask[:, None] * k * mask[None, :] + np.diag(1.0 - mask)
     return np.linalg.solve(km, f * mask) * mask
+
+
+def loads_of(problem: TrussProblem, data=None) -> np.ndarray:
+    """Effective float64 load vector: data overrides problem (callers may
+    pass a ProblemData with replaced loads)."""
+    return _numpy64(problem.loads if data is None else data.loads)

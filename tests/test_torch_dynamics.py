@@ -522,8 +522,6 @@ def test_unported_solver_options_refused(kw, item):
 
 @pytest.mark.parametrize("extra, item", [
     ({"plasticity": {"sigma_y": 1.0}}, 17),
-    ({"probe_elements": [0]}, 17),
-    ({"fatigue": {"sn": {"exponent": 3, "coefficient": 1e12}}}, 17),
 ])
 def test_unported_transient_keys_refused(extra, item):
     _, tprob = both_problems()
@@ -532,8 +530,7 @@ def test_unported_transient_keys_refused(extra, item):
         run_analysis(tprob, analysis, "cpu")
 
 
-UNPORTED_ITEMS = {"harmonic": 17, "spectrum": 17, "continuation": 17,
-                  "plastic": 17, "random": 17, "reduction": 17,
+UNPORTED_ITEMS = {"continuation": 17, "plastic": 17, "reduction": 17,
                   "identification": 23, "sizing": 24, "reliability": 24}
 
 

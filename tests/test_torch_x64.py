@@ -86,7 +86,7 @@ def test_cli_routes_on_parsed_meta(tmp_path, monkeypatch):
 
     def with_analysis(raw, seed=0):
         parsed = inner(raw, seed=seed)
-        parsed.meta["analysis"] = {"type": "harmonic"}
+        parsed.meta["analysis"] = {"type": "continuation"}
         return parsed
 
     monkeypatch.setattr(torch_cli, "parse_problem_dict", with_analysis)
