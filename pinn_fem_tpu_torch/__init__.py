@@ -32,7 +32,11 @@ through "modal" and "buckling" documents and solve_transient(method=
 spectral and rainflow fatigue (solvers/fatigue.py), and response spectra
 (solvers/spectrum.py), through "harmonic", "random" and "spectrum"
 documents and a transient's "probe_elements" / "fatigue" keys.
-ROADMAP.md lists what is still to port.
+Elastoplastic statics and explicit transients (solvers/plasticity.py over
+ops/plastic.py), arc-length continuation (solvers/riks.py) and Guyan /
+Craig-Bampton reduction (solvers/reduction.py) run through "plastic",
+"continuation" and "reduction" documents and a transient's "plasticity"
+key.  ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -118,10 +122,26 @@ from .solvers.modal import (  # noqa: E402
     rayleigh_coefficients,
 )
 from .solvers.newton import solve_nr  # noqa: E402
+from .solvers.plasticity import (  # noqa: E402
+    PlasticStaticResult,
+    PlasticTransientResult,
+    solve_elastoplastic,
+    solve_transient_plastic,
+)
 from .solvers.random_response import (  # noqa: E402
     RandomResponseResult,
     random_response,
 )
+from .solvers.reduction import (  # noqa: E402
+    ReducedModel,
+    craig_bampton,
+    craig_bampton_dense,
+    guyan_reduce,
+    guyan_reduce_dense,
+    reduce_loads,
+    reduce_model,
+)
+from .solvers.riks import RiksResult, solve_riks  # noqa: E402
 from .solvers.spectrum import (  # noqa: E402
     DirectionalSpectrumResult,
     SpectrumCurve,
@@ -135,23 +155,27 @@ __all__ = [
     "BucklingResult", "DirectionalSpectrumResult", "HarmonicResult",
     "LegacySolverConfig", "Material", "MLPField", "ModalResult",
     "PINNGradientDescentConfig", "PINNSolverConfig", "PINNSolverResult",
-    "ProblemData", "RandomResponseResult", "ScalarField", "SolverConfig",
-    "SolverResult", "SpectralFatigue", "SpectrumCurve", "SpectrumResult",
-    "TransientResult", "TrussProblem", "assemble_system",
+    "PlasticStaticResult", "PlasticTransientResult", "ProblemData",
+    "RandomResponseResult", "ReducedModel", "RiksResult", "ScalarField",
+    "SolverConfig", "SolverResult", "SpectralFatigue", "SpectrumCurve",
+    "SpectrumResult", "TransientResult", "TrussProblem", "assemble_system",
     "base_excitation_force_fn", "buckling_analysis", "buckling_eigenvalues",
-    "compute_residual_and_jacobian", "consistent_mass",
-    "davenport_peak_factor", "directional_combination", "dirlik_damage_rate",
-    "element_dofs", "element_strain_stress", "first_passage_probability",
-    "free_and_fixed_dofs", "harmonic_response", "internal_force_and_strain",
+    "compute_residual_and_jacobian", "consistent_mass", "craig_bampton",
+    "craig_bampton_dense", "davenport_peak_factor", "directional_combination",
+    "dirlik_damage_rate", "element_dofs", "element_strain_stress",
+    "first_passage_probability", "free_and_fixed_dofs", "guyan_reduce",
+    "guyan_reduce_dense", "harmonic_response", "internal_force_and_strain",
     "lumped_mass", "mac", "make_mlp_field", "material_from_numpy",
     "modal_analysis", "modal_eigenpairs", "modal_eigenvalues",
     "moving_load_force_fn", "narrowband_damage_rate", "rainflow_cycles",
     "rainflow_damage", "random_response", "rayleigh_coefficients",
-    "response_spectrum", "solve", "solve_full_nr", "solve_gauss_newton",
-    "solve_gd", "solve_hybrid", "solve_incremental_newton", "solve_nr",
-    "solve_pinn_gradient_descent", "solve_pinn_newton_raphson",
-    "solve_transient", "solve_transient_checkpointed", "spectral_fatigue",
-    "spectral_moments", "spectrum_from_history", "split_element_data",
-    "stable_dt", "synthesize_gaussian_history", "thermal_free_strains",
-    "thermal_loads", "to_field", "total_mass",
+    "reduce_loads", "reduce_model", "response_spectrum", "solve",
+    "solve_elastoplastic", "solve_full_nr", "solve_gauss_newton", "solve_gd",
+    "solve_hybrid", "solve_incremental_newton", "solve_nr",
+    "solve_pinn_gradient_descent", "solve_pinn_newton_raphson", "solve_riks",
+    "solve_transient", "solve_transient_checkpointed",
+    "solve_transient_plastic", "spectral_fatigue", "spectral_moments",
+    "spectrum_from_history", "split_element_data", "stable_dt",
+    "synthesize_gaussian_history", "thermal_free_strains", "thermal_loads",
+    "to_field", "total_mass",
 ]

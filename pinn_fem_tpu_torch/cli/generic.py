@@ -18,8 +18,9 @@ CUDA without a card is an error, not a CPU run.  PINN_FEM_TPU_SEED seeds
 the NN initialisation, as in the JAX CLI.  An "analysis" document
 (routed, as in the JAX CLI, on the parsed document's meta["analysis"])
 runs io/analysis.run_analysis and writes its result dict; of the analysis
-types "transient", "modal", "buckling", "harmonic", "random" and
-"spectrum" are ported (the others exit 1, naming their ROADMAP item).
+types "transient" (with "plasticity"), "modal", "buckling", "harmonic",
+"random", "spectrum", "continuation", "plastic" and "reduction" are
+ported (the others exit 1, naming their ROADMAP item).
 Element-family documents ("element_type") are not yet ported and exit 1.
 """
 
@@ -141,6 +142,14 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
                 logger.info("  Modal mass captured: %.1f%% (%s)",
                             100.0 * output["mass_fraction"],
                             output["combination"])
+        elif output["analysis"] == "continuation":
+            lf = output["load_factors"]
+            logger.info("  Path points: %d (lambda in [%.4g, %.4g])",
+                        output["n_points"], min(lf), max(lf))
+        elif output["analysis"] == "reduction":
+            logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
+                        output["method"], output["n_reduced_dofs"],
+                        output["reduced_frequencies_hz"][0])
         elif output["analysis"] == "transient":
             # An ensemble result has no "method" (central only): the JAX
             # CLI raises KeyError on it after writing the result (ROADMAP

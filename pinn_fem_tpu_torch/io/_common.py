@@ -1,8 +1,8 @@
 """Shared helpers of the analysis-JSON runners: the part of
 pinn_fem_tpu/io/_common.py that the truss runners call (the amplitude,
 probe, omega and spectrum parsers, the prestress state, the S-N
-parameters and the element areas).  The strict-JSON sanitizer and the
-continuum runners come with the runners that call them.
+parameters, the element areas) and the strict-JSON sanitizer
+(`_json_finite`).  The continuum runners' helpers come with those runners.
 """
 
 from __future__ import annotations
@@ -206,3 +206,16 @@ def _prestress_state(problem, spec, device=None):
                               device=device)
         u = np.asarray(res.displacements).reshape(-1)
     return scale * u
+
+
+def _json_finite(obj):
+    """Non-finite floats replaced by None, recursively: json.dump would
+    write NaN / Infinity tokens, which strict JSON parsers (the backend's,
+    the browser UIs') reject."""
+    if isinstance(obj, float):
+        return obj if np.isfinite(obj) else None
+    if isinstance(obj, dict):
+        return {k: _json_finite(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_json_finite(v) for v in obj]
+    return obj

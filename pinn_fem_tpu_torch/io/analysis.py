@@ -1,8 +1,8 @@
 """Dispatch of a document's "analysis" block (counterpart of
 pinn_fem_tpu/io/analysis.py).  "transient" (io/transient_io.py), "modal",
-"buckling", "harmonic", "random" and "spectrum" run; of the other analysis
-types of the JAX package, continuation, plastic and reduction are ROADMAP
-item 17, identification item 23, sizing and reliability item 24.
+"buckling", "harmonic", "random", "spectrum", "continuation", "plastic"
+and "reduction" run; of the other analysis types of the JAX package,
+identification is ROADMAP item 23, sizing and reliability item 24.
 
     "analysis": {"type": "modal", "n_modes": 6, "lumped": true,
                  "n_iter": 25, "include_shapes": true,
@@ -43,6 +43,21 @@ item 17, identification item 23, sizing and reliability item 24.
                  "combination": "srss" | "cqc", "damping_ratio": 0.05,
                  "prestress": ..}
 
+    "analysis": {"type": "continuation", "n_steps": 200,
+                 "initial_dlambda": 0.02, "tolerance": 1e-8,
+                 "stop_lambda_abs": 0.5, "probe_nodes": [..]}  # Riks
+
+    "analysis": {"type": "plastic", "sigma_y": s | [..],
+                 "hardening": H_iso, "kinematic_hardening": H_kin,
+                 "load_factors": [..] | {"target": 1.0, "n_steps": 20},
+                 "tolerance": 1e-9, "max_iterations": 30,
+                 "probe_nodes": [..], "include_history": bool}
+
+    "analysis": {"type": "reduction", "method": "guyan" | "craig_bampton",
+                 "master_nodes": [..] | "master_dofs": [..],
+                 "n_modes": 4, "compare_full": true,
+                 "compare_modes": 6, "include_matrices": bool}
+
 Every runner takes `device` ("cuda" when None), as run_analysis does.
 """
 
@@ -53,12 +68,12 @@ from typing import Dict
 import numpy as np
 
 from ._common import (_SHAPES_JSON_DOF_LIMIT, _element_areas,
-                      _history_record, _omega_array, _prestress_state,
-                      _probe_dofs, _sa_callable, _sn_params)
+                      _history_record, _json_finite, _omega_array,
+                      _prestress_state, _probe_dofs, _sa_callable,
+                      _sn_params)
 
 # Analysis types whose runners are not yet ported, by ROADMAP item.
-_NOT_PORTED = {"continuation": 17, "plastic": 17, "reduction": 17,
-               "identification": 23, "sizing": 24, "reliability": 24}
+_NOT_PORTED = {"identification": 23, "sizing": 24, "reliability": 24}
 
 
 def run_modal(problem, analysis: Dict, device=None) -> Dict:
@@ -417,6 +432,149 @@ def run_spectrum(problem, analysis: Dict, device=None) -> Dict:
     return out
 
 
+def run_continuation(problem, analysis: Dict, device=None) -> Dict:
+    """An arc-length continuation block on `device` (solvers/riks.py): the
+    equilibrium path lambda(u), traced through limit points."""
+    from ..solvers.riks import solve_riks
+
+    stop_lam = analysis.get("stop_lambda_abs")
+    stop_fn = ((lambda u, lam: abs(lam) > float(stop_lam))
+               if stop_lam is not None else None)
+    res = solve_riks(
+        problem,
+        n_steps=int(analysis.get("n_steps", 200)),
+        initial_dlambda=float(analysis.get("initial_dlambda", 0.02)),
+        tol=float(analysis.get("tolerance", 1e-8)),
+        stop_fn=stop_fn, device=device)
+    probe = _probe_dofs(analysis, problem)
+    return {
+        "success": bool(res.converged),
+        "analysis": "continuation",
+        "n_points": int(res.load_factors.size),
+        "load_factors": res.load_factors.tolist(),
+        "probe_dofs": probe.tolist(),
+        "displacements": res.displacements[:, probe].tolist(),
+        "iterations": res.iterations.tolist(),
+        "max_residual": float(res.residuals.max()) if res.residuals.size
+        else None,
+    }
+
+
+def run_plastic(problem, analysis: Dict, device=None) -> Dict:
+    """An elastoplastic-statics block on `device` (solvers/plasticity.py):
+    the incremental radial-return solve along a load-factor history."""
+    from ..solvers.plasticity import solve_elastoplastic
+
+    if "sigma_y" not in analysis:
+        raise ValueError('plastic analysis requires "sigma_y"')
+    kwargs = dict(
+        sigma_y=analysis["sigma_y"],
+        hardening_iso=analysis.get("hardening", 0.0),
+        hardening_kin=analysis.get("kinematic_hardening", 0.0),
+        tol=float(analysis.get("tolerance", 1e-9)),
+        max_iter=int(analysis.get("max_iterations", 30)),
+    )
+    if "load_factors" in analysis:
+        kwargs["load_factors"] = np.asarray(analysis["load_factors"],
+                                            dtype=float)
+    else:
+        kwargs["target_load_factor"] = float(analysis.get("target", 1.0))
+        kwargs["n_steps"] = int(analysis.get("n_steps", 20))
+    res = solve_elastoplastic(problem, device=device, **kwargs)
+
+    probe = _probe_dofs(analysis, problem)
+    yielded = np.flatnonzero(res.alpha[-1] > 0.0)
+    out = {
+        "success": bool(res.converged),
+        "analysis": "plastic",
+        "n_steps": int(res.load_factors.size),
+        "load_factors": res.load_factors.tolist(),
+        "probe_dofs": probe.tolist(),
+        "displacements": res.displacements[:, probe].tolist(),
+        "iterations": res.iterations.tolist(),
+        "max_residual": float(res.residuals.max()),
+        "n_plastic": res.n_plastic.tolist(),
+        "yielded_elements": yielded.tolist(),
+        "max_abs_stress": np.abs(res.stresses).max(axis=1).tolist(),
+        "final": {
+            "stresses": res.stresses[-1].tolist(),
+            "plastic_strain": res.plastic_strain[-1].tolist(),
+            "accumulated_plastic_strain": res.alpha[-1].tolist(),
+            "back_stress": res.back_stress[-1].tolist(),
+            "displacements": res.displacements[-1].tolist(),
+        },
+    }
+    if analysis.get("include_history"):
+        out["history"] = {
+            "stresses": res.stresses.tolist(),
+            "plastic_strain": res.plastic_strain.tolist(),
+        }
+    return _json_finite(out)
+
+
+def run_reduction(problem, analysis: Dict, device=None) -> Dict:
+    """A model-order-reduction block on `device` (solvers/reduction.py):
+    the reduced natural frequencies, the reduced matrices when small
+    (n_red <= 64), and with compare_full the full model's frequencies
+    (modal_analysis) and the per-mode relative errors."""
+    import scipy.linalg
+
+    from ..solvers.modal import modal_analysis
+    from ..solvers.reduction import craig_bampton, guyan_reduce
+
+    method = analysis.get("method", "guyan")
+    if "master_dofs" in analysis:
+        masters = np.asarray(analysis["master_dofs"], dtype=int)
+    elif "master_nodes" in analysis:
+        nodes = np.asarray(analysis["master_nodes"], dtype=int)
+        d = problem.dimension
+        cand = (d * nodes[:, None] + np.arange(d)[None, :]).reshape(-1)
+        free = set(problem.free_fixed()[0].tolist())
+        masters = np.asarray([c for c in cand if int(c) in free],
+                             dtype=int)
+        if masters.size == 0:
+            raise ValueError("master_nodes resolve to no free DOFs")
+    else:
+        raise ValueError("reduction needs master_nodes or master_dofs")
+
+    if method == "guyan":
+        model = guyan_reduce(problem, masters, device=device)
+    elif method == "craig_bampton":
+        model = craig_bampton(problem, masters,
+                              n_modes=int(analysis.get("n_modes", 4)),
+                              device=device)
+    else:
+        raise ValueError('reduction method must be "guyan" or '
+                         '"craig_bampton"')
+
+    # The n_red x n_red pencil: float64 LAPACK on the host.
+    w2 = scipy.linalg.eigh(model.k_red, model.m_red, eigvals_only=True)
+    omegas = np.sqrt(np.maximum(w2, 0.0))
+    n_red = int(model.k_red.shape[0])
+    out = {
+        "success": True,
+        "analysis": "reduction",
+        "method": method,
+        "master_dofs": masters.tolist(),
+        "n_reduced_dofs": n_red,
+        "reduced_omegas": omegas.tolist(),
+        "reduced_frequencies_hz": (omegas / (2.0 * np.pi)).tolist(),
+    }
+    if analysis.get("include_matrices", n_red <= 64):
+        out["k_red"] = model.k_red.tolist()
+        out["m_red"] = model.m_red.tolist()
+    if analysis.get("compare_full", True):
+        n_cmp = min(n_red, problem.free_fixed()[0].size,
+                    int(analysis.get("compare_modes", min(n_red, 6))))
+        full = modal_analysis(problem, n_modes=n_cmp, device=device)
+        rel = np.abs(omegas[:n_cmp] - full.omegas)
+        rel = rel / np.maximum(full.omegas, 1e-30)
+        out["full_omegas"] = full.omegas.tolist()
+        out["full_frequencies_hz"] = full.frequencies.tolist()
+        out["frequency_rel_error"] = rel.tolist()
+    return out
+
+
 def run_analysis(problem, analysis: Dict, device=None) -> Dict:
     """Run an "analysis" block on `device` ("cuda" when None)."""
     kind = analysis.get("type")
@@ -434,6 +592,12 @@ def run_analysis(problem, analysis: Dict, device=None) -> Dict:
         return run_spectrum(problem, analysis, device)
     if kind == "random":
         return run_random(problem, analysis, device)
+    if kind == "continuation":
+        return run_continuation(problem, analysis, device)
+    if kind == "plastic":
+        return run_plastic(problem, analysis, device)
+    if kind == "reduction":
+        return run_reduction(problem, analysis, device)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f'"{kind}" analysis documents are not yet ported, ROADMAP '

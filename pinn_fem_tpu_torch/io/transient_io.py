@@ -7,9 +7,12 @@ or base-excitation load and checkpoint specs, the ensemble of (B, n_steps)
 "amplitudes" and the "include_stress_envelope" of a single run
 (parallel/batched.solve_transient_batched), and the member-force
 histories of "probe_elements" with their rainflow "fatigue" summary
-(solvers/fatigue.py); the result dict has the JAX package's keys.  Not
-yet ported, and refused by name: "plasticity" (solvers/plasticity.py),
-ROADMAP item 17.
+(solvers/fatigue.py), and the elastoplastic central transient of a
+"plasticity" spec (solvers/plasticity.solve_transient_plastic); the
+result dict has the JAX package's keys.
+
+    "plasticity": {"sigma_y": s | [..], "hardening": H_iso,
+                   "kinematic_hardening": H_kin}   # central, amplitude only
 
     "probe_elements": [..],            # member forces N_e(t), recovered
                                        # from the recorded element DOFs
@@ -28,21 +31,8 @@ from ..solvers.dynamics import (base_excitation_force_fn,
                                 moving_load_force_fn, solve_transient,
                                 solve_transient_checkpointed, stable_dt)
 from ._common import (_SHAPES_JSON_DOF_LIMIT, _amplitude_array,
-                      _element_areas, _prestress_state, _probe_dofs,
-                      _sn_params)
-
-# Transient keys whose modules are not yet ported, by ROADMAP item.
-_NOT_PORTED = (
-    ("plasticity", "solvers/plasticity.py", 17),
-)
-
-
-def _refuse_unported(analysis: Dict) -> None:
-    for key, module, item in _NOT_PORTED:
-        if key in analysis:
-            raise NotImplementedError(
-                f'transient "{key}" ({module}) is not yet ported, ROADMAP '
-                f"item {item}")
+                      _element_areas, _json_finite, _prestress_state,
+                      _probe_dofs, _sn_params)
 
 
 def _transient_fatigue(problem, fat: Dict, elm_sel, n_hist, times) -> Dict:
@@ -177,10 +167,105 @@ def _transient_force_fn(problem, analysis, dt, device=None):
         problem, history, direction=spec.get("direction"), device=device)
 
 
+def _guard_history(analysis: Dict, probe, n_rec: int) -> None:
+    """The JSON payload guard of the probe histories."""
+    if (probe.size * n_rec > 4 * _SHAPES_JSON_DOF_LIMIT
+            and "probe_dofs" not in analysis
+            and "probe_nodes" not in analysis):
+        raise ValueError(
+            "transient history would serialize "
+            f"{probe.size} DOFs x {n_rec} snapshots to "
+            "JSON; give probe_nodes/probe_dofs (or a larger record_every) "
+            "to bound the payload")
+
+
+def _run_transient_plastic(problem, analysis: Dict, device=None) -> Dict:
+    """A transient block with a "plasticity" spec on `device`: explicit
+    central difference with the radial return committed every step.
+
+    Plain amplitude contract only: the integrator carries committed
+    internal state, so prestress K_g(u0), moving loads, checkpoint /
+    resume, ensembles and linear member-force recovery (which would
+    misreport a yielded member's force) are refused rather than returned
+    wrong; the integrator reports its own |stress| envelope instead."""
+    from ..solvers.plasticity import solve_transient_plastic
+
+    spec = analysis["plasticity"]
+    if not isinstance(spec, dict) or "sigma_y" not in spec:
+        raise ValueError('transient "plasticity" spec must be a dict '
+                         'with "sigma_y"')
+    for key, why in (
+            ("prestress", "initial-stress K_g"),
+            ("load", "moving/base-acceleration loads"),
+            ("checkpoint", "checkpoint/resume"),
+            ("amplitudes", "ensemble mode"),
+            ("probe_elements", "linear member-force recovery"),
+            ("include_stress_envelope", "the linear batched envelope — "
+                                        "stress_envelope is always "
+                                        "reported"),
+            ("geometric_nonlinear", "the Green-Lagrange kernel")):
+        if analysis.get(key):
+            raise ValueError(f'"plasticity" does not compose with '
+                             f'"{key}" ({why})')
+    if analysis.get("method", "central") != "central":
+        raise ValueError('"plasticity" supports method="central" only '
+                         "(explicit integration commits one radial "
+                         "return per step)")
+    n_steps = int(analysis["n_steps"])
+    damping = analysis.get("damping", [0.0, 0.0])
+    dt_spec = analysis.get("dt", "auto")
+    if dt_spec == "auto":
+        # The elastic damped bound: yielding only lowers the tangent.
+        dt = stable_dt(problem, damping=(float(damping[0]),
+                                         float(damping[1])), device=device)
+    else:
+        dt = float(dt_spec)
+    record_every = int(analysis.get("record_every", 1))
+    if n_steps % record_every:
+        raise ValueError("n_steps must be a multiple of record_every")
+    probe = _probe_dofs(analysis, problem)
+    _guard_history(analysis, probe, n_steps // record_every)
+    amplitude = _amplitude_array(analysis.get("amplitude"), n_steps, dt)
+    res = solve_transient_plastic(
+        problem,
+        sigma_y=spec["sigma_y"],
+        hardening_iso=spec.get("hardening", 0.0),
+        hardening_kin=spec.get("kinematic_hardening", 0.0),
+        dt=dt, n_steps=n_steps, amplitude=amplitude,
+        damping=(float(damping[0]), float(damping[1])),
+        record_every=record_every, probe_dofs=probe, device=device)
+    yielded = np.flatnonzero(res.final_alpha > 0.0)
+    return _json_finite({
+        "success": True,
+        "analysis": "transient",
+        "plastic": True,
+        "method": "central",
+        "dt": float(res.dt),
+        "n_steps": n_steps,
+        "record_every": record_every,
+        "probe_dofs": probe.tolist(),
+        "times": res.times.tolist(),
+        "displacements": res.displacements.tolist(),
+        "velocities": res.velocities.tolist(),
+        "kinetic_energy": res.kinetic_energy.tolist(),
+        "strain_energy": res.strain_energy.tolist(),
+        "plastic_work": res.plastic_work.tolist(),
+        "external_work": res.external_work.tolist(),
+        "stress_envelope": res.stress_envelope.tolist(),
+        "yielded_elements": yielded.tolist(),
+        "final": {
+            "displacements": res.final_displacement.tolist(),
+            "plastic_strain": res.final_plastic_strain.tolist(),
+            "accumulated_plastic_strain": res.final_alpha.tolist(),
+        },
+    })
+
+
 def run_transient(problem, analysis: Dict, device=None) -> Dict:
     """Execute a transient analysis block on `device` ("cuda" when None);
     JSON-serializable result dict."""
-    _refuse_unported(analysis)
+    if "plasticity" in analysis:
+        return _run_transient_plastic(problem, analysis, device)
     n_steps = int(analysis["n_steps"])
     method = analysis.get("method", "central")
     dt_spec = analysis.get("dt", "auto")
@@ -201,14 +286,7 @@ def run_transient(problem, analysis: Dict, device=None) -> Dict:
     if n_steps % record_every:
         raise ValueError("n_steps must be a multiple of record_every")
     probe = _probe_dofs(analysis, problem)
-    if (probe.size * (n_steps // record_every) > 4 * _SHAPES_JSON_DOF_LIMIT
-            and "probe_dofs" not in analysis
-            and "probe_nodes" not in analysis):
-        raise ValueError(
-            "transient history would serialize "
-            f"{probe.size} DOFs x {n_steps // record_every} snapshots to "
-            "JSON; give probe_nodes/probe_dofs (or a larger record_every) "
-            "to bound the payload")
+    _guard_history(analysis, probe, n_steps // record_every)
     # Member-force histories: record the probed elements' DOFs beside
     # the user's probe and recover N_e(t) on the host afterwards.
     probe_elements = analysis.get("probe_elements")

@@ -9,14 +9,20 @@ transient document comes from `host_static_solve`.  Each function mirrors
 a device op of the port (host_stiffness <-> ops/assembly.assemble_system,
 host_lumped_mass <-> ops/mass.lumped_mass, host_consistent_mass <->
 ops/mass.consistent_mass, host_geometric_stiffness <->
-ops/geometric.assemble_geometric), in float64.  The dense modal and
-buckling analyses (solvers/modal.py, solvers/buckling.py) and the dense
-harmonic tier (solvers/harmonic.py) build their float64 operators here
-and solve them with torch on the caller's device.
+ops/geometric.assemble_geometric, host_return_map <->
+ops/plastic.return_map, host_plastic_system <->
+ops/plastic.assemble_plastic_system, host_nonlinear_system <->
+ops/assembly.assemble_system_nonlinear), in float64.  The dense modal
+and buckling analyses (solvers/modal.py, solvers/buckling.py), the dense
+harmonic tier (solvers/harmonic.py), reduction (solvers/reduction.py)
+and the float64 tier of the plastic transient build their float64
+operators here and solve them with torch on the caller's device.  The
+float64 tiers of solve_elastoplastic and solve_riks run the algebra of
+host_plastic_system and host_nonlinear_system in torch on that device,
+with the material values of `material_values_host`.
 
 MLP fields are evaluated here in numpy from float64 copies of their
-weights.  The rest of the JAX module (the nonlinear and plastic systems
-of the analysis family) comes with ROADMAP item 17.
+weights.
 """
 
 from __future__ import annotations
@@ -163,6 +169,77 @@ def host_geometric_stiffness(problem: TrussProblem,
     pattern = np.block([[eye, -eye], [-eye, eye]])
     coef = np.asarray(n_e, dtype=np.float64) * inv_len
     return _scatter_blocks(problem, coef[:, None, None] * pattern[None])
+
+
+def host_nonlinear_system(problem: TrussProblem, u: np.ndarray,
+                          load_factor: float = 1.0
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """(K_tangent, f_int) of the Green-Lagrange truss at state u: the
+    cancellation-free e_gl, the material and initial-stress tangent."""
+    if problem.dimension not in (2, 3):
+        raise ValueError("geometric nonlinearity requires a 2D or 3D truss")
+    dof_map, gvec, inv_len, _ = _geometry(problem)
+    young, area = material_values_host(problem, load_factor)
+    dim = problem.dimension
+    dx0 = gvec[:, dim:] / inv_len[:, None]
+    u_e = np.asarray(u, dtype=np.float64).reshape(-1)[dof_map]
+    u2 = u_e.reshape(u_e.shape[0], 2, dim)
+    delta = u2[:, 1, :] - u2[:, 0, :]
+    dx = dx0 + delta
+    inv_l0_sq = inv_len * inv_len
+    e_gl = (np.sum(dx0 * delta, axis=-1)
+            + 0.5 * np.sum(delta * delta, axis=-1)) * inv_l0_sq
+    d = np.concatenate([-dx, dx], axis=1)
+    ea_invl = young * area * inv_len
+    ke_mat = (ea_invl * inv_l0_sq)[:, None, None] * (
+        d[:, :, None] * d[:, None, :])
+    eye = np.eye(dim)
+    b_geo = np.block([[eye, -eye], [-eye, eye]])
+    ke = ke_mat + (ea_invl * e_gl)[:, None, None] * b_geo[None, :, :]
+    fe = (ea_invl * e_gl)[:, None] * d
+    f_int = np.zeros(problem.ndof)
+    np.add.at(f_int, dof_map, fe)
+    return _scatter_blocks(problem, ke), f_int
+
+
+def host_return_map(eps: np.ndarray, eps_p: np.ndarray, alpha: np.ndarray,
+                    back: np.ndarray, young: np.ndarray, sigma_y: np.ndarray,
+                    h_iso: np.ndarray, h_kin: np.ndarray):
+    """ops/plastic.return_map on bare arrays: (sigma, e_tan, eps_p_new,
+    alpha_new, back_new)."""
+    sigma_tr = young * (eps - eps_p)
+    xi = sigma_tr - back
+    sgn = np.sign(xi)
+    f_tr = np.abs(xi) - (sigma_y + h_iso * alpha)
+    denom = young + h_iso + h_kin
+    dgamma = np.maximum(f_tr, 0.0) / denom
+    sigma = sigma_tr - young * dgamma * sgn
+    e_tan = np.where(f_tr > 0.0, young * (h_iso + h_kin) / denom, young)
+    return (sigma, e_tan, eps_p + dgamma * sgn, alpha + dgamma,
+            back + h_kin * dgamma * sgn)
+
+
+def host_plastic_system(problem: TrussProblem, u: np.ndarray,
+                        eps_p: np.ndarray, alpha: np.ndarray,
+                        back: np.ndarray, sigma_y: np.ndarray,
+                        h_iso: np.ndarray, h_kin: np.ndarray,
+                        load_factor: float = 1.0,
+                        tangent_floor: float = 1e-8):
+    """(K_t, f_int, sigma, (eps_p, alpha, back) new) of the elastoplastic
+    truss: small-strain eps = g.u_e / L0, the tangent modulus floored at
+    tangent_floor * E."""
+    dof_map, gvec, inv_len, _ = _geometry(problem)
+    young, area = material_values_host(problem, load_factor)
+    u_e = np.asarray(u, dtype=np.float64).reshape(-1)[dof_map]
+    eps = np.sum(gvec * u_e, axis=-1) * inv_len
+    sigma, e_tan, eps_p_n, alpha_n, back_n = host_return_map(
+        eps, eps_p, alpha, back, young, sigma_y, h_iso, h_kin)
+    s_tan = np.maximum(e_tan, tangent_floor * young) * area * inv_len
+    ke = s_tan[:, None, None] * gvec[:, :, None] * gvec[:, None, :]
+    f_int = np.zeros(problem.ndof)
+    np.add.at(f_int, dof_map, (area * sigma)[:, None] * gvec)
+    return (_scatter_blocks(problem, ke), f_int, sigma,
+            (eps_p_n, alpha_n, back_n))
 
 
 def host_masks(problem: TrussProblem) -> np.ndarray:

@@ -521,17 +521,21 @@ def test_unported_solver_options_refused(kw, item):
 
 
 @pytest.mark.parametrize("extra, item", [
-    ({"plasticity": {"sigma_y": 1.0}}, 17),
+    ({"type": "identification"}, 23),
+    ({"type": "sizing"}, 24),
 ])
 def test_unported_transient_keys_refused(extra, item):
+    """Every transient key runs, the "plasticity" key included; a
+    transient block retyped to an analysis still to port is refused
+    with that type's ROADMAP item, whatever transient keys it carries."""
     _, tprob = both_problems()
-    analysis = {"type": "transient", "dt": 0.01, "n_steps": 10, **extra}
+    analysis = {"type": "transient", "dt": 0.01, "n_steps": 10,
+                "plasticity": {"sigma_y": 1.0}, **extra}
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         run_analysis(tprob, analysis, "cpu")
 
 
-UNPORTED_ITEMS = {"continuation": 17, "plastic": 17, "reduction": 17,
-                  "identification": 23, "sizing": 24, "reliability": 24}
+UNPORTED_ITEMS = {"identification": 23, "sizing": 24, "reliability": 24}
 
 
 @pytest.mark.parametrize("kind", list(UNPORTED_ITEMS))

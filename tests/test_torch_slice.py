@@ -241,7 +241,7 @@ def test_cli_cuda_without_card_is_an_error(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("doc,item", [
-    ({"analysis": {"type": "continuation"}}, "ROADMAP item 17"),
+    ({"analysis": {"type": "identification"}}, "ROADMAP item 23"),
 ])
 def test_unported_documents_name_their_roadmap_item(tmp_path, doc, item):
     base = json.loads((CORPUS / "example1.json").read_text())
