@@ -274,10 +274,36 @@ code is not 0 and no result line is printed:
      top two nodes as masters, 8 modes, compare_full) through main():
      reduced omegas within 1e-10 of scipy in float64, the wall time; (f)
      reduction above the dense limit and with data=, reduce_model of a
-     continuum problem (items 18-22), each compose key of the transient
+     continuum problem (items 19-22), each compose key of the transient
      "plasticity" spec, and a float64 CUDA operand at (c)'s kernel 1
      dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel 1),
-     each refused before any launch.
+     each refused before any launch;
+ 19. the plane continuum family: (a) dyn-plane (modal) and
+     dyn-plane-plastic (the thick-wall cylinder) through main() on the
+     card, within 1e-10 of the port's CPU runs (mode shapes
+     sign-aligned), no repo kernel; (b) the JAX package's banded plane
+     benchmark strip at full width (128 x 512 Q4s, 132,354 DOFs, 21
+     diagonals): kernels 1-3 on its operator against their plain
+     versions (plans, ms, bounds, CSR K u), then solve_plane_static_banded
+     (tol 1e-7) and the strip as a document through main(): the closed
+     form within 2e-3, the relative residual below 1e-6, u within 1e-3 of
+     a float64 scipy solve of the same float32 diagonals (and of the
+     float64 operator within that plus the float32 representation floor,
+     ROADMAP fault 3.23), kernels 2 and 3 launched 32 ceil(it / 32)
+     times and kernel 1 once, the host layout build, warm wall (median of
+     3), PCG ms an iteration and the idle share; (c) the dense float64
+     analyses at the 8,192-DOF budget (a 40 x 98 Q4 wall, 8,118 DOFs):
+     modal, buckling, 500 Newmark steps and a 20-frequency harmonic sweep
+     within 1e-9 of scipy.sparse float64 references, each mode's residual
+     within 1e-9 or 64 eps64 lambda_max / lambda_i (ROADMAP fault 3.24),
+     wall and peak memory of each; (d) the cylinder on a 48 x 80
+     annulus (7,938 DOFs) on the float32 tier: its residuals at the
+     document's tolerance (the tier's 1e-5 floor; ROADMAP fault 3.22),
+     then at 1e-4 converged, within 1e-3 of the float64 tier on the
+     card, ms a Newton iteration and the LU's share; (e) mesh=, each
+     later item's
+     analysis type, the 8,192-DOF budget and a banded prescribed
+     displacement, each refused before any launch.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -294,7 +320,8 @@ paths, every kernel its launches on phase 12's paths and, as
 launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
 as launches_batched on phase 15's, as launches_eigen on phase 16's,
 as launches_frequency on phase 17's, as launches_nonlinear on phase 18's,
-kernel 1 also its times at the
+as launches_plane on phase 19's, kernels 1-3 their figures on phase
+19's strip operator (plane_strip), kernel 1 also its times at the
 multigrid's level shapes, kernels 4 and 4b their member-axis times at
 B = 1, 8 and 32 as members); the last is
 {"ok": true,
@@ -5837,7 +5864,7 @@ def craig_bampton_tower(workdir: Path, card: str) -> dict:
 
 def nonlinear_refusals(dev, card: str) -> None:
     """18(f): reduction above the dense limit and with data=, reduce_model
-    of a continuum problem (items 18-22), each compose key of the
+    of a continuum problem (items 19-22), each compose key of the
     transient "plasticity" spec, and a float64 CUDA operand at 18(c)'s
     kernel 1 dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel
     1), each before any launch."""
@@ -5851,7 +5878,7 @@ def nonlinear_refusals(dev, card: str) -> None:
 
     small = tower_problem()
     big = grid_problem(*PLASTIC_GRID)
-    continuum = type("PlaneProblem", (), {"ndof": 8})()
+    continuum = type("SolidProblem", (), {"ndof": 8})()
     calls = {
         "reduction_above_limit": (lambda: guyan_reduce(big, [10, 11],
                                                        device=dev),
@@ -5861,7 +5888,7 @@ def nonlinear_refusals(dev, card: str) -> None:
             ValueError, "drop it"),
         "reduce_model_continuum": (lambda: reduce_model(
             continuum, [0], device=dev), NotImplementedError,
-            "ROADMAP items 18-22"),
+            "ROADMAP items 19-22"),
     }
     base = {"type": "transient", "dt": "auto", "n_steps": 10,
             "plasticity": {"sigma_y": 1.0}}
@@ -5927,6 +5954,614 @@ def phase_nonlinear(workdir: Path, dev, card: str) -> dict:
     return launches
 
 
+PLANE_DOCS = ("dyn-plane", "dyn-plane-plastic")    # 19(a)
+PLANE_DOC_RTOL = 1e-10          # card against the port's CPU run, float64
+PLANE_STRIP = (128, 512)        # 19(b): 132,354 DOFs, 65,536 Q4s
+PLANE_STRIP_TOL = 1e-7
+PLANE_CLOSED_FORM = 2e-3        # benchmarks/scaling.py:347's gate
+PLANE_STRIP_RESIDUAL = 1e-6
+# u against a float64 scipy solve of the same float32 diagonals; against
+# the float64 operator u carries besides the float32 representation floor
+# of K (ROADMAP fault 3.23: 1.79e-3 on the strip, Jacobi-scaled kappa
+# 4.7e5), measured in the same run.
+PLANE_U_RTOL = 1e-3
+PLANE_WARM_RUNS = 3
+PLANE_DENSE = (40, 98)          # 19(c): 8,118 DOFs, under the 8192 budget
+PLANE_MODES = 6
+PLANE_EIG_RTOL = 1e-9
+PLANE_SHAPE_ATOL = 1e-7         # of max |phi|, M-normalized, sign-aligned
+# Each pair's residual: 1e-9, or above the floor of a backward-stable
+# dense float64 eigensolver on mode i, eps64 lambda_max / lambda_i (the
+# float64 rounding of K phi alone), times this factor.  The 8,118-DOF
+# wall's first mode sits at 13 times that floor (1.2e-9 on the card;
+# scipy's generalized eigh at 0.56 times the port's residual on a
+# 4,059-DOF wall on the CPU: ROADMAP fault 3.24).
+PLANE_EIG_RESIDUAL = 1e-9
+PLANE_EIG_FLOOR_FACTOR = 64.0
+PLANE_BUCKLING_MODES = 3
+PLANE_NEWMARK_STEPS = 500
+PLANE_HARMONIC_FREQS = 20
+PLANE_DYN_RTOL = 1e-9
+PLANE_ANNULUS = (48, 80)        # 19(d): 7,938 DOFs, the float32 tier
+PLANE_PLASTIC_U_RTOL = 1e-3
+# The float32 tier's Newton stalls above its 1e-5 floor on the cylinder's
+# plastic steps (ROADMAP fault 3.22; 2,050 DOFs on the CPU: 1.4-2.0e-5),
+# so 19(d)'s gated run asks for 1e-4, as 18(b) does (fault 3.19).
+PLANE_PLASTIC_TOL = 1e-4
+
+
+def plane_strip_problem():
+    from pinn_fem_tpu_torch.examples_grid import plane_strip_document
+    from pinn_fem_tpu_torch.io.plane_io import parse_plane_document
+
+    return parse_plane_document(plane_strip_document(*PLANE_STRIP))[0]
+
+
+def plane_documents(workdir: Path, card: str) -> dict:
+    """19(a): dyn-plane (modal) and dyn-plane-plastic (the thick-wall
+    cylinder, the float64 tier) through main() on the card, each against
+    the port's own CPU run at PLANE_DOC_RTOL, mode shapes sign-aligned;
+    no repo kernel runs."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.plane_io import run_plane_document
+    from pinn_fem_tpu_torch.ops import kernels
+
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    launches, gaps = {}, {}
+    for name in PLANE_DOCS:
+        doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                         .read_text())
+        path = workdir / f"{name}.json"
+        path.write_text(json.dumps(doc))
+        kernels.reset_launch_counts()
+        card_s, rc = synced(lambda: main([str(path)]))
+        require(rc == 0, f"19(a) {name}: exit code 0")
+        launches[name] = kernels.launch_counts()
+        got = json.loads((workdir / f"{name}.res.json").read_text())
+        want = json.loads(json.dumps(run_plane_document(doc, "cpu")))
+        if "mode_shapes" in want:
+            g, w = np.asarray(got["mode_shapes"]), np.asarray(
+                want["mode_shapes"])
+            s = np.sign(np.sum(g * w, axis=1))
+            require(bool(np.all(s != 0)), f"19(a) {name}: mode signs")
+            got["mode_shapes"] = (g * s[:, None]).tolist()
+        doc_gaps = tree_gaps(got, want)
+        gaps[name] = {"max": max(doc_gaps.values()),
+                      "worst": max(doc_gaps, key=doc_gaps.get), "s": card_s,
+                      "success": got["success"]}
+        require(got["success"], f"19(a) {name}: success")
+        require(gaps[name]["max"] <= PLANE_DOC_RTOL,
+                f"19(a) {name}: within {PLANE_DOC_RTOL} of the CPU run")
+        require(zero_launches(launches[name]), f"19(a) {name}: no repo "
+                "kernel")
+    log("phase19a_documents", card=card, gaps=gaps, launches=launches)
+    return launches
+
+
+def dia_csr64(layout, diags):
+    """The banded operator's diagonals (nd, ndof) as a float64 scipy CSR
+    matrix."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    d = diags.double().cpu().numpy()
+    n = layout.ndof
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(layout.offsets):
+        i = np.arange(max(0, -off), min(n, n - off))
+        rows.append(i)
+        cols.append(i + off)
+        vals.append(d[k, i])
+    return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                 np.concatenate(cols))),
+                         shape=(n, n))
+
+
+def float64_sparse_solve(k, f, free):
+    import numpy as np
+    import scipy.sparse.linalg as spl
+
+    u = np.zeros(f.size)
+    u[free] = spl.spsolve(k[free][:, free].tocsc(), f[free])
+    return u
+
+
+def plane_strip_kernels(problem, dev, card: str) -> dict:
+    """19(b) first part: kernels 1-3 on the strip's operator (21
+    diagonals, bandwidth 261) against their plain versions: the plans,
+    kernel 1 within 1e-6 of its twin (bit-equality logged), kernels 2 and
+    3 bit for bit; ms of kernel and twin, the bounds, CSR K u's ms."""
+    import torch
+
+    from pinn_fem_tpu_torch.models import plane as P
+    from pinn_fem_tpu_torch.ops.dia import assemble_dia_blocks
+    from pinn_fem_tpu_torch.ops.kernels import cg_kernel, dia_kernel
+
+    layout = P.plane_dia_layout(problem)
+    diags = assemble_dia_blocks(layout, P._stiffness_blocks(
+        problem, dev)).float()
+    mask = torch.as_tensor(problem.free_mask(), dtype=torch.float32,
+                           device=dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    n = layout.ndof
+    u, z, p = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    plan = dia_kernel.stencil_plan(layout)
+    dplan = dia_kernel.direction_plan(layout)
+    y = dia_kernel.dia_matvec(layout, diags, u)
+    y_ref = dia_kernel.dia_matvec_reference(layout, diags, u)
+    err1 = max_err(y, y_ref) / float(y_ref.abs().max())
+    require(err1 <= 1e-6, "19(b): dia_matvec within 1e-6 of its twin on "
+            "the strip")
+    beta = torch.tensor(0.37, device=dev)
+    got = cg_kernel.dia_dir_matvec(beta, z, p, layout, diags, mask)
+    want = cg_kernel.dir_matvec_reference(beta, z, p, layout, diags, mask)
+    equal2 = all(torch.equal(a, b) for a, b in zip(got, want))
+    require(equal2, "19(b): dia_dir_matvec bit-equal to its twin on the "
+            "strip")
+    out = tuple(torch.empty_like(t) for t in got)
+    launch, _ = cg_kernel.bind_dir_matvec(beta, z, p, layout, diags, mask,
+                                          out=out)
+    k3 = check_update(layout, dev, gen, got[2], "plane_strip")
+    bounds = banded_bounds(layout, got[2].numel(), cg_kernel.UPDATE_BLOCKS)
+    k_csr = csr_of(layout, diags)
+    stats = {
+        "dia_matvec": dict(err=max_err(y, y_ref),
+                           bit_equal=bool(torch.equal(y, y_ref)),
+                           ms=cuda_ms(lambda: dia_kernel.dia_matvec(
+                               layout, diags, u), 200),
+                           plain_ms=cuda_ms(lambda: dia_kernel.
+                                            dia_matvec_reference(
+                                                layout, diags, u), 20),
+                           library_ms=cuda_ms(lambda: k_csr @ u, 200),
+                           **bounds["dia_matvec"]),
+        "dia_dir_matvec": dict(err=max(max_err(a, b)
+                                       for a, b in zip(got, want)),
+                               bit_equal=equal2, ms=cuda_ms(launch, 200),
+                               plain_ms=cuda_ms(
+                                   lambda: cg_kernel.dir_matvec_reference(
+                                       beta, z, p, layout, diags, mask), 20),
+                               library_ms=None, **bounds["dia_dir_matvec"]),
+        "cg_update": dict(err=k3["err"], bit_equal=k3["bit_equal"],
+                          ms=k3["ms"], plain_ms=k3["plain_ms"],
+                          library_ms=None, **bounds["cg_update"]),
+    }
+    del k_csr
+    log("phase19b_kernels", card=card, ndof=n, n_diags=layout.n_diags,
+        bandwidth=layout.bandwidth,
+        stencil_plan=dict(threads=plan.threads, tile=plan.tile,
+                          blocks=plan.blocks, staged=plan.staged,
+                          shared_bytes=plan.shared_bytes),
+        direction_plan=dict(rows=dplan.rows, threads=dplan.threads,
+                            tile=dplan.tile, blocks=dplan.blocks,
+                            staged=dplan.staged,
+                            shared_bytes=dplan.shared_bytes),
+        dia_matvec_rel_err=err1, **stats)
+    return stats, (layout, diags, mask)
+
+
+def plane_strip(workdir: Path, dev, card: str) -> dict:
+    """19(b): the JAX package's banded plane benchmark strip at full
+    width, once through solve_plane_static_banded(tol=1e-7) and once as a
+    document through main(): the closed form, the relative residual, u
+    against a float64 scipy solve of the same float32 diagonals and of
+    the float64 operator (fault 3.23), the launches (kernels 2 and 3: 32
+    ceil(it / 32), kernel 1: 1, the reaction matvec), the host layout
+    build, warm wall (median of PLANE_WARM_RUNS), PCG ms an iteration and
+    the device's idle share."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.examples_grid import (plane_sparse_matrices,
+                                                  plane_strip_document)
+    from pinn_fem_tpu_torch.models import plane as P
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    problem = plane_strip_problem()
+    t0 = time.perf_counter()
+    P.plane_dia_layout(problem)
+    layout_s = time.perf_counter() - t0
+    stats, (layout, diags, mask) = plane_strip_kernels(problem, dev, card)
+    nx, ny = PLANE_STRIP
+    q, e_mod, width = 10.0, 1000.0, 1.0
+    kernels.reset_launch_counts()
+    with Timed(dia, "dia_cg_solve") as pcg_calls:
+        cold_s, (res, iters, rel) = synced(
+            lambda: P.solve_plane_static_banded(problem, tol=PLANE_STRIP_TOL,
+                                                device=dev))
+    launches = {"strip_132k_api": kernels.launch_counts()}
+    pcg_s = pcg_calls[0][0]
+    warm = []
+    for _ in range(PLANE_WARM_RUNS):
+        warm.append(synced(lambda: P.solve_plane_static_banded(
+            problem, tol=PLANE_STRIP_TOL, device=dev))[0])
+    f = torch.as_tensor(problem.loads, dtype=torch.float32, device=dev)
+    prof = pcg_profile(layout, diags, f, mask)
+    idle = idle_profile(lambda: P.solve_plane_static_banded(
+        problem, tol=PLANE_STRIP_TOL, device=dev))
+    t0 = time.perf_counter()
+    k64, _ = plane_sparse_matrices(problem)
+    u64 = float64_sparse_solve(k64, problem.loads, problem.free_dofs())
+    ref_s = time.perf_counter() - t0
+    u_same = float64_sparse_solve(dia_csr64(layout, diags), problem.loads,
+                                  problem.free_dofs())
+    u = res.displacements
+    scale = np.abs(u64).max()
+    closed = float(np.abs(u[0::2] - q * problem.nodes[:, 0] / e_mod).max()
+                   / (q * width / e_mod))
+    u_gap = float(np.abs(u - u_same).max() / scale)
+    u_gap64 = float(np.abs(u - u64).max() / scale)
+    floor32 = float(np.abs(u_same - u64).max() / scale)
+    rounds = 32 * -(-iters // 32)
+    expected = {"dia_matvec": 1, "dia_dir_matvec": rounds,
+                "cg_update": rounds}
+
+    doc = plane_strip_document(nx, ny)
+    path = workdir / "plane_strip.json"
+    path.write_text(json.dumps(doc))
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    kernels.reset_launch_counts()
+    cli_s, rc = synced(lambda: main([str(path)]))
+    launches["strip_132k_cli"] = kernels.launch_counts()
+    require(rc == 0, "19(b): the strip document's exit code 0")
+    out = json.loads((workdir / "plane_strip.res.json").read_text())
+    probe = np.asarray(out["probe_dofs"])
+    cli_gap = float(np.abs(np.asarray(out["displacements"])
+                           - u_same[probe]).max() / scale)
+    cli_rounds = 32 * -(-out["iterations"] // 32)
+    log("phase19b_strip", card=card, ndof=problem.ndof,
+        elements=problem.nelm, n_diags=layout.n_diags,
+        bandwidth=layout.bandwidth, iterations=iters,
+        relative_residual=rel, closed_form_err=closed,
+        u_gap_vs_same_system=u_gap, u_gap_vs_float64=u_gap64,
+        float32_representation_floor=floor32, cold_s=cold_s, warm_s=warm,
+        warm_median_s=float(np.median(warm)), pcg_s=pcg_s,
+        pcg_ms_per_iteration=1e3 * pcg_s / max(iters, 1),
+        profile=prof, solve_idle=idle, layout_build_s=layout_s,
+        float64_reference_s=ref_s, launches=launches, expected=expected,
+        cli_s=cli_s, cli_iterations=out["iterations"],
+        cli_relative_residual=out["relative_residual"],
+        cli_probe_gap_vs_same_system=cli_gap, cli_tier=out["tier"])
+    require(rel < PLANE_STRIP_RESIDUAL, "19(b): relative residual < 1e-6")
+    require(closed < PLANE_CLOSED_FORM, "19(b): the closed form within "
+            f"{PLANE_CLOSED_FORM}")
+    require(u_gap <= PLANE_U_RTOL, f"19(b): u within {PLANE_U_RTOL} of "
+            "the float64 solve of the same diagonals")
+    require(u_gap64 <= floor32 + PLANE_U_RTOL, "19(b): u within the "
+            f"float32 floor + {PLANE_U_RTOL} of float64")
+    require(launches["strip_132k_api"] == dict(
+        expected, material_coefficients=0,
+        material_coefficients_backward=0),
+        "19(b): the launches of the formula")
+    require(out["tier"] == "banded" and out["relative_residual"]
+            < PLANE_STRIP_RESIDUAL, "19(b): the document's banded tier")
+    require(cli_gap <= PLANE_U_RTOL, "19(b): the document's probes within "
+            f"{PLANE_U_RTOL} of the float64 solve of the same diagonals")
+    require(launches["strip_132k_cli"] == dict(
+        dia_matvec=1, dia_dir_matvec=cli_rounds, cg_update=cli_rounds,
+        material_coefficients=0, material_coefficients_backward=0),
+        "19(b): the document's launches of the formula")
+    return launches, stats
+
+
+def plane_dense_problem(top_traction):
+    """A 40 x 98 Q4 wall (2 x 4.9, E 1000, nu 0.3, t 0.1, rho 1), its
+    bottom edge clamped, a traction on its top edge."""
+    from pinn_fem_tpu_torch.io.plane_io import parse_plane_document
+
+    nx, ny = PLANE_DENSE
+    return parse_plane_document({
+        "element_type": "plane",
+        "mesh": {"type": "rect", "width": 0.05 * nx, "height": 0.05 * ny,
+                 "nx": nx, "ny": ny},
+        "material": {"young": 1000.0, "poisson": 0.3, "thickness": 0.1,
+                     "density": 1.0},
+        "fixed_nodes": "bottom",
+        "edge_loads": [{"nodes": "top", "traction": top_traction}]})[0]
+
+
+def peak_run(dev, fn):
+    """(seconds, peak device GB, fn()) of one synchronized call."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    seconds, out = synced(fn)
+    return seconds, torch.cuda.max_memory_allocated(dev) / 1e9, out
+
+
+def plane_dense(dev, card: str) -> dict:
+    """19(c): the dense float64 analyses at the 8,192-DOF budget on the
+    card, each against scipy.sparse float64 on the port's element blocks:
+    modal (eigsh shift-invert; eigenvalues, M-normalized sign-aligned
+    shapes, each pair's residual), buckling of the wall under a
+    compressive top traction (eigsh on the pencil (-K_g, K)), Newmark (a
+    replay of the recurrence on one splu) and a harmonic sweep (one
+    complex splu a frequency); wall and peak memory of each."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    import torch
+
+    from pinn_fem_tpu_torch import (plane_buckling, plane_harmonic,
+                                    plane_modal, plane_stable_dt,
+                                    solve_plane_transient)
+    from pinn_fem_tpu_torch.examples_grid import plane_sparse_matrices
+    from pinn_fem_tpu_torch.models import plane as P
+    from pinn_fem_tpu_torch.ops import kernels
+
+    problem = plane_dense_problem([0.2, -0.1])
+    free = problem.free_dofs()
+    k, m = plane_sparse_matrices(problem, with_mass=True)
+    kf = k[free][:, free].tocsc()
+    mf = m[free][:, free].tocsc()
+    kernels.reset_launch_counts()
+    report = {"ndof": problem.ndof, "free": int(free.size)}
+    gates = []
+
+    s, gb, modal = peak_run(dev, lambda: plane_modal(problem, PLANE_MODES,
+                                                     device=dev))
+    t0 = time.perf_counter()
+    lam, vec = spl.eigsh(kf, k=PLANE_MODES, M=mf, sigma=0.0, which="LM")
+    order = np.argsort(lam)
+    lam, vec = lam[order], vec[:, order]
+    vec = vec / np.sqrt(np.einsum("ij,ij->j", vec, mf @ vec))
+    ref_s = time.perf_counter() - t0
+    phi = modal.mode_shapes[:, free].T
+    sign = np.sign(np.sum(phi * vec, axis=0))
+    shape_gap = float(np.abs(phi * sign - vec).max() / np.abs(vec).max())
+    eig_gap = float(np.abs(modal.eigenvalues - lam).max() / lam.max())
+    resid = [float(np.linalg.norm(kf @ phi[:, i] - lam_i * (mf @ phi[:, i]))
+                   / (lam_i * np.linalg.norm(mf @ phi[:, i])))
+             for i, lam_i in enumerate(modal.eigenvalues)]
+    # eps64 lambda_max / lambda_i: the residual a backward-stable dense
+    # eigensolver leaves on mode i (lambda_max from the Gershgorin bound).
+    lam_max = (2.0 / plane_stable_dt(problem, safety=1.0, device=dev)) ** 2
+    floor64 = [2.0 ** -52 * lam_max / lam_i for lam_i in modal.eigenvalues]
+    report["modal"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
+                           eig_gap=eig_gap, shape_gap=shape_gap,
+                           residuals=resid, eps64_kappa=floor64,
+                           frequencies_hz=modal.frequencies_hz.tolist())
+    gates += [(eig_gap <= PLANE_EIG_RTOL, "19(c): modal eigenvalues"),
+              (shape_gap <= PLANE_SHAPE_ATOL, "19(c): modal shapes"),
+              (all(r <= max(PLANE_EIG_RESIDUAL,
+                            PLANE_EIG_FLOOR_FACTOR * f)
+                   for r, f in zip(resid, floor64)),
+               "19(c): modal residuals")]
+
+    comp = plane_dense_problem([0.0, -1.0])
+    s, gb, buck = peak_run(dev, lambda: plane_buckling(
+        comp, PLANE_BUCKLING_MODES, device=dev))
+    t0 = time.perf_counter()
+    kc, _ = plane_sparse_matrices(comp)
+    u0 = float64_sparse_solve(kc, comp.loads, free)
+    kg_blocks, _ = P._geometric_blocks(comp, torch.as_tensor(u0), "cpu")
+    dm = comp.dof_map()
+    w = dm.shape[1]
+    kg = sp.csr_matrix((kg_blocks.numpy().ravel(),
+                        (np.repeat(dm, w, axis=1).ravel(),
+                         np.tile(dm, (1, w)).ravel())),
+                       shape=(comp.ndof, comp.ndof))
+    mu = spl.eigsh(-kg[free][:, free].tocsc(), k=PLANE_BUCKLING_MODES,
+                   M=kc[free][:, free].tocsc(), which="LA",
+                   return_eigenvectors=False)
+    lam_ref = np.sort(1.0 / mu[mu > 0])
+    ref_s = time.perf_counter() - t0
+    buck_gap = float(np.abs(buck.load_factors - lam_ref).max()
+                     / lam_ref.max())
+    report["buckling"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
+                              load_factors=buck.load_factors.tolist(),
+                              gap=buck_gap)
+    gates.append((buck_gap <= PLANE_EIG_RTOL,
+                  "19(c): buckling load factors"))
+
+    om1 = float(modal.omegas[0])
+    dt = 2.0 * np.pi / om1 / 40.0
+    amp = np.sin(0.5 * om1 * dt * np.arange(PLANE_NEWMARK_STEPS))
+    damping = (0.02 * om1, 0.02 / om1)
+    probe = np.arange(problem.ndof - 8, problem.ndof)
+    s, gb, tr = peak_run(dev, lambda: solve_plane_transient(
+        problem, dt, PLANE_NEWMARK_STEPS, damping=damping, amplitude=amp,
+        probe_dofs=probe, record_every=10, device=dev))
+    t0 = time.perf_counter()
+    cf = (damping[0] * mf + damping[1] * kf).tocsc()
+    a0, a1 = 4.0 / dt ** 2, 2.0 / dt
+    lu = spl.splu((kf + a0 * mf + a1 * cf).tocsc())
+    ff = problem.loads[free]
+    uu, vv = np.zeros(free.size), np.zeros(free.size)
+    acc = spl.spsolve(mf, ff * amp[0])
+    full, rec = np.zeros(problem.ndof), []
+    for step in range(PLANE_NEWMARK_STEPS):
+        rhs = ff * amp[min(step + 1, PLANE_NEWMARK_STEPS - 1)] \
+            + mf @ (a0 * uu + 2.0 * a1 * vv + acc) + cf @ (a1 * uu + vv)
+        un = lu.solve(rhs)
+        vn = a1 * (un - uu) - vv
+        acc = a0 * (un - uu) - 2.0 * a1 * vv - acc
+        uu, vv = un, vn
+        if (step + 1) % 10 == 0:
+            full[free] = uu
+            rec.append(full[probe].copy())
+    rec = np.asarray(rec)
+    ref_s = time.perf_counter() - t0
+    tr_gap = float(np.abs(tr.displacements - rec).max() / np.abs(rec).max())
+    report["newmark"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
+                             steps=PLANE_NEWMARK_STEPS, dt=dt, gap=tr_gap)
+    gates.append((tr_gap <= PLANE_DYN_RTOL, "19(c): Newmark probes"))
+
+    om = np.linspace(0.2 * om1, 3.0 * om1, PLANE_HARMONIC_FREQS)
+    s, gb, harm = peak_run(dev, lambda: plane_harmonic(
+        problem, om, damping=damping, probe_dofs=probe, device=dev))
+    t0 = time.perf_counter()
+    pos = np.searchsorted(free, probe)
+    amp_ref = np.asarray([np.abs(spl.splu(
+        (kf - wi * wi * mf + 1j * wi * cf).tocsc()).solve(
+            ff.astype(complex))[pos]) for wi in om])
+    ref_s = time.perf_counter() - t0
+    h_gap = float(np.abs(harm.amplitude - amp_ref).max()
+                  / np.abs(amp_ref).max())
+    report["harmonic"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
+                              frequencies=PLANE_HARMONIC_FREQS, gap=h_gap)
+    gates.append((h_gap <= PLANE_DYN_RTOL, "19(c): harmonic amplitudes"))
+    launches = kernels.launch_counts()
+    report["launches"] = launches
+    log("phase19c_dense", card=card, **report)
+    for ok, what in gates:
+        require(ok, what)
+    require(zero_launches(launches), "19(c): no repo kernel")
+    return launches
+
+
+def plane_plastic(dev, card: str) -> dict:
+    """19(d): the thick-wall cylinder on the 48 x 80 annulus (7,938 DOFs,
+    host=None: the float32 tier) ramped to 0.99 p_lim: once at the
+    document's tolerance (the tier's 1e-5 floor; its residuals logged,
+    fault 3.22), then at PLANE_PLASTIC_TOL against the float64 tier on
+    the card (the document's tolerance): every step converged, u within
+    PLANE_PLASTIC_U_RTOL, yielded sets equal but where the yielding run's
+    trial excess is within YIELD_SURFACE_RTOL of the yield stress; Newton
+    iterations, ms an iteration and the LU's share."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import solve_plane_plastic
+    from pinn_fem_tpu_torch.examples_grid import plane_annulus_document
+    from pinn_fem_tpu_torch.io.plane_io import parse_plane_document
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.ops.plastic import params_arrays
+    from pinn_fem_tpu_torch.solvers import plane_plasticity as PP
+
+    problem, an = parse_plane_document(plane_annulus_document(
+        *PLANE_ANNULUS))
+    kw = dict(sigma_y=an["sigma_y"], load_factors=an["load_factors"],
+              tol=an["tolerance"], max_iter=an["max_iterations"])
+    floor_s, floor = synced(lambda: solve_plane_plastic(problem, device=dev,
+                                                        **kw))
+    gated = dict(kw, tol=PLANE_PLASTIC_TOL)
+    kernels.reset_launch_counts()
+    wall, peak_gb, f32 = peak_run(dev, lambda: solve_plane_plastic(
+        problem, device=dev, **gated))
+    launches = kernels.launch_counts()
+    with Timed(PP, "masked_solve") as lu_calls:
+        wall_timed, _ = synced(lambda: solve_plane_plastic(
+            problem, device=dev, **gated))
+    sy, hi, hk = params_arrays(problem.nelm, kw["sigma_y"])
+    f64_s, f64 = synced(lambda: PP._float64_solve(
+        problem, sy, hi, hk, np.asarray(kw["load_factors"]), kw["tol"],
+        kw["max_iter"], 1e-8, 1e-12, True, dev))
+    iters = int(f32.iterations.sum())
+    u_gap = float(np.abs(f32.displacements - f64.displacements).max()
+                  / np.abs(f64.displacements).max())
+    y32, y64 = f32.eq_plastic[-1] > 0, f64.eq_plastic[-1] > 0
+    mu = 1000.0 / (2.0 * 1.3)
+    excess = 3.0 * mu * np.where(y32, f32.eq_plastic[-1],
+                                 f64.eq_plastic[-1]) / kw["sigma_y"]
+    differ = y32 != y64
+    off_surface = int(np.count_nonzero(differ
+                                       & (excess > YIELD_SURFACE_RTOL)))
+    lu_s = sum(s for s, _ in lu_calls)
+    log("phase19d_plastic", card=card, ndof=problem.ndof,
+        elements=problem.nelm, floor_run=dict(
+            s=floor_s, converged=floor.converged,
+            iterations=floor.iterations.tolist(),
+            residuals=floor.residuals.tolist()),
+        tol=PLANE_PLASTIC_TOL, steps=len(f32.load_factors),
+        converged=f32.converged, iterations=f32.iterations.tolist(),
+        iterations_f64=f64.iterations.tolist(), newton_iterations=iters,
+        wall_s=wall, ms_per_newton_iteration=1e3 * wall / max(iters, 1),
+        lu_share=lu_s / wall_timed, lu_ms=1e3 * lu_s / max(len(lu_calls), 1),
+        lu_calls=len(lu_calls), peak_device_gb=peak_gb,
+        max_residual=float(f32.residuals.max()), u_gap_vs_float64=u_gap,
+        yielded=int(y32.sum()), yielded_f64=int(y64.sum()),
+        yield_differ=int(differ.sum()), differ_off_surface=off_surface,
+        float64_s=f64_s, float64_converged=f64.converged, launches=launches)
+    require(f32.converged, "19(d): every float32 step converged")
+    require(f64.converged, "19(d): every float64 step converged")
+    require(u_gap <= PLANE_PLASTIC_U_RTOL, "19(d): u within "
+            f"{PLANE_PLASTIC_U_RTOL} of float64")
+    require(off_surface == 0, "19(d): yielded sets equal but within "
+            f"{YIELD_SURFACE_RTOL} of the surface")
+    require(zero_launches(launches), "19(d): no repo kernel")
+    return launches
+
+
+def plane_refusals(dev, card: str) -> None:
+    """19(e): mesh= on the banded tier, each plane analysis type of a
+    later ROADMAP item, a dense type above the 8,192-DOF budget (the JAX
+    ValueError) and a prescribed displacement on the banded tier, each
+    refused before any launch."""
+    from pinn_fem_tpu_torch.examples_grid import plane_strip_document
+    from pinn_fem_tpu_torch.io.plane_io import (parse_plane_document,
+                                                run_plane_analysis,
+                                                run_plane_document)
+    from pinn_fem_tpu_torch.models import plane as P
+    from pinn_fem_tpu_torch.ops import kernels
+
+    # 33 x 129 nodes: 8,514 DOFs, above the dense budget and the limit.
+    big, _ = parse_plane_document(plane_strip_document(32, 128))
+    small = plane_dense_problem([0.0, -1.0])
+    settled = plane_strip_document(32, 64)
+    settled["prescribed"] = [[1, 0.01]]
+    calls = {"mesh": (lambda: P.solve_plane_static_banded(
+        big, mesh=object(), device=dev), NotImplementedError, "item 15"),
+        "budget": (lambda: run_plane_analysis(
+            big, {"type": "modal"}, dev), ValueError, "8192-DOF budget"),
+        "banded_prescribed": (lambda: run_plane_document(settled, dev),
+                              ValueError, "homogeneous supports only")}
+    for kind, item in (("spectrum", 22), ("random", 22),
+                       ("identification", 23), ("sizing", 24),
+                       ("reliability", 24)):
+        calls[kind] = (lambda kind=kind: run_plane_analysis(
+            small, {"type": kind}, dev), NotImplementedError,
+            f"ROADMAP item {item}")
+    calls["transient_plasticity"] = (lambda: run_plane_analysis(
+        small, {"type": "transient", "dt": 0.1, "n_steps": 5,
+                "plasticity": {"sigma_y": 1.0}}, dev), NotImplementedError,
+        "ROADMAP item 19")
+    refused = {}
+    kernels.reset_launch_counts()
+    for name, (call, kind, text) in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except kind as e:
+            refused[name] = str(e)
+            require(text in str(e), f"19(e) {name}: the message names "
+                    f"{text}")
+    launches = kernels.launch_counts()
+    log("phase19e_refusals", card=card, refused=refused, launches=launches)
+    for name, msg in refused.items():
+        require(msg is not None, f"19(e): {name} refused")
+    require(zero_launches(launches), "19(e): no launch before refusal")
+
+
+def phase_plane(workdir: Path, dev, card: str) -> dict:
+    """Phase 19: the plane continuum family on the card.  Returns the
+    kernels' launches on each of its paths and the kernels' figures on
+    the strip's operator."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    launches = plane_documents(workdir, card)
+    lap("a")
+    strip_launches, strip_stats = plane_strip(workdir, dev, card)
+    launches.update(strip_launches)
+    lap("b")
+    launches["dense_8k"] = plane_dense(dev, card)
+    lap("c")
+    launches["plastic_annulus_8k"] = plane_plastic(dev, card)
+    lap("d")
+    plane_refusals(dev, card)
+    lap("e")
+    log("phase19_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return {"launches": launches, "strip": strip_stats}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -5951,6 +6586,7 @@ def main() -> int:
         eigen = phase_eigen(Path(tmp), dev, card)
         frequency = phase_frequency(Path(tmp), dev, card)
         nonlinear = phase_nonlinear(Path(tmp), dev, card)
+        plane = phase_plane(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -5994,6 +6630,13 @@ def main() -> int:
             path: counts[name] for path, counts in frequency.items()}
         entries[-1]["launches_nonlinear"] = {
             path: counts[name] for path, counts in nonlinear.items()}
+        entries[-1]["launches_plane"] = {
+            path: counts[name] for path, counts in plane["launches"].items()}
+        if name in BANDED:
+            entries[-1]["plane_strip"] = {
+                key: plane["strip"][name][key]
+                for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "bit_equal")}
         if name in MATERIAL:
             side = ("forward" if name == "material_coefficients"
                     else "backward")

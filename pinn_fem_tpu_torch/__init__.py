@@ -36,7 +36,11 @@ Elastoplastic statics and explicit transients (solvers/plasticity.py over
 ops/plastic.py), arc-length continuation (solvers/riks.py) and Guyan /
 Craig-Bampton reduction (solvers/reduction.py) run through "plastic",
 "continuation" and "reduction" documents and a transient's "plasticity"
-key.  ROADMAP.md lists what is still to port.
+key.  The plane-stress / plane-strain continuum family (models/plane.py,
+ops/plane_plastic.py, solvers/plane_plasticity.py) runs through
+"element_type": "plane" documents (io/plane_io.py): dense and banded
+statics, modal, buckling, Newmark, harmonic, elastoplastic statics and
+reduction.  ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -57,6 +61,20 @@ from .models.fields import (  # noqa: E402
     make_mlp_field,
     material_from_numpy,
     to_field,
+)
+from .models.plane import (  # noqa: E402
+    PlaneProblem,
+    annulus_mesh,
+    edge_load,
+    plane_buckling,
+    plane_harmonic,
+    plane_matrices,
+    plane_modal,
+    plane_stable_dt,
+    pressure_load,
+    rect_mesh,
+    solve_plane_static,
+    solve_plane_transient,
 )
 from .models.problem import (  # noqa: E402
     ProblemData,
@@ -122,6 +140,10 @@ from .solvers.modal import (  # noqa: E402
     rayleigh_coefficients,
 )
 from .solvers.newton import solve_nr  # noqa: E402
+from .solvers.plane_plasticity import (  # noqa: E402
+    PlanePlasticResult,
+    solve_plane_plastic,
+)
 from .solvers.plasticity import (  # noqa: E402
     PlasticStaticResult,
     PlasticTransientResult,
@@ -155,6 +177,10 @@ __all__ = [
     "BucklingResult", "DirectionalSpectrumResult", "HarmonicResult",
     "LegacySolverConfig", "Material", "MLPField", "ModalResult",
     "PINNGradientDescentConfig", "PINNSolverConfig", "PINNSolverResult",
+    "PlanePlasticResult", "PlaneProblem", "annulus_mesh", "edge_load",
+    "plane_buckling", "plane_harmonic", "plane_matrices", "plane_modal",
+    "plane_stable_dt", "pressure_load", "rect_mesh", "solve_plane_plastic",
+    "solve_plane_static", "solve_plane_transient",
     "PlasticStaticResult", "PlasticTransientResult", "ProblemData",
     "RandomResponseResult", "ReducedModel", "RiksResult", "ScalarField",
     "SolverConfig", "SolverResult", "SpectralFatigue", "SpectrumCurve",

@@ -21,7 +21,10 @@ runs io/analysis.run_analysis and writes its result dict; of the analysis
 types "transient" (with "plasticity"), "modal", "buckling", "harmonic",
 "random", "spectrum", "continuation", "plastic" and "reduction" are
 ported (the others exit 1, naming their ROADMAP item).
-Element-family documents ("element_type") are not yet ported and exit 1.
+Plane documents ("element_type": "plane") are routed before the truss
+parse to io/plane_io.run_plane_document and log the JAX CLI's PLANE
+ANALYSIS SUMMARY lines; the other element families are not yet ported
+and exit 1, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ from ..utils.runtime import resolve_device
 logger = logging.getLogger(f"{PACKAGE_LOGGER}.cli")
 
 # Element families of the JAX CLI, by the ROADMAP item that ports them.
-_ELEMENT_FAMILIES = {"plane": 18, "solid": 19, "frame": 20, "frame3d": 20,
-                     "plate": 21, "shell": 22}
+_ELEMENT_FAMILIES = {"solid": 19, "frame": 20, "frame3d": 20, "plate": 21,
+                     "shell": 22}
 
 
 def setup_logging(problem_file: str) -> Path:
@@ -76,16 +79,23 @@ def setup_logging(problem_file: str) -> Path:
 
 def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         device=None) -> dict:
-    """Solve one truss document on `device` ("cuda" when None) and write
-    its result JSON."""
+    """Solve one truss or plane document on `device` ("cuda" when None) and
+    write its result JSON."""
     device = resolve_device(device)
     with open(problem_file) as fh:
         raw = json.load(fh)
+    if output_file is None:
+        p = Path(problem_file)
+        output_file = str(p.parent / f"{p.stem}.res.json")
     family = raw.get("element_type") if isinstance(raw, dict) else None
     if family in _ELEMENT_FAMILIES:
         raise NotImplementedError(
             f'"{family}" element documents are not yet ported, ROADMAP item '
             f"{_ELEMENT_FAMILIES[family]}")
+    from ..io.plane_io import is_plane_document
+
+    if is_plane_document(raw):
+        return _run_plane(raw, output_file, device)
     parsed = parse_problem_dict(raw, seed=seed)
     problem, config = parsed.problem, parsed.config
 
@@ -100,10 +110,6 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         "Solver method: %s",
         resolve_method(problem, config, parsed.measured_disp, parsed.measured_dofs),
     )
-
-    if output_file is None:
-        p = Path(problem_file)
-        output_file = str(p.parent / f"{p.stem}.res.json")
 
     analysis = parsed.meta.get("analysis")
     if analysis and parsed.prescribed is not None:
@@ -196,6 +202,51 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
             logger.info("  Max displacement: %.6e", max(abs(d) for d in disp))
     else:
         logger.info("  Status: FAILED")
+    logger.info("Results written to %s", output_file)
+    return output
+
+
+def _run_plane(raw: dict, output_file: str, device) -> dict:
+    """A plane document through io/plane_io on `device`, with the JAX CLI's
+    log lines."""
+    from ..io.plane_io import run_plane_document
+
+    logger.info("Plane document: %s",
+                "generated mesh" if "mesh" in raw else
+                f"{len(raw.get('nodes', ()))} nodes, "
+                f"{len(raw.get('elements', ()))} elements")
+    output = run_plane_document(raw, device)
+    with open(output_file, "w") as f:
+        json.dump(output, f, indent=2)
+    logger.info("%s", "=" * 60)
+    logger.info("PLANE ANALYSIS SUMMARY (%s):", output["analysis"])
+    kind = output["analysis"]
+    if kind == "modal":
+        logger.info("  Frequencies (Hz): %s",
+                    ["%.6g" % v for v in output["frequencies_hz"]])
+    elif kind == "transient":
+        logger.info("  Steps: %d (dt=%.3e)", output["n_steps"],
+                    output["dt"])
+    elif kind == "plastic":
+        logger.info("  Steps: %d, yielded elements: %d, peak von "
+                    "Mises: %.6g", output["n_steps"],
+                    len(output["yielded_elements"]),
+                    max(output["max_von_mises"]))
+    elif kind == "harmonic":
+        logger.info("  Sweep: %d frequencies, peak |X| %.6g",
+                    len(output["omegas"]),
+                    max(max(row) for row in output["amplitude"]))
+    elif kind == "reduction":
+        logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
+                    output["method"], output["n_reduced_dofs"],
+                    output["reduced_frequencies_hz"][0])
+    elif kind == "buckling":
+        logger.info("  Load factors: %s",
+                    ["%.6g" % v for v in output["load_factors"]])
+    else:
+        logger.info("  Max von Mises: %.6g (element %d)",
+                    output["max_von_mises"],
+                    output["max_von_mises_element"])
     logger.info("Results written to %s", output_file)
     return output
 

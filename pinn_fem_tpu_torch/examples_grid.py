@@ -20,7 +20,12 @@ numbering gives no banded layout (the gather-based PCG's case).
 Jacobi-PCG needs O(n) iterations), and
 `float64_transient` integrates such a document's central-difference
 or Newmark recurrence in float64 on scipy's sparse K (Newmark with one
-sparse LU of its effective stiffness).
+sparse LU of its effective stiffness).  `plane_strip_document` is the
+JAX package's banded plane benchmark as a document (a Q4 strip in
+uniaxial tension, benchmarks/scaling.py's plane_section: 128 x 512 is
+132,354 DOFs), `plane_annulus_document` the corpus thick-wall cylinder
+(dyn-plane-plastic.json) at any mesh, and `plane_sparse_matrices` the
+float64 scipy K and M of a plane problem from the port's element blocks.
 """
 
 from __future__ import annotations
@@ -424,3 +429,88 @@ def float64_transient(doc: dict, dt: float, n_steps=None) -> dict:
                 vs.append(v[probe])
     return {"times": dt * every * np.arange(1, len(us) + 1),
             "displacements": np.asarray(us), "velocities": np.asarray(vs)}
+
+
+def plane_strip_document(nx: int, ny: int, width: float = 1.0,
+                         height: float = 4.0, traction: float = 10.0,
+                         young: float = 1000.0, **analysis) -> dict:
+    """The JAX package's banded plane benchmark strip as a document: an
+    nx x ny Q4 plane-stress strip of width x height (E = young, nu 0.3,
+    t 0.1), the left edge on x-rollers, the bottom on y-rollers, a uniform
+    traction along x on the right edge (closed form u_x = traction x /
+    young), static analysis at tolerance 1e-7 probing the top edge;
+    `analysis` overrides any key of the analysis block."""
+    return {
+        "element_type": "plane",
+        "description": f"{nx} x {ny} Q4 strip in uniaxial tension",
+        "mesh": {"type": "rect", "width": width, "height": height,
+                 "nx": nx, "ny": ny, "element": "quad"},
+        "material": {"young": young, "poisson": 0.3, "thickness": 0.1,
+                     "density": 1.0},
+        "plane_strain": False,
+        "fixed_x_nodes": "left",
+        "fixed_y_nodes": "bottom",
+        "edge_loads": [{"nodes": "right", "traction": [traction, 0.0]}],
+        "analysis": {"type": "static", "tolerance": 1e-7,
+                     "probe_nodes": "top", **analysis},
+    }
+
+
+# Load factors of dyn-plane-plastic.json: 0.5, 0.9, 0.95 and 0.99 of the
+# limit pressure (2 / sqrt 3) sigma_y ln(b / a) with b / a = 2.
+ANNULUS_LIMIT_FRACTIONS = (0.5, 0.9, 0.95, 0.99)
+
+
+def plane_annulus_document(nr: int, nt: int, **analysis) -> dict:
+    """The corpus thick-wall cylinder (dyn-plane-plastic.json) on an
+    nr x nt quarter annulus: plane strain, E 1000, nu 0.3, inner radius 1,
+    outer 2, unit pressure on the bore, y-rollers on the theta = 0 edge
+    ("bottom") and x-rollers on the theta = 90 degree edge ("left"),
+    perfectly plastic von Mises with sigma_y 1 ramped to 0.99 of the
+    limit pressure, probing the bore and outer nodes of the theta = 0
+    edge; `analysis` overrides any key of the analysis block."""
+    p_lim = 2.0 / np.sqrt(3.0) * np.log(2.0)
+    return {
+        "element_type": "plane",
+        "description": f"thick-wall cylinder, {nr} x {nt} quarter annulus",
+        "mesh": {"type": "annulus", "r_inner": 1.0, "r_outer": 2.0,
+                 "nr": nr, "nt": nt},
+        "material": {"young": 1000.0, "poisson": 0.3, "thickness": 1.0,
+                     "density": 1.0},
+        "plane_strain": True,
+        "edge_loads": [{"nodes": list(range(0, nt * (nr + 1) + 1, nr + 1)),
+                        "pressure": 1.0}],
+        "fixed_y_nodes": "bottom",
+        "fixed_x_nodes": "left",
+        "analysis": {"type": "plastic", "sigma_y": 1.0,
+                     "load_factors": [float(p_lim * s) for s in
+                                      ANNULUS_LIMIT_FRACTIONS],
+                     "tolerance": 1e-8, "max_iterations": 40,
+                     "probe_nodes": [0, nr], **analysis},
+    }
+
+
+def plane_sparse_matrices(problem, with_mass: bool = False):
+    """(K, M) of a plane problem as float64 scipy CSR matrices from the
+    port's element blocks (M None unless with_mass); point masses are not
+    included."""
+    import scipy.sparse as sp
+    import torch
+
+    from .models import plane as P
+
+    coords, _ = P._elements(problem, "cpu")
+    dm = problem.dof_map()
+    rows = np.repeat(dm, dm.shape[1], axis=1).ravel()
+    cols = np.tile(dm, (1, dm.shape[1])).ravel()
+    n = problem.ndof
+
+    def csr(blocks: "torch.Tensor"):
+        return sp.csr_matrix((blocks.numpy().ravel(), (rows, cols)),
+                             shape=(n, n))
+
+    k = csr(P._stiffness_blocks(problem, "cpu"))
+    if not with_mass:
+        return k, None
+    rho, thick = P._material(problem, "cpu", "density", "thickness")
+    return k, csr(P._m_blocks(coords, rho, thick, problem.nen))

@@ -2,7 +2,9 @@
 pinn_fem_tpu/io/_common.py that the truss runners call (the amplitude,
 probe, omega and spectrum parsers, the prestress state, the S-N
 parameters, the element areas) and the strict-JSON sanitizer
-(`_json_finite`).  The continuum runners' helpers come with those runners.
+(`_json_finite`), with the continuum families' prestress state and
+reduction runner (`_continuum_prestress_u`, `run_continuum_reduction`).
+The other continuum runners come with their element families.
 """
 
 from __future__ import annotations
@@ -206,6 +208,113 @@ def _prestress_state(problem, spec, device=None):
                               device=device)
         u = np.asarray(res.displacements).reshape(-1)
     return scale * u
+
+
+def _continuum_prestress_u(problem, spec, static_solver):
+    """Resolve a modal block's "prestress" spec to a displacement state for
+    the continuum families (the truss _prestress_state contract without
+    fix_dofs):
+
+        true                 static solve at the problem's own loads
+        {"scale": s}         s times that state
+        {"u": [..]}          an explicit state (optional scale)
+    """
+    if spec in (None, False):
+        return None
+    scale = 1.0
+    if isinstance(spec, dict):
+        scale = float(spec.get("scale", 1.0))
+        if "u" in spec:
+            u = np.asarray(spec["u"], dtype=float).reshape(-1)
+            if u.size != problem.ndof:
+                raise ValueError(f"prestress.u must have "
+                                 f"{problem.ndof} entries, got "
+                                 f"{u.size}")
+            return scale * u
+    elif spec is not True:
+        raise ValueError(f"bad prestress spec: {spec!r}")
+    return scale * np.asarray(static_solver(problem), dtype=float)
+
+
+# ROADMAP items of the continuum families not yet ported.
+_FAMILY_ITEMS = {"SolidProblem": 19, "FrameProblem": 20,
+                 "SpaceFrameProblem": 20, "PlateProblem": 21,
+                 "ShellProblem": 22}
+
+
+def _family_modal(problem, n_modes: int, device=None):
+    """(omegas, shapes) of the problem's own dense modal analysis: the plane
+    branch of the JAX package's continuum_spectrum._family_of; the other
+    families raise, naming their ROADMAP item."""
+    from ..models.plane import PlaneProblem, plane_modal
+
+    if isinstance(problem, PlaneProblem):
+        res = plane_modal(problem, n_modes, device=device)
+        return np.asarray(res.omegas), np.asarray(res.mode_shapes)
+    kind = type(problem).__name__
+    if kind in _FAMILY_ITEMS:
+        raise NotImplementedError(
+            f"the modal analysis of a {kind} is not yet ported, ROADMAP "
+            f"item {_FAMILY_ITEMS[kind]}")
+    raise TypeError(f"no continuum family for {kind}")
+
+
+def run_continuum_reduction(problem, analysis: Dict, element_type: str,
+                            device=None) -> Dict:
+    """A model-order-reduction block on a continuum document
+    (solvers/reduction.reduce_model's dense consistent-mass cores, on
+    `device`); the truss run_reduction contract.  The reduced pencil is
+    solved by float64 LAPACK on the host."""
+    import scipy.linalg
+
+    from ..solvers.reduction import reduce_model
+
+    method = analysis.get("method", "guyan")
+    dpn = {"plane": 2, "solid": 3, "frame": 3, "plate": 3,
+           "frame3d": 6, "shell": 6}[element_type]
+    if "master_dofs" in analysis:
+        masters = np.asarray(analysis["master_dofs"], dtype=int)
+    elif "master_nodes" in analysis:
+        nodes = np.asarray(analysis["master_nodes"], dtype=int)
+        cand = (dpn * nodes[:, None]
+                + np.arange(dpn)[None, :]).reshape(-1)
+        free = set(np.setdiff1d(np.arange(problem.ndof),
+                                problem.fixed_dofs).tolist())
+        masters = np.asarray([c for c in cand if int(c) in free],
+                             dtype=int)
+        if masters.size == 0:
+            raise ValueError("master_nodes resolve to no free DOFs")
+    else:
+        raise ValueError("reduction needs master_nodes or master_dofs")
+
+    model = reduce_model(problem, masters, method=method,
+                         n_modes=int(analysis.get("n_modes", 4)),
+                         device=device)
+    w2 = scipy.linalg.eigh(model.k_red, model.m_red, eigvals_only=True)
+    omegas = np.sqrt(np.maximum(w2, 0.0))
+    n_red = int(model.k_red.shape[0])
+    out = {
+        "success": True,
+        "analysis": "reduction",
+        "element_type": element_type,
+        "method": method,
+        "master_dofs": masters.tolist(),
+        "n_reduced_dofs": n_red,
+        "reduced_omegas": omegas.tolist(),
+        "reduced_frequencies_hz": (omegas / (2.0 * np.pi)).tolist(),
+    }
+    if analysis.get("include_matrices", n_red <= 64):
+        out["k_red"] = model.k_red.tolist()
+        out["m_red"] = model.m_red.tolist()
+    if analysis.get("compare_full", True):
+        n_cmp = min(n_red, int(analysis.get("n_compare", 4)))
+        om_full, _ = _family_modal(problem, n_cmp, device)
+        ok = om_full > 0
+        rel = np.abs(omegas[:n_cmp][ok] - om_full[ok]) \
+            / np.maximum(om_full[ok], 1e-30)
+        out["full_omegas"] = om_full.tolist()
+        out["frequency_rel_errors"] = rel.tolist()
+    return _json_finite(out)
 
 
 def _json_finite(obj):

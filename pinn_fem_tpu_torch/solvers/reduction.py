@@ -21,9 +21,10 @@ as in the JAX package.  The modes' signs come from the eigensolver
 (LAPACK, torch, cuSOLVER), so the modal rows and columns of a
 Craig-Bampton k_red / m_red may differ in sign between packages and
 devices; the master block and the reduced frequencies do not.
-`reduce_model` takes the truss; its continuum branches (plane, solid,
-frame, plate, space frame, shell) come with their element families,
-ROADMAP items 18-22.
+`reduce_model` takes the truss and the plane continuum (its consistent
+float64 K and M from models/plane.plane_matrices, through the dense
+cores); its other continuum branches (solid, frame, plate, space frame,
+shell) come with their element families, ROADMAP items 19-22.
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ import torch
 from ..models.problem import TrussProblem
 from ..utils.runtime import resolve_device
 
-# The continuum problem classes of the JAX package's reduce_model.
-_CONTINUUM = ("PlaneProblem", "SolidProblem", "FrameProblem", "PlateProblem",
+# The continuum problem classes of the JAX package's reduce_model that
+# are not yet ported.
+_CONTINUUM = ("SolidProblem", "FrameProblem", "PlateProblem",
               "SpaceFrameProblem", "ShellProblem")
 
 
@@ -213,9 +215,13 @@ def craig_bampton_dense(k, m, fixed_dofs, master_dofs, n_modes: int = 4,
 
 def reduce_model(problem, master_dofs, method: str = "guyan",
                  n_modes: int = 4, device=None) -> ReducedModel:
-    """Family-dispatching reduction: a TrussProblem takes the lumped
-    float64 path above.  The JAX package's plane, solid, frame, plate,
-    space-frame and shell branches are not yet ported."""
+    """Family-dispatching reduction on `device` ("cuda" when None): a
+    TrussProblem takes the lumped float64 path above, a PlaneProblem its
+    own consistent dense (K, M) through the dense cores.  The JAX
+    package's solid, frame, plate, space-frame and shell branches are not
+    yet ported."""
+    from ..models.plane import PlaneProblem, plane_matrices
+
     if isinstance(problem, TrussProblem):
         if method == "guyan":
             return guyan_reduce(problem, master_dofs, device=device)
@@ -225,11 +231,24 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
         raise ValueError('reduction method must be "guyan" or '
                          '"craig_bampton"')
     kind = type(problem).__name__
+    if isinstance(problem, PlaneProblem):
+        _dense_limit_check(problem.ndof)
+        k, m = (a.cpu().numpy() for a in plane_matrices(problem,
+                                                        device=device))
+        if method == "guyan":
+            return guyan_reduce_dense(k, m, problem.fixed_dofs,
+                                      master_dofs, device=device)
+        if method == "craig_bampton":
+            return craig_bampton_dense(k, m, problem.fixed_dofs,
+                                       master_dofs, n_modes=n_modes,
+                                       device=device)
+        raise ValueError('reduction method must be "guyan" or '
+                         '"craig_bampton"')
     if kind in _CONTINUUM:
         raise NotImplementedError(
-            f"reduce_model of a {kind} is not yet ported: the plane, "
-            "solid, frame, plate, space-frame and shell families are "
-            "ROADMAP items 18-22")
+            f"reduce_model of a {kind} is not yet ported: the solid, "
+            "frame, plate, space-frame and shell families are ROADMAP "
+            "items 19-22")
     raise TypeError("reduce_model needs a Truss/Plane/Solid/"
                     "Frame/SpaceFrame/Shell/Plate problem, "
                     f"got {kind}")

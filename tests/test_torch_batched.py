@@ -14,6 +14,7 @@ member b alone" is held bit for bit on the CPU, which catches a member's
 forces, moments or parameters leaking into another's.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import logging
 

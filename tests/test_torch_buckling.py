@@ -11,6 +11,7 @@ tower: ~5e-3).  The banded path runs with DENSE_DOF_LIMIT patched below
 the mesh in both packages' Newton modules.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import contextlib
 import json
 import logging

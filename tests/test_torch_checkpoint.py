@@ -7,6 +7,7 @@ a run from the other's checkpoint to its own uninterrupted answer.  The
 port's cases of tests/test_aux.py:25-66 run here too.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import logging
 from pathlib import Path

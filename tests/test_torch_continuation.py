@@ -24,6 +24,7 @@ comparison; the master block and the reduced frequencies are compared as
 they are.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import logging
 from pathlib import Path
@@ -232,7 +233,6 @@ def test_dense_cores_match_jax(method):
 
 
 def continuum_and_limit_calls():
-    plane = plane_strip()
     return {
         "data": (lambda pkg, kw: pkg.guyan_reduce(
             tower(pkg), TOP, data=tower(pkg).to_device(**kw)), ValueError),
@@ -244,8 +244,9 @@ def continuum_and_limit_calls():
             tower(pkg), TOP, method="modal", **kw), ValueError),
         "not-a-problem": (lambda pkg, kw: pkg.reduce_model(
             SimpleNamespace(ndof=4), TOP, **kw), TypeError),
-        "continuum": (lambda pkg, kw: pkg.reduce_model(plane, [0], **kw),
-                      NotImplementedError),
+        "continuum": (lambda pkg, kw: pkg.reduce_model(
+            type("SolidProblem", (), {"ndof": 8})(), [0], **kw),
+            NotImplementedError),
     }
 
 
@@ -271,10 +272,11 @@ def test_reduction_refusals_match_jax(name, monkeypatch):
 
 
 def test_continuum_reduction_refused():
-    """reduce_model on a continuum problem (the JAX package's plane
-    strip) raises NotImplementedError naming ROADMAP items 18-22."""
+    """reduce_model on a continuum problem not yet ported (a solid; the
+    plane branch is ported, tests/test_torch_plane.py) raises
+    NotImplementedError naming ROADMAP items 19-22."""
     call, kind = continuum_and_limit_calls()["continuum"]
-    with pytest.raises(kind, match="ROADMAP items 18-22"):
+    with pytest.raises(kind, match="ROADMAP items 19-22"):
         call(tp, {"device": "cpu"})
 
 

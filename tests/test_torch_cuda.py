@@ -22,8 +22,12 @@ plain cycle, its PCG to the CPU solve, and its float64 refusal.  The
 banded modal and buckling eigensolvers launch kernels 1-3 exactly as
 their block solves and products count, a block solve bit-equal to the
 twin recurrence, their eigenvalues within 1e-3 of the CPU and dense runs.
+The plane family's banded statics launches kernels 2 and 3 in whole rounds
+of 32 PCG iterations and kernel 1 once (the reactions), within 1e-4 of
+the CPU run; its dense analyses on the card equal the CPU's at 1e-10.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 import torch
@@ -1107,3 +1111,48 @@ def test_x64_banded_eigensolvers_refused_on_card(cuda_device, monkeypatch):
             fn(problem, n_modes=2, data=data)
         assert "kernels 1-3" in str(err.value)
     assert not any(kernels.launch_counts().values())
+
+
+def test_plane_banded_statics_on_card(cuda_device):
+    """solve_plane_static_banded on the 16 x 64 strip (21 diagonals):
+    kernels 2 and 3 launch 32 ceil(iterations / 32) times, kernel 1 once,
+    u within 1e-4 of the CPU run."""
+    from pinn_fem_tpu_torch.examples_grid import plane_strip_document
+    from pinn_fem_tpu_torch.io.plane_io import parse_plane_document
+
+    problem, _ = parse_plane_document(plane_strip_document(16, 64))
+    kernels.reset_launch_counts()
+    card, iters, rel = T.models.plane.solve_plane_static_banded(
+        problem, device=cuda_device)
+    counts = kernels.launch_counts()
+    rounds = 32 * -(-iters // 32)
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == rounds
+    assert counts["dia_matvec"] == 1 and rel <= 1e-7
+    cpu, _, _ = T.models.plane.solve_plane_static_banded(problem,
+                                                         device="cpu")
+    scale = np.abs(cpu.displacements).max()
+    assert np.abs(card.displacements - cpu.displacements).max() \
+        <= 1e-4 * scale
+
+
+def test_plane_dense_analyses_on_card(cuda_device):
+    """plane_modal and solve_plane_static in float64 on the card equal the
+    CPU runs at 1e-10 (mode shapes sign-aligned); no repo kernel runs."""
+    from pinn_fem_tpu_torch.examples_grid import plane_strip_document
+    from pinn_fem_tpu_torch.io.plane_io import parse_plane_document
+
+    problem, _ = parse_plane_document(plane_strip_document(8, 16))
+    kernels.reset_launch_counts()
+    card = T.plane_modal(problem, 4, device=cuda_device)
+    stat = T.solve_plane_static(problem, device=cuda_device)
+    assert not any(kernels.launch_counts().values())
+    cpu = T.plane_modal(problem, 4, device="cpu")
+    np.testing.assert_allclose(card.eigenvalues, cpu.eigenvalues,
+                               rtol=1e-10)
+    s = np.sign(np.sum(card.mode_shapes * cpu.mode_shapes, axis=1))
+    np.testing.assert_allclose(card.mode_shapes * s[:, None],
+                               cpu.mode_shapes, atol=1e-10)
+    np.testing.assert_allclose(
+        stat.displacements,
+        T.solve_plane_static(problem, device="cpu").displacements,
+        rtol=1e-10, atol=1e-14)

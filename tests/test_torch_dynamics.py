@@ -18,6 +18,7 @@ integrators drift apart linearly in time, so every history is compared
 against the largest value of its JAX counterpart.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import contextlib
 import json
 import logging

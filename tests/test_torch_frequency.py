@@ -13,6 +13,7 @@ magnitude.  Quantities of zero-force members (stress RMS at float64 noise,
 ~1e-14 of the largest) are noise in both packages and left out.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import contextlib
 import json
 import logging

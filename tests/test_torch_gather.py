@@ -10,6 +10,7 @@ case gives the same inputs to both packages.  The bounds are the gaps that
 beside each.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import logging
 

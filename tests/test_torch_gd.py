@@ -10,6 +10,7 @@ A small PINN grid runs kernel 4's dispatch (on the CPU: its twin) through
 100 GD iterations beside the JAX solver.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import shutil
 from pathlib import Path

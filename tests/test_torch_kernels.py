@@ -9,6 +9,7 @@ arrays.  The kernels themselves run on the card only: see
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 from pathlib import Path
 
 import numpy as np

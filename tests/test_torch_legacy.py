@@ -25,6 +25,7 @@ Bounds, from the measured port-vs-JAX gaps (float32;
     and the first row 1e-6 (0).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import os
 import re

@@ -10,6 +10,7 @@ autograd is held against jax.grad; the CUDA kernels against the twin run
 on the card only (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -13,6 +13,7 @@ made by numpy from a seed.  The kernel itself is held to it on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import math
 
 import numpy as np

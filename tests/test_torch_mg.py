@@ -11,6 +11,7 @@ gap (tests/measure_torch_agreement.py mg).  The JAX hierarchy of the
 13 s).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import numpy as np
 import pytest
 import torch

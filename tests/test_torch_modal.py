@@ -13,6 +13,7 @@ floors.  Eigenvector signs are arbitrary: shapes are compared by MAC or
 by |phi|.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import contextlib
 import json
 import logging

@@ -19,6 +19,7 @@ against tier:
     every member off the threshold otherwise.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import contextlib
 import json
 import logging

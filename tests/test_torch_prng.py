@@ -9,6 +9,7 @@ weights passed between them, on three NN documents (converged, history
 length and displacements within U_ATOL of tests/test_torch_gd.py).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import shutil
 from pathlib import Path

@@ -11,6 +11,7 @@ transformed holds the rule that keeps kernel 4 out of torch.func on a
 card.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import logging
 from pathlib import Path

@@ -9,6 +9,7 @@ one.  Then the CLI contract
 (errors, exit codes) and the rule that the port never imports JAX.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import dataclasses
 import json
 import os
@@ -214,10 +215,12 @@ def test_cli_malformed_json_exits_1(tmp_path, monkeypatch):
 
 
 def test_cli_element_document_not_yet_ported(tmp_path, monkeypatch):
-    doc = {"element_type": "plane", "nodes": [[0, 0], [1, 0], [0, 1]],
-           "elements": [[0, 1, 2]]}
-    rc, log = run_main(tmp_path, monkeypatch, "plane.json", json.dumps(doc))
+    doc = {"element_type": "solid", "nodes": [[0, 0, 0], [1, 0, 0],
+                                              [0, 1, 0], [0, 0, 1]],
+           "elements": [[0, 1, 2, 3]]}
+    rc, log = run_main(tmp_path, monkeypatch, "solid.json", json.dumps(doc))
     assert rc == 1 and "[ERROR]" in log and "not yet ported" in log
+    assert "ROADMAP item 19" in log
 
 
 def test_cli_example1_writes_result(tmp_path, monkeypatch):

@@ -9,6 +9,7 @@ The 24 x 48 grid documents (2,304 DOFs) take the banded Newton, whose
 inner PCG runs the kernels' twins here.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 import logging
 from pathlib import Path

@@ -10,6 +10,7 @@ rest of the process in float32.  On a card the CUDA kernels refuse
 float64 (tests/test_torch_cuda.py holds that).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import json
 from pathlib import Path
 
