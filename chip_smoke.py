@@ -274,7 +274,8 @@ code is not 0 and no result line is printed:
      top two nodes as masters, 8 modes, compare_full) through main():
      reduced omegas within 1e-10 of scipy in float64, the wall time; (f)
      reduction above the dense limit and with data=, reduce_model of a
-     continuum problem (items 19-22), each compose key of the transient
+     continuum problem not yet ported (items 20-22), each compose key of
+     the transient
      "plasticity" spec, and a float64 CUDA operand at (c)'s kernel 1
      dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel 1),
      each refused before any launch;
@@ -303,7 +304,42 @@ code is not 0 and no result line is printed:
      card, ms a Newton iteration and the LU's share; (e) mesh=, each
      later item's
      analysis type, the 8,192-DOF budget and a banded prescribed
-     displacement, each refused before any launch.
+     displacement, each refused before any launch;
+ 20. the 3D solid family and the continuum plastic transients: (a) the
+     corpus dyn-solid (6,075 DOFs, the banded tier: kernels 1 / 2 / 3
+     launched 1 / 32 ceil(it / 32) / 32 ceil(it / 32) times, within 1e-4
+     of the CPU run, the closed form u_z = sigma z / E, u_x = -nu sigma x /
+     E, von Mises = sigma within 2e-3), dyn-solid-plastic,
+     dyn-solid-transient-plastic and dyn-plane-transient-plastic (float64
+     tiers, within 1e-10 of the CPU run, no repo kernel) through main();
+     (b) the JAX package's banded solid benchmark column at full width
+     (16 x 16 x 96 hex8, 84,099 DOFs, 99 diagonals, bandwidth 923):
+     kernels 1-3 on its operator against their plain versions (plans,
+     staged or not, ms, device us, bounds, CSR K u), then
+     solve_solid_static_banded (tol 1e-8) and the column as a document
+     through main(): the closed form within 2e-3, the relative residual
+     below 1e-6, u within 1e-3 of a float64 scipy banded Cholesky solve of
+     the same float32 diagonals (and the float32 representation floor
+     against the float64 operator, fault 3.23), the launches of the
+     formula, the layout build, PCG iterations and ms an iteration, warm
+     wall (median of 3), the idle share; (c) its banded modal analysis (4
+     modes, n_iter 30, cg_tol 1e-7) against scipy's eigsh on the same
+     float64 lumped pencil within 1e-2, kernel 1 n_iter k and kernels 2-3
+     the block solves' rounds; (d) its explicit transient, 2,000 steps at
+     solid_stable_dt with beta = 0 and beta != 0: kernel 1 exactly 1 + n +
+     2n / r and 2 + 2n + 3n / r times, u within 2e-3 of a float64 twin
+     run, ms a step, idle share; (e) the plastic explicit transient of a
+     24 x 24 x 48 box (91,875 DOFs) with beta != 0 on the structured path:
+     kernel 1 once a step, no ndof^2 array, u within 2e-3 of the float64
+     run; the float32 plastic statics of a 10 x 10 x 20 column (7,623
+     DOFs) within 1e-3 of the float64 tier, yielded sets equal; (f) the
+     dense float64 analyses at the 8,192-DOF budget (a clamped 12 x 12 x
+     15 column, 8,112 DOFs): modal, buckling, 500 Newmark steps and a
+     20-frequency harmonic sweep within 1e-9 of scipy.sparse float64
+     (fault 3.24's residual rule), wall and peak memory of each; (g)
+     mesh=, the solid types of later items, the 8,192-DOF budgets, a
+     banded prescribed displacement and "plasticity" with "banded", each
+     refused before any launch.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -320,8 +356,9 @@ paths, every kernel its launches on phase 12's paths and, as
 launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
 as launches_batched on phase 15's, as launches_eigen on phase 16's,
 as launches_frequency on phase 17's, as launches_nonlinear on phase 18's,
-as launches_plane on phase 19's, kernels 1-3 their figures on phase
-19's strip operator (plane_strip), kernel 1 also its times at the
+as launches_plane on phase 19's, as launches_solid on phase 20's,
+kernels 1-3 their figures on phase 19's strip operator (plane_strip) and
+on phase 20's column operator (solid_column), kernel 1 also its times at the
 multigrid's level shapes, kernels 4 and 4b their member-axis times at
 B = 1, 8 and 32 as members); the last is
 {"ok": true,
@@ -5864,7 +5901,8 @@ def craig_bampton_tower(workdir: Path, card: str) -> dict:
 
 def nonlinear_refusals(dev, card: str) -> None:
     """18(f): reduction above the dense limit and with data=, reduce_model
-    of a continuum problem (items 19-22), each compose key of the
+    of a continuum problem not yet ported (a frame: items 20-22), each
+    compose key of the
     transient "plasticity" spec, and a float64 CUDA operand at 18(c)'s
     kernel 1 dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel
     1), each before any launch."""
@@ -5878,7 +5916,7 @@ def nonlinear_refusals(dev, card: str) -> None:
 
     small = tower_problem()
     big = grid_problem(*PLASTIC_GRID)
-    continuum = type("SolidProblem", (), {"ndof": 8})()
+    continuum = type("FrameProblem", (), {"ndof": 8})()
     calls = {
         "reduction_above_limit": (lambda: guyan_reduce(big, [10, 11],
                                                        device=dev),
@@ -5888,7 +5926,7 @@ def nonlinear_refusals(dev, card: str) -> None:
             ValueError, "drop it"),
         "reduce_model_continuum": (lambda: reduce_model(
             continuum, [0], device=dev), NotImplementedError,
-            "ROADMAP items 19-22"),
+            "ROADMAP items 20-22"),
     }
     base = {"type": "transient", "dt": "auto", "n_steps": 10,
             "plasticity": {"sigma_y": 1.0}}
@@ -6513,10 +6551,6 @@ def plane_refusals(dev, card: str) -> None:
         calls[kind] = (lambda kind=kind: run_plane_analysis(
             small, {"type": kind}, dev), NotImplementedError,
             f"ROADMAP item {item}")
-    calls["transient_plasticity"] = (lambda: run_plane_analysis(
-        small, {"type": "transient", "dt": 0.1, "n_steps": 5,
-                "plasticity": {"sigma_y": 1.0}}, dev), NotImplementedError,
-        "ROADMAP item 19")
     refused = {}
     kernels.reset_launch_counts()
     for name, (call, kind, text) in calls.items():
@@ -6562,6 +6596,994 @@ def phase_plane(workdir: Path, dev, card: str) -> dict:
     return {"launches": launches, "strip": strip_stats}
 
 
+SOLID_DOCS = ("dyn-solid", "dyn-solid-plastic",
+              "dyn-solid-transient-plastic",
+              "dyn-plane-transient-plastic")   # 20(a)
+SOLID_DOC_RTOL = 1e-10          # the float64 tiers against the CPU run
+SOLID_DOC_F32_RTOL = 1e-4       # dyn-solid's banded float32 tier, same
+SOLID_CLOSED_FORM = 2e-3        # benchmarks/scaling.py:615's gate
+SOLID_COLUMN = (16, 16, 96)     # 20(b): 84,099 DOFs, 24,576 bricks
+SOLID_COLUMN_TOL = 1e-8
+SOLID_RESIDUAL = 1e-6
+SOLID_U_RTOL = 1e-3             # against float64 of the same diagonals
+SOLID_WARM_RUNS = 3
+SOLID_MODES = 4                 # 20(c): JAX's defaults
+SOLID_MODAL_ITERS = 30
+SOLID_MODAL_CG_TOL = 1e-7
+SOLID_MODAL_RTOL = 1e-2         # pinn_fem_tpu/solvers/modal.py:29-31
+SOLID_CENTRAL_STEPS = 2000      # 20(d)
+SOLID_CENTRAL_EVERY = 100
+SOLID_CENTRAL_BETA = 0.05       # x dt: zeta 0.05 at omega = 2 / dt
+SOLID_CENTRAL_RTOL = 2e-3
+SOLID_IDLE_STEPS = 200
+SOLID_PT_BOX = (24, 24, 48)     # 20(e): 91,875 DOFs, 27,648 bricks
+SOLID_PT_STEPS = 1000
+SOLID_PT_EVERY = 50
+SOLID_PT_TRACTION = [1.5, 0.0, 8.0]
+SOLID_PT_SIGMA_Y = 12.0
+SOLID_PT_H_ISO = 20.0
+SOLID_PT_RTOL = 2e-3
+SOLID_PLASTIC_BOX = (10, 10, 20)   # 20(e): 7,623 DOFs, under 8192
+SOLID_PLASTIC_U_RTOL = 1e-3
+SOLID_PLASTIC_TOL = 1e-4        # as 18(b) and 19(d) (faults 3.19, 3.22)
+# First yield at the base at load factor 0.83, the plastic moment at 1.25.
+SOLID_PLASTIC_SIGMA_Y = 10.0
+SOLID_PLASTIC_H_ISO = 20.0
+SOLID_PLASTIC_LOADS = [0.6, 0.9, 1.0, 1.1, 1.2]
+SOLID_DENSE_BOX = (12, 12, 15)  # 20(f): 8,112 DOFs, under 8192
+SOLID_DENSE_MODES = 6
+SOLID_BUCKLING_MODES = 3
+SOLID_NEWMARK_STEPS = 500
+SOLID_HARMONIC_FREQS = 20
+SOLID_DYN_RTOL = 1e-9
+SOLID_REF_WORKERS = 8           # processes of the harmonic reference
+
+
+def solid_column(nx, ny, nz, length=4.0, **analysis):
+    """(problem, document) of the JAX package's solid benchmark column."""
+    from pinn_fem_tpu_torch.examples_grid import solid_column_document
+    from pinn_fem_tpu_torch.io.solid_io import parse_solid_document
+
+    doc = solid_column_document(nx, ny, nz, length=length, **analysis)
+    return parse_solid_document(doc)[0], doc
+
+
+def column_closed_form(problem, u, vm, traction=5.0, young=200.0) -> dict:
+    """The uniaxial column's closed form: u_z = sigma z / E, u_x = -nu
+    sigma x / E, von Mises = sigma, each relative to its largest value."""
+    import numpy as np
+
+    x, length = problem.nodes, problem.nodes[:, 2].max()
+    uz = np.abs(u[2::3] - traction * x[:, 2] / young).max() \
+        / (traction * length / young)
+    ux = np.abs(u[0::3] + 0.3 * traction * x[:, 0] / young).max() \
+        / (traction * length / young)
+    return {"u_z": float(uz), "u_x": float(ux),
+            "von_mises": float(np.abs(vm - traction).max() / traction)}
+
+
+def cpu_cli_processes(workdir: Path, names) -> dict:
+    """{name: (process, result path)}: the same CLI on the CPU (one torch
+    thread) for each corpus document, each in a process of its own that
+    runs while the card runs its copy."""
+    outdir = workdir / "cpu"
+    outdir.mkdir(exist_ok=True)
+    env = dict(os.environ, PINN_FEM_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    procs = {}
+    for name in names:
+        path = outdir / f"{name}.json"
+        path.write_text((ROOT / "examples" / "json" / f"{name}.json")
+                        .read_text())
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "pinn_fem_tpu_torch.cli.generic",
+             str(path)], cwd=str(ROOT), env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL), outdir / f"{name}.res.json")
+    return procs
+
+
+def solid_documents(workdir: Path, dev, card: str) -> dict:
+    """20(a): dyn-solid (the banded tier: kernels 1 / 2 / 3 launched 1 /
+    32 ceil(it / 32) / 32 ceil(it / 32) times, its summaries within
+    SOLID_DOC_F32_RTOL of the CPU run and its closed form within 2e-3, the
+    full field by the API), dyn-solid-plastic, dyn-solid-transient-plastic
+    and dyn-plane-transient-plastic (float64 tiers, within 1e-10 of the
+    CPU run, no repo kernel) through main() on the card, each against the
+    same CLI run with device "cpu" in a process of its own (started first,
+    run alongside)."""
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.solid_io import parse_solid_document
+    from pinn_fem_tpu_torch.models import solid as S
+    from pinn_fem_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    procs = cpu_cli_processes(workdir, SOLID_DOCS)
+    try:
+        os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+        launches, report, outs = {}, {}, {}
+        for name in SOLID_DOCS:
+            path = workdir / f"{name}.json"
+            path.write_text((ROOT / "examples" / "json" / f"{name}.json")
+                            .read_text())
+            kernels.reset_launch_counts()
+            card_s, rc = synced(lambda: main([str(path)]))
+            require(rc == 0, f"20(a) {name}: exit code 0")
+            launches[name] = kernels.launch_counts()
+            outs[name] = (card_s, json.loads(
+                (workdir / f"{name}.res.json").read_text()))
+        card_done_s = time.perf_counter() - t0
+        for name, (proc, res_path) in procs.items():
+            require(proc.wait(timeout=900) == 0,
+                    f"20(a) {name}: the CPU run's exit code 0")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cpu_done_s = time.perf_counter() - t0
+    for name in SOLID_DOCS:
+        card_s, got = outs[name]
+        want = json.loads(procs[name][1].read_text())
+        require(got["success"], f"20(a) {name}: success")
+        if name != "dyn-solid":
+            gaps = tree_gaps(got, want)
+            report[name] = {"max": max(gaps.values()),
+                            "worst": max(gaps, key=gaps.get), "s": card_s}
+            require(report[name]["max"] <= SOLID_DOC_RTOL,
+                    f"20(a) {name}: within {SOLID_DOC_RTOL} of the CPU run")
+            require(zero_launches(launches[name]),
+                    f"20(a) {name}: no repo kernel")
+            continue
+        rounds = 32 * -(-got["iterations"] // 32)
+        expected = dict(dia_matvec=1, dia_dir_matvec=rounds,
+                        cg_update=rounds, material_coefficients=0,
+                        material_coefficients_backward=0)
+        doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                         .read_text())
+        problem, an = parse_solid_document(doc)
+        res, iters, _ = S.solve_solid_static_banded(
+            problem, tol=an["tolerance"], device=dev)
+        closed = column_closed_form(problem, res.displacements,
+                                    res.von_mises)
+        summary_gap = max(rel_err(got[k], want[k]) for k in (
+            "max_displacement", "max_von_mises"))
+        report[name] = {"s": card_s, "iterations": got["iterations"],
+                        "cpu_iterations": want["iterations"],
+                        "relative_residual": got["relative_residual"],
+                        "summary_gap_vs_cpu": summary_gap,
+                        "max_displacement": got["max_displacement"],
+                        "max_von_mises": got["max_von_mises"],
+                        "api_closed_form": closed, "api_iterations": iters,
+                        "expected": expected}
+        require(launches[name] == expected,
+                "20(a) dyn-solid: the launches of the formula")
+        require(summary_gap <= SOLID_DOC_F32_RTOL,
+                f"20(a) dyn-solid: within {SOLID_DOC_F32_RTOL} of the CPU "
+                "run")
+        require(abs(got["max_displacement"] - 0.1) <= SOLID_CLOSED_FORM * 0.1
+                and abs(got["max_von_mises"] - 5.0)
+                <= SOLID_CLOSED_FORM * 5.0,
+                "20(a) dyn-solid: the summaries' closed form")
+        require(max(closed.values()) <= SOLID_CLOSED_FORM,
+                f"20(a) dyn-solid: the closed form within "
+                f"{SOLID_CLOSED_FORM}")
+    log("phase20a_documents", card=card, report=report, launches=launches,
+        card_runs_s=card_done_s, cpu_runs_s=cpu_done_s)
+    return launches
+
+
+def solid_banded_reference(layout, diags, mask, rhs):
+    """u of the masked system M K M + (I - M) with the float64 diagonals
+    `diags` ((nd, ndof) numpy), by scipy's banded Cholesky (LAPACK
+    dpbtrf): the float64 scipy solve of 20(b)."""
+    import numpy as np
+    import scipy.linalg as sl
+
+    n = layout.ndof
+    hi = int(layout.offsets.max())
+    ab = np.zeros((hi + 1, n))
+    for k, off in enumerate(layout.offsets):
+        if off < 0:
+            continue
+        i = np.arange(0, n - off)
+        ab[hi - off, i + off] = diags[k, i] * mask[i] * mask[i + off]
+    ab[hi] += 1.0 - mask
+    factor = sl.cholesky_banded(ab, lower=False)
+    return factor, sl.cho_solve_banded((factor, False), rhs * mask) * mask
+
+
+def solid_column_kernels(layout, diags, mask, dev, card: str) -> dict:
+    """20(b) first part: kernels 1-3 on the column's operator (99
+    diagonals, bandwidth 923) against their plain versions: the plans
+    (staged or not), kernel 1 within 1e-6 of its twin, kernels 2 and 3
+    bit for bit; ms, device us, the bounds (99 + 2, 99 + 5 and 8 floats a
+    row at 3.35 TB/s), CSR K u's ms."""
+    import torch
+
+    from pinn_fem_tpu_torch.ops.kernels import cg_kernel, dia_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    n = layout.ndof
+    u, z, p = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    plan = dia_kernel.stencil_plan(layout)
+    dplan = dia_kernel.direction_plan(layout)
+    y = dia_kernel.dia_matvec(layout, diags, u)
+    y_ref = dia_kernel.dia_matvec_reference(layout, diags, u)
+    err1 = max_err(y, y_ref) / float(y_ref.abs().max())
+    require(err1 <= 1e-6, "20(b): dia_matvec within 1e-6 of its twin on "
+            "the column")
+    beta = torch.tensor(0.37, device=dev)
+    got = cg_kernel.dia_dir_matvec(beta, z, p, layout, diags, mask)
+    want = cg_kernel.dir_matvec_reference(beta, z, p, layout, diags, mask)
+    equal2 = all(torch.equal(a, b) for a, b in zip(got, want))
+    require(equal2, "20(b): dia_dir_matvec bit-equal to its twin on the "
+            "column")
+    out = tuple(torch.empty_like(t) for t in got)
+    launch, _ = cg_kernel.bind_dir_matvec(beta, z, p, layout, diags, mask,
+                                          out=out)
+    k3 = check_update(layout, dev, gen, got[2], "solid_column")
+    bounds = banded_bounds(layout, got[2].numel(), cg_kernel.UPDATE_BLOCKS)
+    k_csr = csr_of(layout, diags)
+    _, ev1 = profiled(lambda: [dia_kernel.dia_matvec(layout, diags, u)
+                               for _ in range(64)])
+    _, ev2 = profiled(lambda: [launch() for _ in range(64)])
+    stats = {
+        "dia_matvec": dict(err=max_err(y, y_ref),
+                           bit_equal=bool(torch.equal(y, y_ref)),
+                           ms=cuda_ms(lambda: dia_kernel.dia_matvec(
+                               layout, diags, u), 200),
+                           device_us=per_launch_us(ev1, "dia_matvec")[1],
+                           plain_ms=cuda_ms(lambda: dia_kernel.
+                                            dia_matvec_reference(
+                                                layout, diags, u), 20),
+                           library_ms=cuda_ms(lambda: k_csr @ u, 200),
+                           **bounds["dia_matvec"]),
+        "dia_dir_matvec": dict(err=max(max_err(a, b)
+                                       for a, b in zip(got, want)),
+                               bit_equal=equal2, ms=cuda_ms(launch, 200),
+                               device_us=per_launch_us(
+                                   ev2, "dia_dir_matvec")[1],
+                               plain_ms=cuda_ms(
+                                   lambda: cg_kernel.dir_matvec_reference(
+                                       beta, z, p, layout, diags, mask), 20),
+                               library_ms=None, **bounds["dia_dir_matvec"]),
+        "cg_update": dict(err=k3["err"], bit_equal=k3["bit_equal"],
+                          ms=k3["ms"], plain_ms=k3["plain_ms"],
+                          library_ms=None, **bounds["cg_update"]),
+    }
+    del k_csr
+    log("phase20b_kernels", card=card, ndof=n, n_diags=layout.n_diags,
+        bandwidth=layout.bandwidth,
+        stencil_plan=dict(threads=plan.threads, tile=plan.tile,
+                          blocks=plan.blocks, staged=plan.staged,
+                          shared_bytes=plan.shared_bytes),
+        direction_plan=dict(rows=dplan.rows, threads=dplan.threads,
+                            tile=dplan.tile, blocks=dplan.blocks,
+                            staged=dplan.staged,
+                            shared_bytes=dplan.shared_bytes),
+        dia_matvec_rel_err=err1, **stats)
+    return stats
+
+
+def solid_column_statics(workdir: Path, dev, card: str):
+    """20(b): the JAX package's solid benchmark column at full width (16 x
+    16 x 96, 84,099 DOFs, 99 diagonals, bandwidth 923) through
+    solve_solid_static_banded(tol=1e-8) and as a document through main():
+    the closed form within 2e-3, the relative residual below 1e-6, u
+    within 1e-3 of a float64 scipy solve of the same float32 diagonals
+    (and, beside it, the float32 representation floor against the float64
+    operator, as fault 3.23), the launches (kernels 2 and 3: 32 ceil(it /
+    32), kernel 1: 1), the layout build, the PCG iterations and ms an
+    iteration, warm wall (median of 3), the idle share."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.models import solid as S
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    problem, doc = solid_column(*SOLID_COLUMN, banded=True)
+    t0 = time.perf_counter()
+    layout = S.solid_dia_layout(problem)
+    layout_s = time.perf_counter() - t0
+    _, diags, mask = S._banded_operator(problem, torch.float32, dev)
+    stats = solid_column_kernels(layout, diags, mask, dev, card)
+    kernels.reset_launch_counts()
+    with Timed(dia, "dia_cg_solve") as pcg_calls:
+        cold_s, (res, iters, rel) = synced(
+            lambda: S.solve_solid_static_banded(problem, tol=SOLID_COLUMN_TOL,
+                                                device=dev))
+    launches = {"column_84k_api": kernels.launch_counts()}
+    pcg_s = pcg_calls[0][0]
+    warm = [synced(lambda: S.solve_solid_static_banded(
+        problem, tol=SOLID_COLUMN_TOL, device=dev))[0]
+        for _ in range(SOLID_WARM_RUNS)]
+    f = torch.as_tensor(problem.loads, dtype=torch.float32, device=dev)
+    prof = pcg_profile(layout, diags, f, mask)
+    idle = idle_profile(lambda: S.solve_solid_static_banded(
+        problem, tol=SOLID_COLUMN_TOL, device=dev))
+    t0 = time.perf_counter()
+    m_np = problem.free_mask()
+    _, u_same = solid_banded_reference(layout, diags.double().cpu().numpy(),
+                                       m_np, problem.loads)
+    ref_s = time.perf_counter() - t0
+    d64 = dia.assemble_dia_blocks(layout, S._stiffness_blocks3(problem,
+                                                                 "cpu"))
+    _, u64 = solid_banded_reference(layout, d64.numpy(), m_np,
+                                    problem.loads)
+    u = res.displacements
+    scale = np.abs(u64).max()
+    closed = column_closed_form(problem, u, res.von_mises)
+    u_gap = float(np.abs(u - u_same).max() / scale)
+    u_gap64 = float(np.abs(u - u64).max() / scale)
+    floor32 = float(np.abs(u_same - u64).max() / scale)
+    rounds = 32 * -(-iters // 32)
+    expected = {"dia_matvec": 1, "dia_dir_matvec": rounds,
+                "cg_update": rounds, "material_coefficients": 0,
+                "material_coefficients_backward": 0}
+
+    path = workdir / "solid_column.json"
+    path.write_text(json.dumps(doc))
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    kernels.reset_launch_counts()
+    cli_s, rc = synced(lambda: main([str(path)]))
+    launches["column_84k_cli"] = kernels.launch_counts()
+    require(rc == 0, "20(b): the column document's exit code 0")
+    out = json.loads((workdir / "solid_column.res.json").read_text())
+    cli_rounds = 32 * -(-out["iterations"] // 32)
+    log("phase20b_column", card=card, ndof=problem.ndof,
+        elements=problem.nelm, n_diags=layout.n_diags,
+        bandwidth=layout.bandwidth, iterations=iters,
+        relative_residual=rel, closed_form_err=closed,
+        u_gap_vs_same_system=u_gap, u_gap_vs_float64=u_gap64,
+        float32_representation_floor=floor32, cold_s=cold_s, warm_s=warm,
+        warm_median_s=float(np.median(warm)), pcg_s=pcg_s,
+        pcg_ms_per_iteration=1e3 * pcg_s / max(iters, 1),
+        profile=prof, solve_idle=idle, layout_build_s=layout_s,
+        float64_reference_s=ref_s, launches=launches, expected=expected,
+        cli_s=cli_s, cli_iterations=out["iterations"],
+        cli_relative_residual=out["relative_residual"],
+        cli_max_displacement=out["max_displacement"])
+    require(rel < SOLID_RESIDUAL, "20(b): relative residual < 1e-6")
+    require(max(closed.values()) < SOLID_CLOSED_FORM,
+            f"20(b): the closed form within {SOLID_CLOSED_FORM}")
+    require(u_gap <= SOLID_U_RTOL, f"20(b): u within {SOLID_U_RTOL} of the "
+            "float64 solve of the same diagonals")
+    require(launches["column_84k_api"] == expected,
+            "20(b): the launches of the formula")
+    require(out["method"] == "banded"
+            and out["relative_residual"] < SOLID_RESIDUAL,
+            "20(b): the document's banded tier")
+    require(abs(out["max_displacement"] - np.abs(u_same).max())
+            <= SOLID_U_RTOL * scale, "20(b): the document's max |u|")
+    require(launches["column_84k_cli"] == dict(
+        expected, dia_dir_matvec=cli_rounds, cg_update=cli_rounds),
+        "20(b): the document's launches of the formula")
+    return launches, stats, (problem, layout, diags, mask)
+
+
+def solid_column_modal(column, dev, card: str) -> dict:
+    """20(c): solid_modal_banded of the column (4 modes, n_iter 30,
+    cg_tol 1e-7: JAX's defaults) against scipy's eigsh on the same float64
+    lumped pencil (shift-invert through the banded Cholesky of K): the
+    eigenvalues within 1e-2, kernel 1 n_iter k launches (each block
+    solve's warm start) and kernels 2 and 3 the block solves' whole rounds
+    of 32, the wall and the PCG iterations."""
+    import numpy as np
+    import scipy.linalg as sl
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    from pinn_fem_tpu_torch.models import solid as S
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    problem, layout, _, _ = column
+    with Spy(dia, "dia_cg_solve") as solves:
+        kernels.reset_launch_counts()
+        wall, res = synced(lambda: S.solid_modal_banded(
+            problem, n_modes=SOLID_MODES, n_iter=SOLID_MODAL_ITERS,
+            cg_tol=SOLID_MODAL_CG_TOL, device=dev))
+        launches = kernels.launch_counts()
+    stats = dict(solve_stats(solves), rounds=pcg_rounds(solves))
+    del solves[:]
+    t0 = time.perf_counter()
+    free = problem.free_dofs()
+    mask = problem.free_mask()
+    d64 = dia.assemble_dia_blocks(layout, S._stiffness_blocks3(problem,
+                                                                 "cpu"))
+    factor, _ = solid_banded_reference(layout, d64.numpy(), mask,
+                                       problem.loads)
+
+    def k_inv(b):
+        full = np.zeros(problem.ndof)
+        full[free] = b
+        return sl.cho_solve_banded((factor, False), full)[free]
+
+    md = S.solid_lumped_mass_diag(problem, "cpu")[free]
+    op = spl.LinearOperator((free.size, free.size), matvec=k_inv,
+                            dtype=float)
+    k_ff = dia_csr64(layout, d64)[free][:, free]
+    w64 = np.sort(spl.eigsh(k_ff, k=SOLID_MODES, M=sp.diags(md), sigma=0.0,
+                            which="LM", OPinv=op, tol=1e-10,
+                            return_eigenvectors=False))
+    ref_s = time.perf_counter() - t0
+    gap = np.abs(res.eigenvalues / w64 - 1.0)
+    k = min(2 * SOLID_MODES + 4, free.size)
+    expected = {"dia_matvec": SOLID_MODAL_ITERS * k,
+                "dia_dir_matvec": stats["rounds"],
+                "cg_update": stats["rounds"], "material_coefficients": 0,
+                "material_coefficients_backward": 0}
+    log("phase20c_modal", card=card, ndof=problem.ndof,
+        n_modes=SOLID_MODES, n_iter=SOLID_MODAL_ITERS, block_columns=k,
+        wall_s=wall, ms_per_pcg_iteration=1e3 * wall
+        / max(stats["pcg_iterations"], 1), launches=launches,
+        expected=expected, **stats,
+        eigenvalues=res.eigenvalues.tolist(), float64=w64.tolist(),
+        rel_gap=gap.tolist(), float64_reference_s=ref_s)
+    require(launches == expected, "20(c): kernel 1 launched n_iter k times "
+            "(the warm starts), kernels 2-3 as the block solves count")
+    require(float(gap.max()) <= SOLID_MODAL_RTOL,
+            f"20(c): eigenvalues within {SOLID_MODAL_RTOL} of float64 eigsh")
+    require(res.mode_shapes.shape == (SOLID_MODES, problem.ndof)
+            and bool(np.all(np.isfinite(res.mode_shapes))),
+            "20(c): finite shapes of the expected shape")
+    return launches
+
+
+def central_twin(problem, layout, dt, beta, n_steps, every, probe, dev):
+    """The banded central run's recurrence in float64 on the card, K u by
+    a float64 CSR product of the float64 diagonals (the twin of kernel 1's
+    operator): solvers/dynamics._central_run with the port's records."""
+    import torch
+
+    from pinn_fem_tpu_torch.models import solid as S
+    from pinn_fem_tpu_torch.ops.dia import assemble_dia_blocks
+    from pinn_fem_tpu_torch.solvers.dynamics import _central_run, _Records
+
+    f64 = torch.float64
+    k = csr_of(layout, assemble_dia_blocks(layout, S._stiffness_blocks3(
+        problem, dev)).contiguous())
+    mask = torch.as_tensor(problem.free_mask(), dtype=f64, device=dev)
+    m = S._lumped_mass(problem, dev) * mask + (1.0 - mask)
+    loads = S._t(problem.loads, dev) + S._body_force_vectors3(problem, dev)
+    records = _Records(n_steps // every, torch.as_tensor(probe, device=dev),
+                       mask)
+    zeros = torch.zeros_like(mask)
+    _central_run(lambda u: (k @ (u * mask)) * mask, m, mask,
+                 lambda i: loads, float(dt), 0.0, float(beta), zeros, zeros,
+                 records, n_steps // every, every)
+    return records.us.cpu().numpy()
+
+
+def solid_column_central(column, dev, card: str) -> dict:
+    """20(d): solve_solid_transient_banded of the column, 2,000 steps at
+    solid_stable_dt under a unit step load, once with beta = 0 and once
+    with beta = 0.05 dt: kernel 1 exactly 1 + n + 2 n / r and 2 + 2n + 3 n
+    / r times, probe u within 2e-3 of the float64 twin run, ms a step and
+    the idle share."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.models import solid as S
+    from pinn_fem_tpu_torch.ops import kernels
+
+    problem, layout, _, _ = column
+    n, r = SOLID_CENTRAL_STEPS, SOLID_CENTRAL_EVERY
+    top = np.flatnonzero(problem.nodes[:, 2] == problem.nodes[:, 2].max())
+    mid = np.flatnonzero(np.isclose(problem.nodes[:, 2],
+                                    0.5 * problem.nodes[:, 2].max()))
+    probe = np.concatenate([3 * top[[0, -1]] + 2, 3 * mid[[0, -1]] + 2,
+                            3 * top[[-1]]])
+    dt0 = S.solid_stable_dt(problem, device=dev)
+    launches, stats = {}, {}
+    for name, beta in (("beta0", 0.0), ("beta", SOLID_CENTRAL_BETA * dt0)):
+        dt = S.solid_stable_dt(problem, damping=(0.0, beta), device=dev)
+        kw = dict(damping=(0.0, beta), probe_dofs=probe, device=dev)
+        S.solve_solid_transient_banded(problem, dt, r, record_every=r,
+                                       **kw)                  # warm-up
+        kernels.reset_launch_counts()
+        wall, res = synced(lambda: S.solve_solid_transient_banded(
+            problem, dt, n, record_every=r, **kw))
+        launches[f"central_84k_{name}"] = kernels.launch_counts()
+        idle = idle_profile(lambda: S.solve_solid_transient_banded(
+            problem, dt, SOLID_IDLE_STEPS, record_every=SOLID_IDLE_STEPS,
+            **kw))
+        t0 = time.perf_counter()
+        twin = central_twin(problem, layout, dt, beta, n, r, probe, dev)
+        twin_s = time.perf_counter() - t0
+        expected = (1 + n + 2 * n // r if beta == 0.0
+                    else 2 + 2 * n + 3 * n // r)
+        stats[name] = {"dt": dt, "beta": beta, "wall_s": wall,
+                       "ms_per_step": 1e3 * wall / n,
+                       "idle_ms_per_step": idle["wall_ms"] / SOLID_IDLE_STEPS,
+                       "device_idle_share": idle["device_idle_share"],
+                       "u_gap_vs_float64": rel_err(res.displacements, twin),
+                       "peak_u": float(np.abs(twin).max()),
+                       "float64_twin_s": twin_s,
+                       "expected_dia_matvec": expected}
+        require(launches[f"central_84k_{name}"] == dict(
+            dia_matvec=expected, dia_dir_matvec=0, cg_update=0,
+            material_coefficients=0, material_coefficients_backward=0),
+            f"20(d) {name}: kernel 1 launched {expected} times, no other")
+        require(stats[name]["u_gap_vs_float64"] <= SOLID_CENTRAL_RTOL,
+                f"20(d) {name}: u within {SOLID_CENTRAL_RTOL} of the "
+                "float64 twin")
+    log("phase20d_central", card=card, ndof=problem.ndof, n_steps=n,
+        record_every=r, stats=stats, launches=launches)
+    return launches
+
+
+def pt_box_problem():
+    """The 24 x 24 x 48 box (1 x 1 x 2) clamped at z = 0 under a
+    tension-shear top traction: the bending stress near the base yields
+    part of it."""
+    from pinn_fem_tpu_torch.io.solid_io import parse_solid_document
+
+    nx, ny, nz = SOLID_PT_BOX
+    return parse_solid_document({
+        "element_type": "solid",
+        "mesh": {"type": "box", "lx": 1.0, "ly": 1.0, "lz": 2.0,
+                 "nx": nx, "ny": ny, "nz": nz},
+        "material": {"young": 200.0, "poisson": 0.3, "density": 2.0},
+        "fixed_nodes": "z_min",
+        "surface_loads": [{"face": "z_max",
+                           "traction": SOLID_PT_TRACTION}]})[0]
+
+
+def float64_solid_plastic_run(problem, dt, amp, beta, probe, dev):
+    """The plastic transient's recurrence in float64 on the card (the
+    general gather, the float64 scatter, beta K0 v by the blocks): the
+    float64 run of 20(e)."""
+    import torch
+
+    from pinn_fem_tpu_torch.ops.plastic import params_arrays
+    from pinn_fem_tpu_torch.solvers import continuum_transient_plastic as C
+
+    fam = C._solid_family(problem, None, torch.float64, dev)
+    mats = tuple(fam.t(a) for a in params_arrays(
+        problem.nelm, SOLID_PT_SIGMA_Y, SOLID_PT_H_ISO, 0.0))
+    outs = C._run(fam, mats, dt, amp, 0.0, beta, SOLID_PT_EVERY,
+                  len(amp) // SOLID_PT_EVERY,
+                  torch.as_tensor(probe, device=dev), structured=False)
+    return [o.cpu().numpy() for o in outs]
+
+
+def solid_plastic_transient(dev, card: str) -> dict:
+    """20(e) first part: solve_solid_transient_plastic on the 24 x 24 x 48
+    box (91,875 DOFs, float32 tier, structured gather and scatter) with
+    beta != 0 under a ramp that yields part of it: kernel 1 exactly once
+    a step (beta K0 v), no ndof^2 array (peak memory far below ndof^2 x 4
+    bytes), probe u within 2e-3 of the float64 run on the card; ms a step,
+    the idle share, peak memory."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch import solid_stable_dt, \
+        solve_solid_transient_plastic
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.ops.kernels import dia_kernel
+
+    problem = pt_box_problem()
+    n, r = SOLID_PT_STEPS, SOLID_PT_EVERY
+    dt0 = solid_stable_dt(problem, device=dev)
+    beta = SOLID_CENTRAL_BETA * dt0
+    dt = solid_stable_dt(problem, damping=(0.0, beta), device=dev)
+    amp = np.minimum(np.arange(n) / (0.6 * n), 1.0)
+    top = np.flatnonzero(problem.nodes[:, 2] == 2.0)
+    probe = np.concatenate([3 * top[[0, -1]] + 2, 3 * top[[0, -1]]])
+    kw = dict(sigma_y=SOLID_PT_SIGMA_Y, hardening_iso=SOLID_PT_H_ISO,
+              dt=dt, damping=(0.0, beta), probe_dofs=probe, device=dev)
+    solve_solid_transient_plastic(problem, n_steps=r, amplitude=amp[:r],
+                                  record_every=r, **kw)       # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Spy(dia_kernel, "dia_matvec_reference") as plain:
+        kernels.reset_launch_counts()
+        wall, res = synced(lambda: solve_solid_transient_plastic(
+            problem, n_steps=n, amplitude=amp, record_every=r, **kw))
+        launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    idle = idle_profile(lambda: solve_solid_transient_plastic(
+        problem, n_steps=SOLID_IDLE_STEPS, amplitude=amp[:SOLID_IDLE_STEPS],
+        record_every=SOLID_IDLE_STEPS, **kw))
+    t0 = time.perf_counter()
+    ref = float64_solid_plastic_run(problem, dt, amp, beta, probe, dev)
+    ref_s = time.perf_counter() - t0
+    u_gap = rel_err(res.displacements, ref[0])
+    dense_gb = 4.0 * problem.ndof ** 2 / 1e9
+    yielded = int(np.count_nonzero(res.final_eq_plastic))
+    log("phase20e_plastic_transient", card=card, ndof=problem.ndof,
+        elements=problem.nelm, n_steps=n, dt=dt, beta=beta, wall_s=wall,
+        ms_per_step=1e3 * wall / n,
+        idle_ms_per_step=idle["wall_ms"] / SOLID_IDLE_STEPS,
+        device_idle_share=idle["device_idle_share"], peak_device_gb=peak_gb,
+        dense_float32_k_gb=dense_gb, launches=launches,
+        plain_calls=len(plain), u_gap_vs_float64=u_gap,
+        float64_run_s=ref_s, yielded=yielded,
+        plastic_work_share=float(res.plastic_work[-1]
+                                 / np.abs(res.external_work).max()))
+    require(launches == dict(dia_matvec=n, dia_dir_matvec=0, cg_update=0,
+                             material_coefficients=0,
+                             material_coefficients_backward=0),
+            f"20(e): kernel 1 launched once a step ({n}), no other")
+    require(len(plain) == 0, "20(e): kernel 1's plain version never "
+            "called on the card")
+    require(peak_gb < 0.1 * dense_gb, "20(e): no ndof^2 array (peak far "
+            "below a dense float32 K)")
+    require(0 < yielded < problem.nelm, "20(e): part of the box yields")
+    require(u_gap <= SOLID_PT_RTOL,
+            f"20(e): probe u within {SOLID_PT_RTOL} of the float64 run")
+    return {"plastic_transient_92k": launches}
+
+
+def solid_plastic_statics(dev, card: str) -> dict:
+    """20(e) second part: solve_solid_plastic on the 10 x 10 x 20 column
+    (7,623 DOFs: the float32 tier), clamped at z = 0 and bent by a shear
+    top traction past first yield, at SOLID_PLASTIC_TOL, against the float64 tier on the card: u
+    within 1e-3 (or the measured floor, fault 3.22), yielded sets equal
+    but within 1e-4 of the surface; ms a Newton iteration, the LU's share,
+    peak memory."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import solve_solid_plastic
+    from pinn_fem_tpu_torch.io.solid_io import parse_solid_document
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.ops.plastic import params_arrays
+    from pinn_fem_tpu_torch.solvers import plane_plasticity, solid_plasticity
+
+    nx, ny, nz = SOLID_PLASTIC_BOX
+    problem, _ = parse_solid_document({
+        "element_type": "solid",
+        "mesh": {"type": "box", "lx": 1.0, "ly": 1.0, "lz": 2.0,
+                 "nx": nx, "ny": ny, "nz": nz},
+        "material": {"young": 200.0, "poisson": 0.3, "density": 2.0},
+        "fixed_nodes": "z_min",
+        "surface_loads": [{"face": "z_max", "traction": [1.0, 0.0, 0.0]}]})
+    kw = dict(sigma_y=SOLID_PLASTIC_SIGMA_Y,
+              hardening_iso=SOLID_PLASTIC_H_ISO,
+              load_factors=SOLID_PLASTIC_LOADS, tol=SOLID_PLASTIC_TOL,
+              max_iter=40)
+    kernels.reset_launch_counts()
+    wall, peak_gb, f32 = peak_run(dev, lambda: solve_solid_plastic(
+        problem, device=dev, **kw))
+    launches = kernels.launch_counts()
+    with Timed(plane_plasticity, "masked_solve") as lu_calls:
+        wall_timed, _ = synced(lambda: solve_solid_plastic(
+            problem, device=dev, **kw))
+    sy, hi, hk = params_arrays(problem.nelm, kw["sigma_y"],
+                               kw["hardening_iso"])
+    f64_s, f64 = synced(lambda: solid_plasticity._float64_solve(
+        problem, sy, hi, hk, np.asarray(kw["load_factors"]), 1e-9,
+        kw["max_iter"], 1e-8, 1e-12, True, dev))
+    iters = int(f32.iterations.sum())
+    u_gap = float(np.abs(f32.displacements - f64.displacements).max()
+                  / np.abs(f64.displacements).max())
+    y32, y64 = f32.eq_plastic[-1] > 0, f64.eq_plastic[-1] > 0
+    mu = 200.0 / (2.0 * 1.3)
+    excess = 3.0 * mu * np.where(y32, f32.eq_plastic[-1],
+                                 f64.eq_plastic[-1]) / kw["sigma_y"]
+    differ = y32 != y64
+    off_surface = int(np.count_nonzero(differ
+                                       & (excess > YIELD_SURFACE_RTOL)))
+    lu_s = sum(s for s, _ in lu_calls)
+    log("phase20e_plastic_statics", card=card, ndof=problem.ndof,
+        elements=problem.nelm, tol=SOLID_PLASTIC_TOL,
+        steps=len(f32.load_factors), converged=f32.converged,
+        iterations=f32.iterations.tolist(),
+        iterations_f64=f64.iterations.tolist(), newton_iterations=iters,
+        wall_s=wall, ms_per_newton_iteration=1e3 * wall / max(iters, 1),
+        lu_share=lu_s / wall_timed, lu_ms=1e3 * lu_s / max(len(lu_calls), 1),
+        lu_calls=len(lu_calls), peak_device_gb=peak_gb,
+        residuals=f32.residuals.tolist(), u_gap_vs_float64=u_gap,
+        yielded=int(y32.sum()), yielded_f64=int(y64.sum()),
+        yield_differ=int(differ.sum()), differ_off_surface=off_surface,
+        float64_s=f64_s, float64_converged=f64.converged,
+        float64_iterations=int(f64.iterations.sum()), launches=launches)
+    require(f32.converged, "20(e): every float32 step converged")
+    require(f64.converged, "20(e): every float64 step converged")
+    require(0 < int(y64.sum()) < problem.nelm, "20(e): part of the column "
+            "yields")
+    require(u_gap <= SOLID_PLASTIC_U_RTOL, "20(e): u within "
+            f"{SOLID_PLASTIC_U_RTOL} of the float64 tier")
+    require(off_surface == 0, "20(e): yielded sets equal but within "
+            f"{YIELD_SURFACE_RTOL} of the surface")
+    require(zero_launches(launches), "20(e): no repo kernel")
+    return launches
+
+
+def dense_box_problem(traction):
+    """The 12 x 12 x 15 column (1 x 1 x 3, E 200, nu 0.3, rho 2) clamped at
+    z = 0 with a traction on its top face."""
+    from pinn_fem_tpu_torch.io.solid_io import parse_solid_document
+
+    nx, ny, nz = SOLID_DENSE_BOX
+    return parse_solid_document({
+        "element_type": "solid",
+        "mesh": {"type": "box", "lx": 1.0, "ly": 1.0, "lz": 3.0,
+                 "nx": nx, "ny": ny, "nz": nz},
+        "material": {"young": 200.0, "poisson": 0.3, "density": 2.0},
+        "fixed_nodes": "z_min",
+        "surface_loads": [{"face": "z_max", "traction": traction}]})[0]
+
+
+_HARMONIC_SYSTEM = {}
+
+
+def _harmonic_worker_init(kf, mf, cf, ff, pos):
+    _HARMONIC_SYSTEM.update(kf=kf, mf=mf, cf=cf, ff=ff, pos=pos)
+
+
+def _harmonic_worker(w):
+    """|X(w)| at the probe positions by one complex scipy sparse LU (a
+    process of 20(f)'s reference pool)."""
+    import numpy as np
+    import scipy.sparse.linalg as spl
+
+    s = _HARMONIC_SYSTEM
+    z = (s["kf"] - w * w * s["mf"] + 1j * w * s["cf"]).tocsc()
+    return np.abs(spl.splu(z).solve(s["ff"].astype(complex))[s["pos"]])
+
+
+def solid_dense(dev, card: str) -> dict:
+    """20(f): the dense float64 analyses at the 8,192-DOF budget on the
+    card (the clamped 12 x 12 x 15 column, 8,112 DOFs), each against
+    scipy.sparse
+    float64 on the port's element blocks: modal (eigsh shift-invert;
+    eigenvalues, M-normalized sign-aligned shapes, each pair's residual
+    by fault 3.24's rule), buckling under a compressive top traction
+    (eigsh on (-K_g, K)), 500 Newmark steps (a replay on one splu) and a
+    20-frequency harmonic sweep (one complex splu a frequency, in
+    SOLID_REF_WORKERS processes); wall and peak memory of each."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    import torch
+
+    from pinn_fem_tpu_torch import (solid_buckling, solid_harmonic,
+                                    solid_modal, solid_stable_dt,
+                                    solve_solid_transient)
+    from pinn_fem_tpu_torch.examples_grid import solid_sparse_matrices
+    from pinn_fem_tpu_torch.models import solid as S
+    from pinn_fem_tpu_torch.ops import kernels
+
+    problem = dense_box_problem([0.2, -0.1, 1.0])
+    free = problem.free_dofs()
+    k, m = solid_sparse_matrices(problem, with_mass=True)
+    kf = k[free][:, free].tocsc()
+    mf = m[free][:, free].tocsc()
+    kernels.reset_launch_counts()
+    report = {"ndof": problem.ndof, "free": int(free.size)}
+    gates = []
+
+    s, gb, modal = peak_run(dev, lambda: solid_modal(
+        problem, SOLID_DENSE_MODES, device=dev))
+    t0 = time.perf_counter()
+    lam, vec = spl.eigsh(kf, k=SOLID_DENSE_MODES, M=mf, sigma=0.0,
+                         which="LM")
+    order = np.argsort(lam)
+    lam, vec = lam[order], vec[:, order]
+    vec = vec / np.sqrt(np.einsum("ij,ij->j", vec, mf @ vec))
+    ref_s = time.perf_counter() - t0
+    phi = modal.mode_shapes[:, free].T
+    eig_gap = float(np.abs(modal.eigenvalues - lam).max() / lam.max())
+    # Degenerate pairs (the square section's two bending directions) are
+    # compared as subspaces: each shape's distance from the reference's
+    # span of its cluster.
+    shape_gap = 0.0
+    for i, lam_i in enumerate(lam):
+        cluster = np.flatnonzero(np.abs(lam - lam_i) <= 1e-6 * lam_i)
+        basis = vec[:, cluster]
+        proj = basis @ (basis.T @ (mf @ phi[:, i]))
+        shape_gap = max(shape_gap, float(np.abs(phi[:, i] - proj).max()
+                                         / np.abs(phi[:, i]).max()))
+    resid = [float(np.linalg.norm(kf @ phi[:, i] - lam_i * (mf @ phi[:, i]))
+                   / (lam_i * np.linalg.norm(mf @ phi[:, i])))
+             for i, lam_i in enumerate(modal.eigenvalues)]
+    lam_max = (2.0 / solid_stable_dt(problem, safety=1.0, device=dev)) ** 2
+    floor64 = [2.0 ** -52 * lam_max / lam_i for lam_i in modal.eigenvalues]
+    report["modal"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
+                           eig_gap=eig_gap, shape_gap=shape_gap,
+                           residuals=resid, eps64_kappa=floor64,
+                           frequencies_hz=modal.frequencies_hz.tolist())
+    gates += [(eig_gap <= SOLID_DYN_RTOL, "20(f): modal eigenvalues"),
+              (shape_gap <= 1e-7, "20(f): modal shapes"),
+              (all(r <= max(PLANE_EIG_RESIDUAL, PLANE_EIG_FLOOR_FACTOR * f)
+                   for r, f in zip(resid, floor64)),
+               "20(f): modal residuals")]
+
+    comp = dense_box_problem([0.0, 0.0, -1.0])
+    s, gb, buck = peak_run(dev, lambda: solid_buckling(
+        comp, SOLID_BUCKLING_MODES, device=dev))
+    t0 = time.perf_counter()
+    u0 = np.zeros(comp.ndof)
+    u0[free] = spl.spsolve(kf, comp.loads[free])
+    kg_blocks, _ = S._geometric_blocks(comp, torch.as_tensor(u0), "cpu")
+    dm = comp.dof_map()
+    kg = sp.csr_matrix((kg_blocks.numpy().ravel(),
+                        (np.repeat(dm, 24, axis=1).ravel(),
+                         np.tile(dm, (1, 24)).ravel())),
+                       shape=(comp.ndof, comp.ndof))
+    mu = spl.eigsh(-kg[free][:, free].tocsc(), k=SOLID_BUCKLING_MODES + 2,
+                   M=kf, which="LA", return_eigenvectors=False)
+    lam_ref = np.sort(1.0 / mu[mu > 0])[:SOLID_BUCKLING_MODES]
+    ref_s = time.perf_counter() - t0
+    buck_gap = float(np.abs(buck.load_factors - lam_ref).max()
+                     / lam_ref.max())
+    report["buckling"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
+                              load_factors=buck.load_factors.tolist(),
+                              gap=buck_gap)
+    gates.append((buck_gap <= SOLID_DYN_RTOL,
+                  "20(f): buckling load factors"))
+
+    om1 = float(modal.omegas[0])
+    dt = 2.0 * np.pi / om1 / 40.0
+    amp = np.sin(0.5 * om1 * dt * np.arange(SOLID_NEWMARK_STEPS))
+    damping = (0.02 * om1, 0.02 / om1)
+    probe = np.arange(problem.ndof - 9, problem.ndof)
+    s, gb, tr = peak_run(dev, lambda: solve_solid_transient(
+        problem, dt, SOLID_NEWMARK_STEPS, damping=damping, amplitude=amp,
+        probe_dofs=probe, record_every=10, device=dev))
+    t0 = time.perf_counter()
+    cf = (damping[0] * mf + damping[1] * kf).tocsc()
+    a0, a1 = 4.0 / dt ** 2, 2.0 / dt
+    lu = spl.splu((kf + a0 * mf + a1 * cf).tocsc())
+    ff = problem.loads[free]
+    uu, vv = np.zeros(free.size), np.zeros(free.size)
+    acc = spl.spsolve(mf, ff * amp[0])
+    full, rec = np.zeros(problem.ndof), []
+    for step in range(SOLID_NEWMARK_STEPS):
+        rhs = ff * amp[min(step + 1, SOLID_NEWMARK_STEPS - 1)] \
+            + mf @ (a0 * uu + 2.0 * a1 * vv + acc) + cf @ (a1 * uu + vv)
+        un = lu.solve(rhs)
+        vn = a1 * (un - uu) - vv
+        acc = a0 * (un - uu) - 2.0 * a1 * vv - acc
+        uu, vv = un, vn
+        if (step + 1) % 10 == 0:
+            full[free] = uu
+            rec.append(full[probe].copy())
+    rec = np.asarray(rec)
+    ref_s = time.perf_counter() - t0
+    tr_gap = float(np.abs(tr.displacements - rec).max() / np.abs(rec).max())
+    report["newmark"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
+                             steps=SOLID_NEWMARK_STEPS, dt=dt, gap=tr_gap)
+    gates.append((tr_gap <= SOLID_DYN_RTOL, "20(f): Newmark probes"))
+
+    om = np.linspace(0.2 * om1, 3.0 * om1, SOLID_HARMONIC_FREQS)
+    s, gb, harm = peak_run(dev, lambda: solid_harmonic(
+        problem, om, damping=damping, probe_dofs=probe, device=dev))
+    t0 = time.perf_counter()
+    pos = np.searchsorted(free, probe)
+    # One BLAS thread a worker process (the variables are read when a
+    # worker starts); the parent's own libraries are loaded already.
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
+                                            "OPENBLAS_NUM_THREADS",
+                                            "MKL_NUM_THREADS")}
+    os.environ.update({k: "1" for k in saved})
+    try:
+        with ProcessPoolExecutor(
+                SOLID_REF_WORKERS, mp_context=multiprocessing.get_context(
+                    "spawn"), initializer=_harmonic_worker_init,
+                initargs=(kf, mf, cf, ff, pos)) as pool:
+            amp_ref = np.asarray(list(pool.map(_harmonic_worker, om)))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ref_s = time.perf_counter() - t0
+    h_gap = float(np.abs(harm.amplitude - amp_ref).max()
+                  / np.abs(amp_ref).max())
+    report["harmonic"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
+                              frequencies=SOLID_HARMONIC_FREQS, gap=h_gap)
+    gates.append((h_gap <= SOLID_DYN_RTOL, "20(f): harmonic amplitudes"))
+    launches = kernels.launch_counts()
+    report["launches"] = launches
+    log("phase20f_dense", card=card, **report)
+    for ok, what in gates:
+        require(ok, what)
+    require(zero_launches(launches), "20(f): no repo kernel")
+    return launches
+
+
+def solid_refusals(dev, card: str) -> None:
+    """20(g): mesh= (banded statics, banded modal, plastic transient),
+    each solid analysis type of a later ROADMAP item (spectrum, random:
+    22; identification: 23; reliability: 24) and "sizing" (no solid
+    analysis of that name), the 8,192-DOF budgets of the dense analyses,
+    a prescribed displacement on the banded tier and "plasticity" with
+    "banded", each refused before any launch."""
+    from pinn_fem_tpu_torch import solve_solid_transient_plastic
+    from pinn_fem_tpu_torch.io.solid_io import (run_solid_analysis,
+                                                run_solid_document)
+    from pinn_fem_tpu_torch.models import solid as S
+    from pinn_fem_tpu_torch.ops import kernels
+
+    big, _ = solid_column(12, 12, 16)          # 8,619 DOFs
+    small, doc = solid_column(2, 2, 6)
+    settled = dict(doc, prescribed=[[2, 0.01]],
+                   analysis={"type": "static", "banded": True})
+    calls = {
+        "mesh_static": (lambda: S.solve_solid_static_banded(
+            big, mesh=object(), device=dev), NotImplementedError, "item 15"),
+        "mesh_modal": (lambda: S.solid_modal_banded(
+            big, mesh=object(), device=dev), NotImplementedError, "item 15"),
+        "mesh_plastic_transient": (lambda: solve_solid_transient_plastic(
+            small, sigma_y=1.0, n_steps=4, mesh=object(), device=dev),
+            NotImplementedError, "item 15"),
+        "banded_prescribed": (lambda: run_solid_document(settled, dev),
+                              ValueError, "homogeneous supports only"),
+        "plasticity_banded": (lambda: run_solid_analysis(
+            small, {"type": "transient", "n_steps": 4, "banded": True,
+                    "plasticity": {"sigma_y": 1.0}}, dev), ValueError,
+            'drop "banded"'),
+        "sizing": (lambda: run_solid_analysis(small, {"type": "sizing"},
+                                              dev), ValueError,
+                   "analysis.type must be"),
+    }
+    for kind in ("buckling", "harmonic", "plastic", "reduction", "random",
+                 "reliability"):
+        calls[f"budget_{kind}"] = (lambda kind=kind: run_solid_analysis(
+            big, {"type": kind, "omegas": [1.0], "sigma_y": 1.0}, dev),
+            ValueError, "8192-DOF budget")
+    for kind, item in (("spectrum", 22), ("random", 22),
+                       ("identification", 23), ("reliability", 24)):
+        calls[kind] = (lambda kind=kind: run_solid_analysis(
+            small, {"type": kind}, dev), NotImplementedError,
+            f"ROADMAP item {item}")
+    refused = {}
+    kernels.reset_launch_counts()
+    for name, (call, kind, text) in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except kind as e:
+            refused[name] = str(e)
+            require(text in str(e), f"20(g) {name}: the message names "
+                    f"{text}")
+    launches = kernels.launch_counts()
+    log("phase20g_refusals", card=card, refused=refused, launches=launches)
+    for name, msg in refused.items():
+        require(msg is not None, f"20(g): {name} refused")
+    require(zero_launches(launches), "20(g): no launch before refusal")
+
+
+def phase_solid(workdir: Path, dev, card: str) -> dict:
+    """Phase 20: the 3D solid family and the continuum plastic transients
+    on the card.  Returns the kernels' launches on each of its paths and
+    the kernels' figures on the column's operator."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    launches = solid_documents(workdir, dev, card)
+    lap("a")
+    column_launches, column_stats, column = solid_column_statics(
+        workdir, dev, card)
+    launches.update(column_launches)
+    lap("b")
+    launches["modal_84k"] = solid_column_modal(column, dev, card)
+    lap("c")
+    launches.update(solid_column_central(column, dev, card))
+    lap("d")
+    del column
+    launches.update(solid_plastic_transient(dev, card))
+    launches["plastic_statics_7k"] = solid_plastic_statics(dev, card)
+    lap("e")
+    launches["dense_8k"] = solid_dense(dev, card)
+    lap("f")
+    solid_refusals(dev, card)
+    lap("g")
+    log("phase20_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return {"launches": launches, "column": column_stats}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -6587,6 +7609,7 @@ def main() -> int:
         frequency = phase_frequency(Path(tmp), dev, card)
         nonlinear = phase_nonlinear(Path(tmp), dev, card)
         plane = phase_plane(Path(tmp), dev, card)
+        solid = phase_solid(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -6632,11 +7655,17 @@ def main() -> int:
             path: counts[name] for path, counts in nonlinear.items()}
         entries[-1]["launches_plane"] = {
             path: counts[name] for path, counts in plane["launches"].items()}
+        entries[-1]["launches_solid"] = {
+            path: counts[name] for path, counts in solid["launches"].items()}
         if name in BANDED:
             entries[-1]["plane_strip"] = {
                 key: plane["strip"][name][key]
                 for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "bit_equal")}
+            entries[-1]["solid_column"] = {
+                key: solid["column"][name].get(key)
+                for key in ("err", "ms", "device_us", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "bit_equal")}
         if name in MATERIAL:
             side = ("forward" if name == "material_coefficients"
                     else "backward")

@@ -40,7 +40,13 @@ key.  The plane-stress / plane-strain continuum family (models/plane.py,
 ops/plane_plastic.py, solvers/plane_plasticity.py) runs through
 "element_type": "plane" documents (io/plane_io.py): dense and banded
 statics, modal, buckling, Newmark, harmonic, elastoplastic statics and
-reduction.  ROADMAP.md lists what is still to port.
+reduction.  The 3D solid family (models/solid.py, ops/solid_plastic.py,
+solvers/solid_plasticity.py) runs through "element_type": "solid"
+documents (io/solid_io.py): the same analyses, with banded statics, modal
+and explicit transients on the stencil and PCG kernels; both continuum
+families run explicit elastoplastic transients
+(solvers/continuum_transient_plastic.py).  ROADMAP.md lists what is still
+to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -75,6 +81,22 @@ from .models.plane import (  # noqa: E402
     rect_mesh,
     solve_plane_static,
     solve_plane_transient,
+)
+from .models.solid import (  # noqa: E402
+    SolidProblem,
+    box_mesh,
+    extrude_mesh,
+    solid_buckling,
+    solid_harmonic,
+    solid_matrices,
+    solid_modal,
+    solid_modal_banded,
+    solid_stable_dt,
+    solve_solid_static,
+    solve_solid_static_banded,
+    solve_solid_transient,
+    solve_solid_transient_banded,
+    surface_load,
 )
 from .models.problem import (  # noqa: E402
     ProblemData,
@@ -140,6 +162,11 @@ from .solvers.modal import (  # noqa: E402
     rayleigh_coefficients,
 )
 from .solvers.newton import solve_nr  # noqa: E402
+from .solvers.continuum_transient_plastic import (  # noqa: E402
+    ContinuumPlasticTransientResult,
+    solve_plane_transient_plastic,
+    solve_solid_transient_plastic,
+)
 from .solvers.plane_plasticity import (  # noqa: E402
     PlanePlasticResult,
     solve_plane_plastic,
@@ -164,6 +191,10 @@ from .solvers.reduction import (  # noqa: E402
     reduce_model,
 )
 from .solvers.riks import RiksResult, solve_riks  # noqa: E402
+from .solvers.solid_plasticity import (  # noqa: E402
+    SolidPlasticResult,
+    solve_solid_plastic,
+)
 from .solvers.spectrum import (  # noqa: E402
     DirectionalSpectrumResult,
     SpectrumCurve,
@@ -204,4 +235,11 @@ __all__ = [
     "spectrum_from_history", "split_element_data", "stable_dt",
     "synthesize_gaussian_history", "thermal_free_strains", "thermal_loads",
     "to_field", "total_mass",
+    "ContinuumPlasticTransientResult", "SolidPlasticResult", "SolidProblem",
+    "box_mesh", "extrude_mesh", "solid_buckling", "solid_harmonic",
+    "solid_matrices", "solid_modal", "solid_modal_banded", "solid_stable_dt",
+    "solve_plane_transient_plastic", "solve_solid_plastic",
+    "solve_solid_static", "solve_solid_static_banded",
+    "solve_solid_transient", "solve_solid_transient_banded",
+    "solve_solid_transient_plastic", "surface_load",
 ]

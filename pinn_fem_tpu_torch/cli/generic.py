@@ -21,8 +21,9 @@ runs io/analysis.run_analysis and writes its result dict; of the analysis
 types "transient" (with "plasticity"), "modal", "buckling", "harmonic",
 "random", "spectrum", "continuation", "plastic" and "reduction" are
 ported (the others exit 1, naming their ROADMAP item).
-Plane documents ("element_type": "plane") are routed before the truss
-parse to io/plane_io.run_plane_document and log the JAX CLI's PLANE
+Solid and plane documents ("element_type": "solid" / "plane") are routed
+before the truss parse to io/solid_io.run_solid_document and
+io/plane_io.run_plane_document and log the JAX CLI's SOLID / PLANE
 ANALYSIS SUMMARY lines; the other element families are not yet ported
 and exit 1, naming their ROADMAP item.
 """
@@ -49,8 +50,7 @@ from ..utils.runtime import resolve_device
 logger = logging.getLogger(f"{PACKAGE_LOGGER}.cli")
 
 # Element families of the JAX CLI, by the ROADMAP item that ports them.
-_ELEMENT_FAMILIES = {"solid": 19, "frame": 20, "frame3d": 20, "plate": 21,
-                     "shell": 22}
+_ELEMENT_FAMILIES = {"frame": 20, "frame3d": 20, "plate": 21, "shell": 22}
 
 
 def setup_logging(problem_file: str) -> Path:
@@ -79,8 +79,8 @@ def setup_logging(problem_file: str) -> Path:
 
 def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         device=None) -> dict:
-    """Solve one truss or plane document on `device` ("cuda" when None) and
-    write its result JSON."""
+    """Solve one truss, solid or plane document on `device` ("cuda" when
+    None) and write its result JSON."""
     device = resolve_device(device)
     with open(problem_file) as fh:
         raw = json.load(fh)
@@ -93,7 +93,10 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
             f'"{family}" element documents are not yet ported, ROADMAP item '
             f"{_ELEMENT_FAMILIES[family]}")
     from ..io.plane_io import is_plane_document
+    from ..io.solid_io import is_solid_document
 
+    if is_solid_document(raw):
+        return _run_solid(raw, output_file, device)
     if is_plane_document(raw):
         return _run_plane(raw, output_file, device)
     parsed = parse_problem_dict(raw, seed=seed)
@@ -225,8 +228,7 @@ def _run_plane(raw: dict, output_file: str, device) -> dict:
         logger.info("  Frequencies (Hz): %s",
                     ["%.6g" % v for v in output["frequencies_hz"]])
     elif kind == "transient":
-        logger.info("  Steps: %d (dt=%.3e)", output["n_steps"],
-                    output["dt"])
+        _log_transient(output)
     elif kind == "plastic":
         logger.info("  Steps: %d, yielded elements: %d, peak von "
                     "Mises: %.6g", output["n_steps"],
@@ -247,6 +249,61 @@ def _run_plane(raw: dict, output_file: str, device) -> dict:
         logger.info("  Max von Mises: %.6g (element %d)",
                     output["max_von_mises"],
                     output["max_von_mises_element"])
+    logger.info("Results written to %s", output_file)
+    return output
+
+
+def _log_transient(output: dict) -> None:
+    if output.get("plastic"):
+        logger.info("  Steps: %d (dt=%.3e), yielded elements: %d, plastic "
+                    "work: %.6g", output["n_steps"], output["dt"],
+                    len(output["yielded_elements"]),
+                    output["plastic_work"][-1])
+    else:
+        logger.info("  Steps: %d (dt=%.3e)", output["n_steps"],
+                    output["dt"])
+
+
+def _run_solid(raw: dict, output_file: str, device) -> dict:
+    """A solid document through io/solid_io on `device`, with the JAX CLI's
+    log lines."""
+    from ..io.solid_io import run_solid_document
+
+    logger.info("Solid document: %s",
+                "generated mesh" if "mesh" in raw else
+                f"{len(raw.get('nodes', ()))} nodes, "
+                f"{len(raw.get('elements', ()))} elements")
+    output = run_solid_document(raw, device)
+    with open(output_file, "w") as f:
+        json.dump(output, f, indent=2)
+    logger.info("%s", "=" * 60)
+    logger.info("SOLID ANALYSIS SUMMARY (%s):", output["analysis"])
+    kind = output["analysis"]
+    if kind == "modal":
+        logger.info("  Frequencies (Hz): %s",
+                    ["%.6g" % v for v in output["frequencies_hz"]])
+    elif kind == "transient":
+        _log_transient(output)
+    elif kind == "plastic":
+        logger.info("  Steps: %d, yielded elements: %d, max von Mises: "
+                    "%.6g", output["n_steps"],
+                    len(output["yielded_elements"]),
+                    max(output["max_von_mises"]))
+    elif kind == "harmonic":
+        logger.info("  Sweep: %d frequencies, peak |X| %.6g",
+                    len(output["omegas"]),
+                    max(max(row) for row in output["amplitude"]))
+    elif kind == "reduction":
+        logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
+                    output["method"], output["n_reduced_dofs"],
+                    output["reduced_frequencies_hz"][0])
+    elif kind == "buckling":
+        logger.info("  Load factors: %s",
+                    ["%.6g" % v for v in output["load_factors"]])
+    else:
+        logger.info("  Max |u|: %.6g, max von Mises: %.6g (%s)",
+                    output["max_displacement"], output["max_von_mises"],
+                    output["method"])
     logger.info("Results written to %s", output_file)
     return output
 

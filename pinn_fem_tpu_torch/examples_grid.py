@@ -26,6 +26,10 @@ uniaxial tension, benchmarks/scaling.py's plane_section: 128 x 512 is
 132,354 DOFs), `plane_annulus_document` the corpus thick-wall cylinder
 (dyn-plane-plastic.json) at any mesh, and `plane_sparse_matrices` the
 float64 scipy K and M of a plane problem from the port's element blocks.
+`solid_column_document` is the JAX package's banded solid benchmark as a
+document (a hex8 column in uniaxial tension, benchmarks/scaling.py's
+solid_section: 16 x 16 x 96 is 84,099 DOFs), and `solid_sparse_matrices`
+the float64 scipy K and M of a solid problem.
 """
 
 from __future__ import annotations
@@ -514,3 +518,51 @@ def plane_sparse_matrices(problem, with_mass: bool = False):
         return k, None
     rho, thick = P._material(problem, "cpu", "density", "thickness")
     return k, csr(P._m_blocks(coords, rho, thick, problem.nen))
+
+
+def solid_column_document(nx: int, ny: int, nz: int, length: float = 4.0,
+                          traction: float = 5.0, young: float = 200.0,
+                          **analysis) -> dict:
+    """The JAX package's banded solid benchmark column as a document: an
+    nx x ny x nz hex8 box of 1 x 1 x length (E = young, nu 0.3, density
+    2), z-rollers on z = 0, x-rollers on x = 0, y-rollers on y = 0, a
+    uniform traction along z on the top face (closed form u_z = traction
+    z / young, u_x = -0.3 traction x / young, von Mises = traction),
+    static analysis at tolerance 1e-8; `analysis` overrides any key of the
+    analysis block."""
+    return {
+        "element_type": "solid",
+        "description": f"{nx} x {ny} x {nz} hex8 column in uniaxial "
+                       "tension",
+        "mesh": {"type": "box", "lx": 1.0, "ly": 1.0, "lz": length,
+                 "nx": nx, "ny": ny, "nz": nz},
+        "material": {"young": young, "poisson": 0.3, "density": 2.0},
+        "fixed_z_nodes": "z_min",
+        "fixed_x_nodes": "x_min",
+        "fixed_y_nodes": "y_min",
+        "surface_loads": [{"face": "z_max",
+                           "traction": [0.0, 0.0, traction]}],
+        "analysis": {"type": "static", "tolerance": 1e-8,
+                     "include_fields": False, **analysis},
+    }
+
+
+def solid_sparse_matrices(problem, with_mass: bool = False):
+    """(K, M) of a solid problem as float64 scipy CSR matrices from the
+    port's element blocks (M None unless with_mass); point masses are not
+    included."""
+    import scipy.sparse as sp
+
+    from .models import solid as S
+
+    dm = problem.dof_map()
+    rows = np.repeat(dm, 24, axis=1).ravel()
+    cols = np.tile(dm, (1, 24)).ravel()
+    n = problem.ndof
+
+    def csr(blocks):
+        return sp.csr_matrix((blocks.numpy().ravel(), (rows, cols)),
+                             shape=(n, n))
+
+    k = csr(S._stiffness_blocks3(problem, "cpu"))
+    return k, (csr(S._mass_blocks3(problem, "cpu")) if with_mass else None)

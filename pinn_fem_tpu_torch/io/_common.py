@@ -2,9 +2,11 @@
 pinn_fem_tpu/io/_common.py that the truss runners call (the amplitude,
 probe, omega and spectrum parsers, the prestress state, the S-N
 parameters, the element areas) and the strict-JSON sanitizer
-(`_json_finite`), with the continuum families' prestress state and
-reduction runner (`_continuum_prestress_u`, `run_continuum_reduction`).
-The other continuum runners come with their element families.
+(`_json_finite`), with the continuum families' prestress state, reduction
+runner and explicit elastoplastic transient runner
+(`_continuum_prestress_u`, `run_continuum_reduction`,
+`run_continuum_transient_plastic`).  The other continuum runners come with
+their element families.
 """
 
 from __future__ import annotations
@@ -237,19 +239,22 @@ def _continuum_prestress_u(problem, spec, static_solver):
 
 
 # ROADMAP items of the continuum families not yet ported.
-_FAMILY_ITEMS = {"SolidProblem": 19, "FrameProblem": 20,
-                 "SpaceFrameProblem": 20, "PlateProblem": 21,
-                 "ShellProblem": 22}
+_FAMILY_ITEMS = {"FrameProblem": 20, "SpaceFrameProblem": 20,
+                 "PlateProblem": 21, "ShellProblem": 22}
 
 
 def _family_modal(problem, n_modes: int, device=None):
     """(omegas, shapes) of the problem's own dense modal analysis: the plane
-    branch of the JAX package's continuum_spectrum._family_of; the other
-    families raise, naming their ROADMAP item."""
+    and solid branches of the JAX package's continuum_spectrum._family_of;
+    the other families raise, naming their ROADMAP item."""
     from ..models.plane import PlaneProblem, plane_modal
+    from ..models.solid import SolidProblem, solid_modal
 
-    if isinstance(problem, PlaneProblem):
-        res = plane_modal(problem, n_modes, device=device)
+    modal = (plane_modal if isinstance(problem, PlaneProblem)
+             else solid_modal if isinstance(problem, SolidProblem)
+             else None)
+    if modal is not None:
+        res = modal(problem, n_modes, device=device)
         return np.asarray(res.omegas), np.asarray(res.mode_shapes)
     kind = type(problem).__name__
     if kind in _FAMILY_ITEMS:
@@ -315,6 +320,92 @@ def run_continuum_reduction(problem, analysis: Dict, element_type: str,
         out["full_omegas"] = om_full.tolist()
         out["frequency_rel_errors"] = rel.tolist()
     return _json_finite(out)
+
+
+def run_continuum_transient_plastic(problem, analysis: Dict,
+                                    element_type: str, solver,
+                                    probe: np.ndarray, device=None,
+                                    **solver_extra) -> Dict:
+    """A continuum transient block carrying a "plasticity" spec
+    (solvers/continuum_transient_plastic) on `device`, shared by the plane
+    and solid JSON tiers: the truss contract generalized.  The caller
+    resolves `probe` with its family's selector and passes family-only
+    solver arguments (plane: bbar) through solver_extra."""
+    spec = analysis["plasticity"]
+    if not isinstance(spec, dict) or "sigma_y" not in spec:
+        raise ValueError('transient "plasticity" spec must be a dict '
+                         'with "sigma_y"')
+    n_steps = int(analysis["n_steps"])
+    damping = analysis.get("damping", [0.0, 0.0])
+    dt_spec = analysis.get("dt", "auto")
+    # dt None lets the solver apply the family's damped Gershgorin bound.
+    dt = None if dt_spec == "auto" else float(dt_spec)
+    record_every = int(analysis.get("record_every", 1))
+    if n_steps % record_every:
+        raise ValueError("n_steps must be a multiple of record_every")
+    if probe is None:
+        probe = np.arange(problem.ndof)
+    probe = np.asarray(probe, dtype=int).reshape(-1)
+    if (probe.size * (n_steps // record_every)
+            > 4 * _SHAPES_JSON_DOF_LIMIT
+            and "probe_dofs" not in analysis
+            and "probe_nodes" not in analysis):
+        raise ValueError(
+            "transient history would serialize "
+            f"{probe.size} DOFs x {n_steps // record_every} snapshots "
+            "to JSON; give probe_nodes/probe_dofs (or a larger "
+            "record_every) to bound the payload")
+    amplitude = None
+    if analysis.get("amplitude") is not None:
+        amp_dt = dt if dt is not None else _auto_dt_for(
+            solver, problem, damping, device)
+        amplitude = _amplitude_array(analysis["amplitude"], n_steps, amp_dt)
+    res = solver(
+        problem, sigma_y=spec["sigma_y"],
+        hardening_iso=spec.get("hardening", 0.0),
+        hardening_kin=spec.get("kinematic_hardening", 0.0),
+        dt=dt, n_steps=n_steps, amplitude=amplitude,
+        damping=(float(damping[0]), float(damping[1])),
+        record_every=record_every, probe_dofs=probe, device=device,
+        **solver_extra)
+    return _json_finite({
+        "success": True,
+        "analysis": "transient",
+        "element_type": element_type,
+        "plastic": True,
+        "method": "central",
+        "dt": float(res.dt),
+        "n_steps": n_steps,
+        "record_every": record_every,
+        "probe_dofs": probe.tolist(),
+        "times": res.times.tolist(),
+        "displacements": res.displacements.tolist(),
+        "velocities": res.velocities.tolist(),
+        "kinetic_energy": res.kinetic_energy.tolist(),
+        "strain_energy": res.strain_energy.tolist(),
+        "plastic_work": res.plastic_work.tolist(),
+        "external_work": res.external_work.tolist(),
+        "von_mises_envelope": res.von_mises_envelope.tolist(),
+        "yielded_elements": np.flatnonzero(res.final_eq_plastic > 0.0
+                                           ).tolist(),
+        "final": {
+            "displacements": res.final_displacement.tolist(),
+            "eq_plastic_strain": res.final_eq_plastic.tolist(),
+        },
+    })
+
+
+def _auto_dt_for(solver, problem, damping, device=None) -> float:
+    """The family's damped Gershgorin step, which the solver takes for dt
+    "auto": the amplitude array needs it before the solver call."""
+    damping = (float(damping[0]), float(damping[1]))
+    if "plane" in getattr(solver, "__name__", ""):
+        from ..models.plane import plane_stable_dt
+
+        return plane_stable_dt(problem, damping=damping, device=device)
+    from ..models.solid import solid_stable_dt
+
+    return solid_stable_dt(problem, damping=damping, device=device)
 
 
 def _json_finite(obj):

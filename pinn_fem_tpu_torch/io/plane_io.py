@@ -25,11 +25,11 @@ Every node-selecting key also takes a named boundary edge "left",
 DENSE_DOF_LIMIT DOFs is the dense float64 solve with the full field in
 the result; above it, the banded tier (kernels 1-3 on a card) with probes
 and summaries.  The other analyses are dense float64, refused above 8192
-DOFs.  Every analysis runs on the caller's device ("cuda" when None).
-The analysis types of later ROADMAP items raise NotImplementedError
-naming the item: "spectrum" and "random" (22), a transient with
-"plasticity" (19), "identification" (23), "sizing" and "reliability"
-(24).
+DOFs; a transient with "plasticity" is the explicit elastoplastic
+transient (solvers/continuum_transient_plastic).  Every analysis runs on
+the caller's device ("cuda" when None).  The analysis types of later
+ROADMAP items raise NotImplementedError naming the item: "spectrum" and
+"random" (22), "identification" (23), "sizing" and "reliability" (24).
 """
 
 from __future__ import annotations
@@ -326,6 +326,21 @@ def _modal(problem: PlaneProblem, analysis: Dict, device) -> Dict:
 
 
 def _transient(problem: PlaneProblem, analysis: Dict, device) -> Dict:
+    if "plasticity" in analysis:
+        from ..solvers.continuum_transient_plastic import \
+            solve_plane_transient_plastic
+        from ._common import run_continuum_transient_plastic
+
+        if analysis.get("n_steps") is None:
+            raise ValueError('plane transient needs "n_steps"')
+        extra = {}
+        if analysis.get("bbar") is not None:
+            extra["bbar"] = bool(analysis["bbar"])
+        out = run_continuum_transient_plastic(
+            problem, analysis, "plane", solve_plane_transient_plastic,
+            _probe_dofs(analysis, problem), device, **extra)
+        out["plane_strain"] = bool(problem.plane_strain)
+        return out
     if analysis.get("dt") is None or analysis.get("n_steps") is None:
         raise ValueError('plane transient needs "dt" and "n_steps"')
     n_steps = int(analysis["n_steps"])
@@ -427,10 +442,6 @@ def run_plane_analysis(problem: PlaneProblem, analysis: Dict,
         raise NotImplementedError(
             f'plane "{kind}" analysis is not yet ported, ROADMAP item '
             f"{_LATER[kind]}")
-    if kind == "transient" and "plasticity" in analysis:
-        raise NotImplementedError(
-            'plane transient "plasticity" (explicit elastoplastic '
-            "transients) is not yet ported, ROADMAP item 19")
     runner = _RUNNERS.get(kind)
     if runner is None:
         raise ValueError(f'plane analysis.type must be "static", "modal", '

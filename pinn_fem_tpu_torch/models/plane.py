@@ -580,22 +580,60 @@ def plane_modal(problem: PlaneProblem, n_modes: int = 6, prestress_u=None,
                             eigenvalues=lam, mode_shapes=_numpy(shapes))
 
 
-def plane_stable_dt(problem: PlaneProblem, safety: float = 0.9,
-                    damping=(0.0, 0.0), device=None) -> float:
-    """Gershgorin bound on the explicit critical step: omega_max^2 <=
-    max_i sum_j |K_ij| / m_i over free rows, m the row-sum lumped mass;
-    Rayleigh damping shrinks it, dt = (2/w)(sqrt(1 + zeta^2) - zeta) with
-    zeta = alpha/2w + beta w/2.  Float64 on `device` ("cuda" when None)."""
-    k, m = plane_matrices(problem, device=device)
-    md = m.sum(dim=1)
-    row = _numpy(torch.abs(k).sum(dim=1) / torch.clamp_min(md, 1e-300))
-    free = problem.free_mask() > 0
+def _mass_row_sums(problem: PlaneProblem, device) -> torch.Tensor:
+    """(2n,) row sums of the consistent M (with point masses), float64 on
+    `device`: the element blocks' row sums in one float64 scatter."""
+    coords, dm = _elements(problem, device)
+    rho, thick = _material(problem, device, "density", "thickness")
+    md = scatter_add(problem.ndof, dm,
+                     _m_blocks(coords, rho, thick, problem.nen).sum(dim=-1))
+    if problem.point_masses is not None:
+        pmn = _t(problem.point_masses, device)
+        md[0::2] += pmn
+        md[1::2] += pmn
+    return md
+
+
+def abs_row_sums(ndof: int, dm: torch.Tensor,
+                 blocks: torch.Tensor) -> torch.Tensor:
+    """(ndof,) sum_j |K_ij| of the matrix the (m, w, w) blocks assemble
+    into, float64 on the blocks' device: the entries are summed in float64
+    over their (row, column) slots first, with no ndof x ndof array."""
+    flat = (dm[:, :, None] * ndof + dm[:, None, :]).reshape(-1)
+    slots, inverse = torch.unique(flat, return_inverse=True)
+    entries = torch.zeros(slots.numel(), dtype=_F64, device=blocks.device)
+    entries.index_add_(0, inverse, blocks.reshape(-1).double())
+    return torch.zeros(ndof, dtype=_F64, device=blocks.device).index_add_(
+        0, torch.div(slots, ndof, rounding_mode="floor"), entries.abs())
+
+
+def gershgorin_dt(row: np.ndarray, free_mask: np.ndarray, safety: float,
+                  damping) -> float:
+    """The damped explicit step from the Gershgorin ratios row_i =
+    sum_j |K_ij| / m_i: omega_max^2 <= their maximum over free rows (all
+    rows when none is positive), dt = safety (2/w)(sqrt(1 + zeta^2) -
+    zeta) with zeta = alpha/2w + beta w/2."""
+    free = free_mask > 0
     w2 = float(row[free].max()) if free.any() and row[free].max() > 0 \
         else float(row.max())
     w = np.sqrt(max(w2, 1e-30))
     alpha, beta = float(damping[0]), float(damping[1])
     zeta = 0.5 * alpha / w + 0.5 * beta * w
     return safety * (2.0 / w) * (np.sqrt(1.0 + zeta * zeta) - zeta)
+
+
+def plane_stable_dt(problem: PlaneProblem, safety: float = 0.9,
+                    damping=(0.0, 0.0), device=None) -> float:
+    """Gershgorin bound on the explicit critical step: omega_max^2 <=
+    max_i sum_j |K_ij| / m_i over free rows, m the row-sum lumped mass;
+    Rayleigh damping shrinks it, dt = (2/w)(sqrt(1 + zeta^2) - zeta) with
+    zeta = alpha/2w + beta w/2.  Float64 on `device` ("cuda" when None),
+    from the element blocks (no dense K or M)."""
+    dev = resolve_device(device)
+    _, dm = _elements(problem, dev)
+    row = abs_row_sums(problem.ndof, dm, _stiffness_blocks(problem, dev)) \
+        / torch.clamp_min(_mass_row_sums(problem, dev), 1e-300)
+    return gershgorin_dt(_numpy(row), problem.free_mask(), safety, damping)
 
 
 def _geometric_blocks(problem: PlaneProblem, u: torch.Tensor, device):
@@ -692,24 +730,14 @@ def _free_block(problem: PlaneProblem, damping, device):
             free)
 
 
-def solve_plane_transient(problem: PlaneProblem, dt: float, n_steps: int,
-                          damping=(0.0, 0.0), amplitude=None,
-                          probe_dofs=None, record_every: int = 1,
-                          device=None) -> PlaneTransientResult:
-    """Newmark (average acceleration) on the dense plane K / M, float64 on
-    `device` ("cuda" when None): one LU factorization of the effective
-    stiffness serves every step (`lu_solve` a step), with no host read in
-    the loop; the records stay on the device and are fetched once.
-    amplitude: (n_steps,) load scale of the nodal + body-force loads (None
-    = unit step); the forcing of the step that reaches t_{i+1} is
-    a_{i+1}, the last step holding the last value."""
-    if dt <= 0.0 or n_steps <= 0:
-        raise ValueError("transient needs positive dt and n_steps")
-    if problem.prescribed is not None and np.any(problem.prescribed):
-        raise ValueError("transient supports homogeneous supports only")
-    _require_no_thermal(problem, "transient")
-    dev = resolve_device(device)
-    kf, mf, cf, ff, free = _free_block(problem, damping, dev)
+def newmark_records(kf, mf, cf, ff, free, ndof: int, dt: float,
+                    n_steps: int, amplitude, probe_dofs, record_every: int):
+    """Newmark (average acceleration) on the dense free block, float64 on
+    kf's device: one LU factorization of the effective stiffness serves
+    every step (`lu_solve` a step), with no host read in the loop; the
+    records stay on the device and are fetched once.  Returns (times,
+    rec_u, rec_v) as numpy."""
+    dev = kf.device
     amp = (np.ones(n_steps) if amplitude is None
            else np.broadcast_to(np.asarray(amplitude, dtype=float),
                                 (n_steps,)))
@@ -717,7 +745,7 @@ def solve_plane_transient(problem: PlaneProblem, dt: float, n_steps: int,
     a1 = 2.0 / dt
     lu, piv = torch.linalg.lu_factor(kf + a0 * mf + a1 * cf)
     probe = torch.as_tensor(
-        np.arange(problem.ndof) if probe_dofs is None
+        np.arange(ndof) if probe_dofs is None
         else np.asarray(probe_dofs, dtype=int).reshape(-1),
         dtype=torch.int64, device=dev)
     n = free.numel()
@@ -728,7 +756,7 @@ def solve_plane_transient(problem: PlaneProblem, dt: float, n_steps: int,
     n_rec = n_steps // record_every
     rec_u = torch.empty((n_rec, probe.numel()), dtype=_F64, device=dev)
     rec_v = torch.empty_like(rec_u)
-    full_u = torch.zeros(problem.ndof, dtype=_F64, device=dev)
+    full_u = torch.zeros(ndof, dtype=_F64, device=dev)
     full_v = torch.zeros_like(full_u)
     r = 0
     for step in range(n_steps):
@@ -746,9 +774,31 @@ def solve_plane_transient(problem: PlaneProblem, dt: float, n_steps: int,
             rec_v[r] = full_v[probe]
             r += 1
     times = dt * record_every * (np.arange(n_rec) + 1.0)
+    return times, _numpy(rec_u), _numpy(rec_v)
+
+
+def solve_plane_transient(problem: PlaneProblem, dt: float, n_steps: int,
+                          damping=(0.0, 0.0), amplitude=None,
+                          probe_dofs=None, record_every: int = 1,
+                          device=None) -> PlaneTransientResult:
+    """Newmark (average acceleration) on the dense plane K / M, float64 on
+    `device` ("cuda" when None), by `newmark_records`.  amplitude:
+    (n_steps,) load scale of the nodal + body-force loads (None = unit
+    step); the forcing of the step that reaches t_{i+1} is a_{i+1}, the
+    last step holding the last value."""
+    if dt <= 0.0 or n_steps <= 0:
+        raise ValueError("transient needs positive dt and n_steps")
+    if problem.prescribed is not None and np.any(problem.prescribed):
+        raise ValueError("transient supports homogeneous supports only")
+    _require_no_thermal(problem, "transient")
+    dev = resolve_device(device)
+    kf, mf, cf, ff, free = _free_block(problem, damping, dev)
+    times, rec_u, rec_v = newmark_records(
+        kf, mf, cf, ff, free, problem.ndof, dt, n_steps, amplitude,
+        probe_dofs, record_every)
     return PlaneTransientResult(
-        times=times, displacements=_numpy(rec_u), velocities=_numpy(rec_v),
-        dt=float(dt), n_steps=int(n_steps))
+        times=times, displacements=rec_u, velocities=rec_v, dt=float(dt),
+        n_steps=int(n_steps))
 
 
 # --------------------------------------------------------------------
@@ -918,28 +968,27 @@ class PlaneHarmonicResult:
 _HARMONIC_CHUNK_BYTES = 4 << 30
 
 
-def plane_harmonic(problem: PlaneProblem, omegas, damping=(0.0, 0.0),
-                   probe_dofs=None, device=None) -> PlaneHarmonicResult:
-    """Steady-state X(omega) to the plane load pattern: the complex systems
-    (K - omega^2 M + i omega C) X = f on the free block, Rayleigh C =
-    alpha M + beta K, solved in complex128 on `device` ("cuda" when None),
-    as many frequencies at once as fit _HARMONIC_CHUNK_BYTES (each
-    system built in place from the real K, M and C)."""
-    om = np.asarray(omegas, dtype=float).reshape(-1)
-    if problem.prescribed is not None and np.any(problem.prescribed):
-        raise ValueError("harmonic supports homogeneous supports only")
-    _require_no_thermal(problem, "harmonic")
-    dev = resolve_device(device)
-    kf, mf, cf, ff, free = _free_block(problem, damping, dev)
+def harmonic_solves(kf, mf, cf, ff, free, ndof: int, om: np.ndarray,
+                    probe_dofs) -> np.ndarray:
+    """(n_freq, n_probe) complex X(omega) of (K - omega^2 M + i omega C) X
+    = f on the free block, complex128 on kf's device, as many frequencies
+    at once as fit _HARMONIC_CHUNK_BYTES on a card, one at a time on the
+    CPU (each system built in place from the real K, M and C)."""
+    dev = kf.device
     probe = torch.as_tensor(
-        np.arange(problem.ndof) if probe_dofs is None
+        np.arange(ndof) if probe_dofs is None
         else np.asarray(probe_dofs, dtype=int).reshape(-1),
         dtype=torch.int64, device=dev)
     n = free.numel()
     chunk = max(1, _HARMONIC_CHUNK_BYTES // max(16 * n * n, 1))
+    if dev.type == "cpu":
+        # A batched complex128 LU on more than one CPU thread stops
+        # inside MKL (ZLASWP's parameter 6) with torch 2.13's CPU build:
+        # one frequency a solve there.
+        chunk = 1
     c128 = torch.complex128
     xs = torch.zeros((om.size, probe.numel()), dtype=c128, device=dev)
-    full = torch.zeros((min(chunk, max(om.size, 1)), problem.ndof),
+    full = torch.zeros((min(chunk, max(om.size, 1)), ndof),
                        dtype=c128, device=dev)
     rhs = ff.to(c128)[:, None]
     for i in range(0, om.size, chunk):
@@ -954,6 +1003,21 @@ def plane_harmonic(problem: PlaneProblem, omegas, damping=(0.0, 0.0),
         part[:, free] = x
         xs[i:i + chunk] = part[:, probe]
         del z
-    xs = xs.cpu().numpy()
+    return xs.cpu().numpy()
+
+
+def plane_harmonic(problem: PlaneProblem, omegas, damping=(0.0, 0.0),
+                   probe_dofs=None, device=None) -> PlaneHarmonicResult:
+    """Steady-state X(omega) to the plane load pattern: the complex systems
+    (K - omega^2 M + i omega C) X = f on the free block, Rayleigh C =
+    alpha M + beta K, solved in complex128 on `device` ("cuda" when None)
+    by `harmonic_solves`."""
+    om = np.asarray(omegas, dtype=float).reshape(-1)
+    if problem.prescribed is not None and np.any(problem.prescribed):
+        raise ValueError("harmonic supports homogeneous supports only")
+    _require_no_thermal(problem, "harmonic")
+    dev = resolve_device(device)
+    kf, mf, cf, ff, free = _free_block(problem, damping, dev)
+    xs = harmonic_solves(kf, mf, cf, ff, free, problem.ndof, om, probe_dofs)
     return PlaneHarmonicResult(omegas=om, amplitude=np.abs(xs),
                                real=xs.real, imag=xs.imag)

@@ -30,6 +30,7 @@ below it, the JAX tiers' values.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -71,7 +72,17 @@ def lame(young, poisson):
 
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=like.dtype, device=like.device)
+    """The constant vector or matrix `values` in like's dtype on its
+    device, made once per (values, dtype, device) and kept: the explicit
+    integrators call the maps thousands of times."""
+    key = tuple(tuple(v) if isinstance(v, (list, tuple)) else v
+                for v in values)
+    return _const_tensor(key, like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _const_tensor(values, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(values, dtype=dtype, device=device)
 
 
 def _tiny(like: torch.Tensor) -> float:
@@ -98,9 +109,10 @@ def _idev(like: torch.Tensor) -> torch.Tensor:
 
 
 def _return(eps4, state_ep, state_al, state_bk, mu, lam, sigma_y, h_iso,
-            h_kin):
+            h_kin, with_state: bool = True):
     """The radial return shared by the full and force-only maps: (sigma,
-    ep_new, al_new, bk_new, n, dgamma, plastic, theta, theta_bar)."""
+    ep_new, al_new, bk_new, n, theta, theta_bar); with_state=False leaves
+    the new state out (None), the other values unchanged."""
     dv = _const([1.0, 1.0, 1.0, 0.0], eps4)
     half = _const([1.0, 1.0, 1.0, 0.5], eps4)
     e = eps4 - state_ep
@@ -117,10 +129,12 @@ def _return(eps4, state_ep, state_al, state_bk, mu, lam, sigma_y, h_iso,
     tiny = _tiny(eps4)
     n = xi / torch.clamp_min(nxi, tiny)[..., None]
     sigma = sig_tr - (2.0 * mu * dgamma)[..., None] * n
-    ep_new = state_ep + dgamma[..., None] * n \
-        * _const([1.0, 1.0, 1.0, 2.0], eps4)   # engineering shear flow
-    al_new = state_al + _SQ23 * dgamma
-    bk_new = state_bk + ((2.0 / 3.0) * h_kin * dgamma)[..., None] * n
+    ep_new = al_new = bk_new = None
+    if with_state:
+        ep_new = state_ep + dgamma[..., None] * n \
+            * _const([1.0, 1.0, 1.0, 2.0], eps4)   # engineering shear flow
+        al_new = state_al + _SQ23 * dgamma
+        bk_new = state_bk + ((2.0 / 3.0) * h_kin * dgamma)[..., None] * n
     theta = torch.where(plastic,
                         1.0 - 2.0 * mu * dgamma / torch.clamp_min(nxi, tiny),
                         1.0)
@@ -152,12 +166,15 @@ def vm_return_map_4(eps4, state_ep, state_al, state_bk, mu, lam, sigma_y,
 
 
 def vm_return_map_4_force(eps4, state_ep, state_al, state_bk, mu, lam,
-                          sigma_y, h_iso, h_kin):
+                          sigma_y, h_iso, h_kin, with_state: bool = True):
     """vm_return_map_4 without the 4 x 4 tangent: the same stress and
     state, and only the tangent's zz diagonal czz = kappa + (4/3) mu theta
-    - 2 mu theta_bar n_z^2 (the plane-stress Newton's divisor)."""
+    - 2 mu theta_bar n_z^2 (the plane-stress Newton's divisor);
+    with_state=False: the state None (the Newton's steps before the
+    last)."""
     sigma, ep_new, al_new, bk_new, n, theta, theta_bar = _return(
-        eps4, state_ep, state_al, state_bk, mu, lam, sigma_y, h_iso, h_kin)
+        eps4, state_ep, state_al, state_bk, mu, lam, sigma_y, h_iso, h_kin,
+        with_state)
     kappa = lam + 2.0 * mu / 3.0
     czz = kappa + (4.0 / 3.0) * mu * theta \
         - 2.0 * mu * theta_bar * n[..., 2] ** 2
@@ -223,8 +240,8 @@ def plane_return_map_force(eps3, state: PlanePlasticState, young, poisson,
     else:
         ezz = _plane_stress_start(eps3, state, mu_b, lam_b)
         for _ in range(int(n_ps_iter)):
-            sigma4, czz, ep, al, bk = vm_return_map_4_force(
-                _stack4(eps3, ezz), *args)
+            sigma4, czz, _, _, _ = vm_return_map_4_force(
+                _stack4(eps3, ezz), *args, with_state=False)
             ezz = ezz - sigma4[..., 2] / czz
         sigma4, _, ep, al, bk = vm_return_map_4_force(_stack4(eps3, ezz),
                                                       *args)

@@ -74,30 +74,48 @@ def _schedule(load_factors, target, n_steps) -> np.ndarray:
 class _System:
     """The element geometry, material and load pattern of one tier, in
     `dtype` on `device`; `__call__(u, state)` assembles (K or None, f_int,
-    sig3, szz, new state)."""
+    stresses, new state), `rows` makes one step's record.  The solid
+    family's system (solvers/solid_plasticity.py) has the same interface,
+    and both tiers' loops below run either."""
 
     def __init__(self, problem: PlaneProblem, sy, hi, hk, bbar: bool,
                  tangent_floor: float, dtype, device):
-        def t(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.float64),
-                                   device=device).to(dtype)
-
         self.ndof = problem.ndof
         geometry = gp_geometry_bbar if bbar else gp_geometry
         self.b, self.wdet = (a.to(dtype) for a in geometry(problem, device))
+        self._common(problem, _body_force_vectors(problem, device),
+                     dtype, device)
+        self.material = [self._t(a) for a in (
+            problem.young, problem.poisson, problem.thickness, sy, hi, hk)]
+        self.bbar, self.plane_strain = bbar, problem.plane_strain
+        self.floor = tangent_floor
+        self.nelm, self.ngp = problem.nelm, self.wdet.shape[1]
+
+    def _t(self, a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=self.device).to(self.dtype)
+
+    def _common(self, problem, body, dtype, device):
+        """The DOF map, the mask and f_ext (summed in float64 and rounded
+        once, as the JAX tiers take it)."""
+        self.dtype, self.device = dtype, device
         self.dm = torch.as_tensor(problem.dof_map(), dtype=torch.int64,
                                   device=device)
         self.flat = self.dm[:, :, None] * self.ndof + self.dm[:, None, :]
-        self.mask = t(problem.free_mask())
-        # Summed in float64 and rounded once, as the JAX tiers take it.
-        self.f_ext = ((_body_force_vectors(problem, device)
-                       + torch.as_tensor(problem.loads, device=device))
+        self.mask = self._t(problem.free_mask())
+        self.f_ext = ((body + torch.as_tensor(problem.loads, device=device))
                       * torch.as_tensor(problem.free_mask(), device=device)
                       ).to(dtype)
-        self.material = [t(a) for a in (problem.young, problem.poisson,
-                                        problem.thickness, sy, hi, hk)]
-        self.bbar, self.plane_strain = bbar, problem.plane_strain
-        self.floor = tangent_floor
+
+    def initial_state(self):
+        return initial_plane_state(self.nelm, self.ngp, self.dtype,
+                                   self.device)
+
+    def assemble(self, ke, fe, tangent: bool):
+        n = self.ndof
+        k = (scatter_add(n * n, self.flat, ke).reshape(n, n) if tangent
+             else None)
+        return k, scatter_add(n, self.dm, fe)
 
     def __call__(self, u, state, tangent: bool = True):
         young, poisson, thick, sy, hi, hk = self.material
@@ -109,24 +127,29 @@ class _System:
             ke, fe, sig3, szz, st = plane_plastic_blocks(
                 self.b, self.wdet, thick, u[self.dm], state, young, poisson,
                 sy, hi, hk, self.plane_strain, self.floor)
-        n = self.ndof
-        k = (scatter_add(n * n, self.flat, ke).reshape(n, n) if tangent
-             else None)
-        return k, scatter_add(n, self.dm, fe), sig3, szz, st
+        return (*self.assemble(ke, fe, tangent), (sig3, szz), st)
+
+    @staticmethod
+    def rows(u, sig, st, state0):
+        """One step's record: u, gp-averaged stresses, sigma_zz, von Mises,
+        alpha, and the count of elements whose alpha rose."""
+        sig3, szz = sig
+        vm = von_mises_4(sig3, szz)
+        return (u, sig3.mean(dim=1), szz.mean(dim=1), vm.mean(dim=1),
+                st.alpha.mean(dim=1), n_yielding(st, state0))
 
 
-def _rows(u, sig3, szz, st, state0):
-    """One step's record: u, gp-averaged stresses, sigma_zz, von Mises,
-    alpha, and the count of elements whose alpha rose."""
-    vm = von_mises_4(sig3, szz)
-    n_pl = torch.count_nonzero(torch.any(st.alpha > state0.alpha, dim=1))
-    return (u, sig3.mean(dim=1), szz.mean(dim=1), vm.mean(dim=1),
-            st.alpha.mean(dim=1), n_pl)
+def n_yielding(st, state0) -> torch.Tensor:
+    """The count of elements whose alpha rose at some Gauss point."""
+    return torch.count_nonzero(torch.any(st.alpha > state0.alpha, dim=1))
+
+
+def _columns(rows):
+    return [torch.stack(c).cpu().numpy().astype(float) for c in zip(*rows)]
 
 
 def _result(lfs, rows, iters, residuals, ok) -> PlanePlasticResult:
-    cols = [torch.stack(c).cpu().numpy().astype(float) for c in zip(*rows)]
-    u, sig, szz, vm, al, n_pl = cols
+    u, sig, szz, vm, al, n_pl = _columns(rows)
     return PlanePlasticResult(
         load_factors=np.asarray(lfs, dtype=float), displacements=u,
         stresses=sig, sigma_zz=szz, von_mises=vm, eq_plastic=al,
@@ -135,21 +158,17 @@ def _result(lfs, rows, iters, residuals, ok) -> PlanePlasticResult:
         n_plastic=n_pl.astype(int))
 
 
-def _float64_solve(problem: PlaneProblem, sy, hi, hk, lfs, tol, max_iter,
-                   tangent_floor, min_denom, bbar: bool,
-                   device) -> PlanePlasticResult:
-    """The JAX host tier (_host_solve) in float64 torch on `device`."""
-    f64 = torch.float64
-    system = _System(problem, sy, hi, hk, bbar, tangent_floor, f64, device)
+def float64_loop(system, lfs, tol, max_iter, min_denom):
+    """The JAX host tier (_host_solve) on a float64 system: (rows,
+    iterations, residuals, all converged)."""
     mask, f_ext = system.mask, system.f_ext
     fnorm = max(float(torch.linalg.vector_norm(f_ext)), min_denom)
     km_fix = torch.diag(1.0 - mask)
-    ngp = system.wdet.shape[1]
-    u = torch.zeros(problem.ndof, dtype=f64, device=device)
-    state = initial_plane_state(problem.nelm, ngp, f64, device)
+    u = torch.zeros(system.ndof, dtype=system.dtype, device=system.device)
+    state = system.initial_state()
 
     def resid_norm(u_try, lf):
-        _, f_int, _, _, _ = system(u_try, state, tangent=False)
+        _, f_int, _, _ = system(u_try, state, tangent=False)
         return float(torch.linalg.vector_norm((lf * f_ext - f_int) * mask)
                      ) / fnorm
 
@@ -158,7 +177,7 @@ def _float64_solve(problem: PlaneProblem, sy, hi, hk, lfs, tol, max_iter,
         lf = float(lf)
         ok, res, it_used = False, np.inf, max_iter
         for it in range(max_iter):
-            k_t, f_int, sig3, szz, st = system(u, state)
+            k_t, f_int, sig, st = system(u, state)
             r = (lf * f_ext - f_int) * mask
             res = float(torch.linalg.vector_norm(r)) / fnorm
             if res <= tol:
@@ -181,31 +200,29 @@ def _float64_solve(problem: PlaneProblem, sy, hi, hk, lfs, tol, max_iter,
         if not ok:
             # The loop updates u after assembling: evaluate (sigma, state)
             # once more at the final u.
-            _, f_int, sig3, szz, st = system(u, state, tangent=False)
+            _, f_int, sig, st = system(u, state, tangent=False)
             res = float(torch.linalg.vector_norm(
                 (lf * f_ext - f_int) * mask)) / fnorm
-        rows.append(_rows(u, sig3, szz, st, state))
+        rows.append(system.rows(u, sig, st, state))
         state = st
         iters.append(it_used)
         residuals.append(res)
-    return _result(lfs, rows, iters, residuals, all_ok)
+    return rows, iters, residuals, all_ok
 
 
-def _device_solve(problem: PlaneProblem, sy, hi, hk, lfs, tol, max_iter,
-                  tangent_floor, min_denom, bbar: bool, dtype,
-                  device) -> PlanePlasticResult:
-    """The JAX device program (_device_core) in `dtype` on `device`."""
+def device_loop(system, lfs, tol, max_iter, min_denom):
+    """The JAX device program (_device_core) on a system in the working
+    dtype: (rows, iterations, residuals, all converged), one read of
+    (done, first trial accepted) a Newton iteration."""
+    dtype, device = system.dtype, system.device
     npf = np.float64 if dtype == torch.float64 else np.float32
-    system = _System(problem, sy, hi, hk, bbar, float(npf(tangent_floor)),
-                     dtype, device)
     mask, f_ext = system.mask, system.f_ext
     fnorm = torch.clamp_min(torch.linalg.vector_norm(f_ext),
                             float(npf(min_denom)))
     tol_t = torch.tensor(tol, dtype=dtype, device=device)
     sqrt_tol = torch.sqrt(tol_t)
-    ngp = system.wdet.shape[1]
-    u = torch.zeros(problem.ndof, dtype=dtype, device=device)
-    state = initial_plane_state(problem.nelm, ngp, dtype, device)
+    u = torch.zeros(system.ndof, dtype=dtype, device=device)
+    state = system.initial_state()
     one = torch.ones((), dtype=dtype, device=device)
 
     rows, iters, res_rows, conv_rows = [], [], [], []
@@ -213,14 +230,14 @@ def _device_solve(problem: PlaneProblem, sy, hi, hk, lfs, tol, max_iter,
         lf = float(npf(lf))
 
         def resid_of(u_try):
-            _, f_int, _, _, _ = system(u_try, state, tangent=False)
+            _, f_int, _, _ = system(u_try, state, tangent=False)
             return torch.linalg.vector_norm((lf * f_ext - f_int) * mask) \
                 / fnorm
 
         res_prev = torch.full((), float("inf"), dtype=dtype, device=device)
         it = 0
         while it < max_iter:
-            k_t, f_int, _, _, _ = system(u, state)
+            k_t, f_int, _, _ = system(u, state)
             r = (lf * f_ext - f_int) * mask
             res = torch.linalg.vector_norm(r) / fnorm
             stalled = (res >= res_prev) & (res_prev <= sqrt_tol)
@@ -249,16 +266,35 @@ def _device_solve(problem: PlaneProblem, sy, hi, hk, lfs, tol, max_iter,
             u = u + s_use * du
             it += 1
         # One final evaluation pins (sigma, state) to the final u.
-        _, f_int, sig3, szz, st = system(u, state, tangent=False)
+        _, f_int, sig, st = system(u, state, tangent=False)
         res = torch.linalg.vector_norm((lf * f_ext - f_int) * mask) / fnorm
-        rows.append(_rows(u, sig3, szz, st, state))
+        rows.append(system.rows(u, sig, st, state))
         res_rows.append(res)
         conv_rows.append(res <= tol_t)
         iters.append(it)
         state = st
     residuals = torch.stack(res_rows).cpu().numpy()
-    return _result(lfs, rows, iters, residuals,
-                   bool(torch.stack(conv_rows).all()))
+    return rows, iters, residuals, bool(torch.stack(conv_rows).all())
+
+
+def _float64_solve(problem: PlaneProblem, sy, hi, hk, lfs, tol, max_iter,
+                   tangent_floor, min_denom, bbar: bool,
+                   device) -> PlanePlasticResult:
+    """The JAX host tier (_host_solve) in float64 torch on `device`."""
+    system = _System(problem, sy, hi, hk, bbar, tangent_floor,
+                     torch.float64, device)
+    return _result(lfs, *float64_loop(system, lfs, tol, max_iter,
+                                      min_denom))
+
+
+def _device_solve(problem: PlaneProblem, sy, hi, hk, lfs, tol, max_iter,
+                  tangent_floor, min_denom, bbar: bool, dtype,
+                  device) -> PlanePlasticResult:
+    """The JAX device program (_device_core) in `dtype` on `device`."""
+    npf = np.float64 if dtype == torch.float64 else np.float32
+    system = _System(problem, sy, hi, hk, bbar, float(npf(tangent_floor)),
+                     dtype, device)
+    return _result(lfs, *device_loop(system, lfs, tol, max_iter, min_denom))
 
 
 def solve_plane_plastic(

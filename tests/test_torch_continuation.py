@@ -245,7 +245,7 @@ def continuum_and_limit_calls():
         "not-a-problem": (lambda pkg, kw: pkg.reduce_model(
             SimpleNamespace(ndof=4), TOP, **kw), TypeError),
         "continuum": (lambda pkg, kw: pkg.reduce_model(
-            type("SolidProblem", (), {"ndof": 8})(), [0], **kw),
+            type("FrameProblem", (), {"ndof": 8})(), [0], **kw),
             NotImplementedError),
     }
 
@@ -272,11 +272,12 @@ def test_reduction_refusals_match_jax(name, monkeypatch):
 
 
 def test_continuum_reduction_refused():
-    """reduce_model on a continuum problem not yet ported (a solid; the
-    plane branch is ported, tests/test_torch_plane.py) raises
-    NotImplementedError naming ROADMAP items 19-22."""
+    """reduce_model on a continuum problem not yet ported (a frame; the
+    plane and solid branches are ported, tests/test_torch_plane.py and
+    tests/test_torch_solid.py) raises NotImplementedError naming ROADMAP
+    items 20-22."""
     call, kind = continuum_and_limit_calls()["continuum"]
-    with pytest.raises(kind, match="ROADMAP items 19-22"):
+    with pytest.raises(kind, match="ROADMAP items 20-22"):
         call(tp, {"device": "cpu"})
 
 

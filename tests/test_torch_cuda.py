@@ -24,7 +24,9 @@ their block solves and products count, a block solve bit-equal to the
 twin recurrence, their eigenvalues within 1e-3 of the CPU and dense runs.
 The plane family's banded statics launches kernels 2 and 3 in whole rounds
 of 32 PCG iterations and kernel 1 once (the reactions), within 1e-4 of
-the CPU run; its dense analyses on the card equal the CPU's at 1e-10.
+the CPU run; its dense analyses on the card equal the CPU's at 1e-10.  So
+does the solid family's banded statics (99 diagonals), and one central
+step of its banded transient (kernel 1) equals the CPU's within 1e-5.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -1156,3 +1158,48 @@ def test_plane_dense_analyses_on_card(cuda_device):
         stat.displacements,
         T.solve_plane_static(problem, device="cpu").displacements,
         rtol=1e-10, atol=1e-14)
+
+
+def test_solid_banded_statics_on_card(cuda_device):
+    """solve_solid_static_banded on the 4 x 4 x 12 column (99 diagonals,
+    bandwidth 95): kernels 2 and 3 launch 32 ceil(iterations / 32) times,
+    kernel 1 once, u within 1e-4 of the CPU run and the closed form u_z =
+    sigma z / E within 2e-3."""
+    from pinn_fem_tpu_torch.examples_grid import solid_column_document
+    from pinn_fem_tpu_torch.io.solid_io import parse_solid_document
+
+    problem, _ = parse_solid_document(solid_column_document(4, 4, 12))
+    kernels.reset_launch_counts()
+    card, iters, rel = T.solve_solid_static_banded(problem, tol=1e-7,
+                                                   device=cuda_device)
+    counts = kernels.launch_counts()
+    rounds = 32 * -(-iters // 32)
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == rounds
+    assert counts["dia_matvec"] == 1 and rel <= 1e-7
+    cpu, _, _ = T.solve_solid_static_banded(problem, tol=1e-7, device="cpu")
+    scale = np.abs(cpu.displacements).max()
+    assert np.abs(card.displacements - cpu.displacements).max() \
+        <= 1e-4 * scale
+    uz = card.displacements[2::3]
+    assert np.abs(uz - 5.0 * problem.nodes[:, 2] / 200.0).max() \
+        <= 2e-3 * 5.0 * 4.0 / 200.0
+
+
+def test_solid_central_step_on_card(cuda_device):
+    """One central-difference step of solve_solid_transient_banded (beta =
+    0, recorded at once: 1 + 1 + 2 launches of kernel 1) on the card
+    against the CPU run within 1e-5 of max |u|."""
+    from pinn_fem_tpu_torch.examples_grid import solid_column_document
+    from pinn_fem_tpu_torch.io.solid_io import parse_solid_document
+
+    problem, _ = parse_solid_document(solid_column_document(4, 4, 12))
+    dt = T.solid_stable_dt(problem, device="cpu")
+    kernels.reset_launch_counts()
+    card = T.solve_solid_transient_banded(problem, dt, 1,
+                                          device=cuda_device)
+    assert kernels.launch_counts()["dia_matvec"] == 4
+    cpu = T.solve_solid_transient_banded(problem, dt, 1, device="cpu")
+    scale = np.abs(cpu.displacements).max()
+    assert scale > 0
+    assert np.abs(card.displacements - cpu.displacements).max() \
+        <= 1e-5 * scale
