@@ -274,7 +274,7 @@ code is not 0 and no result line is printed:
      top two nodes as masters, 8 modes, compare_full) through main():
      reduced omegas within 1e-10 of scipy in float64, the wall time; (f)
      reduction above the dense limit and with data=, reduce_model of a
-     continuum problem not yet ported (items 20-22), each compose key of
+     continuum problem not yet ported (items 21-22), each compose key of
      the transient
      "plasticity" spec, and a float64 CUDA operand at (c)'s kernel 1
      dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel 1),
@@ -339,7 +339,35 @@ code is not 0 and no result line is printed:
      (fault 3.24's residual rule), wall and peak memory of each; (g)
      mesh=, the solid types of later items, the 8,192-DOF budgets, a
      banded prescribed displacement and "plasticity" with "banded", each
-     refused before any launch.
+     refused before any launch;
+ 21. the 2D and 3D frame families: (a) the corpus dyn-frame (modal),
+     dyn-frame-thermal, dyn-frame-pushover and dyn-frame3d through main()
+     within 1e-10 of the port's CPU run, no repo kernel, and
+     dyn-frame-identify refused naming item 23; (b) the JAX package's
+     banded frame tower at full width (50 stories x 260 bays, 39,933
+     DOFs, 21 diagonals, bandwidth 155) and (c) its space-frame skeleton
+     (50 stories on 4 x 32 columns, 39,168 DOFs, 67 diagonals, bandwidth
+     1,229): kernels 1-3 on each operator against their plain versions,
+     then the banded statics (tol 1e-7) and the mesh as a document through
+     main(): the relative residual below 1e-6, the base shear within 1e-2
+     of the applied wind, u within 1e-3 of a float64 scipy solve of the
+     same float32 diagonals (and the float32 floor against the float64
+     operator), the launches of the formula, the layout build, PCG
+     iterations and ms an iteration, warm wall (median of 3), the idle
+     share; after (b), the float32 count at the float32 floor (fault
+     3.28): tower(12, 60) at tol 1e-6 under two loads one float32 step
+     apart, each u within 1e-3 of the dense float64 solve and the
+     launches of the formula, the two counts recorded; (d) the banded modal (4 modes, n_iter 20, cg_tol 1e-7) of
+     tower(20, 100) and grid3d(20, 4, 8) against eigsh on the same
+     float64 lumped pencil within 1e-2, kernel 1 n_iter k and kernels 2-3
+     the block solves' rounds; (e) the dense float64 analyses of
+     tower(20, 30) and grid3d(10, 3, 10) (1,953 and 1,980 DOFs): statics,
+     modal (the tower's with prestress), buckling under gravity, 500
+     Newmark steps and a 20-frequency harmonic sweep within 1e-9 of scipy
+     float64, and the plastic-hinge pushover of a 2-story, 4-bay portal
+     against a float64 numpy event loop (the hinge sequence equal); (f)
+     mesh=, the frame types of later items and plate and shell documents,
+     each refused before any launch.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -356,9 +384,11 @@ paths, every kernel its launches on phase 12's paths and, as
 launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
 as launches_batched on phase 15's, as launches_eigen on phase 16's,
 as launches_frequency on phase 17's, as launches_nonlinear on phase 18's,
-as launches_plane on phase 19's, as launches_solid on phase 20's,
-kernels 1-3 their figures on phase 19's strip operator (plane_strip) and
-on phase 20's column operator (solid_column), kernel 1 also its times at the
+as launches_plane on phase 19's, as launches_solid on phase 20's, as
+launches_frame on phase 21's, kernels 1-3 their figures on phase 19's
+strip operator (plane_strip), on phase 20's column operator
+(solid_column) and on phase 21's tower and skeleton operators
+(frame_tower, frame3d_grid), kernel 1 also its times at the
 multigrid's level shapes, kernels 4 and 4b their member-axis times at
 B = 1, 8 and 32 as members); the last is
 {"ok": true,
@@ -4760,6 +4790,10 @@ def tree_gaps(got, want, path=""):
                 g = np.asarray(g, float)[live].tolist()
                 w = np.asarray(w, float)[live].tolist()
             gaps.update(tree_gaps(g, w, f"{path}/{key}"))
+    elif isinstance(want, list) and want and isinstance(want[0], dict):
+        require(len(got) == len(want), f"{path}: the CPU run's length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            gaps.update(tree_gaps(g, w, f"{path}[{i}]"))
     elif isinstance(want, list) and want and not isinstance(want[0], str):
         a, b = np.asarray(got, float), np.asarray(want, float)
         require(a.shape == b.shape, f"{path}: shape of the CPU run's")
@@ -5901,7 +5935,7 @@ def craig_bampton_tower(workdir: Path, card: str) -> dict:
 
 def nonlinear_refusals(dev, card: str) -> None:
     """18(f): reduction above the dense limit and with data=, reduce_model
-    of a continuum problem not yet ported (a frame: items 20-22), each
+    of a continuum problem not yet ported (a plate: items 21-22), each
     compose key of the
     transient "plasticity" spec, and a float64 CUDA operand at 18(c)'s
     kernel 1 dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel
@@ -5916,7 +5950,7 @@ def nonlinear_refusals(dev, card: str) -> None:
 
     small = tower_problem()
     big = grid_problem(*PLASTIC_GRID)
-    continuum = type("FrameProblem", (), {"ndof": 8})()
+    continuum = type("PlateProblem", (), {"ndof": 8})()
     calls = {
         "reduction_above_limit": (lambda: guyan_reduce(big, [10, 11],
                                                        device=dev),
@@ -5926,7 +5960,7 @@ def nonlinear_refusals(dev, card: str) -> None:
             ValueError, "drop it"),
         "reduce_model_continuum": (lambda: reduce_model(
             continuum, [0], device=dev), NotImplementedError,
-            "ROADMAP items 20-22"),
+            "ROADMAP items 21-22"),
     }
     base = {"type": "transient", "dt": "auto", "n_steps": 10,
             "plasticity": {"sigma_y": 1.0}}
@@ -6092,9 +6126,11 @@ def dia_csr64(layout, diags):
         rows.append(i)
         cols.append(i + off)
         vals.append(d[k, i])
-    return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
-                                                 np.concatenate(cols))),
-                         shape=(n, n))
+    k = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                              np.concatenate(cols))),
+                      shape=(n, n))
+    k.eliminate_zeros()     # the band's empty slots: no fill for splu
+    return k
 
 
 def float64_sparse_solve(k, f, free):
@@ -6794,15 +6830,23 @@ def solid_banded_reference(layout, diags, mask, rhs):
 
 def solid_column_kernels(layout, diags, mask, dev, card: str) -> dict:
     """20(b) first part: kernels 1-3 on the column's operator (99
-    diagonals, bandwidth 923) against their plain versions: the plans
+    diagonals, bandwidth 923) against their plain versions
+    (`operator_kernels`)."""
+    return operator_kernels(layout, diags, mask, dev, card, "20(b)",
+                            "the column", "phase20b_kernels", 20)
+
+
+def operator_kernels(layout, diags, mask, dev, card: str, item: str,
+                     what: str, phase: str, seed: int) -> dict:
+    """Kernels 1-3 on one operator against their plain versions: the plans
     (staged or not), kernel 1 within 1e-6 of its twin, kernels 2 and 3
-    bit for bit; ms, device us, the bounds (99 + 2, 99 + 5 and 8 floats a
-    row at 3.35 TB/s), CSR K u's ms."""
+    bit for bit; ms, device us, the bounds (nd + 2, nd + 5 and 8 floats a
+    row at 3.35 TB/s), CSR K u's ms (the library yardstick)."""
     import torch
 
     from pinn_fem_tpu_torch.ops.kernels import cg_kernel, dia_kernel
 
-    gen = torch.Generator(device=dev).manual_seed(20)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     n = layout.ndof
     u, z, p = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
     plan = dia_kernel.stencil_plan(layout)
@@ -6810,18 +6854,18 @@ def solid_column_kernels(layout, diags, mask, dev, card: str) -> dict:
     y = dia_kernel.dia_matvec(layout, diags, u)
     y_ref = dia_kernel.dia_matvec_reference(layout, diags, u)
     err1 = max_err(y, y_ref) / float(y_ref.abs().max())
-    require(err1 <= 1e-6, "20(b): dia_matvec within 1e-6 of its twin on "
-            "the column")
+    require(err1 <= 1e-6, f"{item}: dia_matvec within 1e-6 of its twin on "
+            f"{what}")
     beta = torch.tensor(0.37, device=dev)
     got = cg_kernel.dia_dir_matvec(beta, z, p, layout, diags, mask)
     want = cg_kernel.dir_matvec_reference(beta, z, p, layout, diags, mask)
     equal2 = all(torch.equal(a, b) for a, b in zip(got, want))
-    require(equal2, "20(b): dia_dir_matvec bit-equal to its twin on the "
-            "column")
+    require(equal2, f"{item}: dia_dir_matvec bit-equal to its twin on "
+            f"{what}")
     out = tuple(torch.empty_like(t) for t in got)
     launch, _ = cg_kernel.bind_dir_matvec(beta, z, p, layout, diags, mask,
                                           out=out)
-    k3 = check_update(layout, dev, gen, got[2], "solid_column")
+    k3 = check_update(layout, dev, gen, got[2], what)
     bounds = banded_bounds(layout, got[2].numel(), cg_kernel.UPDATE_BLOCKS)
     k_csr = csr_of(layout, diags)
     _, ev1 = profiled(lambda: [dia_kernel.dia_matvec(layout, diags, u)
@@ -6852,7 +6896,7 @@ def solid_column_kernels(layout, diags, mask, dev, card: str) -> dict:
                           library_ms=None, **bounds["cg_update"]),
     }
     del k_csr
-    log("phase20b_kernels", card=card, ndof=n, n_diags=layout.n_diags,
+    log(phase, card=card, ndof=n, n_diags=layout.n_diags,
         bandwidth=layout.bandwidth,
         stencil_plan=dict(threads=plan.threads, tile=plan.tile,
                           blocks=plan.blocks, staged=plan.staged,
@@ -7584,6 +7628,735 @@ def phase_solid(workdir: Path, dev, card: str) -> dict:
     return {"launches": launches, "column": column_stats}
 
 
+FRAME_DOCS = ("dyn-frame", "dyn-frame-thermal", "dyn-frame-pushover",
+              "dyn-frame3d")                   # 21(a)
+FRAME_DOC_RTOL = 1e-10          # card against the port's CPU run, float64
+FRAME_TOWER = (50, 260)         # 21(b): 39,933 DOFs, 26,050 members
+FRAME3D_GRID = (50, 4, 32)      # 21(c): 39,168 DOFs, 17,400 members
+FRAME_TOL = 1e-7                # benchmarks/scaling.py's tolerance
+FRAME_RESIDUAL = 1e-6
+FRAME_EQUILIBRIUM = 1e-2        # benchmarks/scaling.py:451-453's gate
+FRAME_U_RTOL = 1e-3             # against float64 of the same diagonals
+FRAME_WARM_RUNS = 3
+FRAME_SPREAD_TOWER = (12, 60)   # 21(b) fault 3.28: 2,379 DOFs
+FRAME_SPREAD_TOL = 1e-6
+FRAME_MODAL_TOWER = (20, 100)   # 21(d): 6,363 DOFs
+FRAME_MODAL_GRID = (20, 4, 8)   # 4,032 DOFs
+FRAME_MODES = 4                 # the JAX benchmark rows' settings
+FRAME_MODAL_ITERS = 20
+FRAME_MODAL_CG_TOL = 1e-7
+FRAME_MODAL_RTOL = 1e-2         # pinn_fem_tpu/solvers/modal.py:29-31
+FRAME_DENSE_TOWER = (20, 30)    # 21(e): 1,953 DOFs, under the dense limit
+FRAME_DENSE_GRID = (10, 3, 10)  # 1,980 DOFs
+FRAME_DENSE_MODES = 6
+FRAME_BUCKLING_MODES = 2
+FRAME_NEWMARK_STEPS = 500
+FRAME_HARMONIC_FREQS = 20
+FRAME_DYN_RTOL = 1e-9
+FRAME_GRAVITY = 1e4             # 21(e)'s buckling pattern at story nodes
+FRAME_PUSHOVER = (2, 4)         # 21(e): a 2-story, 4-bay portal
+FRAME_PUSHOVER_MP = (3e4, 1e4)  # columns', beams' plastic moment
+
+
+def frame_problem(kind: str, *size, **analysis):
+    """(problem, document) of the JAX package's frame benchmark meshes:
+    "tower" (stories, bays) or "grid" (stories, gx, gy)."""
+    from pinn_fem_tpu_torch import examples_grid as g
+    from pinn_fem_tpu_torch.io.frame3d_io import parse_frame3d_document
+    from pinn_fem_tpu_torch.io.frame_io import parse_frame_document
+
+    if kind == "tower":
+        doc = g.frame_tower_document(*size, **analysis)
+        return parse_frame_document(doc)[0], doc
+    doc = g.space_frame_grid_document(*size, **analysis)
+    return parse_frame3d_document(doc)[0], doc
+
+
+def frame_family(kind: str):
+    """(model module, banded statics, banded modal, layout, operator,
+    dense statics, DOFs a node) of a frame family."""
+    from pinn_fem_tpu_torch.models import frame as F
+    from pinn_fem_tpu_torch.models import frame3d as F3
+
+    if kind == "tower":
+        return (F, F.solve_frame_static_banded, F.frame_modal_banded,
+                F._frame_dia_layout, F._banded_operator,
+                F.solve_frame_static, 3)
+    return (F3, F3.solve_space_frame_static_banded,
+            F3.space_frame_modal_banded, F3._frame3d_dia_layout,
+            F3._banded_operator3, F3.solve_space_frame_static, 6)
+
+
+def frame_documents(workdir: Path, dev, card: str) -> dict:
+    """21(a): the four corpus frame documents through main() on the card,
+    each against the port's own run of the same document on the CPU at
+    FRAME_DOC_RTOL (dyn-frame's mode shapes sign-aligned); no repo kernel
+    runs; dyn-frame-identify exits 1 naming item 23 before any launch."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.frame3d_io import run_frame3d_document
+    from pinn_fem_tpu_torch.io.frame_io import run_frame_document
+    from pinn_fem_tpu_torch.ops import kernels
+
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    launches, gaps = {}, {}
+    for name in FRAME_DOCS + ("dyn-frame-identify",):
+        doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                         .read_text())
+        path = workdir / f"{name}.json"
+        path.write_text(json.dumps(doc))
+        kernels.reset_launch_counts()
+        card_s, rc = synced(lambda: main([str(path)]))
+        launches[name] = kernels.launch_counts()
+        require(zero_launches(launches[name]), f"21(a) {name}: no repo "
+                "kernel")
+        if name == "dyn-frame-identify":
+            log_text = (workdir / f"{name}.log").read_text()
+            require(rc == 1 and "ROADMAP item 23" in log_text
+                    and not (workdir / f"{name}.res.json").exists(),
+                    "21(a) dyn-frame-identify: exit 1 naming item 23")
+            continue
+        require(rc == 0, f"21(a) {name}: exit code 0")
+        got = json.loads((workdir / f"{name}.res.json").read_text())
+        run = (run_frame3d_document if doc["element_type"] == "frame3d"
+               else run_frame_document)
+        want = json.loads(json.dumps(run(doc, "cpu")))
+        if "mode_shapes" in want:
+            g, w = np.asarray(got["mode_shapes"]), np.asarray(
+                want["mode_shapes"])
+            s = np.sign(np.sum(g * w, axis=1))
+            require(bool(np.all(s != 0)), f"21(a) {name}: mode signs")
+            got["mode_shapes"] = (g * s[:, None]).tolist()
+        doc_gaps = tree_gaps(got, want)
+        gaps[name] = {"max": max(doc_gaps.values()),
+                      "worst": max(doc_gaps, key=doc_gaps.get), "s": card_s}
+        require(got["success"], f"21(a) {name}: success")
+        require(gaps[name]["max"] <= FRAME_DOC_RTOL,
+                f"21(a) {name}: within {FRAME_DOC_RTOL} of the CPU run")
+    log("phase21a_documents", card=card, gaps=gaps, launches=launches)
+    return launches
+
+
+def frame_banded_statics(workdir: Path, dev, card: str, kind: str,
+                         item: str, size, shear_dof: int):
+    """21(b) / 21(c): one of the JAX package's banded frame benchmarks at
+    full width (tol 1e-7) through its banded statics and as a document
+    through main(): the relative residual below 1e-6, the base shear
+    (reactions[shear_dof::dpn]) against the applied load within 1e-2, u
+    within 1e-3 of a float64 scipy solve of the same float32 diagonals
+    (and, beside it, the float32 floor against the float64 operator, as
+    fault 3.23), the launches (kernel 1: 1, kernels 2 and 3: 32 ceil(it /
+    32)), the PCG iterations and ms an iteration, the layout build, warm
+    wall (median of 3), the idle share; kernels 1-3 on the operator
+    (`operator_kernels`)."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.examples_grid import frame_sparse_matrices
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    _, solve, _, layout_of, operator, _, dpn = frame_family(kind)
+    problem, doc = frame_problem(kind, *size)
+    t0 = time.perf_counter()
+    layout = layout_of(problem)
+    layout_s = time.perf_counter() - t0
+    _, diags, mask = operator(problem, torch.float32, dev)
+    label = "frame_tower" if kind == "tower" else "frame3d_grid"
+    stats = operator_kernels(layout, diags, mask, dev, card, item,
+                             f"the {kind}", f"phase21{item[3]}_kernels",
+                             21)
+    kernels.reset_launch_counts()
+    with Timed(dia, "dia_cg_solve") as pcg_calls:
+        cold_s, (res, iters, rel) = synced(
+            lambda: solve(problem, tol=FRAME_TOL, device=dev))
+    launches = {f"{label}_api": kernels.launch_counts()}
+    pcg_s = pcg_calls[0][0]
+    warm = [synced(lambda: solve(problem, tol=FRAME_TOL, device=dev))[0]
+            for _ in range(FRAME_WARM_RUNS)]
+    f = torch.as_tensor(problem.loads, dtype=torch.float32, device=dev)
+    prof = pcg_profile(layout, diags, f, mask)
+    idle = idle_profile(lambda: solve(problem, tol=FRAME_TOL, device=dev))
+    free = problem.free_dofs()
+    t0 = time.perf_counter()
+    u_same = float64_sparse_solve(dia_csr64(layout, diags), problem.loads,
+                                  free)
+    ref_s = time.perf_counter() - t0
+    u64 = float64_sparse_solve(frame_sparse_matrices(problem)[0],
+                               problem.loads, free)
+    u = res.displacements
+    scale = np.abs(u64).max()
+    u_gap = float(np.abs(u - u_same).max() / scale)
+    u_gap64 = float(np.abs(u - u64).max() / scale)
+    floor32 = float(np.abs(u_same - u64).max() / scale)
+    shear = -float(res.reactions[shear_dof::dpn].sum())
+    applied = float(problem.loads[shear_dof::dpn].sum())
+    eq_err = abs(shear - applied) / abs(applied)
+    rounds = 32 * -(-iters // 32)
+    expected = {"dia_matvec": 1, "dia_dir_matvec": rounds,
+                "cg_update": rounds, "material_coefficients": 0,
+                "material_coefficients_backward": 0}
+
+    path = workdir / f"{label}.json"
+    path.write_text(json.dumps(doc))
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    kernels.reset_launch_counts()
+    cli_s, rc = synced(lambda: main([str(path)]))
+    launches[f"{label}_cli"] = kernels.launch_counts()
+    require(rc == 0, f"{item}: the {kind} document's exit code 0")
+    out = json.loads((workdir / f"{label}.res.json").read_text())
+    probe = np.asarray(out["probe_dofs"])
+    cli_gap = float(np.abs(np.asarray(out["displacements"])
+                           - u_same[probe]).max() / scale)
+    cli_rounds = 32 * -(-out["iterations"] // 32)
+    log(f"phase21{item[3]}_{kind}", card=card, ndof=problem.ndof,
+        elements=problem.nelm, n_diags=layout.n_diags,
+        bandwidth=layout.bandwidth, iterations=iters,
+        relative_residual=rel, equilibrium_err=eq_err,
+        u_gap_vs_same_system=u_gap, u_gap_vs_float64=u_gap64,
+        float32_representation_floor=floor32, cold_s=cold_s, warm_s=warm,
+        warm_median_s=float(np.median(warm)), pcg_s=pcg_s,
+        pcg_ms_per_iteration=1e3 * pcg_s / max(iters, 1),
+        profile=prof, solve_idle=idle, layout_build_s=layout_s,
+        float64_reference_s=ref_s, launches=launches, expected=expected,
+        cli_s=cli_s, cli_iterations=out["iterations"],
+        cli_relative_residual=out["relative_residual"],
+        cli_probe_gap_vs_same_system=cli_gap, cli_tier=out["tier"])
+    require(rel < FRAME_RESIDUAL, f"{item}: relative residual < 1e-6")
+    require(eq_err < FRAME_EQUILIBRIUM, f"{item}: base shear within "
+            f"{FRAME_EQUILIBRIUM} of the applied load")
+    require(u_gap <= FRAME_U_RTOL, f"{item}: u within {FRAME_U_RTOL} of "
+            "the float64 solve of the same diagonals")
+    require(launches[f"{label}_api"] == expected,
+            f"{item}: the launches of the formula")
+    require(out["tier"] == "banded"
+            and out["relative_residual"] < FRAME_RESIDUAL,
+            f"{item}: the document's banded tier")
+    require(cli_gap <= FRAME_U_RTOL, f"{item}: the document's probes "
+            f"within {FRAME_U_RTOL} of the float64 solve of the same "
+            "diagonals")
+    require(launches[f"{label}_cli"] == dict(
+        expected, dia_dir_matvec=cli_rounds, cg_update=cli_rounds),
+        f"{item}: the document's launches of the formula")
+    return launches, stats
+
+
+def frame_count_spread(dev, card: str) -> dict:
+    """21(b), fault 3.28: the banded statics of tower(12, 60) at tol 1e-6
+    on the card under the document's load and the load scaled by
+    1 + 2^-23 in float32 (one step of its last bit).  Each u within 1e-3
+    of the dense float64 solve of the same load and the launches of the
+    formula; the two Jacobi counts recorded beside the float64
+    recurrence's (the plain loop on the CPU)."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.models import frame as F
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    problem, _ = frame_problem("tower", *FRAME_SPREAD_TOWER)
+    layout, diags, mask = F._banded_operator(problem, torch.float32, dev)
+    u64 = F.solve_frame_static(problem, device=dev).displacements
+    scale = np.abs(u64).max()
+    counts, gaps, launches = [], [], {}
+    for k, factor in enumerate((1.0, 1.0 + 2.0 ** -23)):
+        f = torch.as_tensor(problem.loads, dtype=torch.float32,
+                            device=dev) * torch.tensor(
+                                factor, dtype=torch.float32, device=dev)
+        kernels.reset_launch_counts()
+        x, iters, _ = dia.dia_cg_solve(layout, diags, f, mask,
+                                       tol=FRAME_SPREAD_TOL, max_iter=20000)
+        iters = int(iters)
+        launches[f"tower_12x60_load{k}"] = kernels.launch_counts()
+        rounds = 32 * -(-iters // 32)
+        require(launches[f"tower_12x60_load{k}"] == {
+            "dia_matvec": 0, "dia_dir_matvec": rounds, "cg_update": rounds,
+            "material_coefficients": 0,
+            "material_coefficients_backward": 0},
+            f"21(b) fault 3.28: load {k}'s launches of the formula")
+        counts.append(iters)
+        gaps.append(float(np.abs(x.double().cpu().numpy() - factor * u64
+                                 ).max() / scale))
+        require(gaps[-1] <= FRAME_U_RTOL, f"21(b) fault 3.28: load {k}'s u "
+                f"within {FRAME_U_RTOL} of the dense float64 solve")
+    f64 = dia.dia_cg_solve_reference(
+        layout, diags.double().cpu(),
+        torch.as_tensor(problem.loads, dtype=torch.float64),
+        mask.double().cpu(), tol=FRAME_SPREAD_TOL, max_iter=20000)[1]
+    log("phase21b_count_spread", card=card, ndof=problem.ndof,
+        tol=FRAME_SPREAD_TOL, load_factors=[1.0, 1.0 + 2.0 ** -23],
+        float32_iterations=counts, float64_iterations=int(f64),
+        u_gap_vs_float64=gaps, launches=launches)
+    return launches
+
+
+def frame_banded_modal(dev, card: str) -> dict:
+    """21(d): frame_modal_banded of tower(20, 100) and
+    space_frame_modal_banded of grid3d(20, 4, 8) (4 modes, n_iter 20,
+    cg_tol 1e-7: the JAX rows' settings) against scipy's eigsh on the same
+    float64 lumped pencil (shift-invert on one splu of K_ff): eigenvalues
+    within 1e-2, kernel 1 n_iter k launches (the warm starts), kernels 2
+    and 3 the block solves' whole rounds of 32; the wall and the PCG
+    iterations."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    from pinn_fem_tpu_torch.examples_grid import frame_sparse_matrices
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    launches, report = {}, {}
+    for kind, size in (("tower", FRAME_MODAL_TOWER),
+                       ("grid", FRAME_MODAL_GRID)):
+        model, _, modal, _, _, _, _ = frame_family(kind)
+        problem, _ = frame_problem(kind, *size)
+        with Spy(dia, "dia_cg_solve") as solves:
+            kernels.reset_launch_counts()
+            wall, res = synced(lambda: modal(
+                problem, n_modes=FRAME_MODES, n_iter=FRAME_MODAL_ITERS,
+                cg_tol=FRAME_MODAL_CG_TOL, device=dev))
+            name = f"modal_{kind}_{problem.ndof}"
+            launches[name] = kernels.launch_counts()
+        stats = dict(solve_stats(solves), rounds=pcg_rounds(solves))
+        del solves[:]
+        t0 = time.perf_counter()
+        free = problem.free_dofs()
+        md = (model.frame_lumped_mass_diag if kind == "tower"
+              else model.space_frame_lumped_mass_diag)(problem, "cpu")
+        k_ff = frame_sparse_matrices(problem)[0][free][:, free].tocsc()
+        lu = spl.splu(k_ff)
+        op = spl.LinearOperator(k_ff.shape, matvec=lu.solve, dtype=float)
+        w64 = np.sort(spl.eigsh(k_ff, k=FRAME_MODES, M=sp.diags(md[free]),
+                                sigma=0.0, which="LM", OPinv=op, tol=1e-10,
+                                return_eigenvectors=False))
+        ref_s = time.perf_counter() - t0
+        gap = np.abs(res.eigenvalues / w64 - 1.0)
+        k = min(2 * FRAME_MODES + 4, free.size)
+        expected = {"dia_matvec": FRAME_MODAL_ITERS * k,
+                    "dia_dir_matvec": stats["rounds"],
+                    "cg_update": stats["rounds"],
+                    "material_coefficients": 0,
+                    "material_coefficients_backward": 0}
+        report[name] = dict(ndof=problem.ndof, wall_s=wall,
+                            ms_per_pcg_iteration=1e3 * wall
+                            / max(stats["pcg_iterations"], 1), **stats,
+                            eigenvalues=res.eigenvalues.tolist(),
+                            float64=w64.tolist(), rel_gap=gap.tolist(),
+                            float64_reference_s=ref_s, expected=expected)
+        require(launches[name] == expected, f"21(d) {name}: kernel 1 "
+                "launched n_iter k times, kernels 2-3 as the block solves "
+                "count")
+        require(float(gap.max()) <= FRAME_MODAL_RTOL,
+                f"21(d) {name}: eigenvalues within {FRAME_MODAL_RTOL} of "
+                "float64 eigsh")
+        require(res.mode_shapes.shape == (FRAME_MODES, problem.ndof)
+                and bool(np.all(np.isfinite(res.mode_shapes))),
+                f"21(d) {name}: finite shapes of the expected shape")
+    log("phase21d_modal", card=card, n_modes=FRAME_MODES,
+        n_iter=FRAME_MODAL_ITERS, cg_tol=FRAME_MODAL_CG_TOL, report=report,
+        launches=launches)
+    return launches
+
+
+def frame_sparse_geometric(problem, u):
+    """K_g(N(u)) of a frame problem as a float64 scipy CSR matrix, from the
+    port's element blocks on the CPU (the member axial forces of u)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from pinn_fem_tpu_torch.models import frame as F
+    from pinn_fem_tpu_torch.models import frame3d as F3
+
+    u = torch.as_tensor(u, dtype=torch.float64)
+    if isinstance(problem, F3.SpaceFrameProblem):
+        axial = -(F3._end_forces3(problem, u)
+                  - F3._static_loads3(problem, "cpu")[1])[:, 0]
+        length, r = F3._geometry3d(problem)
+        blocks = F._to_global(F3._transformation3d(r),
+                              F3._kg_local3d(axial, length))
+    else:
+        axial = -F._end_forces(problem, u,
+                               F._static_loads(problem, "cpu")[1])[:, 0]
+        length, c, s = F._geometry(problem)
+        blocks = F._to_global(F._rotation(c, s), F._kg_local(axial, length))
+    dm = problem.dof_map()
+    w = dm.shape[1]
+    return sp.csr_matrix((blocks.numpy().ravel(),
+                          (np.repeat(dm, w, axis=1).ravel(),
+                           np.tile(dm, (1, w)).ravel())),
+                         shape=(problem.ndof, problem.ndof))
+
+
+def mode_gaps(lam_got, phi_got, lam, vec, kf, mf, lam_max):
+    """(eigenvalue gap, shape gap by subspace, residuals, their fault 3.24
+    floors) of dense modes (phi_got: free-block columns) against eigsh's
+    (vec M-normalized)."""
+    import numpy as np
+
+    eig_gap = float(np.abs(lam_got - lam).max() / np.abs(lam).max())
+    shape_gap = 0.0
+    for i, lam_i in enumerate(lam):
+        cluster = np.flatnonzero(np.abs(lam - lam_i) <= 1e-6 * abs(lam_i))
+        basis = vec[:, cluster]
+        proj = basis @ (basis.T @ (mf @ phi_got[:, i]))
+        shape_gap = max(shape_gap, float(np.abs(phi_got[:, i] - proj).max()
+                                         / np.abs(phi_got[:, i]).max()))
+    resid = [float(np.linalg.norm(kf @ phi_got[:, i]
+                                  - lam_i * (mf @ phi_got[:, i]))
+                   / (lam_i * np.linalg.norm(mf @ phi_got[:, i])))
+             for i, lam_i in enumerate(lam_got)]
+    floor64 = [2.0 ** -52 * lam_max / lam_i for lam_i in lam_got]
+    return eig_gap, shape_gap, resid, floor64
+
+
+def pushover_reference(problem, mp, rtol: float = 1e-9):
+    """The event-to-event EPP hinge pushover in float64 numpy (dense): the
+    condensed member tangents, the floating-DOF and mechanism rules
+    (eigvalsh of K_ff, smallest at most 1e-10 of the largest), the step to
+    the first end at +-Mp, simultaneous ends within rtol.  Returns
+    (collapse factor, [(member, end)], load factors, u)."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.models import frame as F
+
+    kl, t = (x.numpy() for x in F._local_stiffness(problem, "cpu"))
+    dm = problem.dof_map()
+    n = problem.ndof
+    base = problem.free_mask()
+    f = problem.loads
+    hinges = np.zeros((problem.nelm, 2), dtype=bool)
+    lam, u = 0.0, np.zeros(n)
+    m_end = np.zeros((problem.nelm, 2))
+    lams, seq = [0.0], []
+    for _ in range(2 * problem.nelm + 1):
+        kc = kl.copy()
+        for e in np.flatnonzero(hinges.any(axis=1)):
+            rel = [r for b, r in enumerate((2, 5)) if hinges[e, b]]
+            keep = [i for i in range(6) if i not in rel]
+            blk = np.zeros((6, 6))
+            blk[np.ix_(keep, keep)] = kl[e][np.ix_(keep, keep)] - kl[e][
+                np.ix_(keep, rel)] @ np.linalg.solve(
+                    kl[e][np.ix_(rel, rel)], kl[e][np.ix_(rel, keep)])
+            kc[e] = blk
+        k = np.zeros((n, n))
+        np.add.at(k, (dm[:, :, None], dm[:, None, :]),
+                  np.einsum("mji,mjk,mkl->mil", t, kc, t))
+        diag = np.diag(k)
+        floating = (base > 0) & (diag <= 1e-12 * diag.max())
+        mask = base * ~floating
+        free = np.flatnonzero(mask > 0)
+        if np.any(floating & (f != 0)) or free.size == 0:
+            break
+        w = np.linalg.eigvalsh(k[np.ix_(free, free)])
+        if w[0] <= 1e-10 * max(w[-1], 1e-300):
+            break
+        du = np.zeros(n)
+        du[free] = np.linalg.solve(k[np.ix_(free, free)], f[free])
+        dm_end = np.einsum("mij,mj->mi", kc,
+                           np.einsum("mij,mj->mi", t, du[dm]))[:, [2, 5]]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            room = np.where(dm_end > 0.0, (mp[:, None] - m_end) / dm_end,
+                            (-mp[:, None] - m_end) / dm_end)
+        room[~np.isfinite(room) | (np.abs(dm_end) <= 1e-14 * mp[:, None])
+             | hinges] = np.inf
+        d_lam = float(room.min())
+        lam += d_lam
+        u = u + d_lam * du
+        m_end = m_end + d_lam * dm_end
+        lams.append(lam)
+        new = (room <= d_lam * (1.0 + rtol)) & ~hinges
+        seq += [tuple(int(v) for v in me) for me in np.argwhere(new)]
+        hinges |= new
+    return lam, seq, np.asarray(lams), u
+
+
+def frame_dense_one(problem, label: str, dev, prestress: bool) -> tuple:
+    """21(e) on one mesh: the dense float64 analyses on the card against
+    scipy.sparse float64 on the port's element blocks: statics (spsolve),
+    modal (eigsh shift-invert; with the prestress of the static state on
+    the tower), buckling under gravity at the story nodes (eigsh on
+    (-K_g, K)), 500 Newmark steps (a replay on one splu) and a
+    20-frequency harmonic sweep (one complex splu a frequency).  Returns
+    (report, gates)."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse.linalg as spl
+
+    from pinn_fem_tpu_torch import examples_grid as g
+    from pinn_fem_tpu_torch.models import frame as F
+    from pinn_fem_tpu_torch.models import frame3d as F3
+
+    tower = isinstance(problem, F.FrameProblem)
+    statics = F.solve_frame_static if tower else F3.solve_space_frame_static
+    dpn = 3 if tower else 6
+    free = problem.free_dofs()
+    k, m = g.frame_sparse_matrices(problem, with_mass=True)
+    kf = k[free][:, free].tocsc()
+    mf = m[free][:, free].tocsc()
+    report, gates = {"ndof": problem.ndof, "free": int(free.size)}, []
+
+    s, gb, stat = peak_run(dev, lambda: statics(problem, device=dev))
+    t0 = time.perf_counter()
+    u0 = float64_sparse_solve(k, problem.loads, free)
+    st_gap = float(np.abs(stat.displacements - u0).max()
+                   / np.abs(u0).max())
+    report["static"] = dict(s=s, peak_gb=gb, gap=st_gap,
+                            reference_s=time.perf_counter() - t0)
+    gates.append((st_gap <= FRAME_DYN_RTOL, f"21(e) {label}: statics"))
+
+    if tower:
+        run = lambda: F.frame_modal(problem, FRAME_DENSE_MODES,  # noqa
+                                    prestress_u=u0, device=dev)
+        kp = (k + frame_sparse_geometric(problem, u0))[free][:, free].tocsc()
+    else:
+        run = lambda: F3.space_frame_modal(problem,  # noqa: E731
+                                           FRAME_DENSE_MODES, device=dev)
+        kp = kf
+    s, gb, modal = peak_run(dev, run)
+    t0 = time.perf_counter()
+    lam, vec = spl.eigsh(kp, k=FRAME_DENSE_MODES, M=mf, sigma=0.0,
+                         which="LM")
+    order = np.argsort(lam)
+    lam, vec = lam[order], vec[:, order]
+    vec = vec / np.sqrt(np.einsum("ij,ij->j", vec, mf @ vec))
+    lam_max = float(spl.eigsh(kp, k=1, M=mf, which="LA",
+                              return_eigenvectors=False)[0])
+    eig_gap, shape_gap, resid, floor64 = mode_gaps(
+        modal.eigenvalues, modal.mode_shapes[:, free].T, lam, vec, kp, mf,
+        lam_max)
+    report["modal"] = dict(s=s, peak_gb=gb, prestressed=tower,
+                           reference_s=time.perf_counter() - t0,
+                           eig_gap=eig_gap, shape_gap=shape_gap,
+                           residuals=resid, eps64_kappa=floor64,
+                           frequencies_hz=modal.frequencies_hz.tolist())
+    gates += [(eig_gap <= FRAME_DYN_RTOL, f"21(e) {label}: modal "
+               "eigenvalues"),
+              (shape_gap <= FRAME_DYN_RTOL, f"21(e) {label}: modal shapes"),
+              (all(r <= max(PLANE_EIG_RESIDUAL, PLANE_EIG_FLOOR_FACTOR * f)
+                   for r, f in zip(resid, floor64)),
+               f"21(e) {label}: modal residuals")]
+
+    comp = dataclasses.replace(problem, loads=problem.loads.copy())
+    vertical = 1 if tower else 2
+    comp.loads[vertical::dpn] -= FRAME_GRAVITY * (
+        problem.nodes[:, vertical] > 0)
+    buckling = F.frame_buckling if tower else F3.space_frame_buckling
+    s, gb, buck = peak_run(dev, lambda: buckling(
+        comp, FRAME_BUCKLING_MODES, device=dev))
+    t0 = time.perf_counter()
+    uc = float64_sparse_solve(k, comp.loads, free)
+    kg = frame_sparse_geometric(comp, uc)[free][:, free].tocsc()
+    mu = spl.eigsh(-kg, k=FRAME_BUCKLING_MODES + 2, M=kf, which="LA",
+                   return_eigenvectors=False)
+    lam_ref = np.sort(1.0 / mu[mu > 0])[:FRAME_BUCKLING_MODES]
+    buck_gap = float(np.abs(buck.load_factors - lam_ref).max()
+                     / lam_ref.max())
+    report["buckling"] = dict(s=s, peak_gb=gb, gap=buck_gap,
+                              reference_s=time.perf_counter() - t0,
+                              load_factors=buck.load_factors.tolist())
+    gates.append((buck_gap <= FRAME_DYN_RTOL,
+                  f"21(e) {label}: buckling load factors"))
+
+    om1 = float(modal.omegas[0])
+    dt = 2.0 * np.pi / om1 / 40.0
+    amp = np.sin(0.5 * om1 * dt * np.arange(FRAME_NEWMARK_STEPS))
+    damping = (0.02 * om1, 0.02 / om1)
+    probe = np.arange(problem.ndof - dpn, problem.ndof)
+    transient = (F.solve_frame_transient if tower
+                 else F3.solve_space_frame_transient)
+    s, gb, tr = peak_run(dev, lambda: transient(
+        problem, dt, FRAME_NEWMARK_STEPS, damping=damping, amplitude=amp,
+        probe_dofs=probe, record_every=10, device=dev))
+    t0 = time.perf_counter()
+    cf = (damping[0] * mf + damping[1] * kf).tocsc()
+    a0, a1 = 4.0 / dt ** 2, 2.0 / dt
+    lu = spl.splu((kf + a0 * mf + a1 * cf).tocsc())
+    ff = problem.loads[free]
+    uu, vv = np.zeros(free.size), np.zeros(free.size)
+    acc = spl.spsolve(mf, ff * amp[0])
+    full, rec = np.zeros(problem.ndof), []
+    for step in range(FRAME_NEWMARK_STEPS):
+        rhs = ff * amp[min(step + 1, FRAME_NEWMARK_STEPS - 1)] \
+            + mf @ (a0 * uu + 2.0 * a1 * vv + acc) + cf @ (a1 * uu + vv)
+        un = lu.solve(rhs)
+        vv, acc = a1 * (un - uu) - vv, a0 * (un - uu) - 2.0 * a1 * vv - acc
+        uu = un
+        if step % 10 == 0:
+            full[free] = uu
+            rec.append(full[probe].copy())
+    rec = np.asarray(rec)
+    tr_gap = float(np.abs(tr.displacements - rec).max() / np.abs(rec).max())
+    report["newmark"] = dict(s=s, peak_gb=gb, gap=tr_gap, dt=dt,
+                             steps=FRAME_NEWMARK_STEPS,
+                             reference_s=time.perf_counter() - t0)
+    gates.append((tr_gap <= FRAME_DYN_RTOL, f"21(e) {label}: Newmark "
+                  "probes"))
+
+    om = np.linspace(0.2 * om1, 3.0 * om1, FRAME_HARMONIC_FREQS)
+    harmonic = F.frame_harmonic if tower else F3.space_frame_harmonic
+    s, gb, harm = peak_run(dev, lambda: harmonic(
+        problem, om, damping=damping, probe_dofs=probe, device=dev))
+    t0 = time.perf_counter()
+    pos = np.searchsorted(free, probe)
+    amp_ref = np.asarray([np.abs(spl.splu(
+        (kf - wi * wi * mf + 1j * wi * cf).tocsc()).solve(
+            ff.astype(complex))[pos]) for wi in om])
+    h_gap = float(np.abs(harm.amplitude - amp_ref).max()
+                  / np.abs(amp_ref).max())
+    report["harmonic"] = dict(s=s, peak_gb=gb, gap=h_gap,
+                              frequencies=FRAME_HARMONIC_FREQS,
+                              reference_s=time.perf_counter() - t0)
+    gates.append((h_gap <= FRAME_DYN_RTOL, f"21(e) {label}: harmonic "
+                  "amplitudes"))
+    return report, gates
+
+
+def frame_dense(dev, card: str) -> dict:
+    """21(e): the dense float64 analyses on the card just under
+    DENSE_DOF_LIMIT, tower(20, 30) (1,953 DOFs) and grid3d(10, 3, 10)
+    (1,980 DOFs), within 1e-9 of scipy float64 (`frame_dense_one`; mode
+    residuals by fault 3.24's rule, shapes by subspace), and the
+    plastic-hinge pushover of a 2-story, 4-bay portal under wind and
+    gravity against the float64 numpy event loop (`pushover_reference`):
+    the collapse factor and the load factors within 1e-9, the hinge
+    sequence equal; wall and peak memory of each; no repo kernel."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch import frame_pushover
+    from pinn_fem_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    report, gates = {}, []
+    for kind, size in (("tower", FRAME_DENSE_TOWER),
+                       ("grid", FRAME_DENSE_GRID)):
+        problem, _ = frame_problem(kind, *size)
+        one, one_gates = frame_dense_one(problem, kind, dev,
+                                         kind == "tower")
+        report[f"{kind}_{problem.ndof}"] = one
+        gates += one_gates
+    portal, _ = frame_problem("tower", *FRAME_PUSHOVER)
+    portal.loads[1::3] -= 2000.0 * (portal.nodes[:, 1] > 0)
+    columns = FRAME_PUSHOVER[0] * (FRAME_PUSHOVER[1] + 1)
+    mp = np.where(np.arange(portal.nelm) < columns, *FRAME_PUSHOVER_MP)
+    s, gb, push = peak_run(dev, lambda: frame_pushover(portal, mp,
+                                                       device=dev))
+    t0 = time.perf_counter()
+    lam, seq, lams, u = pushover_reference(portal, mp)
+    got_seq = list(zip(push.hinge_members.tolist(),
+                       push.hinge_ends.tolist()))
+    p_gap = abs(push.collapse_factor - lam) / lam
+    report["pushover"] = dict(s=s, peak_gb=gb, members=portal.nelm,
+                              collapse_factor=push.collapse_factor,
+                              reference=lam, gap=p_gap, hinges=len(seq),
+                              reference_s=time.perf_counter() - t0)
+    gates += [(push.mechanism and p_gap <= FRAME_DYN_RTOL,
+               "21(e) pushover: the collapse factor"),
+              (got_seq == seq, "21(e) pushover: the hinge sequence"),
+              (lams.shape == push.load_factors.shape and float(np.abs(
+                  push.load_factors - lams).max()) <= FRAME_DYN_RTOL * lam,
+               "21(e) pushover: the load factors"),
+              (float(np.abs(push.u - u).max()) <= FRAME_DYN_RTOL
+               * float(np.abs(u).max()), "21(e) pushover: u")]
+    launches = kernels.launch_counts()
+    report["launches"] = launches
+    log("phase21e_dense", card=card, **report)
+    for ok, what in gates:
+        require(ok, what)
+    require(zero_launches(launches), "21(e): no repo kernel")
+    return launches
+
+
+def frame_refusals(workdir: Path, dev, card: str) -> None:
+    """21(f): mesh= (the banded statics and modal of both families), the
+    frame types of later ROADMAP items ("spectrum", "random": 22a;
+    "identification": 23; "reliability", "sizing": 24), the space-frame
+    "spectrum" and "random" (22a), and plate and shell documents through
+    the CLI's run() (items 21, 22), each refused before any launch."""
+    from pinn_fem_tpu_torch.cli.generic import run
+    from pinn_fem_tpu_torch.io.frame3d_io import run_frame3d_analysis
+    from pinn_fem_tpu_torch.io.frame_io import run_frame_analysis
+    from pinn_fem_tpu_torch.ops import kernels
+
+    calls = {}
+    for kind, size in (("tower", (2, 2)), ("grid", (2, 2, 2))):
+        _, solve, modal, _, _, _, _ = frame_family(kind)
+        problem, _ = frame_problem(kind, *size)
+        for name, fn in (("static", solve), ("modal", modal)):
+            calls[f"mesh_{kind}_{name}"] = (
+                lambda fn=fn, problem=problem: fn(problem, mesh=object(),
+                                                  device=dev),
+                NotImplementedError, "item 15")
+        later = ({"spectrum": "22a", "random": "22a",
+                  "identification": "23", "reliability": "24",
+                  "sizing": "24"} if kind == "tower"
+                 else {"spectrum": "22a", "random": "22a"})
+        runner = run_frame_analysis if kind == "tower" \
+            else run_frame3d_analysis
+        for typ, item in later.items():
+            calls[f"{kind}_{typ}"] = (
+                lambda runner=runner, problem=problem, typ=typ: runner(
+                    problem, {"type": typ}, dev),
+                NotImplementedError, f"ROADMAP item {item}")
+    for family, item in (("plate", 21), ("shell", 22)):
+        path = workdir / f"{family}.json"
+        path.write_text(json.dumps({"element_type": family}))
+        calls[f"{family}_document"] = (lambda path=path: run(
+            str(path), device=dev), NotImplementedError,
+            f"ROADMAP item {item}")
+    refused = {}
+    kernels.reset_launch_counts()
+    for name, (call, kind, text) in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except kind as e:
+            refused[name] = str(e)
+            require(text in str(e), f"21(f) {name}: the message names "
+                    f"{text}")
+    launches = kernels.launch_counts()
+    log("phase21f_refusals", card=card, refused=refused, launches=launches)
+    for name, msg in refused.items():
+        require(msg is not None, f"21(f): {name} refused")
+    require(zero_launches(launches), "21(f): no launch before refusal")
+
+
+def phase_frame(workdir: Path, dev, card: str) -> dict:
+    """Phase 21: the 2D and 3D frame families on the card.  Returns the
+    kernels' launches on each of its paths and the kernels' figures on the
+    tower's and the skeleton's operators."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    launches = frame_documents(workdir, dev, card)
+    lap("a")
+    tower_launches, tower_stats = frame_banded_statics(
+        workdir, dev, card, "tower", "21(b)", FRAME_TOWER, 0)
+    launches.update(tower_launches)
+    launches.update(frame_count_spread(dev, card))
+    lap("b")
+    grid_launches, grid_stats = frame_banded_statics(
+        workdir, dev, card, "grid", "21(c)", FRAME3D_GRID, 1)
+    launches.update(grid_launches)
+    lap("c")
+    launches.update(frame_banded_modal(dev, card))
+    lap("d")
+    launches["dense_2k"] = frame_dense(dev, card)
+    lap("e")
+    frame_refusals(workdir, dev, card)
+    lap("f")
+    log("phase21_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return {"launches": launches, "tower": tower_stats, "grid": grid_stats}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -7610,6 +8383,7 @@ def main() -> int:
         nonlinear = phase_nonlinear(Path(tmp), dev, card)
         plane = phase_plane(Path(tmp), dev, card)
         solid = phase_solid(Path(tmp), dev, card)
+        frame = phase_frame(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -7657,6 +8431,8 @@ def main() -> int:
             path: counts[name] for path, counts in plane["launches"].items()}
         entries[-1]["launches_solid"] = {
             path: counts[name] for path, counts in solid["launches"].items()}
+        entries[-1]["launches_frame"] = {
+            path: counts[name] for path, counts in frame["launches"].items()}
         if name in BANDED:
             entries[-1]["plane_strip"] = {
                 key: plane["strip"][name][key]
@@ -7666,6 +8442,13 @@ def main() -> int:
                 key: solid["column"][name].get(key)
                 for key in ("err", "ms", "device_us", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "bit_equal")}
+            for label, ops in (("frame_tower", frame["tower"]),
+                               ("frame3d_grid", frame["grid"])):
+                entries[-1][label] = {
+                    key: ops[name].get(key)
+                    for key in ("err", "ms", "device_us", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "bit_equal")}
         if name in MATERIAL:
             side = ("forward" if name == "material_coefficients"
                     else "backward")

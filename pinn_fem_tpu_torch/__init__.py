@@ -45,7 +45,12 @@ solvers/solid_plasticity.py) runs through "element_type": "solid"
 documents (io/solid_io.py): the same analyses, with banded statics, modal
 and explicit transients on the stencil and PCG kernels; both continuum
 families run explicit elastoplastic transients
-(solvers/continuum_transient_plastic.py).  ROADMAP.md lists what is still
+(solvers/continuum_transient_plastic.py).  The 2D and 3D frame families
+(models/frame.py, models/frame3d.py, solvers/frame_plastic.py) run through
+"element_type": "frame" and "frame3d" documents (io/frame_io.py,
+io/frame3d_io.py): dense statics, modal, buckling, Newmark, harmonic,
+reduction and the plastic-hinge pushover, with banded statics and modal on
+the stencil and PCG kernels.  ROADMAP.md lists what is still
 to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
@@ -67,6 +72,26 @@ from .models.fields import (  # noqa: E402
     make_mlp_field,
     material_from_numpy,
     to_field,
+)
+from .models.frame import (  # noqa: E402
+    FrameProblem,
+    frame_buckling,
+    frame_geometric_stiffness,
+    frame_harmonic,
+    frame_matrices,
+    frame_modal,
+    frame_modal_banded,
+    solve_frame_static,
+    solve_frame_static_banded,
+    solve_frame_transient,
+)
+from .models.frame3d import (  # noqa: E402
+    SpaceFrameProblem,
+    solve_space_frame_static,
+    solve_space_frame_transient,
+    space_frame_harmonic,
+    space_frame_matrices,
+    space_frame_modal,
 )
 from .models.plane import (  # noqa: E402
     PlaneProblem,
@@ -138,6 +163,10 @@ from .solvers.fatigue import (  # noqa: E402
     spectral_fatigue,
     spectral_moments,
     synthesize_gaussian_history,
+)
+from .solvers.frame_plastic import (  # noqa: E402
+    FramePushoverResult,
+    frame_pushover,
 )
 from .solvers.full_newton import solve_full_nr  # noqa: E402
 from .solvers.gauss_newton import solve_gauss_newton  # noqa: E402
@@ -242,4 +271,12 @@ __all__ = [
     "solve_solid_static", "solve_solid_static_banded",
     "solve_solid_transient", "solve_solid_transient_banded",
     "solve_solid_transient_plastic", "surface_load",
+    "FrameProblem", "FramePushoverResult", "frame_buckling",
+    "frame_geometric_stiffness", "frame_harmonic", "frame_matrices",
+    "frame_modal", "frame_modal_banded", "frame_pushover",
+    "solve_frame_static", "solve_frame_static_banded",
+    "solve_frame_transient",
+    "SpaceFrameProblem", "solve_space_frame_static",
+    "solve_space_frame_transient", "space_frame_harmonic",
+    "space_frame_matrices", "space_frame_modal",
 ]

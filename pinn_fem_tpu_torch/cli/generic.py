@@ -21,11 +21,13 @@ runs io/analysis.run_analysis and writes its result dict; of the analysis
 types "transient" (with "plasticity"), "modal", "buckling", "harmonic",
 "random", "spectrum", "continuation", "plastic" and "reduction" are
 ported (the others exit 1, naming their ROADMAP item).
-Solid and plane documents ("element_type": "solid" / "plane") are routed
-before the truss parse to io/solid_io.run_solid_document and
-io/plane_io.run_plane_document and log the JAX CLI's SOLID / PLANE
-ANALYSIS SUMMARY lines; the other element families are not yet ported
-and exit 1, naming their ROADMAP item.
+Solid, plane, frame and space-frame documents ("element_type": "solid",
+"plane", "frame", "frame3d") are routed before the truss parse to
+io/solid_io, io/plane_io, io/frame_io and io/frame3d_io and log the JAX
+CLI's SOLID / PLANE / FRAME / SPACE-FRAME ANALYSIS SUMMARY lines (a
+banded frame statics logs its summaries, where the JAX CLI raises
+KeyError after writing the result: ROADMAP fault 3.27); plate and shell
+documents are not yet ported and exit 1, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from ..utils.runtime import resolve_device
 logger = logging.getLogger(f"{PACKAGE_LOGGER}.cli")
 
 # Element families of the JAX CLI, by the ROADMAP item that ports them.
-_ELEMENT_FAMILIES = {"frame": 20, "frame3d": 20, "plate": 21, "shell": 22}
+_ELEMENT_FAMILIES = {"plate": 21, "shell": 22}
 
 
 def setup_logging(problem_file: str) -> Path:
@@ -79,8 +81,8 @@ def setup_logging(problem_file: str) -> Path:
 
 def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         device=None) -> dict:
-    """Solve one truss, solid or plane document on `device` ("cuda" when
-    None) and write its result JSON."""
+    """Solve one truss, solid, plane, frame or space-frame document on
+    `device` ("cuda" when None) and write its result JSON."""
     device = resolve_device(device)
     with open(problem_file) as fh:
         raw = json.load(fh)
@@ -92,9 +94,15 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         raise NotImplementedError(
             f'"{family}" element documents are not yet ported, ROADMAP item '
             f"{_ELEMENT_FAMILIES[family]}")
+    from ..io.frame3d_io import is_frame3d_document
+    from ..io.frame_io import is_frame_document
     from ..io.plane_io import is_plane_document
     from ..io.solid_io import is_solid_document
 
+    if is_frame_document(raw):
+        return _run_frame(raw, output_file, device)
+    if is_frame3d_document(raw):
+        return _run_frame3d(raw, output_file, device)
     if is_solid_document(raw):
         return _run_solid(raw, output_file, device)
     if is_plane_document(raw):
@@ -304,6 +312,101 @@ def _run_solid(raw: dict, output_file: str, device) -> dict:
         logger.info("  Max |u|: %.6g, max von Mises: %.6g (%s)",
                     output["max_displacement"], output["max_von_mises"],
                     output["method"])
+    logger.info("Results written to %s", output_file)
+    return output
+
+
+def _run_frame(raw: dict, output_file: str, device) -> dict:
+    """A frame document through io/frame_io on `device`, with the JAX CLI's
+    log lines."""
+    from ..io.frame_io import run_frame_document
+
+    logger.info("Frame document: %d nodes, %d elements",
+                len(raw.get("nodes", ())), len(raw.get("elements", ())))
+    output = run_frame_document(raw, device)
+    with open(output_file, "w") as f:
+        json.dump(output, f, indent=2)
+    logger.info("%s", "=" * 60)
+    logger.info("FRAME ANALYSIS SUMMARY (%s):", output["analysis"])
+    kind = output["analysis"]
+    if kind == "modal":
+        logger.info("  Frequencies (Hz): %s",
+                    ["%.6g" % v for v in output["frequencies_hz"]])
+    elif kind == "buckling":
+        logger.info("  Critical load factors: %s",
+                    ["%.6g" % v for v in output["load_factors"]])
+    elif kind == "transient":
+        _log_transient(output)
+    elif kind == "harmonic":
+        logger.info("  Frequencies swept: %d", len(output["omegas"]))
+    elif kind == "reduction":
+        logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
+                    output["method"], output["n_reduced_dofs"],
+                    output["reduced_frequencies_hz"][0])
+    elif kind == "plastic":
+        if output["mechanism"]:
+            logger.info("  Collapse at lambda = %.6g (%d hinges)",
+                        output["collapse_factor"], len(output["hinges"]))
+        else:
+            logger.info("  No mechanism up to lambda = %.6g (%d hinges)",
+                        output["load_factors"][-1], len(output["hinges"]))
+    elif output.get("tier") == "banded":
+        _log_banded(output)
+    else:
+        m = np.max(np.abs(np.asarray(output["end_moments"])))
+        logger.info("  Max |end moment|: %.6g (member forces in the "
+                    "result)", m)
+    logger.info("Results written to %s", output_file)
+    return output
+
+
+def _log_banded(output: dict) -> None:
+    """The summary of a banded frame statics (the JAX CLI raises KeyError
+    here after writing the result: ROADMAP fault 3.27)."""
+    logger.info("  Banded: %d PCG iterations (relative residual %.3e), max "
+                "|u| %.6g (dof %d), max |end moment| %.6g",
+                output["iterations"], output["relative_residual"],
+                output["max_abs_displacement"],
+                output["max_abs_displacement_dof"],
+                output["max_abs_moment"])
+
+
+def _run_frame3d(raw: dict, output_file: str, device) -> dict:
+    """A space-frame document through io/frame3d_io on `device`, with the
+    JAX CLI's log lines."""
+    from ..io.frame3d_io import run_frame3d_document
+
+    logger.info("Space-frame document: %d nodes, %d elements",
+                len(raw.get("nodes", ())), len(raw.get("elements", ())))
+    output = run_frame3d_document(raw, device)
+    with open(output_file, "w") as f:
+        json.dump(output, f, indent=2)
+    logger.info("%s", "=" * 60)
+    logger.info("SPACE-FRAME ANALYSIS SUMMARY (%s):", output["analysis"])
+    kind = output["analysis"]
+    if kind == "modal":
+        logger.info("  Frequencies (Hz): %s",
+                    ["%.6g" % v for v in output["frequencies_hz"]])
+    elif kind == "transient":
+        _log_transient(output)
+    elif kind == "harmonic":
+        logger.info("  Sweep: %d frequencies, peak |X| %.6g",
+                    len(output["omegas"]),
+                    max(max(row) for row in output["amplitude"]))
+    elif kind == "buckling":
+        logger.info("  Critical load factors: %s",
+                    ["%.6g" % v for v in output["load_factors"]])
+    elif kind == "reduction":
+        logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
+                    output["method"], output["n_reduced_dofs"],
+                    output["reduced_frequencies_hz"][0])
+    elif output.get("tier") == "banded":
+        _log_banded(output)
+    else:
+        logger.info("  Max |u|: %.6g (dof %d), peak |torque|: %.6g",
+                    output["max_displacement"],
+                    output["max_displacement_dof"],
+                    max(abs(v) for v in output["torques"]))
     logger.info("Results written to %s", output_file)
     return output
 

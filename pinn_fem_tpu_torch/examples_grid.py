@@ -29,7 +29,12 @@ float64 scipy K and M of a plane problem from the port's element blocks.
 `solid_column_document` is the JAX package's banded solid benchmark as a
 document (a hex8 column in uniaxial tension, benchmarks/scaling.py's
 solid_section: 16 x 16 x 96 is 84,099 DOFs), and `solid_sparse_matrices`
-the float64 scipy K and M of a solid problem.
+the float64 scipy K and M of a solid problem.  `frame_tower_document` and
+`space_frame_grid_document` are the JAX package's banded frame benchmarks
+as documents (benchmarks/scaling.py's frame_section, 50 stories x 260
+bays = 39,933 DOFs, and frame3d_section, 50 stories on a 4 x 32 column
+grid = 39,168 DOFs), and `frame_sparse_matrices` the float64 scipy K and
+M of either frame family.
 """
 
 from __future__ import annotations
@@ -566,3 +571,122 @@ def solid_sparse_matrices(problem, with_mass: bool = False):
 
     k = csr(S._stiffness_blocks3(problem, "cpu"))
     return k, (csr(S._mass_blocks3(problem, "cpu")) if with_mass else None)
+
+
+def frame_tower_document(stories: int, bays: int, h: float = 3.0,
+                         w: float = 5.0, **analysis) -> dict:
+    """The JAX package's banded 2D frame benchmark as a document: a story
+    grid of `stories` x `bays` (columns and beams, E 200e9, A 0.01, I 1e-4,
+    density 7850), nodes numbered story-fastest (bandwidth 3 (stories + 2)
+    + 2), the base clamped, a triangular wind 1000 i on the windward
+    column's story i; static analysis probing the roof's windward node.
+    `analysis` overrides any key of the analysis block."""
+    ny, nx = stories + 1, bays + 1
+
+    def nid(i, j):                 # i = story (fast), j = bay line
+        return j * ny + i
+
+    nodes = [[j * w, i * h] for j in range(nx) for i in range(ny)]
+    elems = [[nid(i, j), nid(i + 1, j)] for j in range(nx)
+             for i in range(stories)]
+    elems += [[nid(i, j), nid(i, j + 1)] for j in range(bays)
+              for i in range(1, ny)]
+    loads = np.zeros(3 * len(nodes))
+    for i in range(1, ny):
+        loads[3 * nid(i, 0)] = 1000.0 * i
+    return {
+        "element_type": "frame",
+        "description": f"{stories}-story, {bays}-bay story grid under "
+                       "triangular wind",
+        "nodes": nodes, "elements": elems,
+        "material": {"young": 200e9, "area": 0.01, "inertia": 1e-4,
+                     "density": 7850.0},
+        "loads": loads.tolist(),
+        "fixed_nodes": [nid(0, j) for j in range(nx)],
+        "analysis": {"type": "static", "probe_nodes": [nid(stories, 0)],
+                     **analysis},
+    }
+
+
+def space_frame_grid_document(stories: int, gx: int, gy: int,
+                              h: float = 3.0, w: float = 5.0,
+                              **analysis) -> dict:
+    """The JAX package's banded space-frame benchmark as a document: a
+    `stories`-story skeleton on a gx x gy column grid (columns, x-beams and
+    y-beams each story; E 200e9, G 80e9, A 0.01, I_y = I_z = 1e-4, J 2e-4,
+    density 7850), nodes numbered story-fastest, the base clamped, a face
+    wind of 500 in +y at every story node of the y = 0 face; static
+    analysis probing the roof corner node."""
+    nzn = stories + 1
+
+    def nid(i, j, k):              # i = story (fast axis)
+        return i + nzn * (j + gx * k)
+
+    nodes = np.zeros((nzn * gx * gy, 3))
+    for k in range(gy):
+        for j in range(gx):
+            for i in range(nzn):
+                nodes[nid(i, j, k)] = (j * w, k * w, i * h)
+    elems = [[nid(i, j, k), nid(i + 1, j, k)] for k in range(gy)
+             for j in range(gx) for i in range(stories)]
+    elems += [[nid(i, j, k), nid(i, j + 1, k)] for k in range(gy)
+              for j in range(gx - 1) for i in range(1, nzn)]
+    elems += [[nid(i, j, k), nid(i, j, k + 1)] for k in range(gy - 1)
+              for j in range(gx) for i in range(1, nzn)]
+    loads = np.zeros(6 * len(nodes))
+    for j in range(gx):
+        for i in range(1, nzn):
+            loads[6 * nid(i, j, 0) + 1] = 500.0
+    return {
+        "element_type": "frame3d",
+        "description": f"{stories}-story skeleton on a {gx} x {gy} column "
+                       "grid under face wind",
+        "nodes": nodes.tolist(), "elements": elems,
+        "material": {"young": 200e9, "shear_modulus": 80e9, "area": 0.01,
+                     "inertia_y": 1e-4, "inertia_z": 1e-4, "torsion": 2e-4,
+                     "density": 7850.0},
+        "loads": loads.tolist(),
+        "fixed_nodes": [nid(0, j, k) for k in range(gy) for j in range(gx)],
+        "analysis": {"type": "static", "probe_nodes": [nid(stories, 0, 0)],
+                     **analysis},
+    }
+
+
+def frame_sparse_matrices(problem, with_mass: bool = False):
+    """(K, M) of a 2D frame or space-frame problem as float64 scipy CSR
+    matrices from the port's element blocks (M None unless with_mass, point
+    masses included)."""
+    import scipy.sparse as sp
+
+    from .models import frame as F
+    from .models import frame3d as F3
+
+    if isinstance(problem, F3.SpaceFrameProblem):
+        length, r, kl = F3._section(problem, "cpu")
+        t = F3._transformation3d(r)
+        ml = F3._m_local3d(problem, length) if with_mass else None
+        per_node, translational = 6, 3
+    else:
+        kl, t = F._local_stiffness(problem, "cpu")
+        length, _, _ = F._geometry(problem)
+        ml = F._m_local(*F._material(problem, "cpu", "density", "area"),
+                        length) if with_mass else None
+        per_node, translational = 3, 2
+    dm = problem.dof_map()
+    w = dm.shape[1]
+    n = problem.ndof
+
+    def csr(local):
+        return sp.csr_matrix((F._to_global(t, local).numpy().ravel(),
+                              (np.repeat(dm, w, axis=1).ravel(),
+                               np.tile(dm, (1, w)).ravel())), shape=(n, n))
+
+    if not with_mass:
+        return csr(kl), None
+    m = csr(ml)
+    if problem.point_masses is not None:
+        pm = np.zeros(n)
+        for d in range(translational):
+            pm[d::per_node] += problem.point_masses
+        m = m + sp.diags(pm)
+    return csr(kl), m.tocsr()

@@ -239,20 +239,23 @@ def _continuum_prestress_u(problem, spec, static_solver):
 
 
 # ROADMAP items of the continuum families not yet ported.
-_FAMILY_ITEMS = {"FrameProblem": 20, "SpaceFrameProblem": 20,
-                 "PlateProblem": 21, "ShellProblem": 22}
+_FAMILY_ITEMS = {"PlateProblem": 21, "ShellProblem": 22}
 
 
 def _family_modal(problem, n_modes: int, device=None):
-    """(omegas, shapes) of the problem's own dense modal analysis: the plane
-    and solid branches of the JAX package's continuum_spectrum._family_of;
-    the other families raise, naming their ROADMAP item."""
+    """(omegas, shapes) of the problem's own dense modal analysis: the
+    plane, solid, frame and space-frame branches of the JAX package's
+    continuum_spectrum._family_of; the other families raise, naming their
+    ROADMAP item."""
+    from ..models.frame import FrameProblem, frame_modal
+    from ..models.frame3d import SpaceFrameProblem, space_frame_modal
     from ..models.plane import PlaneProblem, plane_modal
     from ..models.solid import SolidProblem, solid_modal
 
-    modal = (plane_modal if isinstance(problem, PlaneProblem)
-             else solid_modal if isinstance(problem, SolidProblem)
-             else None)
+    modal = next((fn for cls, fn in (
+        (PlaneProblem, plane_modal), (SolidProblem, solid_modal),
+        (FrameProblem, frame_modal), (SpaceFrameProblem, space_frame_modal))
+        if isinstance(problem, cls)), None)
     if modal is not None:
         res = modal(problem, n_modes, device=device)
         return np.asarray(res.omegas), np.asarray(res.mode_shapes)

@@ -1,0 +1,351 @@
+"""JSON tier of the 2D frame family (counterpart of
+pinn_fem_tpu/io/frame_io.py): documents with `"element_type": "frame"`.
+
+    {"element_type": "frame",
+     "nodes": [[x, y], ..], "elements": [[i, j], ..],
+     "material": {"young", "area", "inertia", "density", "alpha",
+                  "section_modulus"},      # scalars or per element
+     "loads": [Fx0, Fy0, M0, Fx1, ..],     # 3 per node
+     "fixed_nodes": [..] | "fixed_dofs": [..],
+     "point_masses": [[node, m], ..] | [..per node..],
+     "member_loads": [[elem, wx, wy], ..] | [[wx, wy] per element],
+     "temperature": dT | [..], "temperature_gradient": g | [..],
+     "analysis": {"type": "static" | "modal" | "buckling" | "transient"
+                  | "harmonic" | "reduction" | "plastic", ..}}
+
+Statics at or below DENSE_DOF_LIMIT DOFs is the dense float64 solve with
+the full field and member forces in the result; above it the banded tier
+("tier": "banded", kernels 1-3 on a card) with probes and summaries.
+Modal is dense (with "prestress") up to the limit and banded above it.
+Buckling, Newmark, harmonic, reduction and the plastic-hinge pushover are
+dense float64.  Every analysis runs on the caller's device ("cuda" when
+None).  The analysis types of later ROADMAP items raise
+NotImplementedError naming the item before any work: "spectrum" and
+"random" (22a), "identification" (23), "reliability" and "sizing" (24).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+from ..models.frame import (FrameProblem, frame_buckling, frame_harmonic,
+                            frame_modal, solve_frame_static,
+                            solve_frame_transient)
+
+# Analysis types of later ROADMAP items.
+_LATER = {"spectrum": "22a", "random": "22a", "identification": "23",
+          "reliability": "24", "sizing": "24"}
+
+
+def is_frame_document(doc: Dict) -> bool:
+    return isinstance(doc, dict) and doc.get("element_type") == "frame"
+
+
+def parse_frame_document(doc: Dict) -> Tuple[FrameProblem, Dict]:
+    nodes = np.asarray(doc["nodes"], dtype=float)
+    elements = np.asarray(doc["elements"], dtype=int)
+    mat = doc.get("material", {})
+    if mat.get("inertia") is None:
+        raise ValueError('frame material needs "inertia" (second '
+                         'moment I) — bending is the point')
+    nnode = nodes.shape[0]
+    loads = np.asarray(doc.get("loads", np.zeros(3 * nnode)), dtype=float)
+    if "fixed_dofs" in doc:
+        fixed = np.asarray(doc["fixed_dofs"], dtype=int)
+    elif "fixed_nodes" in doc:
+        fn = np.asarray(doc["fixed_nodes"], dtype=int).reshape(-1)
+        fixed = np.concatenate([3 * fn, 3 * fn + 1, 3 * fn + 2])
+    else:
+        raise ValueError('frame document needs "fixed_nodes" or '
+                         '"fixed_dofs"')
+    ml = doc.get("member_loads")
+    if ml is not None:
+        arr = np.asarray(ml, dtype=float)
+        if arr.ndim != 2:
+            raise ValueError("member_loads must be a table")
+        if arr.shape[1] == 3:                  # [[elem, wx, wy], ...]
+            ml = np.zeros((elements.shape[0], 2))
+            for e, wx, wy in arr:
+                ml[int(e)] += (wx, wy)
+        elif arr.shape[1] == 2:
+            ml = arr
+        else:
+            raise ValueError("member_loads rows must be "
+                             "[elem, wx, wy] or [wx, wy]")
+    pm = doc.get("point_masses")
+    if pm is not None:
+        arr = np.asarray(pm, dtype=float)
+        if arr.ndim == 2:                      # [[node, mass], ...]
+            pm = np.zeros(nnode)
+            for node, mass in arr:
+                pm[int(node)] += float(mass)
+        else:
+            pm = arr
+    from .plane_io import _thermal_block
+
+    alpha, temperature = _thermal_block(doc, mat)
+    problem = FrameProblem(
+        nodes=nodes, elements=elements,
+        young=mat.get("young", 1.0), area=mat.get("area", 1.0),
+        inertia=mat["inertia"], density=mat.get("density", 1.0),
+        loads=loads, fixed_dofs=np.sort(np.unique(fixed)),
+        point_masses=pm, member_loads=ml,
+        section_modulus=mat.get("section_modulus"),
+        alpha_cte=alpha, temperature=temperature,
+        temperature_gradient=doc.get("temperature_gradient"))
+    return problem, dict(doc.get("analysis") or {"type": "static"})
+
+
+def _node_dofs(analysis: Dict, per_node: int = 3):
+    """probe_dofs, else the first `per_node` DOFs of each probe node, else
+    None."""
+    probe = analysis.get("probe_dofs")
+    if probe is None and analysis.get("probe_nodes") is not None:
+        pn = np.asarray(analysis["probe_nodes"], dtype=int).reshape(-1)
+        probe = np.stack([3 * pn + d for d in range(per_node)],
+                         axis=1).reshape(-1)
+    return probe
+
+
+def _large(problem: FrameProblem) -> bool:
+    from ..solvers.newton import DENSE_DOF_LIMIT
+
+    return problem.ndof > DENSE_DOF_LIMIT
+
+
+def _static(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    if _large(problem):
+        from ..models.frame import solve_frame_static_banded
+
+        res, iterations, residual = solve_frame_static_banded(
+            problem, tol=float(analysis.get("tolerance", 1e-7)),
+            max_iter=int(analysis.get("max_iterations", 20000)),
+            use_pallas=bool(analysis.get("use_pallas", False)),
+            precond=analysis.get("precond", "auto"), device=device)
+        u = res.displacements
+        i_max = int(np.argmax(np.abs(u)))
+        out = {
+            "success": True,
+            "analysis": "static",
+            "element_type": "frame",
+            "tier": "banded",
+            "iterations": int(iterations),
+            "relative_residual": float(residual),
+            "max_abs_displacement": float(np.abs(u[i_max])),
+            "max_abs_displacement_dof": i_max,
+            "max_abs_axial": float(np.abs(res.axial).max()),
+            "max_abs_moment": float(np.abs(res.moments).max()),
+        }
+        if res.max_stress is not None:
+            out["max_stress"] = float(res.max_stress.max())
+            out["max_stress_element"] = int(np.argmax(res.max_stress))
+        probe = _node_dofs(analysis)
+        if probe is not None:
+            probe = np.asarray(probe, dtype=int).reshape(-1)
+            out["probe_dofs"] = probe.tolist()
+            out["displacements"] = u[probe].tolist()
+        return out
+    res = solve_frame_static(problem, device=device)
+    return {
+        "success": True,
+        "analysis": "static",
+        "element_type": "frame",
+        "displacements": res.displacements.tolist(),
+        "member_end_forces": res.member_end_forces.tolist(),
+        "axial_forces": res.axial.tolist(),
+        "end_moments": res.moments.tolist(),
+        "reactions": res.reactions.tolist(),
+        **({"max_stress": res.max_stress.tolist()}
+           if res.max_stress is not None else {}),
+    }
+
+
+def _modal(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    if _large(problem):
+        from ..models.frame import frame_modal_banded
+
+        res = frame_modal_banded(
+            problem, n_modes=int(analysis.get("n_modes", 4)),
+            n_iter=int(analysis.get("n_iter", 30)),
+            cg_tol=float(analysis.get("cg_tolerance", 1e-7)),
+            device=device)
+        out = {
+            "success": True,
+            "analysis": "modal",
+            "element_type": "frame",
+            "tier": "banded",
+            "mass": "lumped",
+            "frequencies_hz": res.frequencies_hz.tolist(),
+            "omegas": res.omegas.tolist(),
+            "eigenvalues": res.eigenvalues.tolist(),
+        }
+        # Full (n_modes, 3n) shapes would dwarf the payload at banded
+        # sizes; the probe nodes' rows instead.
+        pn = analysis.get("probe_nodes")
+        if pn is not None:
+            pn = np.asarray(pn, dtype=int).reshape(-1)
+            dofs = np.stack([3 * pn, 3 * pn + 1, 3 * pn + 2],
+                            axis=1).reshape(-1)
+            out["probe_nodes"] = pn.tolist()
+            out["mode_shapes"] = res.mode_shapes[:, dofs].tolist()
+        return out
+    pres = None
+    if analysis.get("prestress") is not None:
+        from ._common import _continuum_prestress_u
+
+        pres = _continuum_prestress_u(
+            problem, analysis["prestress"],
+            lambda pp: solve_frame_static(pp, device=device).displacements)
+    res = frame_modal(problem, n_modes=int(analysis.get("n_modes", 4)),
+                      prestress_u=pres, device=device)
+    out = {
+        "success": True,
+        "prestressed": pres is not None,
+        "analysis": "modal",
+        "element_type": "frame",
+        "frequencies_hz": res.frequencies_hz.tolist(),
+        "omegas": res.omegas.tolist(),
+        "eigenvalues": res.eigenvalues.tolist(),
+    }
+    if analysis.get("include_shapes", True):
+        out["mode_shapes"] = res.mode_shapes.tolist()
+    return out
+
+
+def _buckling(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    res = frame_buckling(problem, n_modes=int(analysis.get("n_modes", 2)),
+                         device=device)
+    out = {
+        "success": True,
+        "analysis": "buckling",
+        "element_type": "frame",
+        "load_factors": res.load_factors.tolist(),
+        "axial_forces": res.axial.tolist(),
+    }
+    if analysis.get("include_shapes", True):
+        out["buckling_modes"] = res.modes.tolist()
+    return out
+
+
+def _transient(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    if analysis.get("dt") is None or analysis.get("n_steps") is None:
+        raise ValueError('frame transient needs "dt" and "n_steps"')
+    n_steps = int(analysis["n_steps"])
+    amp = analysis.get("amplitude")
+    if isinstance(amp, dict):
+        t = np.arange(n_steps) * float(analysis["dt"])
+        if amp.get("type", "step") == "step":
+            amp = np.ones(n_steps)
+        elif amp.get("type") == "sine":
+            f_hz = float(amp.get("frequency_hz", 1.0))
+            amp = np.sin(2.0 * np.pi * f_hz * t)
+        else:
+            raise ValueError('frame amplitude type must be '
+                             '"step" or "sine" (or a list)')
+    res = solve_frame_transient(
+        problem, float(analysis["dt"]), n_steps,
+        damping=analysis.get("damping", (0.0, 0.0)), amplitude=amp,
+        probe_dofs=_node_dofs(analysis, 2),        # u, v per node
+        record_every=int(analysis.get("record_every", 1)), device=device)
+    return {
+        "success": True,
+        "analysis": "transient",
+        "element_type": "frame",
+        "times": res.times.tolist(),
+        "displacements": res.displacements.tolist(),
+        "dt": res.dt,
+        "n_steps": res.n_steps,
+    }
+
+
+def _harmonic(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    om = analysis.get("omegas")
+    if om is None:
+        raise ValueError('frame harmonic needs "omegas"')
+    if isinstance(om, dict):
+        om = np.linspace(float(om["start"]), float(om["stop"]),
+                         int(om.get("num", 50)))
+    res = frame_harmonic(problem, om,
+                         damping=analysis.get("damping", (0.0, 0.0)),
+                         probe_dofs=_node_dofs(analysis, 2), device=device)
+    return {
+        "success": True,
+        "analysis": "harmonic",
+        "element_type": "frame",
+        "omegas": res.omegas.tolist(),
+        "amplitude": res.amplitude.tolist(),
+    }
+
+
+def _reduction(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_reduction
+
+    return run_continuum_reduction(problem, analysis, "frame", device)
+
+
+def _plastic(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    """The plastic-hinge pushover: {"plastic_moment": Mp | [per member],
+    "max_load_factor": cap, "probe_nodes" | "probe_dofs": [..],
+    "max_hinges": n}."""
+    from ..solvers.frame_plastic import frame_pushover
+
+    mp_spec = analysis.get("plastic_moment")
+    if mp_spec is None:
+        raise ValueError('frame plastic needs "plastic_moment" '
+                         "(the section's Mp, scalar or per-member)")
+    cap = analysis.get("max_load_factor")
+    res = frame_pushover(
+        problem, mp_spec,
+        max_load_factor=(None if cap is None else float(cap)),
+        probe_dofs=_node_dofs(analysis),
+        max_hinges=analysis.get("max_hinges"), device=device)
+    return {
+        "success": True,
+        "analysis": "plastic",
+        "element_type": "frame",
+        "mechanism": bool(res.mechanism),
+        "collapse_factor": (None if res.collapse_factor is None
+                            else float(res.collapse_factor)),
+        "hinges": [
+            {"member": int(m), "end": int(e), "load_factor": float(f)}
+            for m, e, f in zip(res.hinge_members, res.hinge_ends,
+                               res.hinge_factors)],
+        "load_factors": res.load_factors.tolist(),
+        "displacements": res.displacements.tolist(),
+        "end_moments": res.end_moments.tolist(),
+        "axial_forces": res.axial.tolist(),
+    }
+
+
+_RUNNERS = {"static": _static, "modal": _modal, "buckling": _buckling,
+            "transient": _transient, "harmonic": _harmonic,
+            "reduction": _reduction, "plastic": _plastic}
+
+
+def run_frame_analysis(problem: FrameProblem, analysis: Dict,
+                       device=None) -> Dict:
+    """One analysis of a parsed frame document on `device` ("cuda" when
+    None)."""
+    kind = analysis.get("type", "static")
+    if kind == "frame":
+        # The backend's /api/fem/frame route sends type "frame" for a
+        # document without an analysis block: statics.
+        kind = "static"
+    if kind in _LATER:
+        raise NotImplementedError(
+            f'frame "{kind}" analysis is not yet ported, ROADMAP item '
+            f"{_LATER[kind]}")
+    runner = _RUNNERS.get(kind)
+    if runner is None:
+        raise ValueError('frame analysis type must be "static", "modal", '
+                         '"buckling", "transient", "harmonic", "spectrum", '
+                         '"random", "reduction", "plastic", "reliability", '
+                         '"sizing" or "identification"')
+    return runner(problem, analysis, device)
+
+
+def run_frame_document(doc: Dict, device=None) -> Dict:
+    problem, analysis = parse_frame_document(doc)
+    return run_frame_analysis(problem, analysis, device)

@@ -21,11 +21,10 @@ as in the JAX package.  The modes' signs come from the eigensolver
 (LAPACK, torch, cuSOLVER), so the modal rows and columns of a
 Craig-Bampton k_red / m_red may differ in sign between packages and
 devices; the master block and the reduced frequencies do not.
-`reduce_model` takes the truss and the plane and solid continua (their
-consistent float64 K and M from models/plane.plane_matrices and
-models/solid.solid_matrices, through the dense cores); its other continuum
-branches (frame, plate, space frame, shell) come with their element
-families, ROADMAP items 20-22.
+`reduce_model` takes the truss and the plane, solid, frame and space-frame
+families (their consistent float64 K and M from the families'
+`*_matrices`, through the dense cores); its plate and shell branches come
+with their element families, ROADMAP items 21-22.
 """
 
 from __future__ import annotations
@@ -40,8 +39,7 @@ from ..utils.runtime import resolve_device
 
 # The continuum problem classes of the JAX package's reduce_model that
 # are not yet ported.
-_CONTINUUM = ("FrameProblem", "PlateProblem", "SpaceFrameProblem",
-              "ShellProblem")
+_CONTINUUM = ("PlateProblem", "ShellProblem")
 
 
 class ReducedModel(NamedTuple):
@@ -217,10 +215,12 @@ def craig_bampton_dense(k, m, fixed_dofs, master_dofs, n_modes: int = 4,
 def reduce_model(problem, master_dofs, method: str = "guyan",
                  n_modes: int = 4, device=None) -> ReducedModel:
     """Family-dispatching reduction on `device` ("cuda" when None): a
-    TrussProblem takes the lumped float64 path above, a PlaneProblem or a
-    SolidProblem its own consistent dense (K, M) through the dense cores.
-    The JAX package's frame, plate, space-frame and shell branches are not
-    yet ported."""
+    TrussProblem takes the lumped float64 path above, a PlaneProblem,
+    SolidProblem, FrameProblem or SpaceFrameProblem its own consistent
+    dense (K, M) through the dense cores.  The JAX package's plate and
+    shell branches are not yet ported."""
+    from ..models.frame import FrameProblem, frame_matrices
+    from ..models.frame3d import SpaceFrameProblem, space_frame_matrices
     from ..models.plane import PlaneProblem, plane_matrices
     from ..models.solid import SolidProblem, solid_matrices
 
@@ -233,9 +233,11 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
         raise ValueError('reduction method must be "guyan" or '
                          '"craig_bampton"')
     kind = type(problem).__name__
-    mats = (plane_matrices if isinstance(problem, PlaneProblem)
-            else solid_matrices if isinstance(problem, SolidProblem)
-            else None)
+    mats = next((fn for cls, fn in (
+        (PlaneProblem, plane_matrices), (SolidProblem, solid_matrices),
+        (FrameProblem, frame_matrices),
+        (SpaceFrameProblem, space_frame_matrices))
+        if isinstance(problem, cls)), None)
     if mats is not None:
         _dense_limit_check(problem.ndof)
         k, m = (a.cpu().numpy() for a in mats(problem, device=device))
@@ -250,9 +252,8 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
                          '"craig_bampton"')
     if kind in _CONTINUUM:
         raise NotImplementedError(
-            f"reduce_model of a {kind} is not yet ported: the frame, "
-            "plate, space-frame and shell families are ROADMAP items "
-            "20-22")
+            f"reduce_model of a {kind} is not yet ported: the plate and "
+            "shell families are ROADMAP items 21-22")
     raise TypeError("reduce_model needs a Truss/Plane/Solid/"
                     "Frame/SpaceFrame/Shell/Plate problem, "
                     f"got {kind}")

@@ -245,7 +245,7 @@ def continuum_and_limit_calls():
         "not-a-problem": (lambda pkg, kw: pkg.reduce_model(
             SimpleNamespace(ndof=4), TOP, **kw), TypeError),
         "continuum": (lambda pkg, kw: pkg.reduce_model(
-            type("FrameProblem", (), {"ndof": 8})(), [0], **kw),
+            type("PlateProblem", (), {"ndof": 8})(), [0], **kw),
             NotImplementedError),
     }
 
@@ -272,12 +272,12 @@ def test_reduction_refusals_match_jax(name, monkeypatch):
 
 
 def test_continuum_reduction_refused():
-    """reduce_model on a continuum problem not yet ported (a frame; the
-    plane and solid branches are ported, tests/test_torch_plane.py and
-    tests/test_torch_solid.py) raises NotImplementedError naming ROADMAP
-    items 20-22."""
+    """reduce_model on a continuum problem not yet ported (a plate; the
+    plane, solid and frame branches are ported, tests/test_torch_plane.py,
+    tests/test_torch_solid.py and tests/test_torch_frame*.py) raises
+    NotImplementedError naming ROADMAP items 21-22."""
     call, kind = continuum_and_limit_calls()["continuum"]
-    with pytest.raises(kind, match="ROADMAP items 20-22"):
+    with pytest.raises(kind, match="ROADMAP items 21-22"):
         call(tp, {"device": "cpu"})
 
 

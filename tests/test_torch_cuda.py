@@ -27,6 +27,9 @@ of 32 PCG iterations and kernel 1 once (the reactions), within 1e-4 of
 the CPU run; its dense analyses on the card equal the CPU's at 1e-10.  So
 does the solid family's banded statics (99 diagonals), and one central
 step of its banded transient (kernel 1) equals the CPU's within 1e-5.
+The frame families' banded statics (3 and 6 DOFs a node) launch the
+kernels as the plane's does, within 1e-3 of the dense solve; their dense
+analyses on the card equal the CPU's at 1e-10.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -1203,3 +1206,83 @@ def test_solid_central_step_on_card(cuda_device):
     assert scale > 0
     assert np.abs(card.displacements - cpu.displacements).max() \
         <= 1e-5 * scale
+
+
+FRAME_OPERATORS = {
+    "frame_tower": ("frame_tower_document", (8, 4), "frame",
+                    "parse_frame_document", "solve_frame_static_banded",
+                    "solve_frame_static"),
+    "frame3d_grid": ("space_frame_grid_document", (6, 2, 3), "frame3d",
+                     "parse_frame3d_document",
+                     "solve_space_frame_static_banded",
+                     "solve_space_frame_static"),
+}
+
+
+@pytest.mark.parametrize("name", list(FRAME_OPERATORS))
+def test_frame_banded_statics_on_card(cuda_device, name):
+    """The banded statics of the 2D tower (3 DOFs a node) and the space
+    skeleton (6): kernels 2 and 3 launch 32 ceil(iterations / 32) times,
+    kernel 1 once, u within 1e-3 of the CPU run and of the float64 dense
+    solve."""
+    import importlib
+
+    from pinn_fem_tpu_torch import examples_grid
+
+    make, size, family, parse, banded, dense = FRAME_OPERATORS[name]
+    io = importlib.import_module(f"pinn_fem_tpu_torch.io.{family}_io")
+    model = importlib.import_module(f"pinn_fem_tpu_torch.models.{family}")
+    problem, _ = getattr(io, parse)(getattr(examples_grid, make)(*size))
+    kernels.reset_launch_counts()
+    card, iters, rel = getattr(model, banded)(problem, tol=1e-8,
+                                              device=cuda_device)
+    counts = kernels.launch_counts()
+    rounds = 32 * -(-iters // 32)
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == rounds
+    assert counts["dia_matvec"] == 1 and rel <= 1e-8
+    cpu = getattr(T, dense)(problem, device="cpu")
+    scale = np.abs(cpu.displacements).max()
+    assert np.abs(card.displacements - cpu.displacements).max() \
+        <= 1e-3 * scale
+
+
+def test_frame_dense_analyses_on_card(cuda_device):
+    """The frame families' dense float64 analyses on the card (statics,
+    modal with prestress, buckling, the pushover, a space-frame modal)
+    equal the CPU runs at 1e-10 (shapes sign-aligned; the square
+    skeleton's degenerate sway pair by its projector); no repo kernel
+    runs."""
+    from pinn_fem_tpu_torch.examples_grid import (frame_tower_document,
+                                                  space_frame_grid_document)
+    from pinn_fem_tpu_torch.io.frame3d_io import parse_frame3d_document
+    from pinn_fem_tpu_torch.io.frame_io import parse_frame_document
+
+    tower, _ = parse_frame_document(frame_tower_document(4, 3))
+    grid, _ = parse_frame3d_document(space_frame_grid_document(3, 2, 2))
+    tower.loads[1::3] -= 500.0 * (tower.nodes[:, 1] > 0)
+
+    def space_modal(device):
+        res = T.space_frame_modal(grid, 3, device=device)
+        return res.eigenvalues, res.mode_shapes.T @ res.mode_shapes
+
+    runs = {
+        "static": lambda d: T.solve_frame_static(tower, device=d)
+        .displacements,
+        "modal": lambda d: T.frame_modal(
+            tower, 4, prestress_u=T.solve_frame_static(
+                tower, device="cpu").displacements, device=d).mode_shapes,
+        "buckling": lambda d: T.frame_buckling(tower, 2, device=d).modes,
+        "pushover": lambda d: T.frame_pushover(tower, 2e4,
+                                               device=d).displacements,
+        "space_eigenvalues": lambda d: space_modal(d)[0],
+        "space_projector": lambda d: space_modal(d)[1],
+    }
+    kernels.reset_launch_counts()
+    card = {k: fn(cuda_device) for k, fn in runs.items()}
+    assert not any(kernels.launch_counts().values())
+    for k, fn in runs.items():
+        cpu = fn("cpu")
+        got = card[k]
+        if k in ("modal", "buckling"):
+            got = got * np.sign(np.sum(got * cpu, axis=1))[:, None]
+        assert np.abs(got - cpu).max() <= 1e-10 * np.abs(cpu).max(), k
