@@ -274,8 +274,8 @@ code is not 0 and no result line is printed:
      top two nodes as masters, 8 modes, compare_full) through main():
      reduced omegas within 1e-10 of scipy in float64, the wall time; (f)
      reduction above the dense limit and with data=, reduce_model of a
-     continuum problem not yet ported (items 21-22), each compose key of
-     the transient
+     continuum problem not yet ported (a shell: item 22), each compose key
+     of the transient
      "plasticity" spec, and a float64 CUDA operand at (c)'s kernel 1
      dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel 1),
      each refused before any launch;
@@ -366,8 +366,37 @@ code is not 0 and no result line is printed:
      Newmark steps and a 20-frequency harmonic sweep within 1e-9 of scipy
      float64, and the plastic-hinge pushover of a 2-story, 4-bay portal
      against a float64 numpy event loop (the hinge sequence equal); (f)
-     mesh=, the frame types of later items and plate and shell documents,
-     each refused before any launch.
+     mesh= and the frame types of later items, each refused before any
+     launch;
+ 22. the plate family and the continuum spectrum / random analyses: (a)
+     dyn-plate.json refined to a 128 x 128 slab (t 0.02, 49,923 DOFs, 33
+     diagonals, bandwidth 392) through solve_plate_static_banded (tol
+     1e-7) and as a document through main() probing the centre: u within
+     1e-3 of a float64 scipy solve of the same float32 diagonals (and the
+     float32 floor against the float64 operator), the centre within 2e-3
+     of mindlin_navier_w, the launches of the formula, the layout build,
+     PCG iterations and ms an iteration, warm wall, the idle share; (b)
+     kernels 1-3 on the slab's operator against their plain versions;
+     (c) the dense float64 plate analyses of a 50 x 50 square (7,803
+     DOFs) on the card within 1e-9 of scipy.sparse float64 on the same
+     MITC4 blocks: statics, modal with and without a membrane prestress
+     (eigsh; degenerate pairs by their spans), buckling (and within 2e-2
+     of mindlin_ss_buckling_nx), Newmark, harmonic, and Guyan reduction
+     of a 24 x 24 square (reduction is dense-only up to 2,048 DOFs);
+     dyn-plate-plastic's float64 tier within 1e-10 of the port's CPU run
+     (its plastic strain within the Newton tolerance, 1e-9), the float32
+     plastic tier on the mirror plate of tests/test_plate_plastic.py at
+     its bounds, and the corpus strip refined to 128 x 8 (3,483 DOFs)
+     through main() on the float32 tier beside the float64 tier on the
+     card (ROADMAP fault 3.30: the float32 tier stalls and says so,
+     success false); wall and peak memory of each; (d) dyn-plane-spectrum and spectrum and random documents of
+     the solid, frame, space-frame and plate families through main()
+     within 1e-10 of the port's CPU run, and an 8,010-DOF plane wall's
+     random document with Dirlik fatigue at 64 frequencies against
+     scipy's float64 sweep within 1e-9, ms a frequency; (e) a shell
+     document, dyn-plate-identify, a shell's spectrum, reduction and
+     fiber FRF and a plate's reliability and sizing, each refused before
+     any launch, naming items 22, 23 and 24.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -385,10 +414,11 @@ launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
 as launches_batched on phase 15's, as launches_eigen on phase 16's,
 as launches_frequency on phase 17's, as launches_nonlinear on phase 18's,
 as launches_plane on phase 19's, as launches_solid on phase 20's, as
-launches_frame on phase 21's, kernels 1-3 their figures on phase 19's
-strip operator (plane_strip), on phase 20's column operator
-(solid_column) and on phase 21's tower and skeleton operators
-(frame_tower, frame3d_grid), kernel 1 also its times at the
+launches_frame on phase 21's, as launches_plate on phase 22's, kernels
+1-3 their figures on phase 19's strip operator (plane_strip), on phase
+20's column operator (solid_column), on phase 21's tower and skeleton
+operators (frame_tower, frame3d_grid) and on phase 22's slab operator
+(plate_slab), kernel 1 also its times at the
 multigrid's level shapes, kernels 4 and 4b their member-axis times at
 B = 1, 8 and 32 as members); the last is
 {"ok": true,
@@ -5935,7 +5965,7 @@ def craig_bampton_tower(workdir: Path, card: str) -> dict:
 
 def nonlinear_refusals(dev, card: str) -> None:
     """18(f): reduction above the dense limit and with data=, reduce_model
-    of a continuum problem not yet ported (a plate: items 21-22), each
+    of a continuum problem not yet ported (a shell: item 22), each
     compose key of the
     transient "plasticity" spec, and a float64 CUDA operand at 18(c)'s
     kernel 1 dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel
@@ -5950,7 +5980,7 @@ def nonlinear_refusals(dev, card: str) -> None:
 
     small = tower_problem()
     big = grid_problem(*PLASTIC_GRID)
-    continuum = type("PlateProblem", (), {"ndof": 8})()
+    continuum = type("ShellProblem", (), {"ndof": 8})()
     calls = {
         "reduction_above_limit": (lambda: guyan_reduce(big, [10, 11],
                                                        device=dev),
@@ -5960,7 +5990,7 @@ def nonlinear_refusals(dev, card: str) -> None:
             ValueError, "drop it"),
         "reduce_model_continuum": (lambda: reduce_model(
             continuum, [0], device=dev), NotImplementedError,
-            "ROADMAP items 21-22"),
+            "ROADMAP item 22"),
     }
     base = {"type": "transient", "dt": "auto", "n_steps": 10,
             "plasticity": {"sigma_y": 1.0}}
@@ -6345,6 +6375,44 @@ def peak_run(dev, fn):
     return seconds, torch.cuda.max_memory_allocated(dev) / 1e9, out
 
 
+def newmark_replay(kf, mf, cf, ff, free, ndof: int, dt: float, amp,
+                   probe, every: int = 10):
+    """The dense Newmark recurrence of models/plane.newmark_records
+    (average acceleration, the load amp[step + 1] a step, the probes
+    recorded after every `every`-th step) replayed on one scipy splu of the
+    free block's effective stiffness: (n_rec, n_probe)."""
+    import numpy as np
+    import scipy.sparse.linalg as spl
+
+    a0, a1 = 4.0 / dt ** 2, 2.0 / dt
+    lu = spl.splu((kf + a0 * mf + a1 * cf).tocsc())
+    uu, vv = np.zeros(free.size), np.zeros(free.size)
+    acc = spl.spsolve(mf, ff * amp[0])
+    full, rec = np.zeros(ndof), []
+    for step in range(len(amp)):
+        rhs = ff * amp[min(step + 1, len(amp) - 1)] \
+            + mf @ (a0 * uu + 2.0 * a1 * vv + acc) + cf @ (a1 * uu + vv)
+        un = lu.solve(rhs)
+        vn = a1 * (un - uu) - vv
+        acc = a0 * (un - uu) - 2.0 * a1 * vv - acc
+        uu, vv = un, vn
+        if (step + 1) % every == 0:
+            full[free] = uu
+            rec.append(full[probe].copy())
+    return np.asarray(rec)
+
+
+def harmonic_replay(kf, mf, cf, ff, om, pos):
+    """|X(omega)| at the free-block positions `pos` by one complex scipy
+    splu a frequency: (n_freq, n_pos)."""
+    import numpy as np
+    import scipy.sparse.linalg as spl
+
+    return np.asarray([np.abs(spl.splu(
+        (kf - wi * wi * mf + 1j * wi * cf).tocsc()).solve(
+            ff.astype(complex))[pos]) for wi in om])
+
+
 def plane_dense(dev, card: str) -> dict:
     """19(c): the dense float64 analyses at the 8,192-DOF budget on the
     card, each against scipy.sparse float64 on the port's element blocks:
@@ -6440,23 +6508,8 @@ def plane_dense(dev, card: str) -> dict:
         probe_dofs=probe, record_every=10, device=dev))
     t0 = time.perf_counter()
     cf = (damping[0] * mf + damping[1] * kf).tocsc()
-    a0, a1 = 4.0 / dt ** 2, 2.0 / dt
-    lu = spl.splu((kf + a0 * mf + a1 * cf).tocsc())
     ff = problem.loads[free]
-    uu, vv = np.zeros(free.size), np.zeros(free.size)
-    acc = spl.spsolve(mf, ff * amp[0])
-    full, rec = np.zeros(problem.ndof), []
-    for step in range(PLANE_NEWMARK_STEPS):
-        rhs = ff * amp[min(step + 1, PLANE_NEWMARK_STEPS - 1)] \
-            + mf @ (a0 * uu + 2.0 * a1 * vv + acc) + cf @ (a1 * uu + vv)
-        un = lu.solve(rhs)
-        vn = a1 * (un - uu) - vv
-        acc = a0 * (un - uu) - 2.0 * a1 * vv - acc
-        uu, vv = un, vn
-        if (step + 1) % 10 == 0:
-            full[free] = uu
-            rec.append(full[probe].copy())
-    rec = np.asarray(rec)
+    rec = newmark_replay(kf, mf, cf, ff, free, problem.ndof, dt, amp, probe)
     ref_s = time.perf_counter() - t0
     tr_gap = float(np.abs(tr.displacements - rec).max() / np.abs(rec).max())
     report["newmark"] = dict(s=s, peak_gb=gb, reference_s=ref_s,
@@ -6467,10 +6520,8 @@ def plane_dense(dev, card: str) -> dict:
     s, gb, harm = peak_run(dev, lambda: plane_harmonic(
         problem, om, damping=damping, probe_dofs=probe, device=dev))
     t0 = time.perf_counter()
-    pos = np.searchsorted(free, probe)
-    amp_ref = np.asarray([np.abs(spl.splu(
-        (kf - wi * wi * mf + 1j * wi * cf).tocsc()).solve(
-            ff.astype(complex))[pos]) for wi in om])
+    amp_ref = harmonic_replay(kf, mf, cf, ff, om, np.searchsorted(free,
+                                                                  probe))
     ref_s = time.perf_counter() - t0
     h_gap = float(np.abs(harm.amplitude - amp_ref).max()
                   / np.abs(amp_ref).max())
@@ -6581,8 +6632,7 @@ def plane_refusals(dev, card: str) -> None:
             big, {"type": "modal"}, dev), ValueError, "8192-DOF budget"),
         "banded_prescribed": (lambda: run_plane_document(settled, dev),
                               ValueError, "homogeneous supports only")}
-    for kind, item in (("spectrum", 22), ("random", 22),
-                       ("identification", 23), ("sizing", 24),
+    for kind, item in (("identification", 23), ("sizing", 24),
                        ("reliability", 24)):
         calls[kind] = (lambda kind=kind: run_plane_analysis(
             small, {"type": kind}, dev), NotImplementedError,
@@ -7533,8 +7583,8 @@ def solid_dense(dev, card: str) -> dict:
 
 def solid_refusals(dev, card: str) -> None:
     """20(g): mesh= (banded statics, banded modal, plastic transient),
-    each solid analysis type of a later ROADMAP item (spectrum, random:
-    22; identification: 23; reliability: 24) and "sizing" (no solid
+    each solid analysis type of a later ROADMAP item (identification: 23;
+    reliability: 24) and "sizing" (no solid
     analysis of that name), the 8,192-DOF budgets of the dense analyses,
     a prescribed displacement on the banded tier and "plasticity" with
     "banded", each refused before any launch."""
@@ -7571,8 +7621,7 @@ def solid_refusals(dev, card: str) -> None:
         calls[f"budget_{kind}"] = (lambda kind=kind: run_solid_analysis(
             big, {"type": kind, "omegas": [1.0], "sigma_y": 1.0}, dev),
             ValueError, "8192-DOF budget")
-    for kind, item in (("spectrum", 22), ("random", 22),
-                       ("identification", 23), ("reliability", 24)):
+    for kind, item in (("identification", 23), ("reliability", 24)):
         calls[kind] = (lambda kind=kind: run_solid_analysis(
             small, {"type": kind}, dev), NotImplementedError,
             f"ROADMAP item {item}")
@@ -8270,13 +8319,10 @@ def frame_dense(dev, card: str) -> dict:
 
 
 def frame_refusals(workdir: Path, dev, card: str) -> None:
-    """21(f): mesh= (the banded statics and modal of both families), the
-    frame types of later ROADMAP items ("spectrum", "random": 22a;
-    "identification": 23; "reliability", "sizing": 24), the space-frame
-    "spectrum" and "random" (22a), and plate and shell documents through
-    the CLI's run() (items 21, 22), each refused before any launch."""
-    from pinn_fem_tpu_torch.cli.generic import run
-    from pinn_fem_tpu_torch.io.frame3d_io import run_frame3d_analysis
+    """21(f): mesh= (the banded statics and modal of both families) and
+    the frame types of later ROADMAP items ("identification": 23;
+    "reliability", "sizing": 24), each refused before any launch (the
+    family documents of later items: 22(e))."""
     from pinn_fem_tpu_torch.io.frame_io import run_frame_analysis
     from pinn_fem_tpu_torch.ops import kernels
 
@@ -8289,23 +8335,13 @@ def frame_refusals(workdir: Path, dev, card: str) -> None:
                 lambda fn=fn, problem=problem: fn(problem, mesh=object(),
                                                   device=dev),
                 NotImplementedError, "item 15")
-        later = ({"spectrum": "22a", "random": "22a",
-                  "identification": "23", "reliability": "24",
-                  "sizing": "24"} if kind == "tower"
-                 else {"spectrum": "22a", "random": "22a"})
-        runner = run_frame_analysis if kind == "tower" \
-            else run_frame3d_analysis
-        for typ, item in later.items():
-            calls[f"{kind}_{typ}"] = (
-                lambda runner=runner, problem=problem, typ=typ: runner(
-                    problem, {"type": typ}, dev),
-                NotImplementedError, f"ROADMAP item {item}")
-    for family, item in (("plate", 21), ("shell", 22)):
-        path = workdir / f"{family}.json"
-        path.write_text(json.dumps({"element_type": family}))
-        calls[f"{family}_document"] = (lambda path=path: run(
-            str(path), device=dev), NotImplementedError,
-            f"ROADMAP item {item}")
+        if kind == "tower":
+            for typ, item in (("identification", "23"),
+                              ("reliability", "24"), ("sizing", "24")):
+                calls[f"{kind}_{typ}"] = (
+                    lambda problem=problem, typ=typ: run_frame_analysis(
+                        problem, {"type": typ}, dev),
+                    NotImplementedError, f"ROADMAP item {item}")
     refused = {}
     kernels.reset_launch_counts()
     for name, (call, kind, text) in calls.items():
@@ -8357,6 +8393,685 @@ def phase_frame(workdir: Path, dev, card: str) -> dict:
     return {"launches": launches, "tower": tower_stats, "grid": grid_stats}
 
 
+PLATE_SLAB = (128, 0.02)        # 22(a): 49,923 DOFs, 33 diagonals
+PLATE_TOL = 1e-7                # solve_plate_static_banded's default
+PLATE_U_RTOL = 1e-3             # against float64 of the same diagonals
+PLATE_NAVIER_RTOL = 2e-3        # tests/test_plate.py:323-352's bound
+PLATE_WARM_RUNS = 3
+PLATE_DENSE = (50, 0.05)        # 22(c): 7,803 DOFs, the dense budget
+PLATE_DENSE_RTOL = 1e-10        # card against the port's CPU run, float64
+PLATE_STATIC_RTOL = 1e-9        # 22(c) against scipy.sparse float64
+PLATE_EIG_RTOL = 1e-9
+PLATE_SHAPE_ATOL = 1e-7         # of max |phi|, M-normalized, cluster spans
+PLATE_DYN_RTOL = 1e-9
+PLATE_REDUCTION = 24            # 1,875 DOFs: reduction's dense limit
+PLATE_MODES = 6
+PLATE_PRESTRESS = [-2e4, 0.0, 0.0]   # prestressed modal and buckling N
+PLATE_BUCKLING_RTOL = 2e-2      # tests/test_plate.py:144-154's bound
+PLATE_NEWMARK_STEPS = 200
+PLATE_HARMONIC_FREQS = 8
+PLATE_MIRROR_RTOL = (2e-4, 2e-5)  # tests/test_plate_plastic.py:196-219
+PLATE_PLASTIC_RTOL = 1e-9       # eq_plastic: the Newton tolerance
+PLATE_PLASTIC_REFINE = 8        # dyn-plate-plastic at 128 x 8: 3,483 DOFs
+PLATE_CLUSTER = 1e-3            # modes this close share a span
+SPECTRAL_RTOL = 1e-10           # card against the port's CPU run, float64
+SPECTRAL_WALL = (44, 88)        # 22(d): 8,010 DOFs, under the 8192 budget
+SPECTRAL_WALL_FREQS = 64
+SPECTRAL_WALL_RTOL = 1e-9       # against scipy's float64 splu sweep
+
+
+def plate_document(n: int, t: float, **analysis) -> dict:
+    """dyn-plate.json refined to an n x n slab of thickness t (hard simply
+    supported on four edges, q = -1000, E 2e11, nu 0.3), the analysis
+    block `analysis`."""
+    doc = json.loads((ROOT / "examples" / "json" / "dyn-plate.json")
+                     .read_text())
+    doc["mesh"].update(nx=n, ny=n)
+    doc["material"]["thickness"] = t
+    doc["analysis"] = analysis
+    return doc
+
+
+def plate_slab(workdir: Path, dev, card: str):
+    """22(a) and 22(b): the n x n slab at full width through
+    solve_plate_static_banded(tol=1e-7) and as a document through main()
+    probing the centre node: u against a float64 scipy solve of the same
+    float32 diagonals (and, beside it, of the float64 operator, fault
+    3.23), the centre deflection against mindlin_navier_w, the relative
+    residual, the launches (kernel 1: 1, kernels 2 and 3: 32 ceil(it /
+    32)), the PCG iterations and ms an iteration, the layout build, warm
+    wall (median of PLATE_WARM_RUNS), the idle share; kernels 1-3 on the
+    plate's operator against their twins (`operator_kernels`)."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.plate_io import parse_plate_document
+    from pinn_fem_tpu_torch.models import plate as PL
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    n, t = PLATE_SLAB
+    centre = (n // 2) * (n + 1) + n // 2
+    doc = plate_document(n, t, type="static", tolerance=PLATE_TOL,
+                         probe_nodes=[centre])
+    problem = parse_plate_document(doc)[0]
+    t0 = time.perf_counter()
+    layout = PL.plate_dia_layout(problem)
+    layout_s = time.perf_counter() - t0
+    _, diags, mask = PL._banded_operator(problem, torch.float32, dev)
+    stats = operator_kernels(layout, diags, mask, dev, card, "22(b)",
+                             "the plate", "phase22b_kernels", 22)
+
+    def solve():
+        return PL.solve_plate_static_banded(problem, tol=PLATE_TOL,
+                                            device=dev)
+
+    kernels.reset_launch_counts()
+    with Timed(dia, "dia_cg_solve") as pcg_calls:
+        cold_s, (res, iters, rel) = synced(solve)
+    launches = {"plate_50k_api": kernels.launch_counts()}
+    pcg_s = pcg_calls[0][0]
+    warm = [synced(solve)[0] for _ in range(PLATE_WARM_RUNS)]
+    f64 = PL._static_loads(problem, "cpu").numpy()
+    prof = pcg_profile(layout, diags, torch.as_tensor(
+        f64, dtype=torch.float32, device=dev), mask)
+    idle = idle_profile(solve)
+    free = problem.free_dofs()
+    t0 = time.perf_counter()
+    u_same = float64_sparse_solve(dia_csr64(layout, diags), f64, free)
+    ref_s = time.perf_counter() - t0
+    diags64 = PL._banded_operator(problem, torch.float64, dev)[1]
+    u64 = float64_sparse_solve(dia_csr64(layout, diags64), f64, free)
+    del diags64
+    u = res.displacements
+    scale = np.abs(u64).max()
+    u_gap = float(np.abs(u - u_same).max() / scale)
+    u_gap64 = float(np.abs(u - u64).max() / scale)
+    floor32 = float(np.abs(u_same - u64).max() / scale)
+    w_ex = PL.mindlin_navier_w(1.0, 1.0, 0.5, 0.5, -1000.0, 2e11, 0.3, t)
+    navier = abs(u[3 * centre] - w_ex) / abs(w_ex)
+    rounds = 32 * -(-iters // 32)
+    expected = {"dia_matvec": 1, "dia_dir_matvec": rounds,
+                "cg_update": rounds, "material_coefficients": 0,
+                "material_coefficients_backward": 0}
+
+    path = workdir / "plate_slab.json"
+    path.write_text(json.dumps(doc))
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    kernels.reset_launch_counts()
+    cli_s, rc = synced(lambda: main([str(path)]))
+    launches["plate_50k_cli"] = kernels.launch_counts()
+    require(rc == 0, "22(a): the slab document's exit code 0")
+    out = json.loads((workdir / "plate_slab.res.json").read_text())
+    cli_gap = abs(out["displacements"][0] - u_same[3 * centre]) / scale
+    cli_navier = abs(out["displacements"][0] - w_ex) / abs(w_ex)
+    cli_rounds = 32 * -(-out["iterations"] // 32)
+    log("phase22a_slab", card=card, ndof=problem.ndof,
+        elements=problem.nelm, n_diags=layout.n_diags,
+        bandwidth=layout.bandwidth, iterations=iters,
+        relative_residual=rel, centre_w=float(u[3 * centre]),
+        navier_w=w_ex, navier_err=navier, u_gap_vs_same_system=u_gap,
+        u_gap_vs_float64=u_gap64, float32_representation_floor=floor32,
+        cold_s=cold_s, warm_s=warm, warm_median_s=float(np.median(warm)),
+        pcg_s=pcg_s, pcg_ms_per_iteration=1e3 * pcg_s / max(iters, 1),
+        profile=prof, solve_idle=idle, layout_build_s=layout_s,
+        float64_reference_s=ref_s, launches=launches, expected=expected,
+        cli_s=cli_s, cli_iterations=out["iterations"],
+        cli_relative_residual=out["relative_residual"],
+        cli_centre_gap_vs_same_system=cli_gap, cli_navier_err=cli_navier,
+        cli_tier=out["tier"])
+    require(rel <= PLATE_TOL, "22(a): relative residual <= 1e-7")
+    require(u_gap <= PLATE_U_RTOL, f"22(a): u within {PLATE_U_RTOL} of "
+            "the float64 solve of the same diagonals")
+    require(navier <= PLATE_NAVIER_RTOL, "22(a): the centre within "
+            f"{PLATE_NAVIER_RTOL} of mindlin_navier_w")
+    require(launches["plate_50k_api"] == expected,
+            "22(a): the launches of the formula")
+    require(out["tier"] == "banded" and out["relative_residual"]
+            <= PLATE_TOL, "22(a): the document's banded tier")
+    require(cli_gap <= PLATE_U_RTOL and cli_navier <= PLATE_NAVIER_RTOL,
+            "22(a): the document's centre probe")
+    require(launches["plate_50k_cli"] == dict(
+        expected, dia_dir_matvec=cli_rounds, cg_update=cli_rounds),
+        "22(a): the document's launches of the formula")
+    return launches, stats
+
+
+def cluster_gap(lam, got, want, mass) -> float:
+    """The largest component of got's shapes (rows) outside the span of
+    want's shapes (M-orthonormal rows) of the same cluster of eigenvalues
+    (within PLATE_CLUSTER of each other: a square plate's degenerate pairs,
+    and the pairs a small prestress splits by 1e-4, whose vectors turn by
+    rounding over the split while their span does not), over the largest
+    entry of want; mass dense or scipy sparse."""
+    import numpy as np
+
+    gap, done = 0.0, set()
+    for i, lam_i in enumerate(lam):
+        if i in done:
+            continue
+        c = np.flatnonzero(np.abs(lam - lam_i) <= PLATE_CLUSTER * abs(lam_i))
+        done.update(c.tolist())
+        g, w = got[c], want[c]
+        r = g - (g @ (mass @ w.T)) @ w
+        gap = max(gap, float(np.abs(r).max() / np.abs(w).max()))
+    return gap
+
+
+def plate_plastic(workdir: Path, dev, report: dict, gates: list) -> None:
+    """22(c), plasticity: dyn-plate-plastic.json's float64 tier on the card
+    against its CPU run (u and moments at PLATE_DENSE_RTOL, the plastic
+    strain at the Newton tolerance); the float32 tier on
+    tests/test_plate_plastic.py's mirror plate against the float64 tier at
+    that test's bounds (max-normalized); the corpus strip refined
+    PLATE_PLASTIC_REFINE times (above DENSE_DOF_LIMIT) through main() on
+    the float32 tier beside the float64 tier run on the card: ROADMAP
+    fault 3.30, both packages' float32 tier stalls there (at 3,483 DOFs on
+    the CPU: |r|/|f| 0.13 at the first, elastic step, NaN from the fifth),
+    so the gates are the document's success false and the float64 tier's
+    convergence; each step's probe gap is recorded."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.plate_io import parse_plate_document
+    from pinn_fem_tpu_torch.models import plate as PL
+    from pinn_fem_tpu_torch.ops.plastic import params_arrays
+    from pinn_fem_tpu_torch.solvers import newton
+    from pinn_fem_tpu_torch.solvers import plate_plasticity as PPL
+    from pinn_fem_tpu_torch.solvers.plane_plasticity import float64_loop
+
+    def rel(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    doc = json.loads((ROOT / "examples" / "json" / "dyn-plate-plastic.json")
+                     .read_text())
+    strip = parse_plate_document(doc)[0]
+    an = doc["analysis"]
+    kw = dict(sigma_y=an["sigma_y"], n_layers=an["n_layers"],
+              load_factors=an["load_factors"])
+    s, gb, g = peak_run(dev, lambda: PPL.solve_plate_plastic(
+        strip, device=dev, **kw))
+    c = PPL.solve_plate_plastic(strip, host=True, **kw)
+    # The plastic strain of a layer that has just yielded is the difference
+    # of two nearly equal numbers (the trial yield function), so it carries
+    # the residual of runs that each stop at |r| / |f| <= 1e-9.
+    gaps = {k: rel(getattr(g, k), getattr(c, k))
+            for k in ("displacements", "moments", "eq_plastic")}
+    report["plastic_float64"] = dict(s=s, peak_gb=gb, gaps=gaps,
+                                     converged=g.converged)
+    gates += [(max(gaps["displacements"], gaps["moments"])
+               <= PLATE_DENSE_RTOL, "22(c) plastic_float64: u, moments"),
+              (gaps["eq_plastic"] <= PLATE_PLASTIC_RTOL,
+               "22(c) plastic_float64: eq_plastic"),
+              (g.converged, "22(c) plastic_float64: converged")]
+
+    nodes, el = PL.rect_mesh(2.0, 1.0, 2, 1)
+    mirror = PL.PlateProblem(nodes, el, 200.0, 0.3, 0.5, 1.0,
+                             np.zeros(3 * len(nodes)),
+                             PL.plate_supports(nodes, "left", "clamped"),
+                             pressure=0.6)
+    mkw = dict(sigma_y=1.0, hardening_iso=20.0, hardening_kin=5.0,
+               n_layers=4, load_factors=[0.6, 1.0, 0.2])
+    host = PPL.solve_plate_plastic(mirror, host=True, **mkw)
+    s, gb, f32 = peak_run(dev, lambda: PPL.solve_plate_plastic(
+        mirror, host=False, device=dev, **mkw))
+    rtol, atol = PLATE_MIRROR_RTOL
+    ok = all(float(np.abs(getattr(f32, k) - getattr(host, k)).max())
+             <= rtol * float(np.abs(getattr(host, k)).max()) + atol
+             for k in ("displacements", "von_mises"))
+    report["plastic_float32_mirror"] = dict(
+        s=s, peak_gb=gb, residuals=f32.residuals.tolist(),
+        u_gap=float(np.abs(f32.displacements - host.displacements).max()))
+    gates.append((ok and f32.residuals.max() <= 2e-5,
+                  "22(c) plastic float32 tier: the mirror bounds"))
+
+    r = PLATE_PLASTIC_REFINE
+    doc["mesh"].update(nx=16 * r, ny=r)
+    mid = 8 * r                               # the midspan nodes
+    doc["analysis"]["probe_nodes"] = [mid, r * (16 * r + 1) + mid]
+    fine = parse_plate_document(doc)[0]
+    path = workdir / "plate_plastic_fine.json"
+    path.write_text(json.dumps(doc))
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    torch.cuda.reset_peak_memory_stats(dev)
+    cli_s, rc = synced(lambda: main([str(path)]))
+    cli_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    out = json.loads(path.with_suffix(".res.json").read_text())
+    sy, hi, hk = params_arrays(fine.nelm, an["sigma_y"])
+    lfs = np.asarray(an["load_factors"], dtype=float)
+    system = PPL._PlateSystem(fine, sy, hi, hk, an["n_layers"], 1e-8,
+                              torch.float64, dev)
+    s64, f64 = synced(lambda: PPL._result(lfs, *float64_loop(
+        system, lfs, 1e-9, 30, 1e-12)))
+    probe = np.asarray(out["probe_dofs"])
+    u32 = np.asarray(out["displacements"], dtype=float)
+    u64 = f64.displacements[:, probe]
+    report["plastic_float32_refined"] = dict(
+        ndof=fine.ndof, dense_limit=newton.DENSE_DOF_LIMIT, s=cli_s,
+        peak_gb=cli_gb, success=out["success"],
+        iterations=out["iterations"], max_residual=out["max_residual"],
+        probe_gap_vs_float64_by_step=(np.abs(u32 - u64).max(axis=1)
+                                      / np.abs(u64).max(axis=1)).tolist(),
+        non_finite=int(np.count_nonzero(~np.isfinite(np.asarray(
+            out["final"]["displacements"], dtype=float)))),
+        n_plastic=out["n_plastic"], n_plastic_f64=f64.n_plastic.tolist(),
+        float64_s=s64, float64_iterations=f64.iterations.tolist(),
+        float64_residuals=f64.residuals.tolist())
+    # Fault 3.30: the float32 tier stalls at eps32 times the plate's
+    # condition number; the document must say so (success false), while
+    # the float64 tier on the same problem converges.
+    gates += [(rc == 0, "22(c) refined plastic strip: exit code 0"),
+              (fine.ndof > newton.DENSE_DOF_LIMIT,
+               "22(c) refined plastic strip: the float32 tier"),
+              (out["success"] is False, "22(c) refined plastic strip: "
+               "the float32 tier's stall reported (fault 3.30)"),
+              (f64.converged, "22(c) refined plastic strip: float64 "
+               "converged")]
+
+
+def plate_dense(workdir: Path, dev, card: str) -> dict:
+    """22(c): the dense float64 plate analyses on the card at n x n (near
+    the 8,192-DOF budget), each against scipy.sparse float64 on the port's
+    MITC4 blocks (examples_grid.plate_sparse_matrices): statics (splu; u
+    and the moments), modal and prestressed modal (eigsh shift-invert:
+    eigenvalues, shapes by cluster spans), buckling under uniaxial
+    compression (eigsh on the pencil (-K_g, K), and against
+    mindlin_ss_buckling_nx), Newmark (`newmark_replay`), harmonic
+    (`harmonic_replay`); Guyan reduction (K_ss's splu) on the
+    PLATE_REDUCTION square, under DENSE_DOF_LIMIT; wall and peak memory
+    of each card run.  Then `plate_plastic`.  No repo kernel."""
+    import numpy as np
+    import scipy.linalg
+    import scipy.sparse.linalg as spl
+
+    from pinn_fem_tpu_torch.examples_grid import plate_sparse_matrices
+    from pinn_fem_tpu_torch.io.plate_io import (parse_plate_document,
+                                                run_plate_analysis)
+    from pinn_fem_tpu_torch.models import plate as PL
+    from pinn_fem_tpu_torch.ops import kernels
+
+    n, t = PLATE_DENSE
+    problem = parse_plate_document(plate_document(n, t))[0]
+    free = problem.free_dofs()
+    k, m, kg = plate_sparse_matrices(problem, with_mass=True,
+                                     membrane_force=PLATE_PRESTRESS)
+    kf, mf = k[free][:, free].tocsc(), m[free][:, free].tocsc()
+    f = PL._static_loads(problem, "cpu").numpy()
+    kernels.reset_launch_counts()
+    report, gates = {"ndof": problem.ndof, "free": int(free.size)}, []
+    clock = [0.0]
+
+    def on_card(label, fn):
+        s, gb, out = peak_run(dev, fn)
+        report[label] = {"s": s, "peak_gb": gb}
+        clock[0] = time.perf_counter()
+        return out
+
+    def gate(label, gap, bound, what=""):
+        report[label].setdefault("reference_s",
+                                 time.perf_counter() - clock[0])
+        report[label][what or "gap"] = gap
+        gates.append((gap <= bound, f"22(c) {label} {what}".rstrip()))
+
+    def rel(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    g = on_card("static", lambda: PL.solve_plate_static(problem, device=dev))
+    u = float64_sparse_solve(k, f, free)
+    gate("static", max(rel(g.displacements, u),
+                       rel(g.moments, PL.recover_moments(problem, u)[0])),
+         PLATE_STATIC_RTOL)
+    lam = {}
+    for label, nf in (("modal", None), ("modal_prestressed",
+                                        PLATE_PRESTRESS)):
+        g = on_card(label, lambda: PL.plate_modal(
+            problem, PLATE_MODES, membrane_force=nf, device=dev))
+        a = kf if nf is None else (kf + kg[free][:, free]).tocsc()
+        w, vec = spl.eigsh(a, k=PLATE_MODES, M=mf, sigma=0.0, which="LM")
+        order = np.argsort(w)
+        w, vec = w[order], vec[:, order]
+        vec = vec / np.sqrt(np.einsum("ij,ij->j", vec, mf @ vec))
+        gate(label, rel(g.eigenvalues, w), PLATE_EIG_RTOL, "eig_gap")
+        gate(label, cluster_gap(w, g.mode_shapes[:, free], vec.T, mf),
+             PLATE_SHAPE_ATOL, "shape_gap")
+        report[label]["frequencies_hz"] = g.frequencies_hz.tolist()
+        lam[label] = w
+    om1 = float(np.sqrt(lam["modal"][0]))
+    g = on_card("buckling", lambda: PL.plate_buckling(
+        problem, PLATE_PRESTRESS, n_modes=2, device=dev))
+    mu = spl.eigsh(-kg[free][:, free].tocsc(), k=2, M=kf, which="LA",
+                   return_eigenvectors=False)
+    gate("buckling", rel(g.load_factors, np.sort(1.0 / mu[mu > 0])),
+         PLATE_EIG_RTOL)
+    exact = PL.mindlin_ss_buckling_nx(1.0, 1.0, 2e11, 0.3, t) \
+        / abs(PLATE_PRESTRESS[0])
+    gate("buckling", abs(g.load_factors[0] - exact) / exact,
+         PLATE_BUCKLING_RTOL, "closed_form_err")
+    report["buckling"]["load_factors"] = g.load_factors.tolist()
+    centre = (n // 2) * (n + 1) + n // 2
+    probe = [3 * centre, 3 * centre + 1]
+    damping = (0.02 * om1, 0.02 / om1)
+    cf = (damping[0] * mf + damping[1] * kf).tocsc()
+    ff = f[free]
+    dt = 2.0 * np.pi / om1 / 40.0
+    amp = np.sin(0.5 * om1 * dt * np.arange(PLATE_NEWMARK_STEPS))
+    g = on_card("newmark", lambda: PL.solve_plate_transient(
+        problem, dt, PLATE_NEWMARK_STEPS, damping=damping, amplitude=amp,
+        probe_dofs=probe, record_every=10, device=dev))
+    gate("newmark", rel(g.displacements, newmark_replay(
+        kf, mf, cf, ff, free, problem.ndof, dt, amp, probe)),
+         PLATE_DYN_RTOL)
+    om = np.linspace(0.3 * om1, 3.0 * om1, PLATE_HARMONIC_FREQS)
+    g = on_card("harmonic", lambda: PL.plate_harmonic(
+        problem, om, damping=damping, probe_dofs=probe, device=dev))
+    gate("harmonic", rel(g.amplitude, harmonic_replay(
+        kf, mf, cf, ff, om, np.searchsorted(free, probe))), PLATE_DYN_RTOL)
+    # Reduction is dense-only up to DENSE_DOF_LIMIT in both packages: a
+    # smaller square of the same plate.
+    n = PLATE_REDUCTION
+    centre = (n // 2) * (n + 1) + n // 2
+    problem = parse_plate_document(plate_document(n, t))[0]
+    free = problem.free_dofs()
+    k, m, _ = plate_sparse_matrices(problem, with_mass=True)
+    kf, mf = k[free][:, free].tocsc(), m[free][:, free].tocsc()
+    an = {"type": "reduction", "method": "guyan",
+          "master_nodes": [centre, centre + 3, centre - 3 * (n + 1)]}
+    g = on_card("reduction", lambda: run_plate_analysis(problem, an, dev))
+    report["reduction"]["ndof"] = problem.ndof
+    mpos = np.searchsorted(free, g["master_dofs"])
+    spos = np.setdiff1d(np.arange(free.size), mpos)
+    phi = -spl.splu(kf[spos][:, spos].tocsc()).solve(
+        kf[spos][:, mpos].toarray())
+    tmat = np.zeros((free.size, mpos.size))
+    tmat[mpos, np.arange(mpos.size)] = 1.0
+    tmat[spos] = phi
+    k_red = kf[mpos][:, mpos].toarray() + kf[mpos][:, spos] @ phi
+    m_red = tmat.T @ (mf @ tmat)
+    w_red = scipy.linalg.eigh(k_red, m_red, eigvals_only=True)
+    w_full = spl.eigsh(kf, k=len(g["full_omegas"]), M=mf, sigma=0.0,
+                       which="LM", return_eigenvectors=False)
+    gate("reduction", max(
+        rel(g["k_red"], k_red), rel(g["m_red"], m_red),
+        rel(g["reduced_omegas"], np.sqrt(np.maximum(w_red, 0.0))),
+        rel(g["full_omegas"], np.sqrt(np.sort(w_full)))), PLATE_DYN_RTOL)
+    plate_plastic(workdir, dev, report, gates)
+    launches = kernels.launch_counts()
+    report["launches"] = launches
+    log("phase22c_dense", card=card, **report)
+    for ok, what in gates:
+        require(ok, what)
+    require(zero_launches(launches), "22(c): no repo kernel")
+    return launches
+
+
+def spectral_documents_of(family: str) -> dict:
+    """A small document of a family with a load pattern (the spectrum and
+    random runs of tests/test_torch_continuum_spectrum.py)."""
+    from pinn_fem_tpu_torch import examples_grid as g
+
+    if family == "solid":
+        return {"element_type": "solid",
+                "mesh": {"type": "box", "lx": 1.0, "ly": 1.4, "lz": 3.0,
+                         "nx": 2, "ny": 2, "nz": 3},
+                "material": {"young": 200.0, "poisson": 0.3,
+                             "density": 2.0},
+                "fixed_nodes": "z_min",
+                "surface_loads": [{"face": "z_max",
+                                   "traction": [0.3, 0.1, -1.0]}]}
+    if family == "frame":
+        doc = g.frame_tower_document(4, 3)
+        doc["material"]["section_modulus"] = 1e-3
+        return doc
+    if family == "frame3d":
+        doc = g.space_frame_grid_document(3, 3, 2)
+        doc["material"]["inertia_z"] = 1.5e-4
+        return doc
+    return {"element_type": "plate",
+            "mesh": {"type": "rect", "width": 1.0, "height": 0.7, "nx": 8,
+                     "ny": 6},
+            "material": {"young": 2e11, "poisson": 0.3, "thickness": 0.05,
+                         "density": 7850.0},
+            "pressure": -1000.0,
+            "supports": {"simply_supported": ["left", "right", "bottom",
+                                              "top"]}}
+
+
+def spectral_wall_document() -> dict:
+    """A plane-stress shear wall near the 8,192-DOF budget (44 x 88 Q4s,
+    4 x 8, E 200, t 0.5, rho 2, fixed base) under a top traction: a random
+    document at SPECTRAL_WALL_FREQS frequencies with Dirlik fatigue."""
+    nx, ny = SPECTRAL_WALL
+    return {"element_type": "plane",
+            "mesh": {"type": "rect", "width": 4.0, "height": 8.0, "nx": nx,
+                     "ny": ny, "element": "quad"},
+            "material": {"young": 200.0, "poisson": 0.3, "thickness": 0.5,
+                         "density": 2.0},
+            "fixed_nodes": "bottom",
+            "edge_loads": [{"nodes": "top", "traction": [1.0, 0.0]}],
+            "analysis": {"type": "random", "psd": 1.0,
+                         "omegas": {"start": 0.05, "stop": 2.0,
+                                    "num": SPECTRAL_WALL_FREQS},
+                         "damping": [0.02, 0.01],
+                         "probe_nodes": [ny * (nx + 1), (ny + 1) * (nx + 1)
+                                         - 1],
+                         "probe_elements": [0, nx - 1, nx * ny // 2],
+                         "fatigue": {"sn": {"exponent": 3.0,
+                                            "coefficient": 1e9},
+                                     "method": "dirlik",
+                                     "duration": 3600.0}}}
+
+
+def wall_reference(doc: dict):
+    """(psd (n_freq, n_probe), eq_rms (n_probe_elm,)) of the wall's random
+    document by scipy's float64 sparse complex LU a frequency (the
+    response and the Preumont equivalent von Mises of the probe
+    elements)."""
+    import numpy as np
+    import scipy.sparse.linalg as spl
+
+    from pinn_fem_tpu_torch.examples_grid import plane_sparse_matrices
+    from pinn_fem_tpu_torch.io._common import _omega_array
+    from pinn_fem_tpu_torch.io.plane_io import (_probe_dofs,
+                                                parse_plane_document)
+    from pinn_fem_tpu_torch.models import plane as P
+    from pinn_fem_tpu_torch.solvers.continuum_spectrum import _VM_Q6
+
+    problem, an = parse_plane_document(doc)
+    k, m = plane_sparse_matrices(problem, with_mass=True)
+    free = problem.free_dofs()
+    kf, mf = k[free][:, free].tocsc(), m[free][:, free].tocsc()
+    alpha, beta = an["damping"]
+    cf = alpha * mf + beta * kf
+    om = _omega_array(an["omegas"])
+    probe = np.asarray(_probe_dofs(an, problem)).reshape(-1)
+    elms = np.asarray(an["probe_elements"])
+    young, nu = P._material(problem, "cpu", "young", "poisson")
+    b = P._centroid_b(problem, "cpu").numpy()[elms]
+    dmat = P._dmat(young, nu, False).numpy()[elms]
+    dm = problem.dof_map()[elms]
+    psd, quad = [], []
+    full = np.zeros(problem.ndof, dtype=complex)
+    for w in om:
+        full[free] = spl.splu((kf - w * w * mf + 1j * w * cf).tocsc()
+                              ).solve(problem.loads[free].astype(complex))
+        psd.append(np.abs(full[probe]) ** 2)
+        s3 = np.einsum("mij,mj->mi", dmat, np.einsum("mia,ma->mi", b,
+                                                     full[dm]))
+        s6 = np.zeros((elms.size, 6), dtype=complex)
+        s6[:, 0], s6[:, 1], s6[:, 5] = s3[:, 0], s3[:, 1], s3[:, 2]
+        quad.append(np.einsum("mi,ij,mj->m", s6.conj(), _VM_Q6, s6).real)
+    psd, quad = np.asarray(psd), np.asarray(quad)
+    return psd, np.sqrt(np.trapezoid(quad, om, axis=0))
+
+
+def spectral_documents(workdir: Path, dev, card: str) -> dict:
+    """22(d): dyn-plane-spectrum.json and a spectrum and a random document
+    of the solid, frame, space-frame and plate families through main() on
+    the card, each against the port's run of the same document on the CPU
+    at SPECTRAL_RTOL; the 8,010-DOF wall's random document with Dirlik
+    fatigue at SPECTRAL_WALL_FREQS frequencies on the card, its PSDs and
+    equivalent stress RMS against scipy's float64 sweep, ms a frequency
+    (one sweep serves the response and the stress FRFs); no repo
+    kernel."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io import (frame3d_io, frame_io, plane_io,
+                                       plate_io, solid_io)
+    from pinn_fem_tpu_torch.ops import kernels
+
+    runners = {"plane": plane_io.run_plane_document,
+               "solid": solid_io.run_solid_document,
+               "frame": frame_io.run_frame_document,
+               "frame3d": frame3d_io.run_frame3d_document,
+               "plate": plate_io.run_plate_document}
+    docs = {"dyn-plane-spectrum": json.loads(
+        (ROOT / "examples" / "json" / "dyn-plane-spectrum.json")
+        .read_text())}
+    direction = {"solid": [0.2, 1.0, 0.1], "frame": [1.0, 0.0],
+                 "frame3d": [0.3, 1.0, 0.0]}
+    probe_nodes = {"solid": [31, 35], "frame": [4, 9], "frame3d": [3, 7],
+                   "plate": [31, 40]}
+    for family in ("solid", "frame", "frame3d", "plate"):
+        base = spectral_documents_of(family)
+        w = float(runners[family](dict(base, analysis={
+            "type": "modal", "n_modes": 3}), "cpu")["omegas"][2])
+        spec = {"type": "spectrum", "n_modes": 4, "combination": "cqc",
+                "sa": {"omegas": [0.0, 2.0 * w], "values": [3.0, 1.0]}}
+        if family in direction:
+            spec["direction"] = direction[family]
+        docs[f"{family}-spectrum"] = dict(base, analysis=spec)
+        rand = {"type": "random", "psd": 1.0,
+                "probe_nodes": probe_nodes[family],
+                "omegas": {"start": 0.1 * w, "stop": 2.0 * w, "num": 24},
+                "damping": [0.02 * w, 0.01 / w]}
+        if family != "frame3d":
+            rand["fatigue"] = {"sn": {"exponent": 4.0,
+                                      "coefficient": 1e20},
+                               "method": "dirlik", "duration": 60.0}
+            rand["probe_elements"] = [0, 3]
+        docs[f"{family}-random"] = dict(base, analysis=rand)
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    kernels.reset_launch_counts()
+    gaps = {}
+    for name, doc in docs.items():
+        path = workdir / f"{name}.json"
+        path.write_text(json.dumps(doc))
+        card_s, rc = synced(lambda: main([str(path)]))
+        require(rc == 0, f"22(d) {name}: exit code 0")
+        got = json.loads((workdir / f"{name}.res.json").read_text())
+        t0 = time.perf_counter()
+        want = json.loads(json.dumps(runners[doc["element_type"]](
+            json.loads(json.dumps(doc)), "cpu")))
+        doc_gaps = tree_gaps(got, want)
+        gaps[name] = {"max": max(doc_gaps.values()),
+                      "worst": max(doc_gaps, key=doc_gaps.get), "s": card_s,
+                      "cpu_s": time.perf_counter() - t0}
+        require(gaps[name]["max"] <= SPECTRAL_RTOL,
+                f"22(d) {name}: within {SPECTRAL_RTOL} of the CPU run")
+    wall = spectral_wall_document()
+    s, gb, out = peak_run(dev, lambda: plane_io.run_plane_document(
+        json.loads(json.dumps(wall)), dev))
+    t0 = time.perf_counter()
+    psd, eq_rms = wall_reference(wall)
+    ref_s = time.perf_counter() - t0
+    psd_gap = float(np.abs(np.asarray(out["psd"]) - psd).max()
+                    / np.abs(psd).max())
+    rms_gap = float(np.abs(np.asarray(out["fatigue"]["stress_rms"])
+                           - eq_rms).max() / np.abs(eq_rms).max())
+    launches = kernels.launch_counts()
+    log("phase22d_spectral", card=card, gaps=gaps, wall=dict(
+        ndof=2 * (SPECTRAL_WALL[0] + 1) * (SPECTRAL_WALL[1] + 1),
+        frequencies=SPECTRAL_WALL_FREQS, s=s, peak_gb=gb,
+        ms_per_frequency=1e3 * s / SPECTRAL_WALL_FREQS,
+        psd_gap=psd_gap, eq_rms_gap=rms_gap, reference_s=ref_s,
+        damage_rate=out["fatigue"]["damage_rate"]), launches=launches)
+    require(psd_gap <= SPECTRAL_WALL_RTOL and rms_gap <= SPECTRAL_WALL_RTOL,
+            f"22(d) the wall: within {SPECTRAL_WALL_RTOL} of scipy")
+    require(zero_launches(launches), "22(d): no repo kernel")
+    return launches
+
+
+def plate_refusals(workdir: Path, dev, card: str) -> None:
+    """22(e): a shell document and dyn-plate-identify.json through the
+    CLI's run() (items 22 and 23), a ShellProblem's spectrum, reduction
+    and shell_fiber_stress_frf (item 22), and a plate's reliability and
+    sizing (item 24), each refused before any launch."""
+    from pinn_fem_tpu_torch import (continuum_response_spectrum,
+                                    reduce_model, shell_fiber_stress_frf)
+    from pinn_fem_tpu_torch.cli.generic import run
+    from pinn_fem_tpu_torch.io.plate_io import run_plate_document
+    from pinn_fem_tpu_torch.ops import kernels
+
+    shell = workdir / "shell.json"
+    shell.write_text((ROOT / "examples" / "json" / "dyn-shell.json")
+                     .read_text())
+    ident = workdir / "dyn-plate-identify.json"
+    ident.write_text((ROOT / "examples" / "json" / "dyn-plate-identify.json")
+                     .read_text())
+    stand_in = type("ShellProblem", (), {"ndof": 12, "nelm": 1})()
+    small = plate_document(4, 0.05)
+    calls = {
+        "shell_document": (lambda: run(str(shell), device=dev),
+                           "ROADMAP item 22"),
+        "plate_identification": (lambda: run(str(ident), device=dev),
+                                 "ROADMAP item 23"),
+        "shell_spectrum": (lambda: continuum_response_spectrum(
+            stand_in, 1.0, device=dev), "ROADMAP item 22"),
+        "shell_reduction": (lambda: reduce_model(stand_in, [0],
+                                                 device=dev),
+                            "ROADMAP item 22"),
+        "shell_fiber_stress_frf": (lambda: shell_fiber_stress_frf(
+            stand_in, [1.0], device=dev), "ROADMAP item 22"),
+    }
+    for kind in ("reliability", "sizing"):
+        calls[f"plate_{kind}"] = (lambda kind=kind: run_plate_document(
+            dict(small, analysis={"type": kind}), dev), "ROADMAP item 24")
+    refused = {}
+    kernels.reset_launch_counts()
+    for name, (call, text) in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except NotImplementedError as e:
+            refused[name] = str(e)
+            require(text in str(e), f"22(e) {name}: the message names "
+                    f"{text}")
+    launches = kernels.launch_counts()
+    log("phase22e_refusals", card=card, refused=refused, launches=launches)
+    for name, msg in refused.items():
+        require(msg is not None, f"22(e): {name} refused")
+    require(zero_launches(launches), "22(e): no launch before refusal")
+
+
+def phase_plate(workdir: Path, dev, card: str) -> dict:
+    """Phase 22: the plate family and the continuum spectrum / random
+    analyses on the card.  Returns the kernels' launches on each of its
+    paths and the kernels' figures on the slab's operator."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    launches, slab_stats = plate_slab(workdir, dev, card)
+    lap("a-b")
+    launches["dense_8k"] = plate_dense(workdir, dev, card)
+    lap("c")
+    launches["spectral"] = spectral_documents(workdir, dev, card)
+    lap("d")
+    plate_refusals(workdir, dev, card)
+    lap("e")
+    log("phase22_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return {"launches": launches, "slab": slab_stats}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -8384,6 +9099,7 @@ def main() -> int:
         plane = phase_plane(Path(tmp), dev, card)
         solid = phase_solid(Path(tmp), dev, card)
         frame = phase_frame(Path(tmp), dev, card)
+        plate = phase_plate(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -8433,6 +9149,8 @@ def main() -> int:
             path: counts[name] for path, counts in solid["launches"].items()}
         entries[-1]["launches_frame"] = {
             path: counts[name] for path, counts in frame["launches"].items()}
+        entries[-1]["launches_plate"] = {
+            path: counts[name] for path, counts in plate["launches"].items()}
         if name in BANDED:
             entries[-1]["plane_strip"] = {
                 key: plane["strip"][name][key]
@@ -8443,7 +9161,8 @@ def main() -> int:
                 for key in ("err", "ms", "device_us", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "bit_equal")}
             for label, ops in (("frame_tower", frame["tower"]),
-                               ("frame3d_grid", frame["grid"])):
+                               ("frame3d_grid", frame["grid"]),
+                               ("plate_slab", plate["slab"])):
                 entries[-1][label] = {
                     key: ops[name].get(key)
                     for key in ("err", "ms", "device_us", "plain_ms",

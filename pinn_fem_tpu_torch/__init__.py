@@ -50,8 +50,15 @@ families run explicit elastoplastic transients
 "element_type": "frame" and "frame3d" documents (io/frame_io.py,
 io/frame3d_io.py): dense statics, modal, buckling, Newmark, harmonic,
 reduction and the plastic-hinge pushover, with banded statics and modal on
-the stencil and PCG kernels.  ROADMAP.md lists what is still
-to port.
+the stencil and PCG kernels.  The Mindlin plate family (models/plate.py,
+ops/plate_plastic.py, solvers/plate_plasticity.py) runs through
+"element_type": "plate" documents (io/plate_io.py): dense statics, modal
+with membrane prestress, buckling, Newmark, harmonic, layered
+elastoplastic statics and reduction, with banded statics on the stencil
+and PCG kernels.  Response spectra, random vibration and spectral fatigue
+of the plane, solid, frame, space-frame and plate families
+(solvers/continuum_spectrum.py) run through their "spectrum" and
+"random" documents.  ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -123,6 +130,21 @@ from .models.solid import (  # noqa: E402
     solve_solid_transient_banded,
     surface_load,
 )
+from .models.plate import (  # noqa: E402
+    PlateProblem,
+    mindlin_navier_w,
+    mindlin_ss_buckling_nx,
+    plate_buckling,
+    plate_geometric_stiffness,
+    plate_harmonic,
+    plate_matrices,
+    plate_modal,
+    plate_supports,
+    recover_moments,
+    solve_plate_static,
+    solve_plate_static_banded,
+    solve_plate_transient,
+)
 from .models.problem import (  # noqa: E402
     ProblemData,
     TrussProblem,
@@ -142,6 +164,17 @@ from .solvers.buckling import (  # noqa: E402
     BucklingResult,
     buckling_analysis,
     buckling_eigenvalues,
+)
+from .solvers.continuum_spectrum import (  # noqa: E402
+    ContinuumFatigueResult,
+    ContinuumRandomResult,
+    ContinuumSpectrumResult,
+    continuum_random_response,
+    continuum_response_spectrum,
+    continuum_spectral_fatigue,
+    continuum_stress_frf,
+    frame_fiber_stress_frf,
+    shell_fiber_stress_frf,
 )
 from .solvers.driver import solve  # noqa: E402
 from .solvers.dynamics import (  # noqa: E402
@@ -209,6 +242,10 @@ from .solvers.plasticity import (  # noqa: E402
 from .solvers.random_response import (  # noqa: E402
     RandomResponseResult,
     random_response,
+)
+from .solvers.plate_plasticity import (  # noqa: E402
+    PlatePlasticResult,
+    solve_plate_plastic,
 )
 from .solvers.reduction import (  # noqa: E402
     ReducedModel,
@@ -279,4 +316,14 @@ __all__ = [
     "SpaceFrameProblem", "solve_space_frame_static",
     "solve_space_frame_transient", "space_frame_harmonic",
     "space_frame_matrices", "space_frame_modal",
+    "PlatePlasticResult", "PlateProblem", "mindlin_navier_w",
+    "mindlin_ss_buckling_nx", "plate_buckling", "plate_geometric_stiffness",
+    "plate_harmonic", "plate_matrices", "plate_modal", "plate_supports",
+    "recover_moments", "solve_plate_plastic", "solve_plate_static",
+    "solve_plate_static_banded", "solve_plate_transient",
+    "ContinuumFatigueResult", "ContinuumRandomResult",
+    "ContinuumSpectrumResult", "continuum_random_response",
+    "continuum_response_spectrum", "continuum_spectral_fatigue",
+    "continuum_stress_frf", "frame_fiber_stress_frf",
+    "shell_fiber_stress_frf",
 ]

@@ -21,13 +21,14 @@ runs io/analysis.run_analysis and writes its result dict; of the analysis
 types "transient" (with "plasticity"), "modal", "buckling", "harmonic",
 "random", "spectrum", "continuation", "plastic" and "reduction" are
 ported (the others exit 1, naming their ROADMAP item).
-Solid, plane, frame and space-frame documents ("element_type": "solid",
-"plane", "frame", "frame3d") are routed before the truss parse to
-io/solid_io, io/plane_io, io/frame_io and io/frame3d_io and log the JAX
-CLI's SOLID / PLANE / FRAME / SPACE-FRAME ANALYSIS SUMMARY lines (a
-banded frame statics logs its summaries, where the JAX CLI raises
-KeyError after writing the result: ROADMAP fault 3.27); plate and shell
-documents are not yet ported and exit 1, naming their ROADMAP item.
+Solid, plane, frame, space-frame and plate documents ("element_type":
+"solid", "plane", "frame", "frame3d", "plate") are routed before the truss
+parse to io/solid_io, io/plane_io, io/frame_io, io/frame3d_io and
+io/plate_io and log the JAX CLI's SOLID / PLANE / FRAME / SPACE-FRAME /
+PLATE ANALYSIS SUMMARY lines (a banded frame statics logs its summaries,
+where the JAX CLI raises KeyError after writing the result: ROADMAP fault
+3.27); shell documents are not yet ported and exit 1, naming ROADMAP item
+22.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from ..utils.runtime import resolve_device
 logger = logging.getLogger(f"{PACKAGE_LOGGER}.cli")
 
 # Element families of the JAX CLI, by the ROADMAP item that ports them.
-_ELEMENT_FAMILIES = {"plate": 21, "shell": 22}
+_ELEMENT_FAMILIES = {"shell": 22}
 
 
 def setup_logging(problem_file: str) -> Path:
@@ -81,8 +82,8 @@ def setup_logging(problem_file: str) -> Path:
 
 def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         device=None) -> dict:
-    """Solve one truss, solid, plane, frame or space-frame document on
-    `device` ("cuda" when None) and write its result JSON."""
+    """Solve one truss, solid, plane, frame, space-frame or plate document
+    on `device` ("cuda" when None) and write its result JSON."""
     device = resolve_device(device)
     with open(problem_file) as fh:
         raw = json.load(fh)
@@ -97,16 +98,16 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
     from ..io.frame3d_io import is_frame3d_document
     from ..io.frame_io import is_frame_document
     from ..io.plane_io import is_plane_document
+    from ..io.plate_io import is_plate_document
     from ..io.solid_io import is_solid_document
 
-    if is_frame_document(raw):
-        return _run_frame(raw, output_file, device)
-    if is_frame3d_document(raw):
-        return _run_frame3d(raw, output_file, device)
-    if is_solid_document(raw):
-        return _run_solid(raw, output_file, device)
-    if is_plane_document(raw):
-        return _run_plane(raw, output_file, device)
+    for family, is_family in (("plate", is_plate_document),
+                              ("frame", is_frame_document),
+                              ("frame3d", is_frame3d_document),
+                              ("solid", is_solid_document),
+                              ("plane", is_plane_document)):
+        if is_family(raw):
+            return _run_family(family, raw, output_file, device)
     parsed = parse_problem_dict(raw, seed=seed)
     problem, config = parsed.problem, parsed.config
 
@@ -217,48 +218,15 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
     return output
 
 
-def _run_plane(raw: dict, output_file: str, device) -> dict:
-    """A plane document through io/plane_io on `device`, with the JAX CLI's
-    log lines."""
-    from ..io.plane_io import run_plane_document
+def _log_modal(output: dict) -> None:
+    logger.info("  Frequencies (Hz): %s",
+                ["%.6g" % v for v in output["frequencies_hz"]])
 
-    logger.info("Plane document: %s",
-                "generated mesh" if "mesh" in raw else
-                f"{len(raw.get('nodes', ()))} nodes, "
-                f"{len(raw.get('elements', ()))} elements")
-    output = run_plane_document(raw, device)
-    with open(output_file, "w") as f:
-        json.dump(output, f, indent=2)
-    logger.info("%s", "=" * 60)
-    logger.info("PLANE ANALYSIS SUMMARY (%s):", output["analysis"])
-    kind = output["analysis"]
-    if kind == "modal":
-        logger.info("  Frequencies (Hz): %s",
-                    ["%.6g" % v for v in output["frequencies_hz"]])
-    elif kind == "transient":
-        _log_transient(output)
-    elif kind == "plastic":
-        logger.info("  Steps: %d, yielded elements: %d, peak von "
-                    "Mises: %.6g", output["n_steps"],
-                    len(output["yielded_elements"]),
-                    max(output["max_von_mises"]))
-    elif kind == "harmonic":
-        logger.info("  Sweep: %d frequencies, peak |X| %.6g",
-                    len(output["omegas"]),
-                    max(max(row) for row in output["amplitude"]))
-    elif kind == "reduction":
-        logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
-                    output["method"], output["n_reduced_dofs"],
-                    output["reduced_frequencies_hz"][0])
-    elif kind == "buckling":
-        logger.info("  Load factors: %s",
-                    ["%.6g" % v for v in output["load_factors"]])
-    else:
-        logger.info("  Max von Mises: %.6g (element %d)",
-                    output["max_von_mises"],
-                    output["max_von_mises_element"])
-    logger.info("Results written to %s", output_file)
-    return output
+
+def _log_sweep(output: dict) -> None:
+    logger.info("  Sweep: %d frequencies, peak |X| %.6g",
+                len(output["omegas"]),
+                max(max(row) for row in output["amplitude"]))
 
 
 def _log_transient(output: dict) -> None:
@@ -272,92 +240,33 @@ def _log_transient(output: dict) -> None:
                     output["dt"])
 
 
-def _run_solid(raw: dict, output_file: str, device) -> dict:
-    """A solid document through io/solid_io on `device`, with the JAX CLI's
-    log lines."""
-    from ..io.solid_io import run_solid_document
+def _log_spectrum(output: dict) -> None:
+    logger.info("  Modal mass captured: %.1f%% (%s), peak |u| %.6g",
+                100.0 * output["mass_fraction"], output["combination"],
+                output["max_displacement"])
 
-    logger.info("Solid document: %s",
-                "generated mesh" if "mesh" in raw else
-                f"{len(raw.get('nodes', ()))} nodes, "
-                f"{len(raw.get('elements', ()))} elements")
-    output = run_solid_document(raw, device)
-    with open(output_file, "w") as f:
-        json.dump(output, f, indent=2)
-    logger.info("%s", "=" * 60)
-    logger.info("SOLID ANALYSIS SUMMARY (%s):", output["analysis"])
-    kind = output["analysis"]
-    if kind == "modal":
-        logger.info("  Frequencies (Hz): %s",
-                    ["%.6g" % v for v in output["frequencies_hz"]])
-    elif kind == "transient":
-        _log_transient(output)
-    elif kind == "plastic":
-        logger.info("  Steps: %d, yielded elements: %d, max von Mises: "
-                    "%.6g", output["n_steps"],
-                    len(output["yielded_elements"]),
-                    max(output["max_von_mises"]))
-    elif kind == "harmonic":
-        logger.info("  Sweep: %d frequencies, peak |X| %.6g",
-                    len(output["omegas"]),
-                    max(max(row) for row in output["amplitude"]))
-    elif kind == "reduction":
-        logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
-                    output["method"], output["n_reduced_dofs"],
-                    output["reduced_frequencies_hz"][0])
-    elif kind == "buckling":
-        logger.info("  Load factors: %s",
+
+def _log_random(output: dict) -> None:
+    logger.info("  PSD grid: %d frequencies, max RMS %.6g",
+                len(output["omegas"]), max(output["rms"]))
+
+
+def _log_reduction(output: dict) -> None:
+    logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz", output["method"],
+                output["n_reduced_dofs"], output["reduced_frequencies_hz"][0])
+
+
+def _log_factors(label: str):
+    def log_factors(output: dict) -> None:
+        logger.info("  %s: %s", label,
                     ["%.6g" % v for v in output["load_factors"]])
-    else:
-        logger.info("  Max |u|: %.6g, max von Mises: %.6g (%s)",
-                    output["max_displacement"], output["max_von_mises"],
-                    output["method"])
-    logger.info("Results written to %s", output_file)
-    return output
+    return log_factors
 
 
-def _run_frame(raw: dict, output_file: str, device) -> dict:
-    """A frame document through io/frame_io on `device`, with the JAX CLI's
-    log lines."""
-    from ..io.frame_io import run_frame_document
-
-    logger.info("Frame document: %d nodes, %d elements",
-                len(raw.get("nodes", ())), len(raw.get("elements", ())))
-    output = run_frame_document(raw, device)
-    with open(output_file, "w") as f:
-        json.dump(output, f, indent=2)
-    logger.info("%s", "=" * 60)
-    logger.info("FRAME ANALYSIS SUMMARY (%s):", output["analysis"])
-    kind = output["analysis"]
-    if kind == "modal":
-        logger.info("  Frequencies (Hz): %s",
-                    ["%.6g" % v for v in output["frequencies_hz"]])
-    elif kind == "buckling":
-        logger.info("  Critical load factors: %s",
-                    ["%.6g" % v for v in output["load_factors"]])
-    elif kind == "transient":
-        _log_transient(output)
-    elif kind == "harmonic":
-        logger.info("  Frequencies swept: %d", len(output["omegas"]))
-    elif kind == "reduction":
-        logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
-                    output["method"], output["n_reduced_dofs"],
-                    output["reduced_frequencies_hz"][0])
-    elif kind == "plastic":
-        if output["mechanism"]:
-            logger.info("  Collapse at lambda = %.6g (%d hinges)",
-                        output["collapse_factor"], len(output["hinges"]))
-        else:
-            logger.info("  No mechanism up to lambda = %.6g (%d hinges)",
-                        output["load_factors"][-1], len(output["hinges"]))
-    elif output.get("tier") == "banded":
-        _log_banded(output)
-    else:
-        m = np.max(np.abs(np.asarray(output["end_moments"])))
-        logger.info("  Max |end moment|: %.6g (member forces in the "
-                    "result)", m)
-    logger.info("Results written to %s", output_file)
-    return output
+def _log_plastic(output: dict) -> None:
+    logger.info("  Steps: %d, yielded elements: %d, peak von Mises: %.6g",
+                output["n_steps"], len(output["yielded_elements"]),
+                max(output["max_von_mises"]))
 
 
 def _log_banded(output: dict) -> None:
@@ -371,42 +280,117 @@ def _log_banded(output: dict) -> None:
                 output["max_abs_moment"])
 
 
-def _run_frame3d(raw: dict, output_file: str, device) -> dict:
-    """A space-frame document through io/frame3d_io on `device`, with the
-    JAX CLI's log lines."""
-    from ..io.frame3d_io import run_frame3d_document
+def _log_frame_static(output: dict) -> None:
+    if output.get("tier") == "banded":
+        _log_banded(output)
+    else:
+        m = np.max(np.abs(np.asarray(output["end_moments"])))
+        logger.info("  Max |end moment|: %.6g (member forces in the "
+                    "result)", m)
 
-    logger.info("Space-frame document: %d nodes, %d elements",
-                len(raw.get("nodes", ())), len(raw.get("elements", ())))
-    output = run_frame3d_document(raw, device)
-    with open(output_file, "w") as f:
-        json.dump(output, f, indent=2)
-    logger.info("%s", "=" * 60)
-    logger.info("SPACE-FRAME ANALYSIS SUMMARY (%s):", output["analysis"])
-    kind = output["analysis"]
-    if kind == "modal":
-        logger.info("  Frequencies (Hz): %s",
-                    ["%.6g" % v for v in output["frequencies_hz"]])
-    elif kind == "transient":
-        _log_transient(output)
-    elif kind == "harmonic":
-        logger.info("  Sweep: %d frequencies, peak |X| %.6g",
-                    len(output["omegas"]),
-                    max(max(row) for row in output["amplitude"]))
-    elif kind == "buckling":
-        logger.info("  Critical load factors: %s",
-                    ["%.6g" % v for v in output["load_factors"]])
-    elif kind == "reduction":
-        logger.info("  %s: %d reduced DOFs, f1 = %.6g Hz",
-                    output["method"], output["n_reduced_dofs"],
-                    output["reduced_frequencies_hz"][0])
-    elif output.get("tier") == "banded":
+
+def _log_frame_plastic(output: dict) -> None:
+    if output["mechanism"]:
+        logger.info("  Collapse at lambda = %.6g (%d hinges)",
+                    output["collapse_factor"], len(output["hinges"]))
+    else:
+        logger.info("  No mechanism up to lambda = %.6g (%d hinges)",
+                    output["load_factors"][-1], len(output["hinges"]))
+
+
+def _log_frame3d_static(output: dict) -> None:
+    if output.get("tier") == "banded":
         _log_banded(output)
     else:
         logger.info("  Max |u|: %.6g (dof %d), peak |torque|: %.6g",
                     output["max_displacement"],
                     output["max_displacement_dof"],
                     max(abs(v) for v in output["torques"]))
+
+
+def _log_plate_plastic(output: dict) -> None:
+    logger.info("  %d load steps (%d layers), %d elements yielded, peak "
+                "fiber von Mises %.6g", output["n_steps"],
+                output["n_layers"], len(output["yielded_elements"]),
+                max(output["max_von_mises"]))
+
+
+def _log_plate_static(output: dict) -> None:
+    logger.info("  Max deflection: %.6g (node %d), max extreme-fiber von "
+                "Mises: %.6g (element %d)", output["max_deflection"],
+                output["max_deflection_node"], output["max_von_mises"],
+                output["max_von_mises_element"])
+
+
+# The summary line of each analysis kind that every element family logs
+# alike; _FAMILIES holds each family's own lines and its static summary.
+_SUMMARIES = {"modal": _log_modal, "transient": _log_transient,
+              "harmonic": _log_sweep, "spectrum": _log_spectrum,
+              "random": _log_random, "reduction": _log_reduction}
+
+
+def _counts_of(raw: dict) -> str:
+    return (f"{len(raw.get('nodes', ()))} nodes, "
+            f"{len(raw.get('elements', ()))} elements")
+
+
+def _mesh_of(raw: dict) -> str:
+    return "generated mesh" if "mesh" in raw else _counts_of(raw)
+
+
+# family: (io module, document runner, log name, summary title,
+#          description of the document, its own summaries, static summary)
+_FAMILIES = {
+    "plane": ("plane_io", "run_plane_document", "Plane", "PLANE", _mesh_of,
+              {"plastic": _log_plastic,
+               "buckling": _log_factors("Load factors")},
+              lambda out: logger.info(
+                  "  Max von Mises: %.6g (element %d)",
+                  out["max_von_mises"], out["max_von_mises_element"])),
+    "solid": ("solid_io", "run_solid_document", "Solid", "SOLID", _mesh_of,
+              {"plastic": lambda out: logger.info(
+                  "  Steps: %d, yielded elements: %d, max von Mises: %.6g",
+                  out["n_steps"], len(out["yielded_elements"]),
+                  max(out["max_von_mises"])),
+               "buckling": _log_factors("Load factors")},
+              lambda out: logger.info(
+                  "  Max |u|: %.6g, max von Mises: %.6g (%s)",
+                  out["max_displacement"], out["max_von_mises"],
+                  out["method"])),
+    "plate": ("plate_io", "run_plate_document", "Plate", "PLATE", _mesh_of,
+              {"plastic": _log_plate_plastic,
+               "buckling": _log_factors("Critical membrane-force factors")},
+              _log_plate_static),
+    "frame": ("frame_io", "run_frame_document", "Frame", "FRAME",
+              _counts_of,
+              {"plastic": _log_frame_plastic,
+               "buckling": _log_factors("Critical load factors"),
+               "harmonic": lambda out: logger.info(
+                   "  Frequencies swept: %d", len(out["omegas"]))},
+              _log_frame_static),
+    "frame3d": ("frame3d_io", "run_frame3d_document", "Space-frame",
+                "SPACE-FRAME", _counts_of,
+                {"buckling": _log_factors("Critical load factors")},
+                _log_frame3d_static),
+}
+
+
+def _run_family(family: str, raw: dict, output_file: str, device) -> dict:
+    """A plane, solid, plate, frame or space-frame document through its io
+    module on `device`, with the JAX CLI's log lines."""
+    import importlib
+
+    module, runner, name, title, describe, own, static = _FAMILIES[family]
+    run_document = getattr(importlib.import_module(
+        f"..io.{module}", __package__), runner)
+    logger.info("%s document: %s", name, describe(raw))
+    output = run_document(raw, device)
+    with open(output_file, "w") as f:
+        json.dump(output, f, indent=2)
+    logger.info("%s", "=" * 60)
+    logger.info("%s ANALYSIS SUMMARY (%s):", title, output["analysis"])
+    kind = output["analysis"]
+    own.get(kind, _SUMMARIES.get(kind, static))(output)
     logger.info("Results written to %s", output_file)
     return output
 

@@ -690,3 +690,37 @@ def frame_sparse_matrices(problem, with_mass: bool = False):
             pm[d::per_node] += problem.point_masses
         m = m + sp.diags(pm)
     return csr(kl), m.tocsr()
+
+
+def plate_sparse_matrices(problem, with_mass: bool = False,
+                          membrane_force=None):
+    """(K, M, K_g) of a plate problem as float64 scipy CSR matrices from the
+    port's MITC4 blocks: M (point masses included) None unless with_mass,
+    K_g the geometric stiffness of `membrane_force` [Nxx, Nyy, Nxy], None
+    when it is None."""
+    import scipy.sparse as sp
+
+    from .models import plate as PL
+
+    dm = problem.dof_map()
+    rows = np.repeat(dm, dm.shape[1], axis=1).ravel()
+    cols = np.tile(dm, (1, dm.shape[1])).ravel()
+    n = problem.ndof
+
+    def csr(blocks):
+        return sp.csr_matrix((blocks.numpy().ravel(), (rows, cols)),
+                             shape=(n, n))
+
+    k = csr(PL._stiffness_blocks(problem, "cpu"))
+    m = kg = None
+    if with_mass:
+        coords, _ = PL._elements(problem, "cpu")
+        rho, thick = PL._material(problem, "cpu", "density", "thickness")
+        m = csr(PL._m_blocks_plate(coords, rho, thick))
+        if problem.point_masses is not None:
+            pm = np.zeros(n)
+            pm[0::3] += np.asarray(problem.point_masses, dtype=float)
+            m = (m + sp.diags(pm)).tocsr()
+    if membrane_force is not None:
+        kg = csr(PL._geometric_blocks(problem, membrane_force, "cpu"))
+    return k, m, kg

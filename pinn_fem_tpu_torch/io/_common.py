@@ -2,11 +2,12 @@
 pinn_fem_tpu/io/_common.py that the truss runners call (the amplitude,
 probe, omega and spectrum parsers, the prestress state, the S-N
 parameters, the element areas) and the strict-JSON sanitizer
-(`_json_finite`), with the continuum families' prestress state, reduction
-runner and explicit elastoplastic transient runner
-(`_continuum_prestress_u`, `run_continuum_reduction`,
-`run_continuum_transient_plastic`).  The other continuum runners come with
-their element families.
+(`_json_finite`), with the continuum families' prestress state and their
+spectrum, random-vibration, reduction and explicit elastoplastic transient
+runners (`_continuum_prestress_u`, `run_continuum_spectrum`,
+`run_continuum_random`, `run_continuum_reduction`,
+`run_continuum_transient_plastic`).  The reliability runner is ROADMAP
+item 24.
 """
 
 from __future__ import annotations
@@ -238,33 +239,146 @@ def _continuum_prestress_u(problem, spec, static_solver):
     return scale * np.asarray(static_solver(problem), dtype=float)
 
 
-# ROADMAP items of the continuum families not yet ported.
-_FAMILY_ITEMS = {"PlateProblem": 21, "ShellProblem": 22}
-
-
 def _family_modal(problem, n_modes: int, device=None):
-    """(omegas, shapes) of the problem's own dense modal analysis: the
-    plane, solid, frame and space-frame branches of the JAX package's
-    continuum_spectrum._family_of; the other families raise, naming their
-    ROADMAP item."""
-    from ..models.frame import FrameProblem, frame_modal
-    from ..models.frame3d import SpaceFrameProblem, space_frame_modal
-    from ..models.plane import PlaneProblem, plane_modal
-    from ..models.solid import SolidProblem, solid_modal
+    """(omegas, shapes) of the problem's own dense modal analysis on
+    `device` ("cuda" when None): the family's branch of
+    solvers/continuum_spectrum._family_of (a shell raises, naming ROADMAP
+    item 22)."""
+    from ..solvers.continuum_spectrum import _family_of
+    from ..utils.runtime import resolve_device
 
-    modal = next((fn for cls, fn in (
-        (PlaneProblem, plane_modal), (SolidProblem, solid_modal),
-        (FrameProblem, frame_modal), (SpaceFrameProblem, space_frame_modal))
-        if isinstance(problem, cls)), None)
-    if modal is not None:
-        res = modal(problem, n_modes, device=device)
-        return np.asarray(res.omegas), np.asarray(res.mode_shapes)
-    kind = type(problem).__name__
-    if kind in _FAMILY_ITEMS:
-        raise NotImplementedError(
-            f"the modal analysis of a {kind} is not yet ported, ROADMAP "
-            f"item {_FAMILY_ITEMS[kind]}")
-    raise TypeError(f"no continuum family for {kind}")
+    return _family_of(problem, resolve_device(device)).modal(problem,
+                                                             n_modes)
+
+
+def run_continuum_spectrum(problem, analysis: Dict, element_type: str,
+                           device=None) -> Dict:
+    """A response-spectrum block on a plane, solid, frame, space-frame or
+    plate document (solvers/continuum_spectrum, on `device`): the truss
+    run_spectrum contract with a single "direction"."""
+    from ..solvers.continuum_spectrum import continuum_response_spectrum
+
+    if "directions" in analysis:
+        raise ValueError('continuum spectrum supports a single '
+                         '"direction" — multi-direction combination '
+                         'is the truss tier\'s "directions" contract')
+    res = continuum_response_spectrum(
+        problem, _sa_callable(analysis),
+        direction=analysis.get("direction"),
+        n_modes=int(analysis.get("n_modes", 6)),
+        combination=analysis.get("combination", "srss"),
+        damping_ratio=float(analysis.get("damping_ratio", 0.05)),
+        device=device)
+    out = {
+        "success": True,
+        "analysis": "spectrum",
+        "element_type": element_type,
+        "combination": res.combination,
+        "omegas": res.omegas.tolist(),
+        "participation": res.participation.tolist(),
+        "effective_mass": res.effective_mass.tolist(),
+        "mass_fraction": res.mass_fraction,
+        "max_displacement": float(res.displacements.max()),
+        "stresses": res.stresses.tolist(),
+        # von Mises of the combined components: the design-code
+        # estimate, conservative for in-phase modes, not a bound.
+        "von_mises": res.von_mises.tolist(),
+        "max_von_mises": float(res.von_mises.max()),
+    }
+    if problem.ndof <= _SHAPES_JSON_DOF_LIMIT:
+        out["displacements"] = res.displacements.tolist()
+    return _json_finite(out)
+
+
+def run_continuum_random(problem, analysis: Dict, element_type: str,
+                         probe, device=None) -> Dict:
+    """A random-vibration block on a plane, solid, frame, space-frame or
+    plate document (solvers/continuum_spectrum, on `device`): the truss
+    run_random contract, with the spectral fatigue of the Preumont
+    equivalent von Mises PSDs (frames: the governing extreme fiber):
+
+        "fatigue": {"sn": {"exponent": m, "coefficient": C},
+                    "method": "dirlik" | "narrowband", "duration": T},
+        "probe_elements": [..]       (default: every element)
+    """
+    from ..solvers.continuum_spectrum import (continuum_random_response,
+                                              continuum_spectral_fatigue,
+                                              harmonic_fields)
+
+    omegas = _omega_array(analysis["omegas"])
+    if probe is None:
+        probe = np.arange(problem.ndof)
+    probe = np.asarray(probe, dtype=int).reshape(-1)
+    if (probe.size * omegas.size > 4 * _SHAPES_JSON_DOF_LIMIT
+            and "probe_dofs" not in analysis
+            and "probe_nodes" not in analysis):
+        raise ValueError(
+            "random-response PSDs would serialize "
+            f"{probe.size} DOFs x {omegas.size} frequencies to JSON; "
+            "give probe_nodes/probe_dofs to bound the payload")
+    psd_spec = analysis.get("psd", 1.0)
+    if isinstance(psd_spec, dict):
+        om_tab = np.asarray(psd_spec["omegas"], dtype=float)
+        val_tab = np.asarray(psd_spec["values"], dtype=float)
+
+        def load_psd(om):
+            return np.interp(om, om_tab, val_tab)
+    else:
+        load_psd = float(psd_spec)
+    damping = analysis.get("damping", (0.0, 0.0))
+    fat = analysis.get("fatigue")
+    # The fatigue's stress FRFs read the whole field: one sweep serves them
+    # and the probes' PSDs.
+    fields = (None if fat is None
+              else harmonic_fields(problem, omegas, damping, device))
+    res = continuum_random_response(
+        problem, load_psd, omegas, damping=damping, probe_dofs=probe,
+        device=device, fields=fields)
+    out = {
+        "success": True,
+        "analysis": "random",
+        "element_type": element_type,
+        "omegas": res.omegas.tolist(),
+        "probe_dofs": probe.tolist(),
+        "psd": res.psd.tolist(),
+        "rms": res.rms.tolist(),
+        "frf_amplitude": res.frf_amplitude.tolist(),
+    }
+    if fat is not None:
+        m = c = None
+        if fat.get("sn") is not None:
+            m, c = _sn_params(fat)
+        duration = fat.get("duration")
+        cf = continuum_spectral_fatigue(
+            problem, load_psd, omegas, damping=damping,
+            probe_elements=analysis.get("probe_elements"), sn_exponent=m,
+            sn_coefficient=c, method=fat.get("method", "dirlik"),
+            duration=duration, device=device, fields=fields)
+        sf = cf.fatigue
+        out["fatigue"] = {
+            "method": sf.method,
+            "equivalent": ("extreme_fiber_governing"
+                           if element_type == "frame" else
+                           "extreme_fiber_von_mises_governing"
+                           if element_type == "shell"
+                           else "von_mises_preumont"),
+            "probe_elements": cf.probe_elements.tolist(),
+            "stress_rms": sf.rms.tolist(),
+            "nu0_hz": sf.nu0.tolist(),
+            "nu_peak_hz": sf.nu_peak.tolist(),
+            "alpha2": sf.alpha2.tolist(),
+        }
+        if m is not None:
+            out["fatigue"]["sn"] = {"exponent": m, "coefficient": c}
+            out["fatigue"]["damage_rate"] = sf.damage_rate.tolist()
+            out["fatigue"]["life_s"] = [
+                None if not np.isfinite(v) else float(v) for v in sf.life]
+        if duration is not None:
+            out["fatigue"]["duration"] = float(duration)
+            out["fatigue"]["peak_factor"] = sf.peak_factor.tolist()
+            out["fatigue"]["expected_peak_stress"] = \
+                sf.expected_peak.tolist()
+    return _json_finite(out)
 
 
 def run_continuum_reduction(problem, analysis: Dict, element_type: str,

@@ -14,13 +14,13 @@ pinn_fem_tpu/io/frame3d_io.py): documents with
      "temperature", "temperature_gradient_y", "temperature_gradient_z",
      "ref_vectors": [[elem, ax, ay, az], ..],
      "analysis": {"type": "static" | "modal" | "transient" | "harmonic"
-                  | "buckling" | "reduction", ..}}
+                  | "buckling" | "spectrum" | "random" | "reduction", ..}}
 
 Statics and modal above DENSE_DOF_LIMIT DOFs take the banded tier
 (kernels 1-3 on a card) with probe and summary payloads; everything else
-is dense float64.  Every analysis runs on the caller's device ("cuda" when
-None).  "spectrum" and "random" are ROADMAP item 22a and raise
-NotImplementedError before any work.
+is dense float64 ("spectrum" and "random": io/_common's continuum
+runners, member end forces for the stresses).  Every analysis runs on the
+caller's device ("cuda" when None).
 """
 
 from __future__ import annotations
@@ -32,9 +32,6 @@ import numpy as np
 from ..models.frame3d import (SpaceFrameProblem, solve_space_frame_static,
                               solve_space_frame_transient,
                               space_frame_harmonic, space_frame_modal)
-
-# Analysis types of later ROADMAP items.
-_LATER = {"spectrum": "22a", "random": "22a"}
 
 
 def is_frame3d_document(doc: Dict) -> bool:
@@ -298,8 +295,24 @@ def _reduction(problem: SpaceFrameProblem, analysis: Dict, device) -> Dict:
     return run_continuum_reduction(problem, analysis, "frame3d", device)
 
 
+def _spectrum(problem: SpaceFrameProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_spectrum
+
+    return run_continuum_spectrum(problem, analysis, "frame3d", device)
+
+
+def _random(problem: SpaceFrameProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_random
+
+    probe = analysis.get("probe_dofs")
+    if probe is None and analysis.get("probe_nodes") is not None:
+        probe = _probe_dofs6(analysis, problem)
+    return run_continuum_random(problem, analysis, "frame3d", probe, device)
+
+
 _RUNNERS = {"static": _static, "modal": _modal, "transient": _transient,
             "harmonic": _harmonic, "buckling": _buckling,
+            "spectrum": _spectrum, "random": _random,
             "reduction": _reduction}
 
 
@@ -311,10 +324,6 @@ def run_frame3d_analysis(problem: SpaceFrameProblem, analysis: Dict,
     if kind == "frame3d":
         # A route-injected type (the backend's convention) means statics.
         kind = "static"
-    if kind in _LATER:
-        raise NotImplementedError(
-            f'space-frame "{kind}" analysis is not yet ported, ROADMAP '
-            f"item {_LATER[kind]}")
     runner = _RUNNERS.get(kind)
     if runner is None:
         raise ValueError('space-frame analysis type must be "static", '

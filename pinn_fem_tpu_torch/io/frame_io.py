@@ -11,17 +11,19 @@ pinn_fem_tpu/io/frame_io.py): documents with `"element_type": "frame"`.
      "member_loads": [[elem, wx, wy], ..] | [[wx, wy] per element],
      "temperature": dT | [..], "temperature_gradient": g | [..],
      "analysis": {"type": "static" | "modal" | "buckling" | "transient"
-                  | "harmonic" | "reduction" | "plastic", ..}}
+                  | "harmonic" | "spectrum" | "random" | "reduction"
+                  | "plastic", ..}}
 
 Statics at or below DENSE_DOF_LIMIT DOFs is the dense float64 solve with
 the full field and member forces in the result; above it the banded tier
 ("tier": "banded", kernels 1-3 on a card) with probes and summaries.
 Modal is dense (with "prestress") up to the limit and banded above it.
-Buckling, Newmark, harmonic, reduction and the plastic-hinge pushover are
-dense float64.  Every analysis runs on the caller's device ("cuda" when
-None).  The analysis types of later ROADMAP items raise
-NotImplementedError naming the item before any work: "spectrum" and
-"random" (22a), "identification" (23), "reliability" and "sizing" (24).
+Buckling, Newmark, harmonic, spectrum, random (io/_common's continuum
+runners; fatigue on the governing extreme fiber), reduction and the
+plastic-hinge pushover are dense float64.  Every analysis runs on the
+caller's device ("cuda" when None).  The analysis types of later ROADMAP
+items raise NotImplementedError naming the item before any work:
+"identification" (23), "reliability" and "sizing" (24).
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ from ..models.frame import (FrameProblem, frame_buckling, frame_harmonic,
                             solve_frame_transient)
 
 # Analysis types of later ROADMAP items.
-_LATER = {"spectrum": "22a", "random": "22a", "identification": "23",
-          "reliability": "24", "sizing": "24"}
+_LATER = {"identification": "23", "reliability": "24", "sizing": "24"}
 
 
 def is_frame_document(doc: Dict) -> bool:
@@ -319,8 +320,22 @@ def _plastic(problem: FrameProblem, analysis: Dict, device) -> Dict:
     }
 
 
+def _spectrum(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_spectrum
+
+    return run_continuum_spectrum(problem, analysis, "frame", device)
+
+
+def _random(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_random
+
+    return run_continuum_random(problem, analysis, "frame",
+                                _node_dofs(analysis), device)
+
+
 _RUNNERS = {"static": _static, "modal": _modal, "buckling": _buckling,
             "transient": _transient, "harmonic": _harmonic,
+            "spectrum": _spectrum, "random": _random,
             "reduction": _reduction, "plastic": _plastic}
 
 

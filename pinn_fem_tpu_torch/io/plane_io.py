@@ -18,7 +18,8 @@ pinn_fem_tpu/io/plane_io.py): documents with `"element_type": "plane"`.
      "point_masses": [[node, m], ..] | [..per node..],
      "temperature": dT | [..] (or the "thermal" block),
      "analysis": {"type": "static" | "modal" | "buckling" | "transient"
-                  | "harmonic" | "plastic" | "reduction", ..}}
+                  | "harmonic" | "plastic" | "spectrum" | "random"
+                  | "reduction", ..}}
 
 Every node-selecting key also takes a named boundary edge "left",
 "right", "bottom" or "top" (path-ordered).  Statics at or below
@@ -26,10 +27,11 @@ DENSE_DOF_LIMIT DOFs is the dense float64 solve with the full field in
 the result; above it, the banded tier (kernels 1-3 on a card) with probes
 and summaries.  The other analyses are dense float64, refused above 8192
 DOFs; a transient with "plasticity" is the explicit elastoplastic
-transient (solvers/continuum_transient_plastic).  Every analysis runs on
-the caller's device ("cuda" when None).  The analysis types of later
-ROADMAP items raise NotImplementedError naming the item: "spectrum" and
-"random" (22), "identification" (23), "sizing" and "reliability" (24).
+transient (solvers/continuum_transient_plastic); "spectrum" and "random"
+(with "fatigue") are io/_common's continuum runners.  Every analysis runs
+on the caller's device ("cuda" when None).  The analysis types of later
+ROADMAP items raise NotImplementedError naming the item:
+"identification" (23), "sizing" and "reliability" (24).
 """
 
 from __future__ import annotations
@@ -45,8 +47,7 @@ from ..models.plane import (PlaneProblem, annulus_mesh, edge_load,
                             solve_plane_transient)
 
 # Analysis types of later ROADMAP items.
-_LATER = {"spectrum": 22, "random": 22, "identification": 23,
-          "sizing": 24, "reliability": 24}
+_LATER = {"identification": 23, "sizing": 24, "reliability": 24}
 
 
 def is_plane_document(doc: Dict) -> bool:
@@ -413,9 +414,23 @@ def _reduction(problem: PlaneProblem, analysis: Dict, device) -> Dict:
     return run_continuum_reduction(problem, analysis, "plane", device)
 
 
+def _spectrum(problem: PlaneProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_spectrum
+
+    return run_continuum_spectrum(problem, analysis, "plane", device)
+
+
+def _random(problem: PlaneProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_random
+
+    return run_continuum_random(problem, analysis, "plane",
+                                _probe_dofs(analysis, problem), device)
+
+
 _RUNNERS = {"reduction": _reduction, "buckling": _buckling,
             "plastic": _plastic, "modal": _modal, "transient": _transient,
-            "harmonic": _harmonic}
+            "harmonic": _harmonic, "spectrum": _spectrum,
+            "random": _random}
 
 
 def run_plane_analysis(problem: PlaneProblem, analysis: Dict,

@@ -15,7 +15,8 @@ pinn_fem_tpu/io/solid_io.py): documents with `"element_type": "solid"`.
      "point_masses": [[node, m], ..] | [..per node..],
      "temperature": dT | [..] (or the "thermal" block),
      "analysis": {"type": "static" | "modal" | "transient" | "buckling"
-                  | "harmonic" | "plastic" | "reduction", ..}}
+                  | "harmonic" | "plastic" | "spectrum" | "random"
+                  | "reduction", ..}}
 
 Every node-selecting key also takes a named boundary face "x_min",
 "x_max", "y_min", "y_max", "z_min" or "z_max".  Statics and modal at or
@@ -23,11 +24,12 @@ below DENSE_DOF_LIMIT DOFs are the dense float64 analyses; above it (or
 with "banded": true) the banded tier: kernels 1-3 on a card.  A transient
 is dense Newmark, or central difference on the banded tier (kernel 1 a
 step); with "plasticity" the explicit elastoplastic transient
-(solvers/continuum_transient_plastic).  Buckling, harmonic, plastic and
-reduction are dense, refused above 8192 DOFs.  Every analysis runs on the
-caller's device ("cuda" when None).  The analysis types of later ROADMAP
-items raise NotImplementedError naming the item: "spectrum" and "random"
-(22), "identification" (23), "reliability" (24).
+(solvers/continuum_transient_plastic).  Buckling, harmonic, plastic,
+spectrum, random (io/_common's continuum runners) and reduction are dense,
+refused above 8192 DOFs.  Every analysis runs on the caller's device
+("cuda" when None).  The analysis types of later ROADMAP items raise
+NotImplementedError naming the item: "identification" (23),
+"reliability" (24).
 """
 
 from __future__ import annotations
@@ -415,6 +417,21 @@ def _reduction(problem: SolidProblem, analysis: Dict, device) -> Dict:
     return run_continuum_reduction(problem, analysis, "solid", device)
 
 
+def _spectrum(problem: SolidProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_spectrum
+
+    _budget(problem, "spectrum runs on the dense host modal/FRF tier")
+    return run_continuum_spectrum(problem, analysis, "solid", device)
+
+
+def _random(problem: SolidProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_random
+
+    _budget(problem, "random runs on the dense host modal/FRF tier")
+    return run_continuum_random(problem, analysis, "solid",
+                                _probe_dofs(analysis, problem), device)
+
+
 def _later(item: int, budget: str = ""):
     """A runner of a later ROADMAP item's type: the JAX package's budget
     refusal first (when it has one), then NotImplementedError."""
@@ -432,9 +449,7 @@ def _later(item: int, budget: str = ""):
 _RUNNERS = {
     "static": _static, "modal": _modal, "transient": _transient,
     "reduction": _reduction,
-    "spectrum": _later(22, "{kind} runs on the dense host modal/FRF "
-                       "tier"),
-    "random": _later(22, "{kind} runs on the dense host modal/FRF tier"),
+    "spectrum": _spectrum, "random": _random,
     "buckling": _buckling, "harmonic": _harmonic, "plastic": _plastic,
     "reliability": _later(24, "reliability runs dense traced solves per "
                           "HL-RF iteration"),

@@ -21,10 +21,10 @@ as in the JAX package.  The modes' signs come from the eigensolver
 (LAPACK, torch, cuSOLVER), so the modal rows and columns of a
 Craig-Bampton k_red / m_red may differ in sign between packages and
 devices; the master block and the reduced frequencies do not.
-`reduce_model` takes the truss and the plane, solid, frame and space-frame
-families (their consistent float64 K and M from the families'
-`*_matrices`, through the dense cores); its plate and shell branches come
-with their element families, ROADMAP items 21-22.
+`reduce_model` takes the truss and the plane, solid, frame, space-frame
+and plate families (their consistent float64 K and M from the families'
+`*_matrices`, through the dense cores); its shell branch comes with the
+shell family, ROADMAP item 22.
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ import torch
 from ..models.problem import TrussProblem
 from ..utils.runtime import resolve_device
 
-# The continuum problem classes of the JAX package's reduce_model that
-# are not yet ported.
-_CONTINUUM = ("PlateProblem", "ShellProblem")
+# The continuum problem class of the JAX package's reduce_model that is
+# not yet ported.
+_CONTINUUM = ("ShellProblem",)
 
 
 class ReducedModel(NamedTuple):
@@ -216,12 +216,13 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
                  n_modes: int = 4, device=None) -> ReducedModel:
     """Family-dispatching reduction on `device` ("cuda" when None): a
     TrussProblem takes the lumped float64 path above, a PlaneProblem,
-    SolidProblem, FrameProblem or SpaceFrameProblem its own consistent
-    dense (K, M) through the dense cores.  The JAX package's plate and
-    shell branches are not yet ported."""
+    SolidProblem, FrameProblem, SpaceFrameProblem or PlateProblem its own
+    consistent dense (K, M) through the dense cores.  The JAX package's
+    shell branch is not yet ported (ROADMAP item 22)."""
     from ..models.frame import FrameProblem, frame_matrices
     from ..models.frame3d import SpaceFrameProblem, space_frame_matrices
     from ..models.plane import PlaneProblem, plane_matrices
+    from ..models.plate import PlateProblem, plate_matrices
     from ..models.solid import SolidProblem, solid_matrices
 
     if isinstance(problem, TrussProblem):
@@ -235,7 +236,7 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
     kind = type(problem).__name__
     mats = next((fn for cls, fn in (
         (PlaneProblem, plane_matrices), (SolidProblem, solid_matrices),
-        (FrameProblem, frame_matrices),
+        (FrameProblem, frame_matrices), (PlateProblem, plate_matrices),
         (SpaceFrameProblem, space_frame_matrices))
         if isinstance(problem, cls)), None)
     if mats is not None:
@@ -252,8 +253,8 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
                          '"craig_bampton"')
     if kind in _CONTINUUM:
         raise NotImplementedError(
-            f"reduce_model of a {kind} is not yet ported: the plate and "
-            "shell families are ROADMAP items 21-22")
+            f"reduce_model of a {kind} is not yet ported: the shell "
+            "family is ROADMAP item 22")
     raise TypeError("reduce_model needs a Truss/Plane/Solid/"
                     "Frame/SpaceFrame/Shell/Plate problem, "
                     f"got {kind}")

@@ -245,7 +245,7 @@ def continuum_and_limit_calls():
         "not-a-problem": (lambda pkg, kw: pkg.reduce_model(
             SimpleNamespace(ndof=4), TOP, **kw), TypeError),
         "continuum": (lambda pkg, kw: pkg.reduce_model(
-            type("PlateProblem", (), {"ndof": 8})(), [0], **kw),
+            type("ShellProblem", (), {"ndof": 8})(), [0], **kw),
             NotImplementedError),
     }
 
@@ -272,12 +272,13 @@ def test_reduction_refusals_match_jax(name, monkeypatch):
 
 
 def test_continuum_reduction_refused():
-    """reduce_model on a continuum problem not yet ported (a plate; the
-    plane, solid and frame branches are ported, tests/test_torch_plane.py,
-    tests/test_torch_solid.py and tests/test_torch_frame*.py) raises
-    NotImplementedError naming ROADMAP items 21-22."""
+    """reduce_model on a continuum problem not yet ported (a shell; the
+    plane, solid, frame and plate branches are ported,
+    tests/test_torch_plane.py, tests/test_torch_solid.py,
+    tests/test_torch_frame*.py and tests/test_torch_plate.py) raises
+    NotImplementedError naming ROADMAP item 22."""
     call, kind = continuum_and_limit_calls()["continuum"]
-    with pytest.raises(kind, match="ROADMAP items 21-22"):
+    with pytest.raises(kind, match="ROADMAP item 22"):
         call(tp, {"device": "cpu"})
 
 

@@ -29,7 +29,9 @@ does the solid family's banded statics (99 diagonals), and one central
 step of its banded transient (kernel 1) equals the CPU's within 1e-5.
 The frame families' banded statics (3 and 6 DOFs a node) launch the
 kernels as the plane's does, within 1e-3 of the dense solve; their dense
-analyses on the card equal the CPU's at 1e-10.
+analyses on the card equal the CPU's at 1e-10.  So do the plate's banded
+statics (33 diagonals) and dense analyses, and the continuum spectrum,
+random and fatigue analyses equal the CPU's at 1e-10.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -1286,3 +1288,107 @@ def test_frame_dense_analyses_on_card(cuda_device):
         if k in ("modal", "buckling"):
             got = got * np.sign(np.sum(got * cpu, axis=1))[:, None]
         assert np.abs(got - cpu).max() <= 1e-10 * np.abs(cpu).max(), k
+
+
+def plate_square(n: int, t: float):
+    from pinn_fem_tpu_torch.io.plate_io import parse_plate_document
+
+    return parse_plate_document({
+        "element_type": "plate",
+        "mesh": {"type": "rect", "width": 1.0, "height": 1.0, "nx": n,
+                 "ny": n},
+        "material": {"young": 2e11, "poisson": 0.3, "thickness": t,
+                     "density": 7850.0},
+        "pressure": -1000.0,
+        "supports": {"simply_supported": ["left", "right", "bottom",
+                                          "top"]}})[0]
+
+
+def test_plate_banded_statics_on_card(cuda_device):
+    """The plate's banded statics (33 diagonals, 3 DOFs a node): kernels 2
+    and 3 launch 32 ceil(iterations / 32) times, kernel 1 once, u within
+    1e-3 of the CPU's dense float64 solve."""
+    problem = plate_square(24, 0.05)
+    kernels.reset_launch_counts()
+    card, iters, rel = T.solve_plate_static_banded(problem, tol=1e-8,
+                                                   device=cuda_device)
+    counts = kernels.launch_counts()
+    rounds = 32 * -(-iters // 32)
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == rounds
+    assert counts["dia_matvec"] == 1 and rel <= 1e-8
+    cpu = T.solve_plate_static(problem, device="cpu")
+    scale = np.abs(cpu.displacements).max()
+    assert np.abs(card.displacements - cpu.displacements).max() \
+        <= 1e-3 * scale
+
+
+def test_plate_dense_analyses_on_card(cuda_device):
+    """The plate's dense float64 analyses on the card (statics, modal with
+    a membrane prestress as eigenvalues and cluster projectors, buckling,
+    the plastic float64 tier) equal the CPU runs at 1e-10; no repo
+    kernel runs."""
+    problem = plate_square(8, 0.05)
+    mass = T.plate_matrices(problem, device="cpu")[1].numpy()
+
+    def modal(device):
+        res = T.plate_modal(problem, 6, membrane_force=[-1e4, 0.0, 0.0],
+                            device=device)
+        return res.eigenvalues, res.mode_shapes.T @ res.mode_shapes @ mass
+
+    runs = {
+        "static": lambda d: T.solve_plate_static(problem, device=d)
+        .displacements,
+        "eigenvalues": lambda d: modal(d)[0],
+        "projector": lambda d: modal(d)[1],
+        "buckling": lambda d: T.plate_buckling(problem, [-1.0, 0.0, 0.0],
+                                               n_modes=1, device=d)
+        .load_factors,
+        "plastic": lambda d: T.solve_plate_plastic(
+            problem, sigma_y=2e8, n_layers=4, n_steps=3,
+            target_load_factor=30.0, device=d).displacements,
+    }
+    kernels.reset_launch_counts()
+    card = {k: fn(cuda_device) for k, fn in runs.items()}
+    assert not any(kernels.launch_counts().values())
+    for k, fn in runs.items():
+        cpu = fn("cpu")
+        assert np.abs(card[k] - cpu).max() <= 1e-10 * np.abs(cpu).max(), k
+
+
+def test_continuum_spectrum_on_card(cuda_device):
+    """Spectrum (CQC), random and Dirlik fatigue of a plane wall and a
+    plate on the card equal the CPU runs at 1e-10 (participations by
+    magnitude); no repo kernel runs."""
+    from pinn_fem_tpu_torch.io.plane_io import parse_plane_document
+
+    wall = parse_plane_document({
+        "element_type": "plane",
+        "mesh": {"type": "rect", "width": 4.0, "height": 8.0, "nx": 4,
+                 "ny": 8},
+        "material": {"young": 200.0, "poisson": 0.3, "thickness": 0.5,
+                     "density": 2.0},
+        "fixed_nodes": "bottom",
+        "edge_loads": [{"nodes": "top", "traction": [1.0, 0.0]}]})[0]
+    om = np.linspace(0.05, 2.0, 16)
+    runs = {}
+    for name, problem in (("wall", wall), ("plate", plate_square(6, 0.05))):
+        runs[f"{name}_spectrum"] = lambda d, p=problem: (
+            lambda r: np.concatenate([r.displacements, r.von_mises,
+                                      np.abs(r.participation)]))(
+            T.continuum_response_spectrum(p, 2.5, n_modes=4,
+                                          combination="cqc", device=d))
+        runs[f"{name}_random"] = lambda d, p=problem: \
+            T.continuum_random_response(p, 1.0, om * (
+                1.0 if p is wall else 2e3), damping=(0.02, 0.001),
+                device=d).rms
+        runs[f"{name}_fatigue"] = lambda d, p=problem: \
+            T.continuum_spectral_fatigue(
+                p, 1.0, om * (1.0 if p is wall else 2e3),
+                damping=(0.02, 0.001), sn_exponent=3.0,
+                sn_coefficient=1e12, device=d).fatigue.damage_rate
+    kernels.reset_launch_counts()
+    card = {k: fn(cuda_device) for k, fn in runs.items()}
+    assert not any(kernels.launch_counts().values())
+    for k, fn in runs.items():
+        cpu = fn("cpu")
+        assert np.abs(card[k] - cpu).max() <= 1e-10 * np.abs(cpu).max(), k

@@ -446,10 +446,27 @@ def test_document_analyses_match_jax(analysis):
 
 
 @pytest.mark.parametrize("kind", ["spectrum", "random"])
-def test_later_analysis_types_refused(kind):
-    tp, _ = both(grillage())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 22a$"):
-        t_io.run_frame3d_analysis(tp, {"type": kind}, CPU)
+def test_spectral_documents_match_jax(tmp_path, monkeypatch, kind):
+    """dyn-frame3d.json as a "spectrum" and a "random" document, the
+    analyses ported with solvers/continuum_spectrum.py, through both CLIs:
+    exit codes 0 and the result JSON within F64_RTOL (participation by
+    magnitude: it carries its mode's sign)."""
+    doc = json.loads((CORPUS / "dyn-frame3d.json").read_text())
+    doc["analysis"] = (
+        {"type": "spectrum", "sa": {"omegas": [0.0, 50.0],
+                                    "values": [3.0, 1.0]},
+         "direction": [0.3, 1.0, 0.0], "n_modes": 4, "combination": "cqc"}
+        if kind == "spectrum" else
+        {"type": "random", "omegas": {"start": 0.5, "stop": 20.0,
+                                      "num": 30},
+         "psd": 1.0, "damping": [0.2, 0.001], "probe_nodes": [1, 2]})
+    (rc_j, want, _), (rc_t, got, _) = both_clis(tmp_path, monkeypatch,
+                                                kind, doc)
+    assert rc_j == rc_t == 0
+    if "participation" in want:
+        for out in (got, want):
+            out["participation"] = np.abs(out["participation"]).tolist()
+    assert tree_gap(got, want) <= F64_RTOL
 
 
 @pytest.mark.parametrize("method", ["guyan", "craig_bampton"])

@@ -632,9 +632,34 @@ def test_banded_document_matches_jax(monkeypatch):
         assert rel_err(got[key], want[key]) <= F32_RTOL, key
 
 
+SPECTRAL = {
+    "spectrum": {"type": "spectrum", "sa": 2.0, "direction": [0.0, 1.0],
+                 "n_modes": 4, "combination": "srss"},
+    "random": {"type": "random", "omegas": {"start": 0.5, "stop": 30.0,
+                                            "num": 20},
+               "damping": [0.3, 0.001], "probe_nodes": "right",
+               "fatigue": {"sn": {"exponent": 3.0, "coefficient": 1e6},
+                           "duration": 100.0}},
+}
+
+
+@pytest.mark.parametrize("kind", list(SPECTRAL))
+def test_spectral_documents_match_jax(kind):
+    """The plane "spectrum" and "random" (with fatigue) analyses, ported
+    with solvers/continuum_spectrum.py (tests/test_torch_continuum_
+    spectrum.py), through run_plane_document in both packages within
+    F64_RTOL (participation by magnitude: it carries its mode's sign)."""
+    doc = small_doc(**SPECTRAL[kind])
+    want = j_io.run_plane_document(json.loads(json.dumps(doc)))
+    got = t_io.run_plane_document(json.loads(json.dumps(doc)), CPU)
+    if "participation" in want:
+        for out in (got, want):
+            out["participation"] = np.abs(out["participation"]).tolist()
+    assert tree_gap(got, want) <= F64_RTOL
+
+
 @pytest.mark.parametrize("kind, item", [
-    ("spectrum", 22), ("random", 22), ("identification", 23),
-    ("sizing", 24), ("reliability", 24)])
+    ("identification", 23), ("sizing", 24), ("reliability", 24)])
 def test_later_analysis_types_refused(kind, item):
     """The plane analysis types of later ROADMAP items raise
     NotImplementedError naming the item (a transient's "plasticity" runs

@@ -215,11 +215,12 @@ def test_cli_malformed_json_exits_1(tmp_path, monkeypatch):
 
 
 def test_cli_element_document_not_yet_ported(tmp_path, monkeypatch):
-    doc = {"element_type": "plate", "nodes": [[0, 0], [1, 0], [1, 1]],
+    doc = {"element_type": "shell", "nodes": [[0, 0, 0], [1, 0, 0],
+                                              [1, 1, 0]],
            "elements": [[0, 1, 2]]}
-    rc, log = run_main(tmp_path, monkeypatch, "plate.json", json.dumps(doc))
+    rc, log = run_main(tmp_path, monkeypatch, "shell.json", json.dumps(doc))
     assert rc == 1 and "[ERROR]" in log and "not yet ported" in log
-    assert "ROADMAP item 21" in log
+    assert "ROADMAP item 22" in log
 
 
 def test_cli_example1_writes_result(tmp_path, monkeypatch):
