@@ -273,9 +273,8 @@ code is not 0 and no result line is printed:
      (e) a Craig-Bampton document of the 500-story tower (2,004 DOFs, the
      top two nodes as masters, 8 modes, compare_full) through main():
      reduced omegas within 1e-10 of scipy in float64, the wall time; (f)
-     reduction above the dense limit and with data=, reduce_model of a
-     continuum problem not yet ported (a shell: item 22), each compose key
-     of the transient
+     reduction above the dense limit (a truss and a shell) and with
+     data=, each compose key of the transient
      "plasticity" spec, and a float64 CUDA operand at (c)'s kernel 1
      dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel 1),
      each refused before any launch;
@@ -393,10 +392,36 @@ code is not 0 and no result line is printed:
      the solid, frame, space-frame and plate families through main()
      within 1e-10 of the port's CPU run, and an 8,010-DOF plane wall's
      random document with Dirlik fatigue at 64 frequencies against
-     scipy's float64 sweep within 1e-9, ms a frequency; (e) a shell
-     document, dyn-plate-identify, a shell's spectrum, reduction and
-     fiber FRF and a plate's reliability and sizing, each refused before
-     any launch, naming items 22, 23 and 24.
+     scipy's float64 sweep within 1e-9, ms a frequency; (e)
+     dyn-plate-identify and a plate's reliability and sizing, each
+     refused before any launch, naming items 23 and 24;
+ 23. the flat-facet shell family: (a) the Scordelis-Lo roof
+     (dyn-shell.json) refined to 96 x 96 (56,454 DOFs, 69 diagonals,
+     bandwidth 593) through solve_shell_static_banded (tol 1e-7) and as
+     a document through main() probing the midside free-edge node: u
+     within 1e-3 of a float64 scipy solve of the same float32 diagonals,
+     kernels 2 and 3 launched 32 ceil(it / 32) times and kernel 1 once,
+     PCG ms an iteration, the layout build, warm wall, the idle share,
+     the midside deflection recorded, and the 32 x 32 roof's within 1e-2
+     of the published 0.3024 (ROADMAP fault 3.34); (b) the banded
+     Marguerre Newton on the JAX benchmark's 16 x 512 von Karman strip
+     (52,326 DOFs, 4 load steps): converged, the midspan deflection
+     within 3e-3 of the exact beam, kernel 1 never and kernels 2 and 3
+     the sum over its PCG solves of 32 ceil(it / 32), ms a Newton
+     iteration split into block build, scatter, PCG and line search, the
+     block build's operations a second against the FP32 peak; (c)
+     kernels 1-3 against their plain versions on both operators; (d) the
+     dense float64 analyses of the 17 x 17 roof (statics, modal,
+     buckling, reduction, a random document), a cylindrical panel's
+     spectrum document (theta_z held, ROADMAP fault 3.33), and
+     dyn-shell, dyn-shell-snap and dyn-shell-plastic through main()
+     within 1e-10 of the port's CPU run, Newmark and harmonic on the 35 x
+     35 roof within 1e-9 of scipy.sparse float64, and the plastic strip
+     refined above the dense limit on the float32 tier beside the float64
+     tier (residuals recorded), wall and peak memory of each; (e) shell
+     "identification", "sizing" and "reliability" documents and shell
+     modal and buckling above the dense limit, each refused before any
+     launch.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -414,11 +439,13 @@ launches_dynamics, on phase 13's, as launches_multigrid on phase 14's,
 as launches_batched on phase 15's, as launches_eigen on phase 16's,
 as launches_frequency on phase 17's, as launches_nonlinear on phase 18's,
 as launches_plane on phase 19's, as launches_solid on phase 20's, as
-launches_frame on phase 21's, as launches_plate on phase 22's, kernels
-1-3 their figures on phase 19's strip operator (plane_strip), on phase
-20's column operator (solid_column), on phase 21's tower and skeleton
-operators (frame_tower, frame3d_grid) and on phase 22's slab operator
-(plate_slab), kernel 1 also its times at the
+launches_frame on phase 21's, as launches_plate on phase 22's, as
+launches_shell on phase 23's, kernels 1-3 their figures on phase 19's
+strip operator (plane_strip), on phase 20's column operator
+(solid_column), on phase 21's tower and skeleton operators (frame_tower,
+frame3d_grid), on phase 22's slab operator (plate_slab) and on phase 23's
+roof and Marguerre strip operators (shell_roof, shell_marguerre), kernel
+1 also its times at the
 multigrid's level shapes, kernels 4 and 4b their member-axis times at
 B = 1, 8 and 32 as members); the last is
 {"ok": true,
@@ -5964,12 +5991,11 @@ def craig_bampton_tower(workdir: Path, card: str) -> dict:
 
 
 def nonlinear_refusals(dev, card: str) -> None:
-    """18(f): reduction above the dense limit and with data=, reduce_model
-    of a continuum problem not yet ported (a shell: item 22), each
-    compose key of the
-    transient "plasticity" spec, and a float64 CUDA operand at 18(c)'s
-    kernel 1 dispatch (the ValueError naming PINN_FEM_TPU_X64 and kernel
-    1), each before any launch."""
+    """18(f): reduction above the dense limit (a truss grid and a shell
+    roof) and with data=, each compose key of the transient "plasticity"
+    spec, and a float64 CUDA operand at 18(c)'s kernel 1 dispatch (the
+    ValueError naming PINN_FEM_TPU_X64 and kernel 1), each before any
+    launch."""
     import torch
 
     from pinn_fem_tpu_torch import (guyan_reduce, reduce_model,
@@ -5978,9 +6004,11 @@ def nonlinear_refusals(dev, card: str) -> None:
     from pinn_fem_tpu_torch.io.analysis import run_analysis
     from pinn_fem_tpu_torch.ops import kernels
 
+    from pinn_fem_tpu_torch.io.shell_io import parse_shell_document
+
     small = tower_problem()
     big = grid_problem(*PLASTIC_GRID)
-    continuum = type("ShellProblem", (), {"ndof": 8})()
+    roof = parse_shell_document(shell_roof_document(24))[0]
     calls = {
         "reduction_above_limit": (lambda: guyan_reduce(big, [10, 11],
                                                        device=dev),
@@ -5988,9 +6016,9 @@ def nonlinear_refusals(dev, card: str) -> None:
         "reduction_data": (lambda: guyan_reduce(
             small, [4, 5], data=small.to_device(dev), device=dev),
             ValueError, "drop it"),
-        "reduce_model_continuum": (lambda: reduce_model(
-            continuum, [0], device=dev), NotImplementedError,
-            "ROADMAP item 22"),
+        "reduce_model_shell_above_limit": (lambda: reduce_model(
+            roof, [6 * midside(24) + 2], device=dev), ValueError,
+            "dense-only"),
     }
     base = {"type": "transient", "dt": "auto", "n_steps": 10,
             "plasticity": {"sigma_y": 1.0}}
@@ -8996,36 +9024,20 @@ def spectral_documents(workdir: Path, dev, card: str) -> dict:
 
 
 def plate_refusals(workdir: Path, dev, card: str) -> None:
-    """22(e): a shell document and dyn-plate-identify.json through the
-    CLI's run() (items 22 and 23), a ShellProblem's spectrum, reduction
-    and shell_fiber_stress_frf (item 22), and a plate's reliability and
-    sizing (item 24), each refused before any launch."""
-    from pinn_fem_tpu_torch import (continuum_response_spectrum,
-                                    reduce_model, shell_fiber_stress_frf)
+    """22(e): dyn-plate-identify.json through the CLI's run() (item 23)
+    and a plate's reliability and sizing (item 24), each refused before
+    any launch (the shell's refusals: 23(e))."""
     from pinn_fem_tpu_torch.cli.generic import run
     from pinn_fem_tpu_torch.io.plate_io import run_plate_document
     from pinn_fem_tpu_torch.ops import kernels
 
-    shell = workdir / "shell.json"
-    shell.write_text((ROOT / "examples" / "json" / "dyn-shell.json")
-                     .read_text())
     ident = workdir / "dyn-plate-identify.json"
     ident.write_text((ROOT / "examples" / "json" / "dyn-plate-identify.json")
                      .read_text())
-    stand_in = type("ShellProblem", (), {"ndof": 12, "nelm": 1})()
     small = plate_document(4, 0.05)
     calls = {
-        "shell_document": (lambda: run(str(shell), device=dev),
-                           "ROADMAP item 22"),
         "plate_identification": (lambda: run(str(ident), device=dev),
                                  "ROADMAP item 23"),
-        "shell_spectrum": (lambda: continuum_response_spectrum(
-            stand_in, 1.0, device=dev), "ROADMAP item 22"),
-        "shell_reduction": (lambda: reduce_model(stand_in, [0],
-                                                 device=dev),
-                            "ROADMAP item 22"),
-        "shell_fiber_stress_frf": (lambda: shell_fiber_stress_frf(
-            stand_in, [1.0], device=dev), "ROADMAP item 22"),
     }
     for kind in ("reliability", "sizing"):
         calls[f"plate_{kind}"] = (lambda kind=kind: run_plate_document(
@@ -9072,6 +9084,629 @@ def phase_plate(workdir: Path, dev, card: str) -> dict:
     return {"launches": launches, "slab": slab_stats}
 
 
+SHELL_ROOF = 96                 # 23(a): 56,454 DOFs, 69 diagonals
+SHELL_TOL = 1e-7                # solve_shell_static_banded's default
+SHELL_U_RTOL = 1e-3             # against float64 of the same diagonals
+SHELL_PUBLISHED = 0.3024        # the Scordelis-Lo midside free-edge target
+SHELL_PUBLISHED_RTOL = 1e-2
+SHELL_PUBLISHED_ROOF = 32       # 6,534 DOFs: the largest mesh whose own
+                                # float64 solution lies within 1e-2 of it
+                                # (ROADMAP fault 3.34)
+SHELL_WARM_RUNS = 3
+SHELLNL_STRIP = (16, 512)       # 23(b): 52,326 DOFs, 8,192 facets
+SHELLNL_LOADS = (0.25, 0.5, 0.75, 1.0)
+SHELLNL_EXACT_RTOL = 3e-3       # benchmarks/scaling.py:741's gate
+SHELL_DENSE_ROOF = 17           # 23(d): 1,944 DOFs, under DENSE_DOF_LIMIT
+SHELL_DYN_ROOF = 35             # 23(d): 7,776 DOFs
+SHELL_DENSE_RTOL = 1e-10        # card against the port's CPU run, float64
+SHELL_SHAPE_ATOL = 1e-7         # of max |phi|, by cluster spans
+SHELL_PLASTIC_RTOL = 1e-9       # plastic strain: the Newton tolerance
+SHELL_DYN_RTOL = 1e-9           # 35 x 35 against scipy.sparse float64
+SHELL_NEWMARK_STEPS = 100
+SHELL_HARMONIC_FREQS = 8
+SHELL_PLASTIC_STRIP = (40, 8)   # 23(d): 2,214 DOFs, the float32 tier
+# The matmul operations of one facet's Marguerre blocks
+# (solvers/shell_nonlinear._marguerre_blocks): 1,186 a Gauss point, 4
+# points, and the bending and drilling forces.
+MARGUERRE_OPS = 4 * 1186 + 288 + 32
+
+
+def shell_roof_document(n: int, **analysis) -> dict:
+    """dyn-shell.json (the Scordelis-Lo roof, self-weight, end diaphragms)
+    refined to n x n, the analysis block `analysis`."""
+    doc = json.loads((ROOT / "examples" / "json" / "dyn-shell.json")
+                     .read_text())
+    doc["mesh"].update(nx=n, ny=n)
+    doc["analysis"] = analysis
+    return doc
+
+
+def midside(n: int) -> int:
+    """The roof's midside free-edge node (x > 0, y = L / 2)."""
+    return (n // 2) * (n + 1) + n
+
+
+def shell_roof(workdir: Path, dev, card: str):
+    """23(a), 23(c) on its operator: the n x n roof at full width through
+    solve_shell_static_banded(tol=1e-7) and as a document through main()
+    probing the midside node: u against a float64 scipy solve of the same
+    float32 diagonals (and, beside it, of the float64 operator, fault
+    3.23), the launches (kernel 1: 1, kernels 2 and 3: 32 ceil(it / 32)),
+    the PCG iterations and ms an iteration, the layout build, warm wall
+    (median of SHELL_WARM_RUNS), the idle share; the midside deflection
+    recorded; the published 0.3024 held on the SHELL_PUBLISHED_ROOF roof
+    (fault 3.34: the facet model itself departs from it past 32 x 32)."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.shell_io import parse_shell_document
+    from pinn_fem_tpu_torch.models import shell as SH
+    from pinn_fem_tpu_torch.ops import dia, kernels
+
+    n = SHELL_ROOF
+    mid = midside(n)
+    doc = shell_roof_document(n, type="static", tolerance=SHELL_TOL,
+                              probe_nodes=[mid])
+    problem = parse_shell_document(doc)[0]
+    t0 = time.perf_counter()
+    layout = SH.shell_dia_layout(problem)
+    layout_s = time.perf_counter() - t0
+    _, diags, mask = SH._banded_operator(problem, torch.float32, dev)
+    stats = operator_kernels(layout, diags, mask, dev, card, "23(c)",
+                             "the roof", "phase23c_roof_kernels", 23)
+
+    def solve():
+        return SH.solve_shell_static_banded(problem, tol=SHELL_TOL,
+                                            device=dev)
+
+    kernels.reset_launch_counts()
+    with Timed(dia, "dia_cg_solve") as pcg_calls:
+        cold_s, (res, iters, rel) = synced(solve)
+    launches = {"shell_roof_api": kernels.launch_counts()}
+    pcg_s = pcg_calls[0][0]
+    warm = [synced(solve)[0] for _ in range(SHELL_WARM_RUNS)]
+    f64 = SH._static_loads(problem, "cpu").numpy()
+    prof = pcg_profile(layout, diags, torch.as_tensor(
+        f64, dtype=torch.float32, device=dev), mask)
+    idle = idle_profile(solve)
+    free = problem.free_dofs()
+    t0 = time.perf_counter()
+    u_same = float64_sparse_solve(dia_csr64(layout, diags), f64, free)
+    ref_s = time.perf_counter() - t0
+    diags64 = SH._banded_operator(problem, torch.float64, dev)[1]
+    u64 = float64_sparse_solve(dia_csr64(layout, diags64), f64, free)
+    del diags64
+    u = res.displacements
+    scale = np.abs(u64).max()
+    u_gap = float(np.abs(u - u_same).max() / scale)
+    w = float(u[6 * mid + 2])
+    rounds = 32 * -(-iters // 32)
+    expected = {"dia_matvec": 1, "dia_dir_matvec": rounds,
+                "cg_update": rounds, "material_coefficients": 0,
+                "material_coefficients_backward": 0}
+
+    path = workdir / "shell_roof.json"
+    path.write_text(json.dumps(doc))
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    kernels.reset_launch_counts()
+    cli_s, rc = synced(lambda: main([str(path)]))
+    launches["shell_roof_cli"] = kernels.launch_counts()
+    require(rc == 0, "23(a): the roof document's exit code 0")
+    out = json.loads((workdir / "shell_roof.res.json").read_text())
+    cli_w = out["probe_displacements"][2]
+    cli_gap = abs(cli_w - u_same[6 * mid + 2]) / scale
+    cli_rounds = 32 * -(-out["iterations"] // 32)
+
+    m = SHELL_PUBLISHED_ROOF
+    small = parse_shell_document(shell_roof_document(m))[0]
+    pub_s, (pub, pub_iters, pub_rel) = synced(
+        lambda: SH.solve_shell_static_banded(small, tol=SHELL_TOL,
+                                             device=dev))
+    w_pub = float(pub.displacements[6 * midside(m) + 2])
+    pub_err = abs(abs(w_pub) - SHELL_PUBLISHED) / SHELL_PUBLISHED
+    log("phase23a_roof", card=card, ndof=problem.ndof,
+        elements=problem.nelm, n_diags=layout.n_diags,
+        bandwidth=layout.bandwidth, iterations=iters,
+        relative_residual=rel, midside_w=w,
+        midside_w_float64_operator=float(u64[6 * mid + 2]),
+        published=SHELL_PUBLISHED, u_gap_vs_same_system=u_gap,
+        u_gap_vs_float64=float(np.abs(u - u64).max() / scale),
+        float32_representation_floor=float(np.abs(u_same - u64).max()
+                                           / scale),
+        cold_s=cold_s, warm_s=warm, warm_median_s=float(np.median(warm)),
+        pcg_s=pcg_s, pcg_ms_per_iteration=1e3 * pcg_s / max(iters, 1),
+        profile=prof, solve_idle=idle, layout_build_s=layout_s,
+        float64_reference_s=ref_s, launches=launches, expected=expected,
+        cli_s=cli_s, cli_iterations=out["iterations"],
+        cli_relative_residual=out["relative_residual"],
+        cli_midside_gap_vs_same_system=cli_gap, cli_tier=out["tier"],
+        published_roof=dict(n=m, ndof=small.ndof, s=pub_s,
+                            iterations=pub_iters, relative_residual=pub_rel,
+                            midside_w=w_pub, published_err=pub_err))
+    require(rel <= SHELL_TOL, "23(a): relative residual <= 1e-7")
+    require(u_gap <= SHELL_U_RTOL, f"23(a): u within {SHELL_U_RTOL} of "
+            "the float64 solve of the same diagonals")
+    require(launches["shell_roof_api"] == expected,
+            "23(a): the launches of the formula")
+    require(out["tier"] == "banded" and out["relative_residual"]
+            <= SHELL_TOL, "23(a): the document's banded tier")
+    require(cli_gap <= SHELL_U_RTOL, "23(a): the document's midside probe")
+    require(launches["shell_roof_cli"] == dict(
+        expected, dia_dir_matvec=cli_rounds, cg_update=cli_rounds),
+        "23(a): the document's launches of the formula")
+    require(pub_rel <= SHELL_TOL and pub_err <= SHELL_PUBLISHED_RTOL,
+            f"23(a): the {m} x {m} roof's midside deflection within "
+            f"{SHELL_PUBLISHED_RTOL} of {SHELL_PUBLISHED}")
+    return launches, stats
+
+
+def shellnl_strip():
+    """The JAX package's banded Marguerre benchmark strip
+    (benchmarks/scaling.py:676-718): the immovable pinned-edge von Karman
+    strip, nu = 0, theta_x held, extruded ny elements long, span the fast
+    numbering axis, under the pressure that puts w / t near 1.04; and the
+    exact midspan deflection of the von Karman beam (the cosh closed form
+    with the scalar membrane-force fixpoint)."""
+    import numpy as np
+    from scipy.optimize import brentq
+
+    from pinn_fem_tpu_torch.models.shell import ShellProblem
+
+    nx, ny = SHELLNL_STRIP
+    span, young, t = 4.0, 2e5, 0.1
+    d = young * t ** 3 / 12.0
+    q = 3.0 * 0.15 * 384.0 * d / (5.0 * span ** 4)
+    xs = np.linspace(0.0, span, nx + 1)
+    nodes = np.array([[x, y, 0.0] for y in np.arange(ny + 1.0) for x in xs])
+    na = nx + 1
+    elems = np.asarray([[j * na + i, j * na + i + 1, j * na + i + 1 + na,
+                         j * na + i + na]
+                        for j in range(ny) for i in range(nx)])
+    n = nodes.shape[0]
+    fixed = []
+    for nd in range(n):
+        if nodes[nd, 0] in (0.0, span):
+            fixed += [6 * nd + 0, 6 * nd + 1, 6 * nd + 2]
+        fixed.append(6 * nd + 3)
+    problem = ShellProblem(nodes=nodes, elements=elems, young=young,
+                           poisson=0.0, thickness=t, density=1.0,
+                           loads=np.zeros(6 * n),
+                           fixed_dofs=np.array(sorted(set(fixed))),
+                           pressure=-q)
+
+    def resid(nf):
+        kk = np.sqrt(nf / d)
+        c = np.cosh(kk * span / 2.0)
+        xg = np.linspace(-span / 2.0, span / 2.0, 4001)
+        wp = (q / nf) * (np.sinh(kk * xg) / (kk * c) - xg)
+        return nf - young * t / (2.0 * span) * np.trapezoid(wp ** 2, xg)
+
+    nf = brentq(resid, 1e-3, 5e3, xtol=1e-12)
+    kk = np.sqrt(nf / d)
+    c = np.cosh(kk * span / 2.0)
+    w_ex = abs((q / nf) * ((1.0 - c) / (kk ** 2 * c) + span ** 2 / 8.0))
+    mid = 6 * (ny // 2 * na + nx // 2) + 2
+    return problem, w_ex, mid, 5.0 * q * span ** 4 / (384.0 * d)
+
+
+def shell_marguerre(dev, card: str):
+    """23(b), 23(c) on its operator: solve_shell_nonlinear_banded on the
+    strip in 4 load steps (the JAX row shellnl_banded_solve): converged,
+    the midspan w within 3e-3 of the exact von Karman beam, the launches
+    (kernel 1: 0; kernels 2 and 3: the sum over the run's PCG solves, one
+    a Newton iteration, of 32 ceil(it / 32)); Newton iterations, ms a
+    Newton iteration (warm) split into the block build, the DIA scatter,
+    the PCG and the line search's force evaluations (each call
+    synchronized in a second warm run), the block build's operations per
+    second against the FP32 peak, the idle share."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.models import shell as SH
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers import shell_nonlinear as SN
+
+    problem, w_ex, mid, w_lin = shellnl_strip()
+    lfs = np.asarray(SHELLNL_LOADS)
+    t0 = time.perf_counter()
+    layout = SH.shell_dia_layout(problem)
+    layout_s = time.perf_counter() - t0
+
+    def run():
+        return SN.solve_shell_nonlinear_banded(problem, load_factors=lfs,
+                                               device=dev)
+
+    kernels.reset_launch_counts()
+    with Timed(SN, "dia_cg_solve") as pcg_calls:
+        cold_s, res = synced(run)
+    launches = {"shellnl_api": kernels.launch_counts()}
+    pcg_its = [int(c[1][1]) for c in pcg_calls]
+    rounds = sum(32 * -(-it // 32) for it in pcg_its)
+    expected = {"dia_matvec": 0, "dia_dir_matvec": rounds,
+                "cg_update": rounds, "material_coefficients": 0,
+                "material_coefficients_backward": 0}
+    warm_s, _ = synced(run)
+    with Timed(SN, "_tangent_blocks") as blocks, \
+            Timed(SN, "assemble_dia_blocks") as scatter, \
+            Timed(SN, "dia_cg_solve") as pcg, \
+            Timed(SN, "_internal_force") as forces:
+        split_s, _ = synced(run)
+    idle = idle_profile(run)
+    newton = int(res.iterations.sum())
+    w_fe = abs(float(res.displacements[-1][mid]))
+    exact_err = abs(w_fe - w_ex) / w_ex
+
+    def per_call_ms(calls):
+        return 1e3 * sum(c[0] for c in calls) / max(len(calls), 1)
+
+    block_ms = per_call_ms(blocks)
+    ops = MARGUERRE_OPS * problem.nelm
+    split = {"block_build_ms": block_ms, "scatter_ms": per_call_ms(scatter),
+             "pcg_ms": per_call_ms(pcg),
+             "pcg_iterations": [int(c[1][1]) for c in pcg],
+             "line_search_force_ms": per_call_ms(forces),
+             "line_search_evaluations": len(forces),
+             "synchronized_run_s": split_s}
+    geo64 = SN._marguerre_geometry(problem, SH._DRILL_EPS_BANDED, dev)
+    geo = tuple(a.float() for a in (geo64.bm, geo64.gw, geo64.g0,
+                                    geo64.det, geo64.kb, geo64.kd,
+                                    geo64.dm))
+    u = torch.as_tensor(res.displacements[-1], dtype=torch.float32,
+                        device=dev)
+    ke, _ = SN._tangent_blocks(geo, u[geo64.dof_map])
+    diags = SN.assemble_dia_blocks(layout, ke).contiguous()
+    del ke, geo, geo64
+    mask = torch.as_tensor(problem.free_mask(), dtype=torch.float32,
+                           device=dev)
+    stats = operator_kernels(layout, diags, mask, dev, card, "23(c)",
+                             "the Marguerre strip",
+                             "phase23c_marguerre_kernels", 231)
+    log("phase23b_marguerre", card=card, ndof=problem.ndof,
+        elements=problem.nelm, n_diags=layout.n_diags,
+        bandwidth=layout.bandwidth, layout_build_s=layout_s,
+        load_factors=lfs.tolist(), converged=res.converged,
+        newton_iterations=res.iterations.tolist(),
+        residuals=res.residuals.tolist(), pcg_iterations=pcg_its,
+        cold_s=cold_s, warm_s=warm_s,
+        ms_per_newton_iteration=1e3 * warm_s / max(newton, 1),
+        split=split, block_build_ops=ops,
+        block_build_ops_per_s=ops / max(block_ms / 1e3, 1e-12),
+        block_build_mfu=ops / max(block_ms / 1e3, 1e-12) / FLOPS,
+        w_over_t=w_fe / 0.1, w_exact=w_ex, exact_err=exact_err,
+        stiffening_vs_linear=w_fe / w_lin, solve_idle=idle,
+        launches=launches, expected=expected)
+    require(res.converged, "23(b): the banded Marguerre Newton converged")
+    require(exact_err <= SHELLNL_EXACT_RTOL, "23(b): the midspan w within "
+            f"{SHELLNL_EXACT_RTOL} of the exact von Karman beam")
+    require(launches["shellnl_api"] == expected,
+            "23(b): the launches of the formula")
+    return launches, stats
+
+
+def shell_sparse(problem):
+    """(K, ridged M) of a shell problem as float64 scipy CSR matrices from
+    the port's facet blocks on the CPU."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from pinn_fem_tpu_torch.models import shell as SH
+
+    dm = problem.dof_map()
+    n = problem.ndof
+    rows = np.repeat(dm[:, :, None], 24, 2).ravel()
+    cols = np.repeat(dm[:, None, :], 24, 1).ravel()
+    mats = [sp.csr_matrix((b(problem, "cpu").numpy().ravel(), (rows, cols)),
+                          shape=(n, n))
+            for b in (SH._stiffness_blocks, SH._mass_blocks)]
+    k, m = mats
+    return k, m + SH._MASS_RIDGE * m.diagonal().max() * sp.eye(n)
+
+
+def shell_dense(workdir: Path, dev, card: str) -> dict:
+    """23(d): the dense float64 shell analyses on the card against the
+    port's CPU run at 1e-10: on the 17 x 17 roof (1,944 DOFs) statics,
+    modal (shapes by cluster spans), buckling under its own membrane state,
+    Guyan reduction and a random document with fatigue through main() (its
+    PSDs, |X|^2, at 2e-10, its damage rates and lives, stress^3, at
+    3e-10); a cylindrical panel's spectrum document
+    (`shell_panel_document`); dyn-shell.json, dyn-shell-snap.json (Riks
+    through both folds) and dyn-shell-plastic.json (the float64 tier, at
+    its Newton tolerance 1e-9) through main(); on the 35 x 35 roof (7,776 DOFs) Newmark and a harmonic sweep
+    against scipy.sparse float64 replays at 1e-9; a strip of the plastic
+    document refined above DENSE_DOF_LIMIT through main() on the float32
+    tier beside the float64 tier on the card (its residuals recorded, as
+    22(c) did); wall and peak memory of each card run.  No repo kernel."""
+    import numpy as np
+    import scipy.sparse.linalg as spl
+    import torch
+
+    from pinn_fem_tpu_torch.cli.generic import main
+    from pinn_fem_tpu_torch.io.shell_io import (parse_shell_document,
+                                                run_shell_document)
+    from pinn_fem_tpu_torch.models import shell as SH
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers import newton
+    from pinn_fem_tpu_torch.solvers import shell_plasticity as SPL
+    from pinn_fem_tpu_torch.solvers.plane_plasticity import float64_loop
+    from pinn_fem_tpu_torch.ops.plastic import params_arrays
+
+    report, gates = {}, []
+
+    def rel(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    def on_card(label, fn):
+        s, gb, out = peak_run(dev, fn)
+        report[label] = {"s": s, "peak_gb": gb}
+        return out
+
+    def gate(label, gap, bound, what="gap"):
+        report[label][what] = gap
+        gates.append((gap <= bound, f"23(d) {label} {what}"))
+
+    n = SHELL_DENSE_ROOF
+    mid = midside(n)
+    problem = parse_shell_document(shell_roof_document(n))[0]
+    free = problem.free_dofs()
+    kernels.reset_launch_counts()
+    g = on_card("static", lambda: SH.solve_shell_static(problem, device=dev))
+    c = SH.solve_shell_static(problem, device="cpu")
+    gate("static", max(rel(getattr(g, k), getattr(c, k)) for k in (
+        "displacements", "membrane_forces", "moments", "reactions")),
+        SHELL_DENSE_RTOL)
+    k, m = (a.numpy() for a in SH.shell_matrices(problem, device="cpu"))
+    mf = SH._ridged(torch.as_tensor(m))[free][:, free].numpy()
+    g = on_card("modal", lambda: SH.shell_modal(problem, 6, device=dev))
+    c = SH.shell_modal(problem, 6, device="cpu")
+    gate("modal", rel(g.eigenvalues, c.eigenvalues), SHELL_DENSE_RTOL,
+         "eig_gap")
+    gate("modal", cluster_gap(c.eigenvalues, g.mode_shapes[:, free],
+                              c.mode_shapes[:, free], mf),
+         SHELL_SHAPE_ATOL, "shape_gap")
+    report["modal"]["frequencies_hz"] = g.frequencies_hz.tolist()
+    g = on_card("buckling", lambda: SH.shell_buckling(problem, n_modes=3,
+                                                      device=dev))
+    c = SH.shell_buckling(problem, n_modes=3, device="cpu")
+    gate("buckling", rel(g.load_factors, c.load_factors), SHELL_DENSE_RTOL)
+    gate("buckling", cluster_gap(c.load_factors, g.modes[:, free],
+                                 c.modes[:, free], k[free][:, free]),
+         SHELL_SHAPE_ATOL, "shape_gap")
+    report["buckling"]["load_factors"] = g.load_factors.tolist()
+    docs = {
+        "reduction": shell_roof_document(
+            n, type="reduction", method="guyan",
+            master_nodes=[mid, mid - 2, mid - n - 1]),
+        "spectrum": shell_panel_document(
+            type="spectrum", n_modes=4, combination="cqc",
+            direction=[0.3, 1.0, -0.2],
+            sa={"omegas": [0.0, 200.0], "values": [3.0, 1.0]}),
+        "random": shell_roof_document(
+            n, type="random", psd=1.0, probe_nodes=[mid],
+            omegas={"start": 5.0, "stop": 60.0, "num": 12},
+            damping=[2.0, 5e-4], probe_elements=[0, n // 2, n * n - 1],
+            fatigue={"sn": {"exponent": 3.0, "coefficient": 1e15},
+                     "method": "dirlik", "duration": 60.0}),
+    }
+    for name in ("dyn-shell", "dyn-shell-snap", "dyn-shell-plastic"):
+        docs[name] = json.loads((ROOT / "examples" / "json"
+                                 / f"{name}.json").read_text())
+    os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
+    for name, doc in docs.items():
+        path = workdir / f"shell-{name}.json"
+        path.write_text(json.dumps(doc))
+        rc = on_card(name, lambda: main([str(path)]))
+        gates.append((rc == 0, f"23(d) {name}: exit code 0"))
+        got = json.loads(path.with_suffix(".res.json").read_text())
+        want = json.loads(json.dumps(run_shell_document(
+            json.loads(json.dumps(doc)), "cpu")))
+        if name == "dyn-shell-plastic":
+            gate(name, rel(got["final"].pop("eq_plastic_strain"),
+                           want["final"].pop("eq_plastic_strain")),
+                 SHELL_PLASTIC_RTOL, "eq_plastic_gap")
+        if "max_displacement_dof" in want:
+            # The symmetric roof's two free edges tie for the largest |u|:
+            # the card's pick must hold that largest value.
+            pick = got.pop("max_displacement_dof")
+            want.pop("max_displacement_dof")
+            gate(name, abs(abs(want["displacements"][pick])
+                           - want["max_displacement"])
+                 / want["max_displacement"], SHELL_DENSE_RTOL, "max_pick")
+        gaps = tree_gaps(got, want)
+        if name == "reduction":
+            # Ratios of nearly equal frequencies: held absolutely.
+            gate(name, max(abs(a - b) for a, b in zip(
+                got["frequency_rel_errors"], want["frequency_rel_errors"])),
+                SHELL_DENSE_RTOL, "frequency_rel_errors_gap")
+            gaps.pop("/frequency_rel_errors")
+        if name == "random":
+            # A PSD is |X|^2 S and a Basquin damage rate the stress to the
+            # S-N exponent 3: 2 and 3 times the response's relative gap.
+            for key, power in (("/psd", 2), ("/fatigue/damage_rate", 3),
+                               ("/fatigue/life_s", 3)):
+                gate(name, gaps.pop(key), power * SHELL_DENSE_RTOL,
+                     key.rsplit("/", 1)[1] + "_gap")
+        worst = max(gaps, key=gaps.get)
+        report[name].update(worst=worst)
+        # The plastic runs each stop at |r| / |f| <= 1e-9.
+        gate(name, gaps[worst], SHELL_PLASTIC_RTOL
+             if name == "dyn-shell-plastic" else SHELL_DENSE_RTOL)
+
+    n = SHELL_DYN_ROOF
+    mid = midside(n)
+    problem = parse_shell_document(shell_roof_document(n))[0]
+    free = problem.free_dofs()
+    ks, ms = shell_sparse(problem)
+    kf, mf = ks[free][:, free].tocsc(), ms[free][:, free].tocsc()
+    om1 = float(np.sqrt(spl.eigsh(kf, k=1, M=mf, sigma=0.0, which="LM",
+                                  return_eigenvectors=False)[0]))
+    damping = (0.02 * om1, 0.02 / om1)
+    cf = (damping[0] * mf + damping[1] * kf).tocsc()
+    f = SH._static_loads(problem, "cpu").numpy()
+    probe = [6 * mid + 2, 6 * (mid - 1) + 2]
+    dt = 2.0 * np.pi / om1 / 40.0
+    amp = np.sin(0.5 * om1 * dt * np.arange(SHELL_NEWMARK_STEPS))
+    g = on_card("newmark", lambda: SH.solve_shell_transient(
+        problem, dt, SHELL_NEWMARK_STEPS, damping=damping, amplitude=amp,
+        probe_dofs=probe, record_every=1, device=dev))
+    report["newmark"]["ndof"] = problem.ndof
+    gate("newmark", rel(g.displacements, newmark_replay(
+        kf, mf, cf, f[free], free, problem.ndof, dt, amp, probe, every=1)),
+        SHELL_DYN_RTOL)
+    om = np.linspace(0.3 * om1, 3.0 * om1, SHELL_HARMONIC_FREQS)
+    g = on_card("harmonic", lambda: SH.shell_harmonic(
+        problem, om, damping=damping, probe_dofs=probe, device=dev))
+    gate("harmonic", rel(g.amplitude, harmonic_replay(
+        kf, mf, cf, f[free], om, np.searchsorted(free, probe))),
+        SHELL_DYN_RTOL)
+    report["harmonic"]["ms_per_frequency"] = \
+        1e3 * report["harmonic"]["s"] / om.size
+
+    doc = shell_plastic_strip_document()
+    fine = parse_shell_document(doc)[0]
+    path = workdir / "shell_plastic_fine.json"
+    path.write_text(json.dumps(doc))
+    rc = on_card("plastic_float32", lambda: main([str(path)]))
+    out = json.loads(path.with_suffix(".res.json").read_text())
+    an = doc["analysis"]
+    sy, hi, hk = params_arrays(fine.nelm, an["sigma_y"])
+    lfs = np.asarray(an["load_factors"], dtype=float)
+    system = SPL._ShellSystem(fine, sy, hi, hk, an["n_layers"], 1e-8,
+                              torch.float64, dev)
+    f64 = on_card("plastic_float64", lambda: SPL._result(
+        lfs, *float64_loop(system, lfs, 1e-9, 30, 1e-12)))
+    probe = np.asarray(out["probe_dofs"])
+    u32 = np.asarray(out["displacements"], dtype=float)
+    u64 = f64.displacements[:, probe]
+    report["plastic_float32"].update(
+        ndof=fine.ndof, dense_limit=newton.DENSE_DOF_LIMIT,
+        success=out["success"], iterations=out["iterations"],
+        max_residual=out["max_residual"], n_plastic=out["n_plastic"],
+        probe_gap_vs_float64_by_step=(np.abs(u32 - u64).max(axis=1)
+                                      / np.abs(u64).max(axis=1)).tolist())
+    report["plastic_float64"].update(
+        iterations=f64.iterations.tolist(),
+        residuals=f64.residuals.tolist(), n_plastic=f64.n_plastic.tolist())
+    gates += [(rc == 0, "23(d) refined plastic strip: exit code 0"),
+              (fine.ndof > newton.DENSE_DOF_LIMIT,
+               "23(d) refined plastic strip: the float32 tier"),
+              (f64.converged, "23(d) refined plastic strip: float64 "
+               "converged")]
+    launches = kernels.launch_counts()
+    report["launches"] = launches
+    log("phase23d_dense", card=card, **report)
+    for ok, what in gates:
+        require(ok, what)
+    require(zero_launches(launches), "23(d): no repo kernel")
+    return launches
+
+
+def shell_panel_document(**analysis) -> dict:
+    """A 40-degree cylindrical panel (R 25, L 40, t 2, 8 x 6 facets)
+    cantilevered from its y = 0 edge under self-weight and a normal
+    pressure, the global theta_z held at every node: the JAX package's
+    spectrum refuses a shell whose drilling rotations are free (ROADMAP
+    fault 3.33)."""
+    return {"element_type": "shell",
+            "mesh": {"type": "cylinder_panel", "radius": 25.0,
+                     "length": 40.0, "half_angle_deg": 40.0, "nx": 8,
+                     "ny": 6},
+            "material": {"young": 4.32e8, "poisson": 0.2, "thickness": 2.0,
+                         "density": 2.0},
+            "supports": [{"nodes": "y_min", "dofs": [0, 1, 2, 3, 4, 5]},
+                         {"nodes": list(range(63)), "dofs": [5]}],
+            "body_force": [0.0, 0.0, -90.0], "pressure": 20.0,
+            "analysis": analysis}
+
+
+def shell_plastic_strip_document() -> dict:
+    """dyn-shell-plastic.json's clamped strip (4 x 1, E 2e5, t 0.1, sigma_y
+    300, 20 layers) meshed SHELL_PLASTIC_STRIP, its axial force and end
+    moment spread over the right edge's nodes: above DENSE_DOF_LIMIT."""
+    import numpy as np
+
+    doc = json.loads((ROOT / "examples" / "json" / "dyn-shell-plastic.json")
+                     .read_text())
+    nx, ny = SHELL_PLASTIC_STRIP
+    xs, ys = np.linspace(0.0, 4.0, nx + 1), np.linspace(0.0, 1.0, ny + 1)
+    doc["nodes"] = [[x, y, 0.0] for y in ys for x in xs]
+    na = nx + 1
+    doc["elements"] = [[j * na + i, j * na + i + 1, j * na + i + 1 + na,
+                        j * na + i + na] for j in range(ny) for i in range(nx)]
+    right = [j * na + nx for j in range(ny + 1)]
+    w = np.full(ny + 1, 1.0 / ny)
+    w[[0, -1]] = 0.5 / ny                   # the edge's tributary widths
+    doc["point_loads"] = [[nd, 0, 15.0 * wi] for nd, wi in zip(right, w)] \
+        + [[nd, 4, -0.5625 * wi] for nd, wi in zip(right, w)]
+    doc["analysis"]["probe_nodes"] = [right[ny // 2]]
+    return doc
+
+
+def shell_refusals(workdir: Path, dev, card: str) -> None:
+    """23(e): shell "identification" (item 23), "sizing" and "reliability"
+    (item 24) documents through the CLI's run(), and shell modal and
+    buckling above DENSE_DOF_LIMIT (the JAX package's ValueError), each
+    refused before any launch."""
+    from pinn_fem_tpu_torch.cli.generic import run
+    from pinn_fem_tpu_torch.io.shell_io import run_shell_document
+    from pinn_fem_tpu_torch.ops import kernels
+
+    calls = {}
+    for kind, item in (("identification", 23), ("sizing", 24),
+                       ("reliability", 24)):
+        path = workdir / f"shell-{kind}.json"
+        path.write_text(json.dumps(shell_roof_document(4, type=kind)))
+        calls[kind] = (lambda path=path: run(str(path), device=dev),
+                       NotImplementedError, f"ROADMAP item {item}")
+    for kind in ("modal", "buckling"):
+        calls[f"{kind}_above_limit"] = (
+            lambda kind=kind: run_shell_document(
+                shell_roof_document(24, type=kind), dev),
+            ValueError, f"shell {kind} is dense-host-only")
+    refused = {}
+    kernels.reset_launch_counts()
+    for name, (call, kind, text) in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except kind as e:
+            refused[name] = str(e)
+            require(text in str(e), f"23(e) {name}: the message names "
+                    f"{text}")
+    launches = kernels.launch_counts()
+    log("phase23e_refusals", card=card, refused=refused, launches=launches)
+    for name, msg in refused.items():
+        require(msg is not None, f"23(e): {name} refused")
+    require(zero_launches(launches), "23(e): no launch before refusal")
+
+
+def phase_shell(workdir: Path, dev, card: str) -> dict:
+    """Phase 23: the flat-facet shell family on the card.  Returns the
+    kernels' launches on each of its paths and the kernels' figures on the
+    roof's and the Marguerre strip's operators."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    launches, roof_stats = shell_roof(workdir, dev, card)
+    lap("a")
+    nl_launches, nl_stats = shell_marguerre(dev, card)
+    launches.update(nl_launches)
+    lap("b")
+    launches["dense"] = shell_dense(workdir, dev, card)
+    lap("d")
+    shell_refusals(workdir, dev, card)
+    lap("e")
+    log("phase23_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return {"launches": launches, "roof": roof_stats, "marguerre": nl_stats}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -9100,6 +9735,7 @@ def main() -> int:
         solid = phase_solid(Path(tmp), dev, card)
         frame = phase_frame(Path(tmp), dev, card)
         plate = phase_plate(Path(tmp), dev, card)
+        shell = phase_shell(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -9151,6 +9787,8 @@ def main() -> int:
             path: counts[name] for path, counts in frame["launches"].items()}
         entries[-1]["launches_plate"] = {
             path: counts[name] for path, counts in plate["launches"].items()}
+        entries[-1]["launches_shell"] = {
+            path: counts[name] for path, counts in shell["launches"].items()}
         if name in BANDED:
             entries[-1]["plane_strip"] = {
                 key: plane["strip"][name][key]
@@ -9162,7 +9800,9 @@ def main() -> int:
                             "bound_by", "library_ms", "bit_equal")}
             for label, ops in (("frame_tower", frame["tower"]),
                                ("frame3d_grid", frame["grid"]),
-                               ("plate_slab", plate["slab"])):
+                               ("plate_slab", plate["slab"]),
+                               ("shell_roof", shell["roof"]),
+                               ("shell_marguerre", shell["marguerre"])):
                 entries[-1][label] = {
                     key: ops[name].get(key)
                     for key in ("err", "ms", "device_us", "plain_ms",

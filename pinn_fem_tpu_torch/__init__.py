@@ -55,9 +55,15 @@ ops/plate_plastic.py, solvers/plate_plasticity.py) runs through
 "element_type": "plate" documents (io/plate_io.py): dense statics, modal
 with membrane prestress, buckling, Newmark, harmonic, layered
 elastoplastic statics and reduction, with banded statics on the stencil
-and PCG kernels.  Response spectra, random vibration and spectral fatigue
-of the plane, solid, frame, space-frame and plate families
-(solvers/continuum_spectrum.py) run through their "spectrum" and
+and PCG kernels.  The flat-facet shell family (models/shell.py,
+ops/shell_plastic.py, solvers/shell_plasticity.py,
+solvers/shell_nonlinear.py) runs through "element_type": "shell"
+documents (io/shell_io.py): dense statics, modal, buckling, Newmark,
+harmonic, layered elastoplastic statics, reduction, the Marguerre Newton
+and arc length, with banded statics and the banded Marguerre Newton on
+the stencil and PCG kernels.  Response spectra, random vibration and
+spectral fatigue of the plane, solid, frame, space-frame, plate and shell
+families (solvers/continuum_spectrum.py) run through their "spectrum" and
 "random" documents.  ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
@@ -144,6 +150,19 @@ from .models.plate import (  # noqa: E402
     solve_plate_static,
     solve_plate_static_banded,
     solve_plate_transient,
+)
+from .models.shell import (  # noqa: E402
+    ShellProblem,
+    arch_strip_mesh,
+    cylinder_panel_mesh,
+    hemisphere_mesh,
+    shell_buckling,
+    shell_geometric_stiffness,
+    shell_harmonic,
+    shell_matrices,
+    shell_modal,
+    solve_shell_static,
+    solve_shell_transient,
 )
 from .models.problem import (  # noqa: E402
     ProblemData,
@@ -247,6 +266,17 @@ from .solvers.plate_plasticity import (  # noqa: E402
     PlatePlasticResult,
     solve_plate_plastic,
 )
+from .solvers.shell_plasticity import (  # noqa: E402
+    ShellPlasticResult,
+    solve_shell_plastic,
+)
+from .solvers.shell_nonlinear import (  # noqa: E402
+    ShellNonlinearResult,
+    marguerre_energy,
+    solve_shell_nonlinear,
+    solve_shell_nonlinear_banded,
+    solve_shell_riks,
+)
 from .solvers.reduction import (  # noqa: E402
     ReducedModel,
     craig_bampton,
@@ -321,6 +351,12 @@ __all__ = [
     "plate_harmonic", "plate_matrices", "plate_modal", "plate_supports",
     "recover_moments", "solve_plate_plastic", "solve_plate_static",
     "solve_plate_static_banded", "solve_plate_transient",
+    "ShellProblem", "arch_strip_mesh", "cylinder_panel_mesh",
+    "hemisphere_mesh", "shell_buckling", "shell_geometric_stiffness",
+    "shell_harmonic", "shell_matrices", "shell_modal", "solve_shell_static",
+    "solve_shell_transient", "ShellPlasticResult", "solve_shell_plastic",
+    "ShellNonlinearResult", "marguerre_energy", "solve_shell_nonlinear",
+    "solve_shell_nonlinear_banded", "solve_shell_riks",
     "ContinuumFatigueResult", "ContinuumRandomResult",
     "ContinuumSpectrumResult", "continuum_random_response",
     "continuum_response_spectrum", "continuum_spectral_fatigue",

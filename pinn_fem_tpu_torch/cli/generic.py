@@ -21,14 +21,13 @@ runs io/analysis.run_analysis and writes its result dict; of the analysis
 types "transient" (with "plasticity"), "modal", "buckling", "harmonic",
 "random", "spectrum", "continuation", "plastic" and "reduction" are
 ported (the others exit 1, naming their ROADMAP item).
-Solid, plane, frame, space-frame and plate documents ("element_type":
-"solid", "plane", "frame", "frame3d", "plate") are routed before the truss
-parse to io/solid_io, io/plane_io, io/frame_io, io/frame3d_io and
-io/plate_io and log the JAX CLI's SOLID / PLANE / FRAME / SPACE-FRAME /
-PLATE ANALYSIS SUMMARY lines (a banded frame statics logs its summaries,
-where the JAX CLI raises KeyError after writing the result: ROADMAP fault
-3.27); shell documents are not yet ported and exit 1, naming ROADMAP item
-22.
+Solid, plane, frame, space-frame, plate and shell documents
+("element_type": "solid", "plane", "frame", "frame3d", "plate", "shell")
+are routed before the truss parse to io/solid_io, io/plane_io,
+io/frame_io, io/frame3d_io, io/plate_io and io/shell_io and log the JAX
+CLI's SOLID / PLANE / FRAME / SPACE-FRAME / PLATE / SHELL ANALYSIS SUMMARY
+lines (a banded frame or shell statics logs its summaries, where the JAX
+CLI raises KeyError after writing the result: ROADMAP fault 3.27).
 """
 
 from __future__ import annotations
@@ -51,10 +50,6 @@ from ..utils.progress import PACKAGE_LOGGER
 from ..utils.runtime import resolve_device
 
 logger = logging.getLogger(f"{PACKAGE_LOGGER}.cli")
-
-# Element families of the JAX CLI, by the ROADMAP item that ports them.
-_ELEMENT_FAMILIES = {"shell": 22}
-
 
 def setup_logging(problem_file: str) -> Path:
     problem_name = Path(problem_file).stem
@@ -82,26 +77,23 @@ def setup_logging(problem_file: str) -> Path:
 
 def run(problem_file: str, output_file: str | None = None, seed: int = 0,
         device=None) -> dict:
-    """Solve one truss, solid, plane, frame, space-frame or plate document
-    on `device` ("cuda" when None) and write its result JSON."""
+    """Solve one truss, solid, plane, frame, space-frame, plate or shell
+    document on `device` ("cuda" when None) and write its result JSON."""
     device = resolve_device(device)
     with open(problem_file) as fh:
         raw = json.load(fh)
     if output_file is None:
         p = Path(problem_file)
         output_file = str(p.parent / f"{p.stem}.res.json")
-    family = raw.get("element_type") if isinstance(raw, dict) else None
-    if family in _ELEMENT_FAMILIES:
-        raise NotImplementedError(
-            f'"{family}" element documents are not yet ported, ROADMAP item '
-            f"{_ELEMENT_FAMILIES[family]}")
     from ..io.frame3d_io import is_frame3d_document
     from ..io.frame_io import is_frame_document
     from ..io.plane_io import is_plane_document
     from ..io.plate_io import is_plate_document
+    from ..io.shell_io import is_shell_document
     from ..io.solid_io import is_solid_document
 
     for family, is_family in (("plate", is_plate_document),
+                              ("shell", is_shell_document),
                               ("frame", is_frame_document),
                               ("frame3d", is_frame3d_document),
                               ("solid", is_solid_document),
@@ -280,6 +272,33 @@ def _log_banded(output: dict) -> None:
                 output["max_abs_moment"])
 
 
+def _log_shell_static(output: dict) -> None:
+    if output.get("tier") == "banded":
+        # The JAX CLI raises KeyError here after writing the result
+        # (ROADMAP fault 3.27).
+        logger.info("  Banded: %d PCG iterations (relative residual "
+                    "%.3e), max |u| %.6g (dof %d), peak |N|: %.6g, peak "
+                    "|M|: %.6g", output["iterations"],
+                    output["relative_residual"], output["max_displacement"],
+                    output["max_displacement_dof"],
+                    output["max_abs_membrane_force"],
+                    output["max_abs_moment"])
+    else:
+        logger.info("  Max |u|: %.6g (dof %d), peak |N|: %.6g, peak |M|: "
+                    "%.6g", output["max_displacement"],
+                    output["max_displacement_dof"],
+                    max(max(abs(v) for v in row)
+                        for row in output["membrane_forces"]),
+                    max(max(abs(v) for v in row)
+                        for row in output["moments"]))
+
+
+def _log_shell_continuation(output: dict) -> None:
+    lf = output["load_factors"]
+    logger.info("  Path points: %d (lambda in [%.4g, %.4g])",
+                output["n_points"], min(lf), max(lf))
+
+
 def _log_frame_static(output: dict) -> None:
     if output.get("tier") == "banded":
         _log_banded(output)
@@ -338,6 +357,10 @@ def _mesh_of(raw: dict) -> str:
     return "generated mesh" if "mesh" in raw else _counts_of(raw)
 
 
+def _midsurface_of(raw: dict) -> str:
+    return "generated midsurface" if "mesh" in raw else _counts_of(raw)
+
+
 # family: (io module, document runner, log name, summary title,
 #          description of the document, its own summaries, static summary)
 _FAMILIES = {
@@ -361,6 +384,19 @@ _FAMILIES = {
               {"plastic": _log_plate_plastic,
                "buckling": _log_factors("Critical membrane-force factors")},
               _log_plate_static),
+    "shell": ("shell_io", "run_shell_document", "Shell", "SHELL",
+              _midsurface_of,
+              {"buckling": _log_factors("Load factors"),
+               "plastic": lambda out: logger.info(
+                   "  Steps: %d, yielded facets: %d, max von Mises: %.6g",
+                   out["n_steps"], len(out["yielded_elements"]),
+                   max(out["max_von_mises"])),
+               "nonlinear": lambda out: logger.info(
+                   "  Steps: %d (%s tier), max |u|: %.6g (von "
+                   "Kármán/Marguerre)", out["n_steps"], out["tier"],
+                   out["max_displacement"]),
+               "continuation": _log_shell_continuation},
+              _log_shell_static),
     "frame": ("frame_io", "run_frame_document", "Frame", "FRAME",
               _counts_of,
               {"plastic": _log_frame_plastic,
@@ -376,8 +412,8 @@ _FAMILIES = {
 
 
 def _run_family(family: str, raw: dict, output_file: str, device) -> dict:
-    """A plane, solid, plate, frame or space-frame document through its io
-    module on `device`, with the JAX CLI's log lines."""
+    """A plane, solid, plate, shell, frame or space-frame document through
+    its io module on `device`, with the JAX CLI's log lines."""
     import importlib
 
     module, runner, name, title, describe, own, static = _FAMILIES[family]

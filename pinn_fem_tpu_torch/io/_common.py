@@ -242,8 +242,7 @@ def _continuum_prestress_u(problem, spec, static_solver):
 def _family_modal(problem, n_modes: int, device=None):
     """(omegas, shapes) of the problem's own dense modal analysis on
     `device` ("cuda" when None): the family's branch of
-    solvers/continuum_spectrum._family_of (a shell raises, naming ROADMAP
-    item 22)."""
+    solvers/continuum_spectrum._family_of."""
     from ..solvers.continuum_spectrum import _family_of
     from ..utils.runtime import resolve_device
 
@@ -253,9 +252,9 @@ def _family_modal(problem, n_modes: int, device=None):
 
 def run_continuum_spectrum(problem, analysis: Dict, element_type: str,
                            device=None) -> Dict:
-    """A response-spectrum block on a plane, solid, frame, space-frame or
-    plate document (solvers/continuum_spectrum, on `device`): the truss
-    run_spectrum contract with a single "direction"."""
+    """A response-spectrum block on a plane, solid, frame, space-frame,
+    plate or shell document (solvers/continuum_spectrum, on `device`): the
+    truss run_spectrum contract with a single "direction"."""
     from ..solvers.continuum_spectrum import continuum_response_spectrum
 
     if "directions" in analysis:
@@ -292,10 +291,11 @@ def run_continuum_spectrum(problem, analysis: Dict, element_type: str,
 
 def run_continuum_random(problem, analysis: Dict, element_type: str,
                          probe, device=None) -> Dict:
-    """A random-vibration block on a plane, solid, frame, space-frame or
-    plate document (solvers/continuum_spectrum, on `device`): the truss
-    run_random contract, with the spectral fatigue of the Preumont
-    equivalent von Mises PSDs (frames: the governing extreme fiber):
+    """A random-vibration block on a plane, solid, frame, space-frame,
+    plate or shell document (solvers/continuum_spectrum, on `device`): the
+    truss run_random contract, with the spectral fatigue of the Preumont
+    equivalent von Mises PSDs (frames and shells: the governing extreme
+    fiber):
 
         "fatigue": {"sn": {"exponent": m, "coefficient": C},
                     "method": "dirlik" | "narrowband", "duration": T},

@@ -1,7 +1,7 @@
 """Response-spectrum and random-vibration analysis for the continuum and
 frame families (counterpart of pinn_fem_tpu/solvers/continuum_spectrum.py):
 the truss seismic and stochastic machinery on the consistent-mass modal
-data of the plane, solid, frame, space-frame and plate families.
+data of the plane, solid, frame, space-frame, plate and shell families.
 
 Response spectrum (one excitation direction d, design spectrum Sa(omega)):
 
@@ -29,8 +29,10 @@ are float64 on the caller's device, the card by default; the combination
 algebra on (J, ndof) and (n_freq, n_elm) arrays is numpy, as in the JAX
 package.  An undamped stress FRF at a natural frequency is a singular
 system: it gives inf or a huge finite value with no diagnostic, as the
-JAX module does (ROADMAP fault 3.2).  The shell branch and
-`shell_fiber_stress_frf` are ROADMAP item 22.
+JAX module does (ROADMAP fault 3.2).  Shells combine the six centroid
+resultants [N, M] and report the governing extreme-fiber von Mises of the
+combined ones; their spectral fatigue runs per extreme fiber z = +-t/2
+(`shell_fiber_stress_frf`) and keeps the governing one.
 """
 
 from __future__ import annotations
@@ -42,9 +44,6 @@ import torch
 
 from ..utils.runtime import resolve_device
 from .spectrum import _cqc_rho
-
-_SHELL_ITEM = ("the shell family is not yet ported, ROADMAP item 22")
-
 
 class _Family(NamedTuple):
     dim: int             # spatial dimension of the excitation
@@ -73,6 +72,15 @@ def _on(dev, u) -> torch.Tensor:
 
 def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy().astype(float)
+
+
+def _translations(p, d):
+    """The rigid translation d on the three translational DOFs of each
+    six-DOF node (space frames, shells)."""
+    r = np.zeros(p.ndof)
+    for ax in range(3):
+        r[ax::6] = d[ax]
+    return r
 
 
 def _family_of(problem, device) -> _Family:
@@ -211,12 +219,6 @@ def _family_of(problem, device) -> _Family:
             # modulus on a SpaceFrameProblem).
             return np.maximum(comb[:, 0], comb[:, 6]) / p.area
 
-        def sf_influence(p, d):
-            r = np.zeros(p.ndof)
-            for ax in range(3):
-                r[ax::6] = d[ax]
-            return r
-
         def sf_lam_bound(p):
             # The exact top generalized eigenvalue of the dense pencil.
             k, m = F3.space_frame_matrices(p, device=dev)
@@ -231,13 +233,44 @@ def _family_of(problem, device) -> _Family:
             mass=lambda p: F3.space_frame_matrices(p, device=dev)[1],
             stresses=lambda p, u: F3.space_frame_end_forces(p, u,
                                                             device=dev),
-            vm=sf_stress, influence=sf_influence, lam_bound=sf_lam_bound,
+            vm=sf_stress, influence=_translations, lam_bound=sf_lam_bound,
             harmonic=lambda p, om, damping, probe_dofs:
             F3.space_frame_harmonic(p, om, damping=damping,
                                     probe_dofs=probe_dofs, device=dev))
-    if type(problem).__name__ == "ShellProblem":
-        raise NotImplementedError(
-            f"continuum spectrum / random of a ShellProblem: {_SHELL_ITEM}")
+    from ..models.shell import ShellProblem
+
+    if isinstance(problem, ShellProblem):
+        from ..models import shell as SH
+        from ..models.plane import _free_index, _general_eigh
+
+        def shell_stress(p, u):
+            # The six centroid resultants [Nxx, Nyy, Nxy, Mxx, Myy, Mxy]
+            # (local facet axes) of a modal state.
+            return np.concatenate(SH._recover_shell(p, _on(dev, u)), axis=1)
+
+        def shell_vm(p, comb):
+            # The governing extreme-fiber von Mises of the combined
+            # resultants.
+            return SH.shell_fiber_vm(comb[:, :3], comb[:, 3:], p.thickness)
+
+        def shell_lam_bound(p):
+            # The exact top eigenvalue of the ridged dense pencil.
+            k, m = SH.shell_matrices(p, device=dev)
+            free = _free_index(p, dev)
+            m = SH._ridged(m)
+            lam, _ = _general_eigh(k[free][:, free], m[free][:, free])
+            return float(lam[-1])
+
+        return _Family(
+            dim=3,
+            modal=lambda p, n: _unpack_modal(SH.shell_modal(p, n,
+                                                            device=dev)),
+            mass=lambda p: SH.shell_matrices(p, device=dev)[1],
+            stresses=shell_stress, vm=shell_vm,
+            influence=lambda p, d: _translations(p, d),
+            lam_bound=shell_lam_bound,
+            harmonic=lambda p, om, damping, probe_dofs: SH.shell_harmonic(
+                p, om, damping=damping, probe_dofs=probe_dofs, device=dev))
     raise TypeError("continuum spectrum/random needs a PlaneProblem, "
                     "SolidProblem, FrameProblem, SpaceFrameProblem, "
                     f"ShellProblem or PlateProblem, got "
@@ -268,8 +301,8 @@ def continuum_response_spectrum(
     damping_ratio: float = 0.05,
     device=None,
 ) -> ContinuumSpectrumResult:
-    """Peak seismic response of a plane, solid, frame, space-frame or plate
-    mesh by modal combination (module docstring), the family solves on
+    """Peak seismic response of a plane, solid, frame, space-frame, plate or
+    shell mesh by modal combination (module docstring), the family solves on
     `device` ("cuda" when None)."""
     dev = resolve_device(device)
     fam = _family_of(problem, dev)
@@ -603,9 +636,27 @@ def continuum_spectral_fatigue(
         return ContinuumFatigueResult(
             omegas=om, eq_psd=eq_psd, eq_rms=np.asarray(sf.rms),
             fatigue=sf, probe_elements=probe)
-    if type(problem).__name__ == "ShellProblem":
-        raise NotImplementedError(
-            f"spectral fatigue of a ShellProblem: {_SHELL_ITEM}")
+    from ..models.shell import ShellProblem
+
+    if isinstance(problem, ShellProblem):
+        # Both extreme fibers carry a full Voigt stress FRF; the Preumont
+        # reduction runs per fiber and the governing fiber is kept per
+        # facet (max damage rate with an S-N curve, max RMS without).
+        frf = shell_fiber_stress_frf(problem, om, damping=damping,
+                                     probe_elements=probe, device=device,
+                                     fields=fields)
+        quad = np.einsum("fmki,ij,fmkj->fmk", frf.conj(), _VM_Q6, frf).real
+        psd2 = quad * sp[:, None, None]
+        sf2 = spectral_fatigue(om, psd2.reshape(om.size, -1), sn_exponent,
+                               sn_coefficient, method=method, duration=dur)
+        score = (sf2.damage_rate if sn_exponent is not None
+                 else sf2.rms).reshape(probe.size, 2)
+        pick = np.argmax(score, axis=1)
+        sf = _select_fatigue_rows(sf2, np.arange(probe.size) * 2 + pick)
+        eq_psd = psd2[:, np.arange(probe.size), pick]
+        return ContinuumFatigueResult(
+            omegas=om, eq_psd=eq_psd, eq_rms=np.asarray(sf.rms),
+            fatigue=sf, probe_elements=probe)
     frf = continuum_stress_frf(problem, om, damping=damping,
                                probe_elements=probe, device=device,
                                fields=fields)
@@ -631,9 +682,57 @@ def _select_fatigue_rows(sf_all, sel):
 
 
 def shell_fiber_stress_frf(problem, omegas, damping=(0.0, 0.0),
-                           probe_elements=None, device=None):
-    """The shells' extreme-fiber stress FRFs: ROADMAP item 22."""
-    raise NotImplementedError(f"shell_fiber_stress_frf: {_SHELL_ITEM}")
+                           probe_elements=None, device=None,
+                           fields=None) -> np.ndarray:
+    """Complex extreme-fiber stress FRFs of a shell's facets: (n_freq,
+    n_probe, 2, 6) full Voigt [xx, yy, zz, yz, xz, xy] (local facet axes, zz
+    = 0) for the fibers z = +t/2 and -t/2, sigma+- = N/t +- 6M/t^2, each a
+    linear functional of the complex response (the centroid recovery of
+    models/shell.py on the complex field, without the thermal case).  The
+    complex128 sweep on the ridged pencil on `device` ("cuda" when None),
+    or `fields` (`harmonic_fields`), the recovery on the host."""
+    from ..models import shell as SH
+    from ..models.plane import _q4_point
+    from ..models.plate import _bend_b, _shape_grads
+
+    if not isinstance(problem, SH.ShellProblem):
+        raise TypeError("shell_fiber_stress_frf needs a "
+                        f"ShellProblem, got {type(problem).__name__}")
+    SH._require_no_thermal(problem, "stress FRFs")
+    dev = resolve_device(device)
+    om = np.asarray(omegas, dtype=float).reshape(-1)
+    full = (_sweep(SH._free_block(problem, damping, dev), problem.ndof, om)
+            if fields is None else _fields_of(fields, om, problem.ndof))
+    r, c2, _ = SH._facets(problem, "cpu")
+    t24 = _np(SH._transformation(r))
+    bmem = _np(_q4_point(c2, 0.0, 0.0)[0])
+    young, nu_t, thick = SH._material(problem, "cpu", "young", "poisson",
+                                      "thickness")
+    dmat = _np(SH._plane_dmat(young, nu_t, False))
+    _, dx, dy, _ = _shape_grads(c2, 0.0, 0.0)
+    bb = _np(_bend_b(dx, dy))
+    dm = problem.dof_map()
+    e, nu, tt = problem.young, problem.poisson, problem.thickness
+    d0 = e * tt ** 3 / (12.0 * (1.0 - nu * nu))
+    probe = _probe_elements(problem, probe_elements)
+    out = np.zeros((om.size, probe.size, 2, 6), dtype=complex)
+    for i in range(om.size):
+        u_loc = np.einsum("mij,mj->mi", t24, full[i][dm])
+        eps = np.einsum("mia,ma->mi", bmem, u_loc[:, SH._MEM_IDX])
+        nf = tt[:, None] * np.einsum("mij,mj->mi", dmat, eps)
+        kap = np.einsum("mia,ma->mi", bb,
+                        u_loc[:, SH._BND_IDX] @ SH._Q_BETA.T)
+        mom = np.stack([d0 * (kap[:, 0] + nu * kap[:, 1]),
+                        d0 * (kap[:, 1] + nu * kap[:, 0]),
+                        d0 * (1.0 - nu) / 2.0 * kap[:, 2]], axis=-1)
+        sm = (nf / tt[:, None])[probe]
+        sb = (6.0 * mom / tt[:, None] ** 2)[probe]
+        for fib, sgn in enumerate((1.0, -1.0)):
+            s3 = sm + sgn * sb
+            out[i, :, fib, 0] = s3[:, 0]
+            out[i, :, fib, 1] = s3[:, 1]
+            out[i, :, fib, 5] = s3[:, 2]
+    return out
 
 
 def frame_fiber_stress_frf(problem, omegas, damping=(0.0, 0.0),

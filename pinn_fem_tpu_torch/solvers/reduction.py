@@ -21,10 +21,11 @@ as in the JAX package.  The modes' signs come from the eigensolver
 (LAPACK, torch, cuSOLVER), so the modal rows and columns of a
 Craig-Bampton k_red / m_red may differ in sign between packages and
 devices; the master block and the reduced frequencies do not.
-`reduce_model` takes the truss and the plane, solid, frame, space-frame
-and plate families (their consistent float64 K and M from the families'
-`*_matrices`, through the dense cores); its shell branch comes with the
-shell family, ROADMAP item 22.
+`reduce_model` takes the truss and the plane, solid, frame, space-frame,
+plate and shell families (their consistent float64 K and M from the
+families' `*_matrices`, through the dense cores; the shell's mass with the
+uniform ridge of models/shell.shell_modal, without which the drilling
+direction leaves the Craig-Bampton slave pencil singular).
 """
 
 from __future__ import annotations
@@ -36,11 +37,6 @@ import torch
 
 from ..models.problem import TrussProblem
 from ..utils.runtime import resolve_device
-
-# The continuum problem class of the JAX package's reduce_model that is
-# not yet ported.
-_CONTINUUM = ("ShellProblem",)
-
 
 class ReducedModel(NamedTuple):
     k_red: np.ndarray        # (n_m, n_m)
@@ -216,14 +212,19 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
                  n_modes: int = 4, device=None) -> ReducedModel:
     """Family-dispatching reduction on `device` ("cuda" when None): a
     TrussProblem takes the lumped float64 path above, a PlaneProblem,
-    SolidProblem, FrameProblem, SpaceFrameProblem or PlateProblem its own
-    consistent dense (K, M) through the dense cores.  The JAX package's
-    shell branch is not yet ported (ROADMAP item 22)."""
+    SolidProblem, FrameProblem, SpaceFrameProblem, PlateProblem or
+    ShellProblem its own consistent dense (K, M) through the dense cores
+    (the shell's M ridged)."""
     from ..models.frame import FrameProblem, frame_matrices
     from ..models.frame3d import SpaceFrameProblem, space_frame_matrices
     from ..models.plane import PlaneProblem, plane_matrices
     from ..models.plate import PlateProblem, plate_matrices
+    from ..models.shell import ShellProblem, _ridged, shell_matrices
     from ..models.solid import SolidProblem, solid_matrices
+
+    def ridged_shell_matrices(p, device):
+        k, m = shell_matrices(p, device=device)
+        return k, _ridged(m)
 
     if isinstance(problem, TrussProblem):
         if method == "guyan":
@@ -237,7 +238,8 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
     mats = next((fn for cls, fn in (
         (PlaneProblem, plane_matrices), (SolidProblem, solid_matrices),
         (FrameProblem, frame_matrices), (PlateProblem, plate_matrices),
-        (SpaceFrameProblem, space_frame_matrices))
+        (SpaceFrameProblem, space_frame_matrices),
+        (ShellProblem, ridged_shell_matrices))
         if isinstance(problem, cls)), None)
     if mats is not None:
         _dense_limit_check(problem.ndof)
@@ -251,10 +253,6 @@ def reduce_model(problem, master_dofs, method: str = "guyan",
                                        device=device)
         raise ValueError('reduction method must be "guyan" or '
                          '"craig_bampton"')
-    if kind in _CONTINUUM:
-        raise NotImplementedError(
-            f"reduce_model of a {kind} is not yet ported: the shell "
-            "family is ROADMAP item 22")
     raise TypeError("reduce_model needs a Truss/Plane/Solid/"
                     "Frame/SpaceFrame/Shell/Plate problem, "
                     f"got {kind}")

@@ -245,9 +245,19 @@ def continuum_and_limit_calls():
         "not-a-problem": (lambda pkg, kw: pkg.reduce_model(
             SimpleNamespace(ndof=4), TOP, **kw), TypeError),
         "continuum": (lambda pkg, kw: pkg.reduce_model(
-            type("ShellProblem", (), {"ndof": 8})(), [0], **kw),
-            NotImplementedError),
+            shell_roof(pkg), [60, 62], **kw), None),
     }
+
+
+def shell_roof(pkg):
+    """The 4 x 4 Scordelis-Lo roof (R 25, L 50, 40 deg, t 0.25) with its
+    end diaphragms and the axial pin, of either package."""
+    nodes, el = pkg.cylinder_panel_mesh(25.0, 50.0, 40.0, 4, 4)
+    ends = np.flatnonzero((nodes[:, 1] == 0.0) | (nodes[:, 1] == 50.0))
+    return pkg.ShellProblem(
+        nodes=nodes, elements=el, young=4.32e8, poisson=0.0, thickness=0.25,
+        density=1.0, loads=np.zeros(6 * len(nodes)),
+        fixed_dofs=np.concatenate([6 * ends, 6 * ends + 2, [1]]))
 
 
 @pytest.mark.parametrize("name", ["data", "duplicates", "fixed-master",
@@ -272,14 +282,18 @@ def test_reduction_refusals_match_jax(name, monkeypatch):
 
 
 def test_continuum_reduction_refused():
-    """reduce_model on a continuum problem not yet ported (a shell; the
-    plane, solid, frame and plate branches are ported,
+    """reduce_model on the continuum problem it refused until ROADMAP item
+    22 (a ShellProblem; the plane, solid, frame and plate branches are
     tests/test_torch_plane.py, tests/test_torch_solid.py,
-    tests/test_torch_frame*.py and tests/test_torch_plate.py) raises
-    NotImplementedError naming ROADMAP item 22."""
-    call, kind = continuum_and_limit_calls()["continuum"]
-    with pytest.raises(kind, match="ROADMAP item 22"):
-        call(tp, {"device": "cpu"})
+    tests/test_torch_frame*.py and tests/test_torch_plate.py): the 4 x 4
+    roof's Guyan reduction equals the JAX package's (float64 on both
+    sides)."""
+    call, _ = continuum_and_limit_calls()["continuum"]
+    got, want = call(tp, {"device": "cpu"}), call(jp, {})
+    for a, b in ((got.k_red, want.k_red), (got.m_red, want.m_red),
+                 (got.t, want.t)):
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
+    assert np.array_equal(got.master_dofs, want.master_dofs)
 
 
 @pytest.mark.parametrize("analysis, match", [

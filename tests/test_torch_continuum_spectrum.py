@@ -418,20 +418,48 @@ def test_stress_frf_of_a_space_frame_refused():
     assert msgs[0] == msgs[1]
 
 
-SHELL = type("ShellProblem", (), {"ndof": 12, "nelm": 1})()
+def shell_panel(pkg):
+    """A 4 x 3 cylindrical panel cantilevered from its y = 0 edge, the
+    global theta_z held at every node (which the JAX package's mechanism
+    guard needs for a spectrum: ROADMAP fault 3.33), self-weight and a
+    normal pressure, of either package."""
+    nodes, el = pkg.cylinder_panel_mesh(25.0, 40.0, 40.0, 4, 3)
+    base = np.flatnonzero(nodes[:, 1] == 0.0)
+    fixed = np.union1d((6 * base[:, None] + np.arange(6)).ravel(),
+                       6 * np.arange(len(nodes)) + 5)
+    return pkg.ShellProblem(nodes=nodes, elements=el, young=4.32e8,
+                            poisson=0.2, thickness=1.0, density=2.0,
+                            loads=np.zeros(6 * len(nodes)), fixed_dofs=fixed,
+                            body_force=[0.0, 0.0, -90.0], pressure=20.0)
+
+
+SHELL_OMEGAS = np.linspace(25.0, 120.0, 8)
 
 
 @pytest.mark.parametrize("call", [
-    lambda: TCS.continuum_response_spectrum(SHELL, 1.0, device=CPU),
-    lambda: TCS.continuum_random_response(SHELL, 1.0, [1.0, 2.0],
-                                          damping=(0.1, 0.0), device=CPU),
-    lambda: TCS.continuum_spectral_fatigue(SHELL, 1.0, [1.0, 2.0],
-                                           damping=(0.1, 0.0), device=CPU),
-    lambda: TCS.shell_fiber_stress_frf(SHELL, [1.0], device=CPU),
+    lambda cs, p, kw: cs.continuum_response_spectrum(
+        p, 2.0, direction=[0.3, 1.0, -0.2], n_modes=3, combination="cqc",
+        **kw).von_mises,
+    lambda cs, p, kw: cs.continuum_random_response(
+        p, 1.0, SHELL_OMEGAS, damping=(2.0, 1e-4), probe_dofs=[44, 50],
+        **kw).psd,
+    lambda cs, p, kw: cs.continuum_spectral_fatigue(
+        p, 1.0, SHELL_OMEGAS, damping=(2.0, 1e-4), probe_elements=[0, 5],
+        **kw).eq_psd,
+    lambda cs, p, kw: np.abs(cs.shell_fiber_stress_frf(
+        p, SHELL_OMEGAS, damping=(2.0, 1e-4), probe_elements=[0, 5], **kw)),
 ], ids=["spectrum", "random", "fatigue", "shell_fiber_stress_frf"])
 def test_shell_is_item_22(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 22$"):
-        call()
+    """The shell branches of the spectrum module, refused until ROADMAP
+    item 22 ported them: the combined spectrum stresses, the random PSDs,
+    the governing-fiber equivalent stress PSDs and the fiber stress FRFs
+    equal the JAX package's within F64_RTOL."""
+    from pinn_fem_tpu import models as j_models
+    from pinn_fem_tpu_torch import models as t_models
+
+    got = call(TCS, shell_panel(t_models.shell), {"device": CPU})
+    want = call(JCS, shell_panel(j_models.shell), {})
+    assert rel_err(got, want) <= F64_RTOL
 
 
 @pytest.mark.parametrize("call", [

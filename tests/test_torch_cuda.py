@@ -31,7 +31,11 @@ The frame families' banded statics (3 and 6 DOFs a node) launch the
 kernels as the plane's does, within 1e-3 of the dense solve; their dense
 analyses on the card equal the CPU's at 1e-10.  So do the plate's banded
 statics (33 diagonals) and dense analyses, and the continuum spectrum,
-random and fatigue analyses equal the CPU's at 1e-10.
+random and fatigue analyses equal the CPU's at 1e-10.  The shell's
+banded statics (69 diagonals) and banded Marguerre Newton launch the
+kernels as their PCG solves count, within 1e-3 of the CPU twins' runs;
+its dense analyses, Newton and Riks equal the CPU's at 1e-10, its
+plastic host tier at its Newton tolerance, 1e-9.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a test process)
@@ -1392,3 +1396,129 @@ def test_continuum_spectrum_on_card(cuda_device):
     for k, fn in runs.items():
         cpu = fn("cpu")
         assert np.abs(card[k] - cpu).max() <= 1e-10 * np.abs(cpu).max(), k
+
+
+def shell_roof(n: int, t: float = 0.25):
+    """dyn-shell.json's Scordelis-Lo roof on an n x n mesh."""
+    import json
+    from pathlib import Path
+
+    from pinn_fem_tpu_torch.io.shell_io import parse_shell_document
+
+    doc = json.loads((Path(__file__).resolve().parents[1] / "examples"
+                      / "json" / "dyn-shell.json").read_text())
+    doc["mesh"].update(nx=n, ny=n)
+    doc["material"]["thickness"] = t
+    return parse_shell_document(doc)[0]
+
+
+def test_shell_banded_paths_on_card(cuda_device):
+    """The shell's banded statics (69 diagonals, 6 DOFs a node): kernels 2
+    and 3 launch 32 ceil(iterations / 32) times, kernel 1 once, u within
+    1e-3 of the CPU twins' run; the banded Marguerre Newton on a
+    16-element von Karman strip: kernel 1 never, kernels 2 and 3 the sum
+    of 32 ceil(it / 32) over its PCG solves, u within 1e-3 of the CPU
+    twins' run."""
+    from pinn_fem_tpu_torch.models.shell import solve_shell_static_banded
+    from pinn_fem_tpu_torch.solvers import shell_nonlinear as SN
+
+    problem = shell_roof(12, t=1.0)
+    kernels.reset_launch_counts()
+    card, iters, rel = solve_shell_static_banded(problem, tol=1e-7,
+                                                 device=cuda_device)
+    counts = kernels.launch_counts()
+    rounds = 32 * -(-iters // 32)
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == rounds
+    assert counts["dia_matvec"] == 1 and rel <= 1e-7
+    cpu, _, _ = solve_shell_static_banded(problem, tol=1e-7, device="cpu")
+    scale = np.abs(cpu.displacements).max()
+    assert np.abs(card.displacements - cpu.displacements).max() \
+        <= 1e-3 * scale
+
+    nodes, el = T.arch_strip_mesh(4.0, 1.0, 0.0, 16)
+    n = len(nodes)
+    ends = np.flatnonzero((nodes[:, 0] < 1e-9) | (nodes[:, 0] > 4.0 - 1e-9))
+    strip = T.ShellProblem(
+        nodes=nodes, elements=el, young=2e5, poisson=0.0, thickness=0.1,
+        density=1.0, loads=np.zeros(6 * n),
+        fixed_dofs=np.union1d((6 * ends[:, None] + np.arange(3)).ravel(),
+                              6 * np.arange(n) + 3), pressure=-0.1)
+    lfs = [0.5, 1.0]
+    its = []
+    inner = SN.dia_cg_solve
+
+    def counted(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        its.append(int(out[1]))
+        return out
+
+    SN.dia_cg_solve = counted
+    try:
+        kernels.reset_launch_counts()
+        card = T.solve_shell_nonlinear_banded(strip, load_factors=lfs,
+                                              device=cuda_device)
+        counts = kernels.launch_counts()
+    finally:
+        SN.dia_cg_solve = inner
+    rounds = sum(32 * -(-it // 32) for it in its)
+    assert card.converged and counts["dia_matvec"] == 0
+    assert counts["dia_dir_matvec"] == counts["cg_update"] == rounds
+    cpu = T.solve_shell_nonlinear_banded(strip, load_factors=lfs,
+                                         device="cpu")
+    scale = np.abs(cpu.displacements).max()
+    assert np.abs(card.displacements - cpu.displacements).max() \
+        <= 1e-3 * scale
+
+
+def test_shell_dense_analyses_on_card(cuda_device):
+    """The shell's dense float64 analyses on the card (statics, modal as
+    eigenvalues and cluster projectors, buckling under its own membrane
+    state, the Marguerre Newton and Riks on a half-sine arch) equal the
+    CPU runs at 1e-10, dyn-shell-plastic's float64 tier at its Newton
+    tolerance, 1e-9; no repo kernel runs."""
+    import json
+    from pathlib import Path
+
+    from pinn_fem_tpu_torch.io.shell_io import parse_shell_document
+
+    problem = shell_roof(4)
+    mass = T.shell_matrices(problem, device="cpu")[1].numpy()
+    nodes, el = T.arch_strip_mesh(4.0, 1.0, 0.15, 8)
+    n = len(nodes)
+    ends = np.flatnonzero((nodes[:, 0] < 1e-9) | (nodes[:, 0] > 4.0 - 1e-9))
+    arch = T.ShellProblem(
+        nodes=nodes, elements=el, young=2e5, poisson=0.0, thickness=0.1,
+        density=1.0, loads=np.zeros(6 * n),
+        fixed_dofs=np.union1d((6 * ends[:, None] + np.arange(3)).ravel(),
+                              6 * np.arange(n) + 3), pressure=-1.0)
+    doc = json.loads((Path(__file__).resolve().parents[1] / "examples"
+                      / "json" / "dyn-shell-plastic.json").read_text())
+    strip = parse_shell_document(doc)[0]
+
+    def modal(device):
+        res = T.shell_modal(problem, 6, device=device)
+        return res.eigenvalues, res.mode_shapes.T @ res.mode_shapes @ mass
+
+    runs = {
+        "static": lambda d: T.solve_shell_static(problem, device=d)
+        .displacements,
+        "eigenvalues": lambda d: modal(d)[0],
+        "projector": lambda d: modal(d)[1],
+        "buckling": lambda d: T.shell_buckling(problem, n_modes=2,
+                                               device=d).load_factors,
+        "newton": lambda d: T.solve_shell_nonlinear(
+            arch, load_factors=[0.5, 1.0], device=d).displacements,
+        "riks": lambda d: T.solve_shell_riks(arch, n_steps=12, dl0=0.02,
+                                             device=d).load_factors,
+        "plastic": lambda d: T.solve_shell_plastic(
+            strip, sigma_y=300.0, n_layers=20,
+            load_factors=doc["analysis"]["load_factors"],
+            device=d).displacements,
+    }
+    kernels.reset_launch_counts()
+    card = {k: fn(cuda_device) for k, fn in runs.items()}
+    assert not any(kernels.launch_counts().values())
+    for k, fn in runs.items():
+        cpu = fn("cpu")
+        bound = 1e-9 if k == "plastic" else 1e-10
+        assert np.abs(card[k] - cpu).max() <= bound * np.abs(cpu).max(), k
