@@ -301,8 +301,8 @@ code is not 0 and no result line is printed:
      document's tolerance (the tier's 1e-5 floor; ROADMAP fault 3.22),
      then at 1e-4 converged, within 1e-3 of the float64 tier on the
      card, ms a Newton iteration and the LU's share; (e) mesh=, each
-     later item's
-     analysis type, the 8,192-DOF budget and a banded prescribed
+     later item's analysis type, an identification block without a
+     measurement, the 8,192-DOF budget and a banded prescribed
      displacement, each refused before any launch;
  20. the 3D solid family and the continuum plastic transients: (a) the
      corpus dyn-solid (6,075 DOFs, the banded tier: kernels 1 / 2 / 3
@@ -336,13 +336,15 @@ code is not 0 and no result line is printed:
      15 column, 8,112 DOFs): modal, buckling, 500 Newmark steps and a
      20-frequency harmonic sweep within 1e-9 of scipy.sparse float64
      (fault 3.24's residual rule), wall and peak memory of each; (g)
-     mesh=, the solid types of later items, the 8,192-DOF budgets, a
+     mesh=, the solid types of later items, an identification block
+     without a measurement, the 8,192-DOF budgets, a
      banded prescribed displacement and "plasticity" with "banded", each
      refused before any launch;
  21. the 2D and 3D frame families: (a) the corpus dyn-frame (modal),
      dyn-frame-thermal, dyn-frame-pushover and dyn-frame3d through main()
      within 1e-10 of the port's CPU run, no repo kernel, and
-     dyn-frame-identify refused naming item 23; (b) the JAX package's
+     dyn-frame-identify without its synthetic block refused in the JAX
+     package's words; (b) the JAX package's
      banded frame tower at full width (50 stories x 260 bays, 39,933
      DOFs, 21 diagonals, bandwidth 155) and (c) its space-frame skeleton
      (50 stories on 4 x 32 columns, 39,168 DOFs, 67 diagonals, bandwidth
@@ -393,8 +395,9 @@ code is not 0 and no result line is printed:
      within 1e-10 of the port's CPU run, and an 8,010-DOF plane wall's
      random document with Dirlik fatigue at 64 frequencies against
      scipy's float64 sweep within 1e-9, ms a frequency; (e)
-     dyn-plate-identify and a plate's reliability and sizing, each
-     refused before any launch, naming items 23 and 24;
+     dyn-plate-identify with "banded": false beside its zones (the JAX
+     package's ValueError) and a plate's reliability and sizing (item
+     24), each refused before any launch;
  23. the flat-facet shell family: (a) the Scordelis-Lo roof
      (dyn-shell.json) refined to 96 x 96 (56,454 DOFs, 69 diagonals,
      bandwidth 593) through solve_shell_static_banded (tol 1e-7) and as
@@ -419,9 +422,26 @@ code is not 0 and no result line is printed:
      35 roof within 1e-9 of scipy.sparse float64, and the plastic strip
      refined above the dense limit on the float32 tier beside the float64
      tier (residuals recorded), wall and peak memory of each; (e) shell
-     "identification", "sizing" and "reliability" documents and shell
-     modal and buckling above the dense limit, each refused before any
-     launch.
+     "sizing" and "reliability" documents, an "identification" document
+     without a measurement, and shell modal and buckling above the dense
+     limit, each refused before any launch;
+ 24. identification: (a) the 128 x 512 plane strip (132,354 DOFs) with
+     dyn-plane-identify's two zones on the banded adjoint
+     (identify_plane_young_banded: a forward and an adjoint fused PCG an
+     ADAM iteration), twin data from the banded tier; the zones within
+     5e-3 of 800 / 1400, the first zone gradient within 1e-3 of the
+     float64 twin on the card (plain PCG) and that within 1e-5 of its
+     central difference, the launches of the formula (kernel 1 once, for
+     the twin data's reactions; kernels 2 and 3 the sum of 32 ceil(it /
+     32)), ms an ADAM iteration split by part, PCG counts, idle share,
+     peak memory; (b) per-element log-E and field=True, 5 iterations
+     each, gradients against the float64 twin; (c) the 84k solid column
+     gated as (a), the plate slab and the 32 x 32 roof at full width
+     (launches, the loss rows), and small plate and roof documents on
+     the card against the port's CPU run; (d) the seven identification
+     documents, n_iter cut to 50, against the port's CPU run of the same
+     document (CPU processes beside the card's runs); (e) refusals before
+     any launch.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -440,7 +460,8 @@ as launches_batched on phase 15's, as launches_eigen on phase 16's,
 as launches_frequency on phase 17's, as launches_nonlinear on phase 18's,
 as launches_plane on phase 19's, as launches_solid on phase 20's, as
 launches_frame on phase 21's, as launches_plate on phase 22's, as
-launches_shell on phase 23's, kernels 1-3 their figures on phase 19's
+launches_shell on phase 23's, as launches_identification on phase
+24's, kernels 1-3 their figures on phase 19's
 strip operator (plane_strip), on phase 20's column operator
 (solid_column), on phase 21's tower and skeleton operators (frame_tower,
 frame3d_grid), on phase 22's slab operator (plate_slab) and on phase 23's
@@ -6639,9 +6660,10 @@ def plane_plastic(dev, card: str) -> dict:
 
 def plane_refusals(dev, card: str) -> None:
     """19(e): mesh= on the banded tier, each plane analysis type of a
-    later ROADMAP item, a dense type above the 8,192-DOF budget (the JAX
-    ValueError) and a prescribed displacement on the banded tier, each
-    refused before any launch."""
+    later ROADMAP item, an identification block without a measurement, a
+    dense type above the 8,192-DOF budget (the JAX ValueErrors) and a
+    prescribed displacement on the banded tier, each refused before any
+    launch."""
     from pinn_fem_tpu_torch.examples_grid import plane_strip_document
     from pinn_fem_tpu_torch.io.plane_io import (parse_plane_document,
                                                 run_plane_analysis,
@@ -6660,11 +6682,15 @@ def plane_refusals(dev, card: str) -> None:
             big, {"type": "modal"}, dev), ValueError, "8192-DOF budget"),
         "banded_prescribed": (lambda: run_plane_document(settled, dev),
                               ValueError, "homogeneous supports only")}
-    for kind, item in (("identification", 23), ("sizing", 24),
-                       ("reliability", 24)):
+    for kind, item in (("sizing", 24), ("reliability", 24)):
         calls[kind] = (lambda kind=kind: run_plane_analysis(
             small, {"type": kind}, dev), NotImplementedError,
             f"ROADMAP item {item}")
+    # Identification (item 23) runs since phase 24's port; a block with no
+    # measurement is refused in the JAX package's words.
+    calls["identification"] = (lambda: run_plane_analysis(
+        small, {"type": "identification"}, dev), ValueError,
+        'needs "measured_dofs"')
     refused = {}
     kernels.reset_launch_counts()
     for name, (call, kind, text) in calls.items():
@@ -7611,8 +7637,8 @@ def solid_dense(dev, card: str) -> dict:
 
 def solid_refusals(dev, card: str) -> None:
     """20(g): mesh= (banded statics, banded modal, plastic transient),
-    each solid analysis type of a later ROADMAP item (identification: 23;
-    reliability: 24) and "sizing" (no solid
+    "reliability" (ROADMAP item 24), an identification block without a
+    measurement, "sizing" (no solid
     analysis of that name), the 8,192-DOF budgets of the dense analyses,
     a prescribed displacement on the banded tier and "plasticity" with
     "banded", each refused before any launch."""
@@ -7649,10 +7675,12 @@ def solid_refusals(dev, card: str) -> None:
         calls[f"budget_{kind}"] = (lambda kind=kind: run_solid_analysis(
             big, {"type": kind, "omegas": [1.0], "sigma_y": 1.0}, dev),
             ValueError, "8192-DOF budget")
-    for kind, item in (("identification", 23), ("reliability", 24)):
-        calls[kind] = (lambda kind=kind: run_solid_analysis(
-            small, {"type": kind}, dev), NotImplementedError,
-            f"ROADMAP item {item}")
+    calls["reliability"] = (lambda: run_solid_analysis(
+        small, {"type": "reliability"}, dev), NotImplementedError,
+        "ROADMAP item 24")
+    calls["identification"] = (lambda: run_solid_analysis(
+        small, {"type": "identification"}, dev), ValueError,
+        'needs "measured_dofs"')
     refused = {}
     kernels.reset_launch_counts()
     for name, (call, kind, text) in calls.items():
@@ -7768,7 +7796,8 @@ def frame_documents(workdir: Path, dev, card: str) -> dict:
     """21(a): the four corpus frame documents through main() on the card,
     each against the port's own run of the same document on the CPU at
     FRAME_DOC_RTOL (dyn-frame's mode shapes sign-aligned); no repo kernel
-    runs; dyn-frame-identify exits 1 naming item 23 before any launch."""
+    runs; dyn-frame-identify without its "synthetic" block exits 1 in the
+    JAX package's words before any launch (the document itself: 24(d))."""
     import numpy as np
 
     from pinn_fem_tpu_torch.cli.generic import main
@@ -7781,6 +7810,8 @@ def frame_documents(workdir: Path, dev, card: str) -> dict:
     for name in FRAME_DOCS + ("dyn-frame-identify",):
         doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
                          .read_text())
+        if name == "dyn-frame-identify":
+            doc["analysis"].pop("synthetic")
         path = workdir / f"{name}.json"
         path.write_text(json.dumps(doc))
         kernels.reset_launch_counts()
@@ -7790,9 +7821,10 @@ def frame_documents(workdir: Path, dev, card: str) -> dict:
                 "kernel")
         if name == "dyn-frame-identify":
             log_text = (workdir / f"{name}.log").read_text()
-            require(rc == 1 and "ROADMAP item 23" in log_text
+            require(rc == 1 and 'needs "measured_dofs"' in log_text
                     and not (workdir / f"{name}.res.json").exists(),
-                    "21(a) dyn-frame-identify: exit 1 naming item 23")
+                    "21(a) dyn-frame-identify without synthetic data: "
+                    "exit 1")
             continue
         require(rc == 0, f"21(a) {name}: exit code 0")
         got = json.loads((workdir / f"{name}.res.json").read_text())
@@ -8347,10 +8379,10 @@ def frame_dense(dev, card: str) -> dict:
 
 
 def frame_refusals(workdir: Path, dev, card: str) -> None:
-    """21(f): mesh= (the banded statics and modal of both families) and
-    the frame types of later ROADMAP items ("identification": 23;
-    "reliability", "sizing": 24), each refused before any launch (the
-    family documents of later items: 22(e))."""
+    """21(f): mesh= (the banded statics and modal of both families), the
+    frame types of ROADMAP item 24 ("reliability", "sizing") and an
+    identification block without a measurement, each refused before any
+    launch (the family documents of later items: 22(e))."""
     from pinn_fem_tpu_torch.io.frame_io import run_frame_analysis
     from pinn_fem_tpu_torch.ops import kernels
 
@@ -8364,12 +8396,15 @@ def frame_refusals(workdir: Path, dev, card: str) -> None:
                                                   device=dev),
                 NotImplementedError, "item 15")
         if kind == "tower":
-            for typ, item in (("identification", "23"),
-                              ("reliability", "24"), ("sizing", "24")):
+            for typ in ("reliability", "sizing"):
                 calls[f"{kind}_{typ}"] = (
                     lambda problem=problem, typ=typ: run_frame_analysis(
                         problem, {"type": typ}, dev),
-                    NotImplementedError, f"ROADMAP item {item}")
+                    NotImplementedError, "ROADMAP item 24")
+            calls[f"{kind}_identification"] = (
+                lambda problem=problem: run_frame_analysis(
+                    problem, {"type": "identification"}, dev),
+                ValueError, 'needs "measured_dofs"')
     refused = {}
     kernels.reset_launch_counts()
     for name, (call, kind, text) in calls.items():
@@ -9024,31 +9059,35 @@ def spectral_documents(workdir: Path, dev, card: str) -> dict:
 
 
 def plate_refusals(workdir: Path, dev, card: str) -> None:
-    """22(e): dyn-plate-identify.json through the CLI's run() (item 23)
-    and a plate's reliability and sizing (item 24), each refused before
-    any launch (the shell's refusals: 23(e))."""
+    """22(e): dyn-plate-identify.json with "banded": false beside its
+    zones through the CLI's run() (the JAX package's ValueError) and a
+    plate's reliability and sizing (item 24), each refused before any
+    launch (the shell's refusals: 23(e))."""
     from pinn_fem_tpu_torch.cli.generic import run
     from pinn_fem_tpu_torch.io.plate_io import run_plate_document
     from pinn_fem_tpu_torch.ops import kernels
 
-    ident = workdir / "dyn-plate-identify.json"
-    ident.write_text((ROOT / "examples" / "json" / "dyn-plate-identify.json")
-                     .read_text())
+    ident = json.loads((ROOT / "examples" / "json"
+                        / "dyn-plate-identify.json").read_text())
+    ident["analysis"]["banded"] = False
+    ident_path = workdir / "dyn-plate-identify.json"
+    ident_path.write_text(json.dumps(ident))
     small = plate_document(4, 0.05)
     calls = {
-        "plate_identification": (lambda: run(str(ident), device=dev),
-                                 "ROADMAP item 23"),
+        "plate_identification": (lambda: run(str(ident_path), device=dev),
+                                 ValueError, "rides the banded tier"),
     }
     for kind in ("reliability", "sizing"):
         calls[f"plate_{kind}"] = (lambda kind=kind: run_plate_document(
-            dict(small, analysis={"type": kind}), dev), "ROADMAP item 24")
+            dict(small, analysis={"type": kind}), dev), NotImplementedError,
+            "ROADMAP item 24")
     refused = {}
     kernels.reset_launch_counts()
-    for name, (call, text) in calls.items():
+    for name, (call, kind, text) in calls.items():
         try:
             call()
             refused[name] = None
-        except NotImplementedError as e:
+        except kind as e:
             refused[name] = str(e)
             require(text in str(e), f"22(e) {name}: the message names "
                     f"{text}")
@@ -9644,21 +9683,23 @@ def shell_plastic_strip_document() -> dict:
 
 
 def shell_refusals(workdir: Path, dev, card: str) -> None:
-    """23(e): shell "identification" (item 23), "sizing" and "reliability"
-    (item 24) documents through the CLI's run(), and shell modal and
-    buckling above DENSE_DOF_LIMIT (the JAX package's ValueError), each
-    refused before any launch."""
+    """23(e): shell "sizing" and "reliability" (item 24) documents and an
+    identification document without a measurement through the CLI's
+    run(), and shell modal and buckling above DENSE_DOF_LIMIT (the JAX
+    package's ValueErrors), each refused before any launch."""
     from pinn_fem_tpu_torch.cli.generic import run
     from pinn_fem_tpu_torch.io.shell_io import run_shell_document
     from pinn_fem_tpu_torch.ops import kernels
 
     calls = {}
-    for kind, item in (("identification", 23), ("sizing", 24),
-                       ("reliability", 24)):
+    for kind, (exc, text) in (
+            ("identification", (ValueError, 'needs "measured_dofs"')),
+            ("sizing", (NotImplementedError, "ROADMAP item 24")),
+            ("reliability", (NotImplementedError, "ROADMAP item 24"))):
         path = workdir / f"shell-{kind}.json"
         path.write_text(json.dumps(shell_roof_document(4, type=kind)))
-        calls[kind] = (lambda path=path: run(str(path), device=dev),
-                       NotImplementedError, f"ROADMAP item {item}")
+        calls[kind] = (lambda path=path: run(str(path), device=dev), exc,
+                       text)
     for kind in ("modal", "buckling"):
         calls[f"{kind}_above_limit"] = (
             lambda kind=kind: run_shell_document(
@@ -9707,6 +9748,715 @@ def phase_shell(workdir: Path, dev, card: str) -> dict:
     return {"launches": launches, "roof": roof_stats, "marguerre": nl_stats}
 
 
+# Phase 24: identification on the card (ROADMAP item 23).  24(a): the 128
+# x 512 plane strip (PLANE_STRIP, 132,354 DOFs) with dyn-plane-identify's
+# contract: zones y < 2 and y >= 2, twin data [800, 1400] from the banded
+# tier at IDENT_TOL / 100, a start at E = 1000, lr 0.2, tol 1e-8, probes
+# every 11th non-zero DOF (tests/test_plane.py), IDENT_ITERS ADAM
+# iterations; gates: the zones within IDENT_ZONE_RTOL of the truth, the
+# first zone gradient within IDENT_GRAD_RTOL (max-normalized) of the same
+# loss in float64 on the card through the plain PCG (dia_cg_solve_reference
+# at IDENT_F64_TOL), that float64 gradient within IDENT_FD_RTOL of a
+# central difference of the float64 loss (step IDENT_FD_STEP in log E),
+# and the launches: kernel 1 once (the twin-data solve's reactions: the
+# fused PCG starts from x0 = 0 and launches no stencil for r0, so an ADAM
+# iteration's forward and adjoint solves launch kernel 1 no time),
+# kernels 2 and 3 the sum of 32 ceil(it / 32) over every fused solve.
+# 24(b): per-element log-E (65,536 parameters) and field=True, IDENT_B_ITERS
+# iterations each, the first gradient within IDENT_B_GRAD_RTOL of the
+# float64 twin's.  24(c): the 84k solid column (SOLID_COLUMN) gated as
+# 24(a); the plate slab (PLATE_SLAB) and the 32 x 32 Scordelis-Lo roof
+# at full width (launches, the loss rows); the card against the port's
+# CPU run of the same case on IDENT_PLATE_SMALL / IDENT_SHELL_SMALL
+# documents (the full-width cases take minutes on the CPU).  24(d): the
+# seven identification documents, n_iter cut to IDENT_DOC_ITERS, against
+# the port's CPU run of the same cut document (IDENT_DOC_RTOL; the
+# time-domain ones cut to IDENT_TRANSIENT_DOC_ITERS).  24(e):
+# refusals before any launch.
+IDENT_TOL = 1e-8
+IDENT_LR = 0.2
+IDENT_ZONE_YOUNG = (800.0, 1400.0)
+IDENT_START = 1000.0
+IDENT_PROBE_STRIDE = 11
+IDENT_ITERS = 120
+IDENT_FALL = 1e-3
+IDENT_TIMED_ITERS = 4
+# The strip's zones and first gradient at its float32 floor (ROADMAP
+# fault 3.38, tools/measure_identification_floor.py: the model at the true
+# moduli 1.28e-2 of max |u| from its own twin data at 128 x 512 on the
+# card; measured there, NVIDIA H100 80GB HBM3 at 700 W: the zones 1.8e-2
+# from the truth after 120 iterations, the first gradient 8.2e-3 from the
+# float64 twin); the JAX test's 5e-3 and the 1e-3 gradient bound hold on
+# the column (6.8e-4, 3.2e-4 on that card).
+IDENT_ZONE_RTOL = 3e-2
+IDENT_GRAD_RTOL = 2e-2
+IDENT_SOLID_ZONE_RTOL = 5e-3
+IDENT_SOLID_GRAD_RTOL = 1e-3
+IDENT_FD_RTOL = 1e-5
+IDENT_FD_STEP = 1e-3
+IDENT_F64_TOL = 1e-12
+IDENT_F64_MAX_ITER = 200000
+IDENT_B_ITERS = 5
+IDENT_B_GRAD_RTOL = 2e-2
+IDENT_SOLID_ZONE_YOUNG = (150.0, 250.0)
+IDENT_SOLID_TOL = 1e-9
+IDENT_SOLID_ITERS = 150
+IDENT_PLATE_ITERS = 20
+IDENT_PLATE_ZONE_YOUNG = (1.2e11, 2.4e11)
+IDENT_SHELL = 32
+IDENT_SHELL_ITERS = 10
+IDENT_SHELL_ZONE_YOUNG = (3.6e8, 5.2e8)
+IDENT_PLATE_SMALL = 24
+IDENT_SHELL_SMALL = 8
+IDENT_CASE_RTOL = 5e-2
+IDENT_DOC_ITERS = 50
+# The truss time-domain documents' step loops run ~13 torch operations a
+# step forward (~600 steps, twice that backward): 0.53-0.77 s an ADAM
+# iteration on an NVIDIA H100 80GB HBM3 at 700 W (launch-bound, ROADMAP
+# item 9), so they take 10.
+IDENT_TRANSIENT_DOC_ITERS = 10
+IDENT_DOC_RTOL = 5e-2
+IDENT_DOCUMENTS = ("dyn-identification", "dyn-identification-modal",
+                   "dyn-identification-frf", "dyn-identification-field",
+                   "dyn-plane-identify", "dyn-plate-identify",
+                   "dyn-frame-identify")
+
+
+class PcgTally:
+    """Records the iterations of every ops.dia.dia_cg_solve call (one int
+    a call) while in the with block."""
+
+    def __init__(self):
+        from pinn_fem_tpu_torch.ops import dia
+
+        self.module, self.inner, self.iterations = dia, dia.dia_cg_solve, []
+
+    def __enter__(self):
+        def tally(*args, **kwargs):
+            res = self.inner(*args, **kwargs)
+            self.iterations.append(int(res[1]))
+            return res
+
+        self.module.dia_cg_solve = tally
+        return self.iterations
+
+    def __exit__(self, *exc):
+        self.module.dia_cg_solve = self.inner
+
+
+class FirstGradient:
+    """Keeps a copy of the gradients of solvers/banded_inverse's first
+    value_and_grad call while in the with block."""
+
+    def __init__(self):
+        from pinn_fem_tpu_torch.solvers import banded_inverse
+
+        self.module = banded_inverse
+        self.inner, self.grads = banded_inverse.value_and_grad, []
+
+    def __enter__(self):
+        def first(loss_fn, params):
+            loss, grads = self.inner(loss_fn, params)
+            if not self.grads:
+                self.grads.extend(g.detach().clone() for g in grads)
+            return loss, grads
+
+        self.module.value_and_grad = first
+        return self.grads
+
+    def __exit__(self, *exc):
+        self.module.value_and_grad = self.inner
+
+
+class PlainPcg:
+    """ops.dia.dia_cg_solve replaced by the plain Jacobi-PCG recurrence of
+    dia_cg_solve_reference while in the with block (the masked system of
+    ops.dia._masked_system, ops/cg.pcg_flagged's device loop), its matvec
+    a float64 CSR product of the diagonals: the float64 twin of an
+    identification loss on the card, ~4x faster than the twin's
+    diagonal-by-diagonal matvec at 132k DOFs."""
+
+    def __enter__(self):
+        import torch
+
+        from pinn_fem_tpu_torch.ops import dia
+        from pinn_fem_tpu_torch.ops.cg import pcg_flagged
+
+        self.module, self.inner = dia, dia.dia_cg_solve
+
+        def plain(layout, diags, rhs, mask, tol=1e-6, max_iter=100000,
+                  x0=None, precond="jacobi", components=1):
+            k = csr_of(layout, diags)
+            a_op, b, x, b_norm, tol_b = dia._masked_system(
+                layout, diags, rhs, mask, tol, x0,
+                lambda _layout, _diags, v: k @ v)
+            inv = 1.0 / (dia.dia_diagonal(layout, diags) * mask
+                         + (1.0 - mask))
+            x, it, r = pcg_flagged(a_op, lambda v: inv * v, b, x, tol_b,
+                                   max_iter)
+            return x * mask, it, torch.linalg.vector_norm(r) / b_norm
+
+        dia.dia_cg_solve = plain
+
+    def __exit__(self, *exc):
+        self.module.dia_cg_solve = self.inner
+
+
+def fused_rounds(iterations) -> int:
+    from pinn_fem_tpu_torch.ops.kernels import cg_kernel
+
+    every = cg_kernel.CHECK_EVERY
+    return sum(every * -(-int(it) // every) for it in iterations)
+
+
+def banded_launches(iterations, reactions: int = 1) -> dict:
+    rounds = fused_rounds(iterations)
+    return {"dia_matvec": reactions, "dia_dir_matvec": rounds,
+            "cg_update": rounds, "material_coefficients": 0,
+            "material_coefficients_backward": 0}
+
+
+def max_rel(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def zones_of(cent, axis: int, cut: float):
+    import numpy as np
+
+    return [np.flatnonzero(cent[:, axis] < cut),
+            np.flatnonzero(cent[:, axis] >= cut)]
+
+
+def float64_twin(layout, blocks_of, base_young, centroids, f, mask, probe,
+                 meas, dev, zones=None, field=False, input_dim=2):
+    """(loss(params), params0): the identification loss in float64 on the
+    card, the parameterization of solvers/banded_inverse at the same
+    start; evaluate and differentiate it under PlainPcg (the plain PCG
+    on the forward and the adjoint)."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.ops.dia import (assemble_dia_blocks,
+                                            dia_solve_diff)
+    from pinn_fem_tpu_torch.solvers import banded_inverse as BI
+
+    f64 = torch.float64
+    idx, meas64, scale = BI.measurement(probe, meas, f64, dev)
+    f = torch.as_tensor(np.asarray(f, float), dtype=f64, device=dev)
+    mask = torch.as_tensor(np.asarray(mask, float), dtype=f64, device=dev)
+    params, young_of, field_of = BI.young_parameterization(
+        base_young, centroids, zones, field, 0, 2, 16, input_dim,
+        torch.float32, dev)
+    if field:
+        # The float32 start's weights in float64 (a float64 draw from the
+        # same key gives other numbers).
+        net = field_of(params).to(dev, f64)
+        cent = torch.as_tensor(np.asarray(centroids, float), dtype=f64,
+                               device=dev)
+        params = net.trainable_params() + [net.scale]
+
+        def young_of(ps):
+            return net.replace(layers=list(zip(ps[:-1:2], ps[1:-1:2])),
+                               scale=ps[-1]).eval_batch(cent)
+    else:
+        params, young_of, _ = BI.young_parameterization(
+            base_young, centroids, zones, False, 0, 2, 16, input_dim, f64,
+            dev)
+
+    def loss(ps):
+        diags = assemble_dia_blocks(layout, blocks_of(young_of(ps)))
+        u = dia_solve_diff(layout, diags, f, mask, tol=IDENT_F64_TOL,
+                           max_iter=IDENT_F64_MAX_ITER)
+        return torch.mean((u[idx] - meas64) ** 2) / scale
+
+    return loss, params
+
+
+def twin_gradient(loss64, params64):
+    """(loss, flat gradient, seconds) of a float64 twin under PlainPcg."""
+    import torch
+
+    from pinn_fem_tpu_torch.solvers import banded_inverse as BI
+
+    t0 = time.perf_counter()
+    with PlainPcg():
+        loss0, g64 = BI.value_and_grad(loss64, params64)
+    g64 = torch.cat([g.reshape(-1) for g in g64]).cpu().numpy()
+    return float(loss0), g64, time.perf_counter() - t0
+
+
+def gradient_check(loss64, params64, g32, fd: bool) -> dict:
+    """The float32 card gradient against the float64 twin's (max-
+    normalized), and the twin's against a central difference of its loss
+    in each parameter (zones only)."""
+    import numpy as np
+    import torch
+
+    loss0, g64, twin_s = twin_gradient(loss64, params64)
+    g32 = torch.cat([g.reshape(-1) for g in g32]).double().cpu().numpy()
+    out = {"loss64": loss0, "twin_s": twin_s,
+           "grad_gap": max_rel(g32, g64), "grad32_head": g32[:4].tolist(),
+           "grad64_head": g64[:4].tolist()}
+    if fd:
+        h = IDENT_FD_STEP
+        fd_g = []
+        with torch.no_grad(), PlainPcg():
+            for k in range(g64.size):
+                step = torch.zeros_like(params64[0])
+                step.view(-1)[k] = h
+                up = float(loss64([params64[0] + step]))
+                down = float(loss64([params64[0] - step]))
+                fd_g.append((up - down) / (2.0 * h))
+        out["fd_grad"] = fd_g
+        out["fd_gap"] = max_rel(g64, np.asarray(fd_g))
+    return out
+
+
+def twin_probes(u, stride: int):
+    import numpy as np
+
+    probe = np.arange(u.size)[np.abs(u) > 1e-12][::stride]
+    return probe, u[probe]
+
+
+def ident_identify(fn, *args, **kwargs):
+    """(wall s, (young, hist, field), PCG iterations, first gradients,
+    launches, peak GiB) of one identification run on the card."""
+    import torch
+
+    from pinn_fem_tpu_torch.ops import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with PcgTally() as its, FirstGradient() as grads:
+        wall, res = synced(lambda: fn(*args, **kwargs))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return wall, res, list(its), grads, kernels.launch_counts(), peak
+
+
+def timed_split(fn, *args, **kwargs) -> dict:
+    """ms an ADAM iteration split into its parts, over IDENT_TIMED_ITERS
+    iterations of fn (each part synchronized, so the total runs a little
+    slower than the untimed loop)."""
+    from pinn_fem_tpu_torch.models import plane as TP
+    from pinn_fem_tpu_torch.ops import dia
+    from pinn_fem_tpu_torch.solvers import banded_inverse as BI
+
+    n = IDENT_TIMED_ITERS
+    with Timed(TP, "_k_blocks") as blocks, \
+            Timed(BI, "assemble_dia_blocks") as scatter, \
+            Timed(dia, "dia_cg_solve") as pcg, \
+            Timed(dia, "dia_diags_grad") as dgrad, \
+            Timed(BI, "adam_step") as adam, \
+            Timed(BI, "value_and_grad") as total:
+        fn(*args, n_iter=n, **kwargs)
+
+    def ms(calls):
+        return 1e3 * sum(s for s, _ in calls) / n
+
+    parts = {"block_build": ms(blocks), "scatter": ms(scatter),
+             "forward_pcg": ms(pcg[0::2]), "adjoint_pcg": ms(pcg[1::2]),
+             "diags_grad": ms(dgrad), "adam": ms(adam),
+             "loss_and_gradient": ms(total)}
+    parts["gather_back_and_rest"] = (
+        parts["loss_and_gradient"] - parts["block_build"] - parts["scatter"]
+        - parts["forward_pcg"] - parts["adjoint_pcg"] - parts["diags_grad"])
+    parts["forward_iterations"] = [int(r[1]) for _, r in pcg[0::2]]
+    parts["adjoint_iterations"] = [int(r[1]) for _, r in pcg[1::2]]
+    return parts
+
+
+def ident_strip(dev, card: str) -> dict:
+    """24(a) and 24(b) on the 128 x 512 strip."""
+    import dataclasses
+
+    import numpy as np
+
+    from pinn_fem_tpu_torch.models import plane as TP
+
+    problem = dataclasses.replace(plane_strip_problem(), young=IDENT_START)
+    cent = problem.coords().mean(axis=1)
+    zones = zones_of(cent, 1, 2.0)
+    true = np.where(cent[:, 1] < 2.0, *IDENT_ZONE_YOUNG)
+    layout = TP.plane_dia_layout(problem)
+    from pinn_fem_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    with PcgTally() as twin_its:
+        twin_s, (r, _, _) = synced(lambda: TP.solve_plane_static_banded(
+            dataclasses.replace(problem, young=true), tol=IDENT_TOL * 0.01,
+            device=dev))
+    twin_launches = kernels.launch_counts()
+    probe, meas = twin_probes(r.displacements, IDENT_PROBE_STRIDE)
+    opts = dict(learning_rate=IDENT_LR, tol=IDENT_TOL, device=dev)
+    wall, (young, hist, _), its, grads, launches, peak = ident_identify(
+        TP.identify_plane_young_banded, problem, probe, meas, zones=zones,
+        n_iter=IDENT_ITERS, **opts)
+    zone_young = [float(young[z].mean()) for z in zones]
+    zone_err = max(abs(z - t) / t for z, t in zip(zone_young,
+                                                   IDENT_ZONE_YOUNG))
+    fallen = np.flatnonzero(hist <= IDENT_FALL * hist[0])
+    split = timed_split(TP.identify_plane_young_banded, problem, probe,
+                        meas, zones=zones, **opts)
+    idle = idle_profile(lambda: TP.identify_plane_young_banded(
+        problem, probe, meas, zones=zones, n_iter=2, **opts))
+    f = TP._identification_loads(problem)
+    blocks_of = TP._young_blocks_of(problem, dev)
+    twin = dict(layout=layout, blocks_of=blocks_of,
+                base_young=problem.young, centroids=cent, f=f,
+                mask=problem.free_mask(), probe=probe, meas=meas, dev=dev)
+    grad = gradient_check(*float64_twin(zones=zones, **twin), grads, fd=True)
+    expected = banded_launches(its, 0)
+    twin_expected = banded_launches(twin_its, 1)
+    log("phase24a_strip", card=card, ndof=problem.ndof,
+        elements=problem.nelm, n_diags=layout.n_diags, probes=probe.size,
+        twin_s=twin_s, twin_iterations=twin_its, iterations=IDENT_ITERS,
+        wall_s=wall, ms_per_iteration=1e3 * wall / IDENT_ITERS,
+        loss_first=float(hist[0]), loss_last=float(hist[-1]),
+        fell_1e3_at=int(fallen[0]) + 1 if fallen.size else None,
+        zone_young=zone_young, zone_rel_err=zone_err,
+        forward_iterations=its[0::2][:8], adjoint_iterations=its[1::2][:8],
+        pcg_iterations_total=sum(its), split_ms=split, idle=idle,
+        peak_gib=peak, gradient=grad, launches=launches,
+        expected=expected, twin_launches=twin_launches,
+        twin_expected=twin_expected)
+    require(zone_err <= IDENT_ZONE_RTOL, f"24(a): zones within "
+            f"{IDENT_ZONE_RTOL} of {IDENT_ZONE_YOUNG}")
+    require(fallen.size > 0, "24(a): the loss falls 1e3-fold")
+    require(grad["grad_gap"] <= IDENT_GRAD_RTOL, "24(a): the first zone "
+            f"gradient within {IDENT_GRAD_RTOL} of the float64 twin")
+    require(grad["fd_gap"] <= IDENT_FD_RTOL, "24(a): the float64 gradient "
+            f"within {IDENT_FD_RTOL} of its central difference")
+    require(launches == expected and twin_launches == twin_expected,
+            "24(a): the launches of the formula")
+    total = {k: launches[k] + twin_launches[k] for k in launches}
+
+    out = {"strip_zones": total}
+    for label, mode in (("per_element", {}), ("field", {"field": True})):
+        wall_b, (_, hist_b, _), its_b, grads_b, launches_b, peak_b = \
+            ident_identify(TP.identify_plane_young_banded, problem, probe,
+                           meas, n_iter=IDENT_B_ITERS, **mode, **opts)
+        loss64, p64 = float64_twin(layout, blocks_of, problem.young, cent,
+                                   f, problem.free_mask(), probe, meas, dev,
+                                   field=bool(mode))
+        grad_b = gradient_check(loss64, p64, grads_b, fd=False)
+        expected_b = banded_launches(its_b, 0)
+        log("phase24b_" + label, card=card,
+            parameters=int(sum(g.numel() for g in grads_b)),
+            wall_s=wall_b, ms_per_iteration=1e3 * wall_b / IDENT_B_ITERS,
+            loss=hist_b.tolist(), forward_iterations=its_b[0::2],
+            adjoint_iterations=its_b[1::2], peak_gib=peak_b,
+            gradient=grad_b, launches=launches_b, expected=expected_b)
+        require(grad_b["grad_gap"] <= IDENT_B_GRAD_RTOL,
+                f"24(b): the {label} gradient within {IDENT_B_GRAD_RTOL} "
+                "of the float64 twin")
+        require(launches_b == expected_b, f"24(b): the {label} launches")
+        out["strip_" + label] = launches_b
+    return out
+
+
+def ident_solid(dev, card: str) -> dict:
+    """24(c), solid: the 84k column with two zones along z, gated as
+    24(a)."""
+    import dataclasses
+
+    import numpy as np
+
+    from pinn_fem_tpu_torch.models import solid as TSo
+    from pinn_fem_tpu_torch.ops import kernels
+
+    problem = solid_column(*SOLID_COLUMN)[0]
+    cent = problem.coords().mean(axis=1)
+    zones = zones_of(cent, 2, 2.0)
+    true = np.where(cent[:, 2] < 2.0, *IDENT_SOLID_ZONE_YOUNG)
+    kernels.reset_launch_counts()
+    with PcgTally() as twin_its:
+        twin_s, (r, _, _) = synced(lambda: TSo.solve_solid_static_banded(
+            dataclasses.replace(problem, young=true),
+            tol=IDENT_SOLID_TOL * 0.1, device=dev))
+    twin_launches = kernels.launch_counts()
+    probe, meas = twin_probes(r.displacements, 5)
+    wall, (young, hist, _), its, grads, launches, peak = ident_identify(
+        TSo.identify_solid_young_banded, problem, probe, meas, zones=zones,
+        n_iter=IDENT_SOLID_ITERS, learning_rate=IDENT_LR,
+        tol=IDENT_SOLID_TOL, device=dev)
+    zone_young = [float(young[z].mean()) for z in zones]
+    zone_err = max(abs(z - t) / t for z, t in zip(
+        zone_young, IDENT_SOLID_ZONE_YOUNG))
+    fallen = np.flatnonzero(hist <= IDENT_FALL * hist[0])
+    coords = TSo._elements(problem, dev)[0]
+    (nu,) = TSo._material(problem, dev, "poisson")
+
+    def blocks_of(young_e):
+        return TSo._k_blocks3(coords, TSo._dmat3(young_e, nu))
+
+    f = problem.loads + TSo._body_force_vectors3(problem).numpy()
+    loss64, p64 = float64_twin(TSo.solid_dia_layout(problem), blocks_of,
+                               problem.young, cent, f, problem.free_mask(),
+                               probe, meas, dev, zones=zones, input_dim=3)
+    grad = gradient_check(loss64, p64, grads, fd=True)
+    expected = banded_launches(its, 0)
+    twin_expected = banded_launches(twin_its, 1)
+    log("phase24c_solid", card=card, ndof=problem.ndof,
+        elements=problem.nelm, probes=probe.size, twin_s=twin_s,
+        twin_iterations=twin_its, wall_s=wall,
+        ms_per_iteration=1e3 * wall / IDENT_SOLID_ITERS,
+        loss_first=float(hist[0]), loss_last=float(hist[-1]),
+        fell_1e3_at=int(fallen[0]) + 1 if fallen.size else None,
+        zone_young=zone_young, zone_rel_err=zone_err,
+        forward_iterations=its[0::2][:8], adjoint_iterations=its[1::2][:8],
+        peak_gib=peak, gradient=grad, launches=launches, expected=expected,
+        twin_launches=twin_launches, twin_expected=twin_expected)
+    require(zone_err <= IDENT_SOLID_ZONE_RTOL, "24(c): the column's zones "
+            f"within {IDENT_SOLID_ZONE_RTOL} of {IDENT_SOLID_ZONE_YOUNG}")
+    require(fallen.size > 0, "24(c): the column's loss falls 1e3-fold")
+    require(grad["grad_gap"] <= IDENT_SOLID_GRAD_RTOL, "24(c): the "
+            f"column's first gradient within {IDENT_SOLID_GRAD_RTOL} of the "
+            "float64 twin")
+    require(grad["fd_gap"] <= IDENT_FD_RTOL, "24(c): the column's float64 "
+            "gradient within its central difference")
+    require(launches == expected and twin_launches == twin_expected,
+            "24(c): the column's launches of the formula")
+    return {k: launches[k] + twin_launches[k] for k in launches}
+
+
+def plate_ident_document(n: int, t: float, **analysis) -> dict:
+    """dyn-plate-identify's block on the n x n slab of thickness t."""
+    doc = plate_document(n, t)
+    block = json.loads((ROOT / "examples" / "json"
+                        / "dyn-plate-identify.json").read_text())["analysis"]
+    block.pop("probe_nodes")
+    block.update(synthetic={"zone_young": list(IDENT_PLATE_ZONE_YOUNG)},
+                 banded=True, **analysis)
+    doc["analysis"] = block
+    return doc
+
+
+def shell_ident_document(n: int, **analysis) -> dict:
+    """The n x n Scordelis-Lo roof with two zones along the axis."""
+    return shell_roof_document(
+        n, type="identification", zones=[{"y_max": 25.0},
+                                          {"y_min": 25.0}],
+        synthetic={"zone_young": list(IDENT_SHELL_ZONE_YOUNG)},
+        learning_rate=IDENT_LR, tolerance=IDENT_TOL, banded=True,
+        **analysis)
+
+
+def ident_full_width(dev, card: str, parse, identify, solve, doc,
+                     zone_axis: int, n_iter: int, label: str) -> dict:
+    """24(c), plate and shell: one family's identification at full width
+    (twin data from its banded statics, probes every 11th non-zero DOF):
+    the launches of the formula; the loss rows, ms an iteration."""
+    import dataclasses
+
+    import numpy as np
+
+    from pinn_fem_tpu_torch.io.identification_io import centroid_zones
+    from pinn_fem_tpu_torch.ops import kernels
+
+    problem = parse(doc)[0]
+    zones = centroid_zones(problem, doc["analysis"]["zones"],
+                           problem.nodes[problem.elements].mean(axis=1),
+                           "xyz"[:problem.nodes.shape[1]])
+    true = np.broadcast_to(problem.young, (problem.nelm,)).copy()
+    for ids, e in zip(zones, doc["analysis"]["synthetic"]["zone_young"]):
+        true[ids] = e
+    kernels.reset_launch_counts()
+    with PcgTally() as twin_its:
+        twin_s, (r, _, _) = synced(lambda: solve(
+            dataclasses.replace(problem, young=true), tol=IDENT_TOL * 0.01,
+            device=dev))
+    twin_launches = kernels.launch_counts()
+    probe, meas = twin_probes(r.displacements, IDENT_PROBE_STRIDE)
+    wall, (young, hist, _), its, _, launches, peak = ident_identify(
+        identify, problem, probe, meas, zones=zones, n_iter=n_iter,
+        learning_rate=IDENT_LR, tol=IDENT_TOL, device=dev)
+    expected = banded_launches(its, 0)
+    twin_expected = banded_launches(twin_its, 1)
+    log(f"phase24c_{label}", card=card, ndof=problem.ndof,
+        elements=problem.nelm, probes=probe.size, twin_s=twin_s,
+        twin_iterations=twin_its, wall_s=wall,
+        ms_per_iteration=1e3 * wall / n_iter, loss=hist.tolist(),
+        zone_young=[float(young[z].mean()) for z in zones],
+        forward_iterations=its[0::2], adjoint_iterations=its[1::2],
+        peak_gib=peak, launches=launches, expected=expected,
+        twin_launches=twin_launches, twin_expected=twin_expected)
+    require(launches == expected and twin_launches == twin_expected,
+            f"24(c): the {label} launches of the formula")
+    return {k: launches[k] + twin_launches[k] for k in launches}
+
+
+def ident_cut_document(name: str) -> dict:
+    doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                     .read_text())
+    cut = (IDENT_TRANSIENT_DOC_ITERS if "n_steps" in doc["analysis"]
+           else IDENT_DOC_ITERS)
+    doc["analysis"]["n_iter"] = min(int(doc["analysis"]["n_iter"]), cut)
+    return doc
+
+
+def ident_cpu_processes(workdir: Path, docs: dict) -> dict:
+    """{name: (process, result path)}: each document through the port's
+    CLI on the CPU (one torch thread), in processes that run while the
+    card runs its copies."""
+    outdir = workdir / "cpu24"
+    outdir.mkdir(exist_ok=True)
+    env = dict(os.environ, PINN_FEM_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    procs = {}
+    for name, doc in docs.items():
+        path = outdir / f"{name}.json"
+        path.write_text(json.dumps(doc))
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "pinn_fem_tpu_torch.cli.generic",
+             str(path)], cwd=str(ROOT), env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL), outdir / f"{name}.res.json")
+    return procs
+
+
+def ident_values(out: dict):
+    """The identified numbers of a result: the scalars, the field at the
+    elements, or the per-element moduli / inertia."""
+    if "identified" in out:
+        return [out["identified"][k] for k in sorted(out["identified"])]
+    if "identified_field" in out:
+        return out["identified_field"]["at_elements"]["values"]
+    return out[out["parameter"]]
+
+
+def ident_documents(workdir: Path, dev, card: str, docs: dict,
+                    procs: dict) -> dict:
+    """24(d) and the small 24(c) cases: each document through main() on
+    the card against the CPU process's result: the loss rows and the
+    identified values within IDENT_DOC_RTOL (IDENT_CASE_RTOL for the 24(c)
+    cases); ms an ADAM iteration and the full document's wall extrapolated
+    from it."""
+    launches, report = {}, {}
+    for name, doc in docs.items():
+        with PcgTally() as its:
+            out, counts, wall, _, _ = run_cli_document(workdir, name, doc)
+        proc, path = procs[name]
+        require(proc.wait(timeout=600) == 0, f"24(d): {name} on the CPU")
+        cpu = json.loads(path.read_text())
+        n_iter = int(doc["analysis"]["n_iter"])
+        full = int(json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                              .read_text())["analysis"]["n_iter"]) \
+            if name in IDENT_DOCUMENTS else n_iter
+        gaps = {"loss_history": max_rel(out["loss_history"],
+                                        cpu["loss_history"]),
+                "values": max_rel(ident_values(out), ident_values(cpu))}
+        # A banded twin-data solve (one fused PCG beside the ADAM loop's
+        # pairs) launches kernel 1 once, for its reactions.
+        expected = banded_launches(its, len(its) % 2)
+        report[name] = dict(wall_s=wall, ms_per_iteration=1e3 * wall / n_iter,
+                            full_wall_s=wall * full / n_iter, n_iter=n_iter,
+                            gaps=gaps, keys_equal=sorted(out) == sorted(cpu),
+                            launches=counts, expected=expected,
+                            pcg_solves=len(its))
+        launches[name] = counts
+        bound = (IDENT_DOC_RTOL if name in IDENT_DOCUMENTS
+                 else IDENT_CASE_RTOL)
+        require(sorted(out) == sorted(cpu), f"24(d): {name}'s keys")
+        require(max(gaps.values()) <= bound, f"24(d): {name} within "
+                f"{bound} of the CPU run")
+        require(counts == expected, f"24(d): {name}'s launches")
+    log("phase24d_documents", card=card, documents=report)
+    return launches
+
+
+def ident_refusals(workdir: Path, dev, card: str) -> None:
+    """24(e): zones with a field, overlapping zones, measured_u with
+    synthetic and a missing measured_dofs refused with ValueError before
+    any launch."""
+    from pinn_fem_tpu_torch.io.frame_io import run_frame_document
+    from pinn_fem_tpu_torch.io.plane_io import run_plane_document
+    from pinn_fem_tpu_torch.ops import kernels
+
+    plane = json.loads((ROOT / "examples" / "json"
+                        / "dyn-plane-identify.json").read_text())
+    frame = json.loads((ROOT / "examples" / "json"
+                        / "dyn-frame-identify.json").read_text())
+
+    def variant(doc, drop=(), **analysis):
+        doc = json.loads(json.dumps(doc))
+        doc["analysis"].update(analysis)
+        for k in drop:
+            doc["analysis"].pop(k)
+        return doc
+
+    cases = {
+        "zones_and_field": (run_plane_document, variant(plane, field=True),
+                            "mutually exclusive"),
+        "overlapping_zones": (run_plane_document, variant(
+            plane, zones=[{"y_max": 2.0}, {"y_max": 3.0}]), "overlaps"),
+        "measured_u_and_synthetic": (run_plane_document, variant(
+            plane, measured_u=[0.0]), "not both"),
+        "missing_measured_dofs": (run_frame_document, variant(
+            frame, drop=("measured_dofs",)), "measured_dofs"),
+    }
+    seen = {}
+    for label, (run, doc, words) in cases.items():
+        kernels.reset_launch_counts()
+        try:
+            run(doc, dev)
+            seen[label] = "accepted"
+        except ValueError as err:
+            seen[label] = str(err)
+        require(words in seen[label] and zero_launches(
+            kernels.launch_counts()), f"24(e): {label} refused before "
+            "any launch")
+    log("phase24e_refusals", card=card, refusals=seen)
+
+
+def phase_identification(workdir: Path, dev, card: str) -> dict:
+    """Phase 24: identification on the card.  Returns the kernels'
+    launches on each of its paths."""
+    from pinn_fem_tpu_torch.io.plate_io import parse_plate_document
+    from pinn_fem_tpu_torch.io.shell_io import parse_shell_document
+    from pinn_fem_tpu_torch.models import plate as TPl
+    from pinn_fem_tpu_torch.models import shell as TS
+
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    docs = {name: ident_cut_document(name) for name in IDENT_DOCUMENTS}
+    docs["plate_small"] = plate_ident_document(
+        IDENT_PLATE_SMALL, PLATE_SLAB[1], n_iter=IDENT_PLATE_ITERS,
+        probe_nodes=list(range(1, (IDENT_PLATE_SMALL + 1) ** 2, 11)))
+    docs["shell_small"] = shell_ident_document(
+        IDENT_SHELL_SMALL, n_iter=IDENT_SHELL_ITERS,
+        probe_nodes=list(range(0, (IDENT_SHELL_SMALL + 1) ** 2, 3)))
+    launches = ident_strip(dev, card)
+    lap("ab")
+    # The CPU runs start after (a) and (b), whose times they would disturb.
+    procs = ident_cpu_processes(workdir, docs)
+    launches["solid_column"] = ident_solid(dev, card)
+    launches["plate_slab"] = ident_full_width(
+        dev, card, parse_plate_document, TPl.identify_plate_young_banded,
+        TPl.solve_plate_static_banded,
+        plate_ident_document(*PLATE_SLAB), 0, IDENT_PLATE_ITERS, "plate")
+    launches["shell_roof"] = ident_full_width(
+        dev, card, parse_shell_document, TS.identify_shell_young_banded,
+        TS.solve_shell_static_banded, shell_ident_document(IDENT_SHELL), 1,
+        IDENT_SHELL_ITERS, "shell")
+    lap("c")
+    launches.update(ident_documents(workdir, dev, card, docs, procs))
+    lap("d")
+    ident_refusals(workdir, dev, card)
+    lap("e")
+    log("phase24_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return {"launches": launches}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -9736,6 +10486,7 @@ def main() -> int:
         frame = phase_frame(Path(tmp), dev, card)
         plate = phase_plate(Path(tmp), dev, card)
         shell = phase_shell(Path(tmp), dev, card)
+        ident = phase_identification(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -9789,6 +10540,8 @@ def main() -> int:
             path: counts[name] for path, counts in plate["launches"].items()}
         entries[-1]["launches_shell"] = {
             path: counts[name] for path, counts in shell["launches"].items()}
+        entries[-1]["launches_identification"] = {
+            path: counts[name] for path, counts in ident["launches"].items()}
         if name in BANDED:
             entries[-1]["plane_strip"] = {
                 key: plane["strip"][name][key]

@@ -64,7 +64,13 @@ and arc length, with banded statics and the banded Marguerre Newton on
 the stencil and PCG kernels.  Response spectra, random vibration and
 spectral fatigue of the plane, solid, frame, space-frame, plate and shell
 families (solvers/continuum_spectrum.py) run through their "spectrum" and
-"random" documents.  ROADMAP.md lists what is still to port.
+"random" documents.  Identification runs through "identification"
+documents: the truss time-domain, modal and FRF fits
+(solvers/transient_inverse.py, modal_inverse.py, frequency_inverse.py)
+and the plane, solid, plate, shell and frame families' Young / inertia
+fits, large meshes on the banded adjoint (solvers/banded_inverse.py over
+ops/dia.dia_solve_diff: two fused PCGs an ADAM iteration on a card).
+ROADMAP.md lists what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -94,6 +100,7 @@ from .models.frame import (  # noqa: E402
     frame_matrices,
     frame_modal,
     frame_modal_banded,
+    identify_frame_properties,
     solve_frame_static,
     solve_frame_static_banded,
     solve_frame_transient,
@@ -124,6 +131,7 @@ from .models.solid import (  # noqa: E402
     SolidProblem,
     box_mesh,
     extrude_mesh,
+    identify_solid_young_banded,
     solid_buckling,
     solid_harmonic,
     solid_matrices,
@@ -138,6 +146,8 @@ from .models.solid import (  # noqa: E402
 )
 from .models.plate import (  # noqa: E402
     PlateProblem,
+    identify_plate_young,
+    identify_plate_young_banded,
     mindlin_navier_w,
     mindlin_ss_buckling_nx,
     plate_buckling,
@@ -220,6 +230,10 @@ from .solvers.frame_plastic import (  # noqa: E402
     FramePushoverResult,
     frame_pushover,
 )
+from .solvers.frequency_inverse import (  # noqa: E402
+    frf_probe_amplitudes,
+    identify_from_frf,
+)
 from .solvers.full_newton import solve_full_nr  # noqa: E402
 from .solvers.gauss_newton import solve_gauss_newton  # noqa: E402
 from .solvers.gd import solve_gd  # noqa: E402
@@ -241,6 +255,11 @@ from .solvers.modal import (  # noqa: E402
     modal_eigenpairs,
     modal_eigenvalues,
     rayleigh_coefficients,
+)
+from .solvers.modal_inverse import (  # noqa: E402
+    identify_field_from_modal,
+    identify_from_modal,
+    modal_observables,
 )
 from .solvers.newton import solve_nr  # noqa: E402
 from .solvers.continuum_transient_plastic import (  # noqa: E402
@@ -290,6 +309,11 @@ from .solvers.riks import RiksResult, solve_riks  # noqa: E402
 from .solvers.solid_plasticity import (  # noqa: E402
     SolidPlasticResult,
     solve_solid_plastic,
+)
+from .solvers.transient_inverse import (  # noqa: E402
+    identify_field_from_transient,
+    identify_from_transient,
+    transient_probe_response,
 )
 from .solvers.spectrum import (  # noqa: E402
     DirectionalSpectrumResult,
@@ -362,4 +386,10 @@ __all__ = [
     "continuum_response_spectrum", "continuum_spectral_fatigue",
     "continuum_stress_frf", "frame_fiber_stress_frf",
     "shell_fiber_stress_frf",
+    "identify_from_transient", "identify_field_from_transient",
+    "transient_probe_response", "identify_from_modal",
+    "identify_field_from_modal", "modal_observables", "identify_from_frf",
+    "frf_probe_amplitudes", "identify_frame_properties",
+    "identify_plate_young", "identify_plate_young_banded",
+    "identify_solid_young_banded",
 ]

@@ -168,6 +168,8 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
                         output["n_steps"], output["dt"],
                         output.get("method", "central, ensemble of "
                                    f"{output.get('batch')}"))
+        elif output["analysis"] == "identification":
+            _log_truss_identification(output)
         logger.info("Results written to %s", output_file)
         return output
 
@@ -334,6 +336,39 @@ def _log_plate_plastic(output: dict) -> None:
                 max(output["max_von_mises"]))
 
 
+def _log_truss_identification(output: dict) -> None:
+    if output.get("mode") == "field":
+        vals = output["identified_field"]["at_elements"]["values"]
+        logger.info("  Identified %s(x) field over %d elements in %d iters "
+                    "(range %.6g..%.6g, final loss %.3e)", output["field"],
+                    len(vals), output["n_iter"], min(vals), max(vals),
+                    output["final_loss"])
+    else:
+        logger.info("  Identified %s in %d iters (final loss %.3e)",
+                    ", ".join(f"{k}={v:.6g}" for k, v
+                              in output["identified"].items()),
+                    output["n_iter"], output["final_loss"])
+
+
+def _log_young_range(output: dict) -> None:
+    logger.info("  Identified E in [%.6g, %.6g], final loss %.3e",
+                min(output["young"]), max(output["young"]),
+                output["final_loss"])
+
+
+def _log_identified_tier(output: dict) -> None:
+    # final_loss is None when n_iter=0 left no history.
+    logger.info("  Identified %s (%s tier), final loss %s",
+                output["parameter"], output["method"], output["final_loss"])
+
+
+def _log_frame_identification(output: dict) -> None:
+    vals = output[output["parameter"]]
+    logger.info("  Identified %s in [%.6g, %.6g], final loss %.3e",
+                output["parameter"], min(vals), max(vals),
+                output["final_loss"])
+
+
 def _log_plate_static(output: dict) -> None:
     logger.info("  Max deflection: %.6g (node %d), max extreme-fiber von "
                 "Mises: %.6g (element %d)", output["max_deflection"],
@@ -366,7 +401,8 @@ def _midsurface_of(raw: dict) -> str:
 _FAMILIES = {
     "plane": ("plane_io", "run_plane_document", "Plane", "PLANE", _mesh_of,
               {"plastic": _log_plastic,
-               "buckling": _log_factors("Load factors")},
+               "buckling": _log_factors("Load factors"),
+               "identification": _log_young_range},
               lambda out: logger.info(
                   "  Max von Mises: %.6g (element %d)",
                   out["max_von_mises"], out["max_von_mises_element"])),
@@ -375,14 +411,16 @@ _FAMILIES = {
                   "  Steps: %d, yielded elements: %d, max von Mises: %.6g",
                   out["n_steps"], len(out["yielded_elements"]),
                   max(out["max_von_mises"])),
-               "buckling": _log_factors("Load factors")},
+               "buckling": _log_factors("Load factors"),
+               "identification": _log_identified_tier},
               lambda out: logger.info(
                   "  Max |u|: %.6g, max von Mises: %.6g (%s)",
                   out["max_displacement"], out["max_von_mises"],
                   out["method"])),
     "plate": ("plate_io", "run_plate_document", "Plate", "PLATE", _mesh_of,
               {"plastic": _log_plate_plastic,
-               "buckling": _log_factors("Critical membrane-force factors")},
+               "buckling": _log_factors("Critical membrane-force factors"),
+               "identification": _log_young_range},
               _log_plate_static),
     "shell": ("shell_io", "run_shell_document", "Shell", "SHELL",
               _midsurface_of,
@@ -395,11 +433,13 @@ _FAMILIES = {
                    "  Steps: %d (%s tier), max |u|: %.6g (von "
                    "Kármán/Marguerre)", out["n_steps"], out["tier"],
                    out["max_displacement"]),
-               "continuation": _log_shell_continuation},
+               "continuation": _log_shell_continuation,
+               "identification": _log_identified_tier},
               _log_shell_static),
     "frame": ("frame_io", "run_frame_document", "Frame", "FRAME",
               _counts_of,
               {"plastic": _log_frame_plastic,
+               "identification": _log_frame_identification,
                "buckling": _log_factors("Critical load factors"),
                "harmonic": lambda out: logger.info(
                    "  Frequencies swept: %d", len(out["omegas"]))},

@@ -1,8 +1,9 @@
 """Dispatch of a document's "analysis" block (counterpart of
 pinn_fem_tpu/io/analysis.py).  "transient" (io/transient_io.py), "modal",
-"buckling", "harmonic", "random", "spectrum", "continuation", "plastic"
-and "reduction" run; of the other analysis types of the JAX package,
-identification is ROADMAP item 23, sizing and reliability item 24.
+"buckling", "harmonic", "random", "spectrum", "continuation", "plastic",
+"reduction" and "identification" (io/identification_io.py) run; of the
+other analysis types of the JAX package, sizing and reliability are
+ROADMAP item 24.
 
     "analysis": {"type": "modal", "n_modes": 6, "lumped": true,
                  "n_iter": 25, "include_shapes": true,
@@ -73,7 +74,7 @@ from ._common import (_SHAPES_JSON_DOF_LIMIT, _element_areas,
                       _sn_params)
 
 # Analysis types whose runners are not yet ported, by ROADMAP item.
-_NOT_PORTED = {"identification": 23, "sizing": 24, "reliability": 24}
+_NOT_PORTED = {"sizing": 24, "reliability": 24}
 
 
 def run_modal(problem, analysis: Dict, device=None) -> Dict:
@@ -598,6 +599,10 @@ def run_analysis(problem, analysis: Dict, device=None) -> Dict:
         return run_plastic(problem, analysis, device)
     if kind == "reduction":
         return run_reduction(problem, analysis, device)
+    if kind == "identification":
+        from .identification_io import run_identification
+
+        return run_identification(problem, analysis, device)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f'"{kind}" analysis documents are not yet ported, ROADMAP '

@@ -20,10 +20,12 @@ the full field and member forces in the result; above it the banded tier
 Modal is dense (with "prestress") up to the limit and banded above it.
 Buckling, Newmark, harmonic, spectrum, random (io/_common's continuum
 runners; fatigue on the governing extreme fiber), reduction and the
-plastic-hinge pushover are dense float64.  Every analysis runs on the
-caller's device ("cuda" when None).  The analysis types of later ROADMAP
-items raise NotImplementedError naming the item before any work:
-"identification" (23), "reliability" and "sizing" (24).
+plastic-hinge pushover are dense float64; "identification" recovers a
+per-member I (or E) profile from measured displacements
+(models/frame.identify_frame_properties).  Every analysis runs on the
+caller's device ("cuda" when None).  The analysis types of a later ROADMAP
+item raise NotImplementedError naming it before any work: "reliability"
+and "sizing" (24).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..models.frame import (FrameProblem, frame_buckling, frame_harmonic,
                             solve_frame_transient)
 
 # Analysis types of later ROADMAP items.
-_LATER = {"identification": "23", "reliability": "24", "sizing": "24"}
+_LATER = {"reliability": "24", "sizing": "24"}
 
 
 def is_frame_document(doc: Dict) -> bool:
@@ -333,10 +335,79 @@ def _random(problem: FrameProblem, analysis: Dict, device) -> Dict:
                                 _node_dofs(analysis), device)
 
 
+def _identification(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    """The bending inverse: "parameter" "inertia" recovers the per-member
+    I profile at known E (bending sees only EI), "young" E at known A and
+    I; "measured_dofs" + "measured_u", or "synthetic" twin data from the
+    dense float64 statics."""
+    import dataclasses
+
+    from ..models.frame import identify_frame_properties
+    from ._common import _json_finite
+
+    param = analysis.get("parameter", "inertia")
+    if param not in ("inertia", "young"):
+        raise ValueError('frame identification "parameter" must '
+                         'be "inertia" or "young"')
+    synthetic = analysis.get("synthetic")
+    true_vals = None
+    if synthetic is not None:
+        if "measured_u" in analysis:
+            raise ValueError('give "measured_u" or "synthetic", '
+                             'not both')
+        md = analysis.get("measured_dofs")
+        if md is None:
+            raise ValueError('synthetic frame identification '
+                             'needs "measured_dofs"')
+        measured_dofs = np.asarray(md, dtype=int).reshape(-1)
+        tv = synthetic.get(param)
+        if tv is None:
+            raise ValueError(f'synthetic frame identification '
+                             f'needs "{param}" (the identified '
+                             f'parameter) in the synthetic block')
+        true_vals = (np.full(problem.nelm, float(tv)) if np.isscalar(tv)
+                     else np.asarray(tv, dtype=float))
+        p_true = dataclasses.replace(problem, **{param: true_vals})
+        measured_u = solve_frame_static(
+            p_true, device=device).displacements[measured_dofs]
+        noise = float(synthetic.get("noise", 0.0))
+        if noise:
+            rng = np.random.default_rng(int(synthetic.get("seed", 0)))
+            measured_u = measured_u + noise * np.max(
+                np.abs(measured_u)) * rng.standard_normal(measured_u.shape)
+        analysis = dict(analysis, measured_dofs=measured_dofs.tolist(),
+                        measured_u=np.asarray(measured_u).tolist())
+    if "measured_dofs" not in analysis or "measured_u" not in analysis:
+        raise ValueError('frame identification needs '
+                         '"measured_dofs" and "measured_u" (or '
+                         '"synthetic" twin data)')
+    vals, hist = identify_frame_properties(
+        problem, analysis["measured_dofs"], analysis["measured_u"],
+        param=param, n_iter=int(analysis.get("n_iter", 400)),
+        learning_rate=float(analysis.get("learning_rate", 0.05)),
+        device=device)
+    out = {
+        "success": True,
+        "analysis": "identification",
+        "element_type": "frame",
+        "parameter": param,
+        param: vals.tolist(),
+        "centroids": problem.nodes[problem.elements].mean(axis=1).tolist(),
+        "loss_history": hist[:: max(1, hist.size // 200)].tolist(),
+        "final_loss": float(hist[-1]) if hist.size else None,
+    }
+    if true_vals is not None:
+        out["synthetic"] = True
+        rel = np.abs(vals - true_vals) / np.abs(true_vals)
+        out["max_rel_error"] = float(rel.max())
+    return _json_finite(out)
+
+
 _RUNNERS = {"static": _static, "modal": _modal, "buckling": _buckling,
             "transient": _transient, "harmonic": _harmonic,
             "spectrum": _spectrum, "random": _random,
-            "reduction": _reduction, "plastic": _plastic}
+            "reduction": _reduction, "plastic": _plastic,
+            "identification": _identification}
 
 
 def run_frame_analysis(problem: FrameProblem, analysis: Dict,

@@ -19,7 +19,7 @@ pinn_fem_tpu/io/plane_io.py): documents with `"element_type": "plane"`.
      "temperature": dT | [..] (or the "thermal" block),
      "analysis": {"type": "static" | "modal" | "buckling" | "transient"
                   | "harmonic" | "plastic" | "spectrum" | "random"
-                  | "reduction", ..}}
+                  | "reduction" | "identification", ..}}
 
 Every node-selecting key also takes a named boundary edge "left",
 "right", "bottom" or "top" (path-ordered).  Statics at or below
@@ -28,10 +28,14 @@ the result; above it, the banded tier (kernels 1-3 on a card) with probes
 and summaries.  The other analyses are dense float64, refused above 8192
 DOFs; a transient with "plasticity" is the explicit elastoplastic
 transient (solvers/continuum_transient_plastic); "spectrum" and "random"
-(with "fatigue") are io/_common's continuum runners.  Every analysis runs
-on the caller's device ("cuda" when None).  The analysis types of later
-ROADMAP items raise NotImplementedError naming the item:
-"identification" (23), "sizing" and "reliability" (24).
+(with "fatigue") are io/_common's continuum runners; "identification"
+recovers Young's modulus from measured displacements
+(io/identification_io.run_young_identification: twin data from the
+banded tier, named edges, centroid-box zones, the banded adjoint past
+DENSE_DOF_LIMIT or with zones, else the dense traced solve).  Every
+analysis runs on the caller's device ("cuda" when None).  The analysis
+types of a later ROADMAP item raise NotImplementedError naming it:
+"sizing" and "reliability" (24).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from ..models.plane import (PlaneProblem, annulus_mesh, edge_load,
                             solve_plane_transient)
 
 # Analysis types of later ROADMAP items.
-_LATER = {"identification": 23, "sizing": 24, "reliability": 24}
+_LATER = {"sizing": 24, "reliability": 24}
 
 
 def is_plane_document(doc: Dict) -> bool:
@@ -427,10 +431,53 @@ def _random(problem: PlaneProblem, analysis: Dict, device) -> Dict:
                                 _probe_dofs(analysis, problem), device)
 
 
+def _resolve_zones(problem: PlaneProblem, zones):
+    """Zone specs -> element-id arrays: explicit id lists or centroid boxes
+    {"x_min", "x_max", "y_min", "y_max"} (any subset)."""
+    from .identification_io import centroid_zones
+
+    return centroid_zones(problem, zones, problem.coords().mean(axis=1),
+                          "xy")
+
+
+def _identification(problem: PlaneProblem, analysis: Dict, device) -> Dict:
+    from ..models.plane import (identify_plane_young,
+                                identify_plane_young_banded)
+    from .identification_io import adam_options, run_young_identification
+
+    def true_solve(true_young):
+        p_true = PlaneProblem(nodes=problem.nodes, elements=problem.elements,
+                              young=true_young, poisson=problem.poisson,
+                              thickness=problem.thickness,
+                              density=problem.density, loads=problem.loads,
+                              fixed_dofs=problem.fixed_dofs,
+                              plane_strain=problem.plane_strain,
+                              body_force=problem.body_force)
+        tol = float(analysis.get("tolerance", 1e-7)) * 0.01
+        return solve_plane_static_banded(p_true, tol=tol,
+                                         device=device)[0].displacements
+
+    def banded(a, zones):
+        return identify_plane_young_banded(
+            problem, a["measured_dofs"], a["measured_u"], zones=zones,
+            device=device, **adam_options(a, True))
+
+    def dense(a, zones):
+        return identify_plane_young(problem, a["measured_dofs"],
+                                    a["measured_u"], device=device,
+                                    **adam_options(a, False))
+
+    return run_young_identification(
+        problem, analysis, "plane", resolve_zones=_resolve_zones,
+        probe_dofs=_probe_dofs, true_solve=true_solve,
+        identify_banded=banded, identify_dense=dense,
+        centroids=problem.coords().mean(axis=1))
+
+
 _RUNNERS = {"reduction": _reduction, "buckling": _buckling,
             "plastic": _plastic, "modal": _modal, "transient": _transient,
             "harmonic": _harmonic, "spectrum": _spectrum,
-            "random": _random}
+            "random": _random, "identification": _identification}
 
 
 def run_plane_analysis(problem: PlaneProblem, analysis: Dict,

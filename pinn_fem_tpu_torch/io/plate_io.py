@@ -22,10 +22,13 @@ kernels 1-3 on a card) with probes and summaries.  Modal (with an
 optional "membrane_force" prestress), buckling ("membrane_force"
 required), Newmark, harmonic, spectrum (transverse base excitation),
 random (with "fatigue") and reduction are dense float64, refused above
-8192 DOFs; "plastic" is the layered J2 statics (solvers/plate_plasticity).
-Every analysis runs on the caller's device ("cuda" when None).  The
-analysis types of later ROADMAP items raise NotImplementedError naming the
-item: "identification" (23), "reliability" and "sizing" (24).
+8192 DOFs; "plastic" is the layered J2 statics (solvers/plate_plasticity);
+"identification" recovers Young's modulus from measured deflections
+(io/identification_io.run_young_identification: the banded adjoint past
+DENSE_DOF_LIMIT or with zones, else the dense traced solve).  Every
+analysis runs on the caller's device ("cuda" when None).  The analysis
+types of a later ROADMAP item raise NotImplementedError naming it:
+"reliability" and "sizing" (24).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from ..models.plate import (PlateProblem, plate_buckling, plate_harmonic,
                             solve_plate_transient)
 
 # Analysis types of later ROADMAP items.
-_LATER = {"identification": 23, "reliability": 24, "sizing": 24}
+_LATER = {"reliability": 24, "sizing": 24}
 # The dense analyses' DOF budget (the JAX package's 4 * 2048).
 _DENSE_BUDGET = 4 * 2048
 _DENSE_KINDS = ("modal", "transient", "harmonic", "buckling", "spectrum",
@@ -340,10 +343,47 @@ def _harmonic(problem: PlateProblem, analysis: Dict, device) -> Dict:
     }
 
 
+def _identification(problem: PlateProblem, analysis: Dict, device) -> Dict:
+    """Young's modulus from measured deflections (the plane family's
+    contract; E at known thickness: bending data sees D ~ E t^3)."""
+    from ..models.plate import (identify_plate_young,
+                                identify_plate_young_banded,
+                                solve_plate_static_banded)
+    from .identification_io import adam_options, run_young_identification
+    from .plane_io import _resolve_zones
+
+    def true_solve(true_young):
+        p_true = PlateProblem(
+            nodes=problem.nodes, elements=problem.elements,
+            young=true_young, poisson=problem.poisson,
+            thickness=problem.thickness, density=problem.density,
+            loads=problem.loads, fixed_dofs=problem.fixed_dofs,
+            pressure=problem.pressure, point_masses=problem.point_masses)
+        tol = float(analysis.get("tolerance", 1e-7)) * 0.01
+        return solve_plate_static_banded(p_true, tol=tol,
+                                         device=device)[0].displacements
+
+    def banded(a, zones):
+        return identify_plate_young_banded(
+            problem, a["measured_dofs"], a["measured_u"], zones=zones,
+            device=device, **adam_options(a, True))
+
+    def dense(a, zones):
+        return identify_plate_young(problem, a["measured_dofs"],
+                                    a["measured_u"], device=device,
+                                    **adam_options(a, False))
+
+    return run_young_identification(
+        problem, analysis, "plate", resolve_zones=_resolve_zones,
+        probe_dofs=_probe_dofs, true_solve=true_solve,
+        identify_banded=banded, identify_dense=dense,
+        centroids=problem.coords().mean(axis=1))
+
+
 _RUNNERS = {"static": _static, "spectrum": _spectrum, "random": _random,
             "reduction": _reduction, "plastic": _plastic, "modal": _modal,
             "buckling": _buckling, "transient": _transient,
-            "harmonic": _harmonic}
+            "harmonic": _harmonic, "identification": _identification}
 
 
 def run_plate_analysis(problem: PlateProblem, analysis: Dict,

@@ -25,10 +25,13 @@ and summaries.  Modal and buckling refuse above the limit with the JAX
 package's words (the thin-shell pencil sits below the float32 eigen floor
 of a banded tier).  "nonlinear" is the float64 Marguerre Newton, or the
 banded tier above the limit or with "banded": true; "continuation" the
-float64 arc length; "plastic" the layered J2 statics.  Every analysis runs
-on the caller's device ("cuda" when None).  The analysis types of later
-ROADMAP items raise NotImplementedError naming the item:
-"identification" (23), "reliability" and "sizing" (24).
+float64 arc length; "plastic" the layered J2 statics; "identification"
+recovers Young's modulus from measured displacements
+(io/identification_io.run_young_identification: the banded adjoint past
+DENSE_DOF_LIMIT or with zones, else the dense traced solve).  Every
+analysis runs on the caller's device ("cuda" when None).  The analysis
+types of a later ROADMAP item raise NotImplementedError naming it:
+"reliability" and "sizing" (24).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from ..models.shell import (ShellProblem, arch_strip_mesh,
                             solve_shell_transient)
 
 # Analysis types of later ROADMAP items.
-_LATER = {"identification": 23, "reliability": 24, "sizing": 24}
+_LATER = {"reliability": 24, "sizing": 24}
 # The field payloads' size guard (the JAX package's 6 * 600 DOFs).
 _FIELD_DOFS = 6 * 600
 
@@ -474,11 +477,69 @@ def _reduction(problem: ShellProblem, analysis: Dict, device) -> Dict:
     return run_continuum_reduction(problem, analysis, "shell", device)
 
 
+def _resolve_zones(problem: ShellProblem, zones):
+    """Zone specs -> facet-id arrays: explicit id lists or 3D centroid
+    boxes {"x_min" .. "z_max"} (any subset)."""
+    from .identification_io import centroid_zones
+
+    return centroid_zones(problem, zones,
+                          problem.nodes[problem.elements].mean(axis=1),
+                          "xyz", "facets")
+
+
+def _identification(problem: ShellProblem, analysis: Dict, device) -> Dict:
+    """Young's modulus from measured shell displacements (the plane /
+    plate contract on curved midsurfaces, E at known thickness); twin
+    data from the banded tier past DENSE_DOF_LIMIT, else the dense
+    float64 solve."""
+    from ..models.shell import (identify_shell_young,
+                                identify_shell_young_banded,
+                                solve_shell_static, solve_shell_static_banded)
+    from ..solvers.newton import DENSE_DOF_LIMIT
+    from .identification_io import adam_options, run_young_identification
+
+    def probe_dofs(a, problem):
+        md = a.get("probe_nodes")
+        return None if md is None else _probe6({"probe_nodes": md}, problem)
+
+    def true_solve(true_young):
+        p_true = ShellProblem(
+            nodes=problem.nodes, elements=problem.elements,
+            young=true_young, poisson=problem.poisson,
+            thickness=problem.thickness, density=problem.density,
+            loads=problem.loads, fixed_dofs=problem.fixed_dofs,
+            pressure=problem.pressure, body_force=problem.body_force,
+            point_masses=problem.point_masses)
+        if problem.ndof > DENSE_DOF_LIMIT:
+            tol = float(analysis.get("tolerance", 1e-7)) * 0.01
+            return solve_shell_static_banded(p_true, tol=tol,
+                                             device=device)[0].displacements
+        return solve_shell_static(p_true, device=device).displacements
+
+    def banded(a, zones):
+        return identify_shell_young_banded(
+            problem, a["measured_dofs"], a["measured_u"], zones=zones,
+            device=device, **adam_options(a, True))
+
+    def dense(a, zones):
+        return identify_shell_young(problem, a["measured_dofs"],
+                                    a["measured_u"], device=device,
+                                    **adam_options(a, False))
+
+    return run_young_identification(
+        problem, analysis, "shell", resolve_zones=_resolve_zones,
+        probe_dofs=probe_dofs, true_solve=true_solve,
+        identify_banded=banded, identify_dense=dense,
+        centroids=problem.nodes[problem.elements].mean(axis=1),
+        report_truth=False, finite=True)
+
+
 _RUNNERS = {"static": _static, "buckling": _buckling, "modal": _modal,
             "nonlinear": _nonlinear, "continuation": _continuation,
             "plastic": _plastic, "transient": _transient,
             "harmonic": _harmonic, "spectrum": _spectrum,
-            "random": _random, "reduction": _reduction}
+            "random": _random, "reduction": _reduction,
+            "identification": _identification}
 
 
 def run_shell_analysis(problem: ShellProblem, analysis: Dict,

@@ -26,10 +26,11 @@ is dense Newmark, or central difference on the banded tier (kernel 1 a
 step); with "plasticity" the explicit elastoplastic transient
 (solvers/continuum_transient_plastic).  Buckling, harmonic, plastic,
 spectrum, random (io/_common's continuum runners) and reduction are dense,
-refused above 8192 DOFs.  Every analysis runs on the caller's device
-("cuda" when None).  The analysis types of later ROADMAP items raise
-NotImplementedError naming the item: "identification" (23),
-"reliability" (24).
+refused above 8192 DOFs; "identification" recovers Young's modulus from
+measured displacements on the banded adjoint
+(io/identification_io.run_young_identification).  Every analysis runs on
+the caller's device ("cuda" when None).  "reliability", of a later ROADMAP
+item, raises NotImplementedError naming it (24).
 """
 
 from __future__ import annotations
@@ -432,6 +433,42 @@ def _random(problem: SolidProblem, analysis: Dict, device) -> Dict:
                                 _probe_dofs(analysis, problem), device)
 
 
+def _resolve_zones(problem: SolidProblem, zones):
+    """Zone specs -> element-id arrays: explicit id lists or centroid boxes
+    {"x_min" .. "z_max"} (any subset)."""
+    from .identification_io import centroid_zones
+
+    return centroid_zones(problem, zones, problem.coords().mean(axis=1),
+                          "xyz")
+
+
+def _identification(problem: SolidProblem, analysis: Dict, device) -> Dict:
+    """Young's modulus from measured displacements on the banded adjoint
+    (always banded, as in the JAX package)."""
+    from ..models.solid import identify_solid_young_banded
+    from .identification_io import adam_options, run_young_identification
+
+    def true_solve(true_young):
+        p_true = SolidProblem(nodes=problem.nodes, elements=problem.elements,
+                              young=true_young, poisson=problem.poisson,
+                              density=problem.density, loads=problem.loads,
+                              fixed_dofs=problem.fixed_dofs,
+                              body_force=problem.body_force)
+        tol = float(analysis.get("tolerance", 1e-7)) * 0.01
+        return solve_solid_static_banded(p_true, tol=tol,
+                                         device=device)[0].displacements
+
+    def banded(a, zones):
+        return identify_solid_young_banded(
+            problem, a["measured_dofs"], a["measured_u"], zones=zones,
+            device=device, **adam_options(a, True))
+
+    return run_young_identification(
+        problem, analysis, "solid", resolve_zones=_resolve_zones,
+        probe_dofs=_probe_dofs, true_solve=true_solve,
+        identify_banded=banded, finite=True)
+
+
 def _later(item: int, budget: str = ""):
     """A runner of a later ROADMAP item's type: the JAX package's budget
     refusal first (when it has one), then NotImplementedError."""
@@ -453,7 +490,7 @@ _RUNNERS = {
     "buckling": _buckling, "harmonic": _harmonic, "plastic": _plastic,
     "reliability": _later(24, "reliability runs dense traced solves per "
                           "HL-RF iteration"),
-    "identification": _later(23),
+    "identification": _identification,
 }
 
 

@@ -31,10 +31,12 @@ the reactions by one matvec (kernel 1), and the member end forces on the
 host from one fetch.  `frame_modal_banded` is inverse subspace iteration
 on that operator with the HRZ-lumped mass.
 
-The traced twin and the inverse and design functions of the JAX module
-(`frame_static_response`, `identify_frame_properties`,
-`optimize_frame_inertia`, `optimize_frame_inertia_rbdo`,
-`frame_reliability`) are ROADMAP items 23 and 24.
+`identify_frame_properties` recovers a per-member I (or E) profile from
+measured static displacements: ADAM on log-values through the dense
+masked solve of the T'KT blocks (solvers/banded_inverse.py), the JAX
+module's traced `frame_static_response` forward.  The design functions
+(`optimize_frame_inertia`, `optimize_frame_inertia_rbdo`,
+`frame_reliability`) are ROADMAP item 24.
 """
 
 from __future__ import annotations
@@ -797,3 +799,49 @@ def frame_modal_banded(problem: FrameProblem, n_modes: int = 4,
     return _modal_result(*banded_modal(
         layout, diags, mask, _lumped_mass(problem, dev).to(dtype), n_modes,
         n_iter, cg_tol, seed, int(problem.free_dofs().size)))
+
+
+def identify_frame_properties(problem: FrameProblem, measured_dofs,
+                              measured_disp, param: str = "inertia",
+                              n_iter: int = 400,
+                              learning_rate: float = 0.05, device=None):
+    """Recover per-element frame properties from measured static
+    displacements.  param "inertia" recovers the I profile at known E
+    (bending determines only the product EI), "young" recovers E at known
+    A and I.  ADAM on log-values through the dense masked solve of the
+    T'KT blocks (nodal and member loads, the JAX frame_static_response);
+    the loss is normalized by max |measurement|.  device: where to solve
+    ("cuda" when None).  Returns (values (m,), loss_history)."""
+    from ..solvers.banded_inverse import adam_fit, dense_masked_solve
+
+    if param not in ("inertia", "young"):
+        raise ValueError('param must be "inertia" or "young"')
+    dev = resolve_device(device)
+    dtype = default_dtype()
+    meas_np = np.asarray(measured_disp, dtype=float)
+    idx = torch.as_tensor(np.asarray(measured_dofs, dtype=np.int64),
+                          device=dev)
+    meas = torch.as_tensor(meas_np, dtype=dtype, device=dev)
+    scale = float(np.max(np.abs(meas_np))) or 1.0
+    length, c, s = _geometry(problem, dev)
+    t = _rotation(c, s)
+    fixed = {name: v for name, v in zip(
+        ("young", "area", "inertia"),
+        _material(problem, dev, "young", "area", "inertia"))}
+    dm = torch.as_tensor(problem.dof_map(), dtype=torch.int64, device=dev)
+    f = (_t(problem.loads, dev)
+         + _member_load_vectors(problem, dev)[0]).to(dtype)
+    mask = _t(problem.free_mask(), dev, dtype)
+
+    def loss_of(vals):
+        props = dict(fixed, **{param: vals.to(_F64)})
+        blocks = _to_global(t, _k_local(props["young"], props["area"],
+                                        props["inertia"], length))
+        u = dense_masked_solve(blocks, dm, problem.ndof, f, mask)
+        return torch.mean(((u[idx] - meas) / scale) ** 2)
+
+    log0 = torch.log(torch.as_tensor(getattr(problem, param), dtype=dtype,
+                                     device=dev))
+    (log_p,), hist = adam_fit(lambda ps: loss_of(torch.exp(ps[0])), [log0],
+                              n_iter, learning_rate)
+    return torch.exp(log_p).double().cpu().numpy(), hist

@@ -30,8 +30,13 @@ the stresses are recovered on the host from one fetch of u.
 
 The mesh generators (`rect_mesh`, `annulus_mesh`) and the edge loads
 (`edge_load`, `pressure_load`) are numpy, node numbering and all, as in
-the JAX package.  The identification functions of the JAX module are
-ROADMAP item 23.
+the JAX package.
+
+`identify_plane_young` (dense traced solve) and
+`identify_plane_young_banded` (the banded adjoint, kernels 1-3 twice an
+ADAM iteration on a card) recover Young's modulus from measured
+displacements through solvers/banded_inverse.py; the blocks are `_dmat` /
+`_k_blocks` in float64, differentiable in the moduli.
 """
 
 from __future__ import annotations
@@ -1021,3 +1026,79 @@ def plane_harmonic(problem: PlaneProblem, omegas, damping=(0.0, 0.0),
     xs = harmonic_solves(kf, mf, cf, ff, free, problem.ndof, om, probe_dofs)
     return PlaneHarmonicResult(omegas=om, amplitude=np.abs(xs),
                                real=xs.real, imag=xs.imag)
+
+
+# --------------------------------------------------------------------
+# Identification (solvers/banded_inverse.py carries the ADAM loops)
+
+
+def _young_blocks_of(problem: PlaneProblem, device):
+    """young_e (m,) -> (m, 2nen, 2nen) float64 stiffness blocks on
+    `device`, differentiable in young_e."""
+    coords, _ = _elements(problem, device)
+    nu, thick = _material(problem, device, "poisson", "thickness")
+
+    def blocks_of(young_e):
+        return _k_blocks(coords, _dmat(young_e.to(_F64), nu,
+                                       problem.plane_strain),
+                         thick, problem.nen)
+
+    return blocks_of
+
+
+def _identification_loads(problem: PlaneProblem) -> np.ndarray:
+    return (problem.loads + _body_force_vectors(problem).numpy())
+
+
+def identify_plane_young(problem: PlaneProblem, measured_dofs,
+                         measured_disp, n_iter: int = 800,
+                         learning_rate: float = 0.05, field: bool = False,
+                         seed: int = 0, hidden_layers: int = 2,
+                         neurons_per_layer: int = 16, device=None):
+    """Recover Young's modulus from measured static displacements on the
+    dense traced solve (the JAX package's plane_static_response): per-
+    element log-E ADAM, or field=True a smooth E(x, y) MLP at the element
+    centroids (input_dim 2).  device: where to solve ("cuda" when None).
+    Returns (young (m,), loss_history, mlp_field_or_None)."""
+    from ..solvers.banded_inverse import identify_young_dense
+
+    dev = resolve_device(device)
+    u_p = None
+    if problem.prescribed is not None:
+        u_p = np.zeros(problem.ndof)
+        u_p[problem.fixed_dofs] = problem.prescribed
+    return identify_young_dense(
+        _young_blocks_of(problem, dev), problem.dof_map(), problem.young,
+        problem.coords().mean(axis=1), _identification_loads(problem),
+        problem.free_mask(), measured_dofs, measured_disp, n_iter=n_iter,
+        learning_rate=learning_rate, field=field, seed=seed,
+        hidden_layers=hidden_layers, neurons_per_layer=neurons_per_layer,
+        input_dim=2, u_p_np=u_p, device=dev)
+
+
+def identify_plane_young_banded(problem: PlaneProblem, measured_dofs,
+                                measured_disp, n_iter: int = 300,
+                                learning_rate: float = 0.05,
+                                tol: float = 1e-7, max_iter: int = 20000,
+                                zones=None, field: bool = False,
+                                seed: int = 0, hidden_layers: int = 2,
+                                neurons_per_layer: int = 16, device=None):
+    """identify_plane_young past DENSE_DOF_LIMIT: the forward model is the
+    banded PCG solve (ops/dia.dia_solve_diff), the reverse pass one
+    adjoint PCG with the same operator (solvers/banded_inverse.
+    identify_young_banded).  zones=[[elem ids..], ..] gives one log-E per
+    zone, field=True a smooth E(x, y) MLP, the default per-element log-E.
+    device: where to solve ("cuda" when None).  Returns (young (m,),
+    loss_history, mlp_field_or_None)."""
+    from ..solvers.banded_inverse import identify_young_banded
+
+    dev = resolve_device(device)
+    return identify_young_banded(
+        plane_dia_layout(problem), _young_blocks_of(problem, dev),
+        problem.young, problem.coords().mean(axis=1),
+        _identification_loads(problem), problem.free_mask(),
+        measured_dofs, measured_disp, n_iter=n_iter,
+        learning_rate=learning_rate, tol=tol, max_iter=max_iter,
+        zones=zones, field=field, seed=seed, hidden_layers=hidden_layers,
+        neurons_per_layer=neurons_per_layer, input_dim=2,
+        device=dev)

@@ -35,9 +35,12 @@ has 33 diagonals, bandwidth 3 nx + 8.
 
 The closed forms `mindlin_navier_w` and `mindlin_ss_buckling_nx`, the
 supports helper and the mesh generator (models/plane.rect_mesh) are numpy.
-The traced twin `plate_static_response` (item 24's sizing and reliability)
-and the identification functions `identify_plate_young` /
-`identify_plate_young_banded` (item 23) are later ROADMAP items.
+`identify_plate_young` (the dense traced solve) and
+`identify_plate_young_banded` (the banded adjoint: kernels 1-3 twice an
+ADAM iteration on a card) recover Young's modulus from measured
+deflections through solvers/banded_inverse.py.  The traced twin
+`plate_static_response` (item 24's sizing and reliability) is a later
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -342,12 +345,19 @@ def _thermal_load_vectors(problem: PlateProblem,
                           device=None) -> torch.Tensor:
     """(3n,) consistent thermal nodal loads int B_b^T D_b kappa_th dA (2 x 2
     Gauss), float64 on `device` (CPU when None)."""
-    kap_th = _thermal_curvature(problem, device)
-    if kap_th is None:
+    if problem.temperature is None:
         return torch.zeros(problem.ndof, dtype=_F64, device=device)
+    (young,) = _material(problem, device, "young")
+    return _thermal_loads_of(problem, young, device)
+
+
+def _thermal_loads_of(problem: PlateProblem, young: torch.Tensor,
+                      device=None) -> torch.Tensor:
+    """The thermal nodal loads of `_thermal_load_vectors` with the moduli
+    `young` (m,) float64, differentiable in them."""
+    kap_th = _thermal_curvature(problem, device)
     coords, dm = _elements(problem, device)
-    young, nu, thick = _material(problem, device, "young", "poisson",
-                                 "thickness")
+    nu, thick = _material(problem, device, "poisson", "thickness")
     db, _ = _dmats(young, nu, thick)
     m_th = torch.einsum("mij,mj->mi", db, kap_th)
     fe = torch.zeros((problem.nelm, 12), dtype=_F64, device=device)
@@ -801,3 +811,72 @@ def solve_plate_static_banded(problem: PlateProblem, tol: float = 1e-7,
     u, reac, iters, rel = banded_static(layout, diags, mask, f, tol,
                                         max_iter, precond, 3)
     return _static_result(problem, u, reac), iters, rel
+
+
+# --------------------------------------------------------------------
+# Identification (solvers/banded_inverse.py carries the ADAM loops)
+
+
+def _young_blocks_of(problem: PlateProblem, device):
+    """young_e (m,) -> (m, 12, 12) float64 MITC4 blocks on `device`,
+    differentiable in young_e."""
+    coords, _ = _elements(problem, device)
+    nu, thick = _material(problem, device, "poisson", "thickness")
+    return lambda young_e: _k_blocks_plate(coords, young_e.to(_F64), nu,
+                                           thick)
+
+
+def identify_plate_young(problem: PlateProblem, measured_dofs,
+                         measured_disp, n_iter: int = 800,
+                         learning_rate: float = 0.05, field: bool = False,
+                         seed: int = 0, hidden_layers: int = 2,
+                         neurons_per_layer: int = 16, device=None):
+    """Recover Young's modulus from measured plate deflections on the
+    dense traced solve (the JAX package's plate_static_response, its
+    thermal gradient load included, which moves with E): per-element
+    log-E ADAM, or field=True a smooth E(x, y) MLP at the centroids.
+    device: where to solve ("cuda" when None).  Returns (young (m,),
+    loss_history, field|None)."""
+    from ..solvers.banded_inverse import identify_young_dense
+
+    dev = resolve_device(device)
+    loads_of = None
+    if problem.temperature is not None:
+        def loads_of(young_e):
+            return _thermal_loads_of(problem, young_e.to(_F64), dev)
+    return identify_young_dense(
+        _young_blocks_of(problem, dev), problem.dof_map(), problem.young,
+        problem.coords().mean(axis=1),
+        problem.loads + _pressure_vectors(problem).numpy(),
+        problem.free_mask(), measured_dofs, measured_disp, n_iter=n_iter,
+        learning_rate=learning_rate, field=field, seed=seed,
+        hidden_layers=hidden_layers, neurons_per_layer=neurons_per_layer,
+        input_dim=2, loads_of=loads_of, device=dev)
+
+
+def identify_plate_young_banded(problem: PlateProblem, measured_dofs,
+                                measured_disp, n_iter: int = 300,
+                                learning_rate: float = 0.05,
+                                tol: float = 1e-7, max_iter: int = 20000,
+                                zones=None, field: bool = False,
+                                seed: int = 0, hidden_layers: int = 2,
+                                neurons_per_layer: int = 16, device=None):
+    """identify_plate_young past DENSE_DOF_LIMIT: the banded PCG forward
+    (Jacobi-scaled for the plate's mixed (a/t)^2 DOF scales) and one
+    adjoint PCG a step (solvers/banded_inverse.identify_young_banded).
+    zones=[[ids..], ..] gives one log-E per zone.  A thermal load case is
+    refused, as in the JAX package.  device: where to solve ("cuda" when
+    None).  Returns (young, hist, field|None)."""
+    from ..solvers.banded_inverse import identify_young_banded
+
+    _require_no_thermal(problem, "banded identification")
+    dev = resolve_device(device)
+    return identify_young_banded(
+        plate_dia_layout(problem), _young_blocks_of(problem, dev),
+        problem.young, problem.coords().mean(axis=1),
+        problem.loads + _pressure_vectors(problem).numpy(),
+        problem.free_mask(), measured_dofs, measured_disp, n_iter=n_iter,
+        learning_rate=learning_rate, tol=tol, max_iter=max_iter,
+        zones=zones, field=field, seed=seed, hidden_layers=hidden_layers,
+        neurons_per_layer=neurons_per_layer, input_dim=2,
+        device=dev)

@@ -37,9 +37,12 @@ the fused kernels 1-3), the reactions by one matvec (kernel 1), and the
 resultants on the host from one fetch.  A structured cylinder panel has 69
 diagonals, bandwidth 6 (nx + 2) + 5.
 
-The traced twin `shell_static_response` (item 24's sizing and reliability)
-and `identify_shell_young` / `identify_shell_young_banded` (item 23) are
-later ROADMAP items.
+`identify_shell_young` (the dense traced solve) and
+`identify_shell_young_banded` (the banded adjoint: kernels 1-3 twice an
+ADAM iteration on a card) recover Young's modulus from measured
+displacements through solvers/banded_inverse.py, at known thickness.  The
+traced twin `shell_static_response` (item 24's sizing and reliability) is
+a later ROADMAP item.
 """
 
 from __future__ import annotations
@@ -837,3 +840,75 @@ def solve_shell_static_banded(problem: ShellProblem, tol: float = 1e-7,
     u, reac, iters, rel = banded_static(layout, diags, mask, f, tol,
                                         max_iter, precond, 6)
     return _static_result(problem, u, reac), iters, rel
+
+
+# --------------------------------------------------------------------
+# Identification (solvers/banded_inverse.py carries the ADAM loops)
+
+
+def _young_blocks_of(problem: ShellProblem, device):
+    """young_e (m,) -> (m, 24, 24) float64 global facet blocks T'KT on
+    `device` (the banded drilling eps, as both JAX identification tiers
+    take it), differentiable in young_e."""
+    r, c2, area = _facets(problem, device)
+    nu, thick = _material(problem, device, "poisson", "thickness")
+    return lambda young_e: _shell_blocks(c2, r, young_e.to(_F64), nu, thick,
+                                         area, _DRILL_EPS_BANDED)
+
+
+def _identification_inputs(problem: ShellProblem):
+    """(centroids (m, 3), loads (6n,)) of the identification tiers: nodal
+    plus pressure / body-force loads, no thermal case (the JAX package's
+    shell_static_response)."""
+    return (problem.nodes[problem.elements].mean(axis=1),
+            problem.loads + _load_vectors(problem).numpy())
+
+
+def identify_shell_young(problem: ShellProblem, measured_dofs,
+                         measured_disp, n_iter: int = 800,
+                         learning_rate: float = 0.05, field: bool = False,
+                         seed: int = 0, hidden_layers: int = 2,
+                         neurons_per_layer: int = 16, device=None):
+    """Recover Young's modulus from measured shell displacements on the
+    dense traced solve: per-facet log-E ADAM, or field=True a smooth
+    E(x, y, z) MLP (input_dim 3) at the facet centroids.  Shell data sees
+    E t and E t^3, so E is identified at known thickness.  device: where
+    to solve ("cuda" when None).  Returns (young (m,), loss_history,
+    field|None)."""
+    from ..solvers.banded_inverse import identify_young_dense
+
+    dev = resolve_device(device)
+    centroids, f = _identification_inputs(problem)
+    return identify_young_dense(
+        _young_blocks_of(problem, dev), problem.dof_map(), problem.young,
+        centroids, f, problem.free_mask(), measured_dofs, measured_disp,
+        n_iter=n_iter, learning_rate=learning_rate, field=field, seed=seed,
+        hidden_layers=hidden_layers, neurons_per_layer=neurons_per_layer,
+        input_dim=3, device=dev)
+
+
+def identify_shell_young_banded(problem: ShellProblem, measured_dofs,
+                                measured_disp, n_iter: int = 300,
+                                learning_rate: float = 0.05,
+                                tol: float = 1e-7, max_iter: int = 20000,
+                                zones=None, field: bool = False,
+                                seed: int = 0, hidden_layers: int = 2,
+                                neurons_per_layer: int = 16, device=None):
+    """identify_shell_young past DENSE_DOF_LIMIT: the Jacobi-scaled banded
+    PCG forward and one adjoint PCG a step
+    (solvers/banded_inverse.identify_young_banded; only the (m, 24, 24)
+    facet blocks are shell-specific).  zones=[[ids..], ..] gives one log-E
+    per zone.  A thermal load case is refused, as in the JAX package.
+    device: where to solve ("cuda" when None)."""
+    from ..solvers.banded_inverse import identify_young_banded
+
+    _require_no_thermal(problem, "banded identification")
+    dev = resolve_device(device)
+    centroids, f = _identification_inputs(problem)
+    return identify_young_banded(
+        shell_dia_layout(problem), _young_blocks_of(problem, dev),
+        problem.young, centroids, f, problem.free_mask(), measured_dofs,
+        measured_disp, n_iter=n_iter, learning_rate=learning_rate, tol=tol,
+        max_iter=max_iter, zones=zones, field=field, seed=seed,
+        hidden_layers=hidden_layers, neurons_per_layer=neurons_per_layer,
+        input_dim=3, device=dev)

@@ -35,9 +35,11 @@ diagonals) is built once on the host and kept on the problem.
 `solid_stable_dt`'s Gershgorin row sums of |K| come from the element
 blocks (models/plane.abs_row_sums), never a dense K.  The mesh tools
 (`box_mesh`, `boundary_quads`, `surface_load`, `extrude_mesh`) are numpy,
-node numbering and all, as in the JAX package.  The identification
-(`identify_solid_young_banded`) is ROADMAP item 23, the traced
-`solid_static_response` item 24; mesh= is item 15's multi-device row.
+node numbering and all, as in the JAX package.
+`identify_solid_young_banded` recovers Young's modulus from measured
+displacements on the banded adjoint (solvers/banded_inverse.py: kernels
+1-3 twice an ADAM iteration on a card).  The traced
+`solid_static_response` is item 24; mesh= is item 15's multi-device row.
 """
 
 from __future__ import annotations
@@ -935,3 +937,36 @@ def solve_solid_transient_banded(problem: SolidProblem, dt: float,
         times=times, displacements=records.us.cpu().numpy().astype(float),
         velocities=records.vs.cpu().numpy().astype(float), dt=float(dt),
         n_steps=int(n_steps))
+
+
+def identify_solid_young_banded(problem: SolidProblem, measured_dofs,
+                                measured_disp, n_iter: int = 300,
+                                learning_rate: float = 0.05,
+                                tol: float = 1e-7, max_iter: int = 20000,
+                                zones=None, field: bool = False,
+                                seed: int = 0, hidden_layers: int = 2,
+                                neurons_per_layer: int = 16, device=None):
+    """Young-modulus identification on the hex8 family through the banded
+    adjoint (solvers/banded_inverse.identify_young_banded; only the hex8
+    block builder is solid-specific): zones (one log-E per zone),
+    field=True (E(x, y, z) MLP at the centroids, input_dim 3), the default
+    per-element log-E.  device: where to solve ("cuda" when None).
+    Returns (young (m,), loss_history, mlp_field_or_None)."""
+    from ..solvers.banded_inverse import identify_young_banded
+
+    dev = resolve_device(device)
+    coords, _ = _elements(problem, dev)
+    (nu,) = _material(problem, dev, "poisson")
+
+    def blocks_of(young_e):
+        return _k_blocks3(coords, _dmat3(young_e.to(torch.float64), nu))
+
+    return identify_young_banded(
+        solid_dia_layout(problem), blocks_of, problem.young,
+        problem.coords().mean(axis=1),
+        problem.loads + _body_force_vectors3(problem).numpy(),
+        problem.free_mask(), measured_dofs, measured_disp, n_iter=n_iter,
+        learning_rate=learning_rate, tol=tol, max_iter=max_iter,
+        zones=zones, field=field, seed=seed, hidden_layers=hidden_layers,
+        neurons_per_layer=neurons_per_layer, input_dim=3,
+        device=dev)

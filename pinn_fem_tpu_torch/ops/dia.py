@@ -21,6 +21,11 @@ the plain PyTorch versions, `dia_matvec_reference` and
 `dia_cg_solve_reference`, which the kernels are held against.
 `dia_cg_solve(precond="mg")` preconditions with the banded multigrid of
 ops/mg.py, whose every level matvec is `dia_matvec`.
+
+`dia_solve_diff` is the differentiable banded solve: its backward pass is
+one more `dia_cg_solve` with the same operator (the adjoint of an SPD
+system is the system itself), so an identification step on a card runs
+the fused PCG twice, forward and adjoint.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from .kernels.dia_kernel import dia_matvec, dia_matvec_reference
 
 __all__ = ["DiaLayout", "dia_layout", "assemble_dia", "assemble_dia_blocks",
            "dia_matvec", "dia_matvec_reference", "dia_diagonal",
-           "dia_cg_solve", "dia_cg_solve_reference"]
+           "dia_cg_solve", "dia_cg_solve_reference", "dia_solve_diff",
+           "dia_diags_grad"]
 
 
 @dataclass(frozen=True)
@@ -245,3 +251,67 @@ def dia_cg_solve_reference(
                       + (1.0 - free_mask))
     x, it, r = pcg_plain(a_op, lambda v: inv_diag * v, b, x, tol_b, max_iter)
     return x * free_mask, it, torch.linalg.vector_norm(r) / b_norm
+
+
+def dia_diags_grad(layout: DiaLayout, lam: torch.Tensor, u: torch.Tensor,
+                   free_mask: torch.Tensor) -> torch.Tensor:
+    """(nd, ndof) gradient of lam . (M K(diags) M u) with respect to the
+    diagonals: g[k, i] = m_i lam_i m_{i+off_k} u_{i+off_k}, zero where
+    i + off_k falls outside [0, ndof).  One gather of the padded M u over
+    all diagonals at once (a view of every shift, indexed by the
+    offsets), then one product."""
+    b = layout.bandwidth
+    mu = torch.nn.functional.pad(u * free_mask, (b, b))
+    shifts = mu.unfold(0, layout.ndof, 1)          # (2b + 1, ndof) view
+    rows = layout.offsets_on(u.device) + b
+    return (lam * free_mask)[None, :] * shifts[rows]
+
+
+class _DiaSolveDiff(torch.autograd.Function):
+    """u = (M K M + I - M)^-1 M rhs with the adjoint rule: the backward
+    solves the same system for lam = A^-1 du and returns
+    (-dia_diags_grad(lam, u), M lam)."""
+
+    @staticmethod
+    def forward(ctx, diags, rhs, layout, free_mask, tol, max_iter, precond):
+        d = diags.detach()
+        u, _, _ = dia_cg_solve(layout, d, rhs.detach(), free_mask, tol=tol,
+                               max_iter=max_iter, precond=precond)
+        ctx.layout, ctx.args = layout, (tol, max_iter, precond)
+        ctx.save_for_backward(d, u, free_mask)
+        return u
+
+    @staticmethod
+    def backward(ctx, g):
+        d, u, mask = ctx.saved_tensors
+        tol, max_iter, precond = ctx.args
+        lam, _, _ = dia_cg_solve(ctx.layout, d, g.contiguous(), mask,
+                                 tol=tol, max_iter=max_iter, precond=precond)
+        grad_diags = grad_rhs = None
+        if ctx.needs_input_grad[0]:
+            grad_diags = -dia_diags_grad(ctx.layout, lam, u, mask)
+        if ctx.needs_input_grad[1]:
+            grad_rhs = lam * mask
+        return grad_diags, grad_rhs, None, None, None, None, None
+
+
+def dia_solve_diff(layout: DiaLayout, diags: torch.Tensor, rhs: torch.Tensor,
+                   free_mask: torch.Tensor, tol: float = 1e-7,
+                   max_iter: int = 20000,
+                   precond: str = "jacobi") -> torch.Tensor:
+    """Differentiable banded solve u = K(diags)^-1 rhs on the free DOFs
+    (zero on the fixed ones), with gradients to `diags` and `rhs` by the
+    adjoint method (pinn_fem_tpu.ops.dia.dia_solve_diff, a
+    lax.custom_linear_solve(symmetric=True) of the masked operator
+    M K M + (I - M)).
+
+    Forward: `dia_cg_solve` on the detached diagonals (the fused PCG,
+    kernels 1-3, on a CUDA tensor; the plain recurrence on a CPU one).
+    Backward: one more `dia_cg_solve` with the same diagonals, tol and
+    max_iter on the upstream gradient, giving lam; then d rhs = M lam and
+    d diags = -dia_diags_grad(lam, u).  Gradients reach element blocks
+    through the autograd of `assemble_dia_blocks` (its float64 scatter
+    transposes to a gather back).  Memory stays O(band * ndof).
+    """
+    return _DiaSolveDiff.apply(diags, rhs, layout, free_mask, float(tol),
+                               int(max_iter), precond)

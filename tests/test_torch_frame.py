@@ -603,11 +603,16 @@ def test_corpus_documents_match_jax(tmp_path, monkeypatch, name):
 
 
 def test_identification_document_refused(tmp_path, monkeypatch):
-    """dyn-frame-identify: exit 1 naming ROADMAP item 23, no result."""
+    """dyn-frame-identify without its "synthetic" block: exit 1 with the
+    JAX package's words, no result.  (The document itself runs since
+    ROADMAP item 23: tests/test_torch_identification.py.)"""
+    doc = json.loads((CORPUS / "dyn-frame-identify.json").read_text())
+    doc["analysis"].pop("synthetic")
     path = tmp_path / "dyn-frame-identify.json"
-    path.write_text((CORPUS / "dyn-frame-identify.json").read_text())
+    path.write_text(json.dumps(doc))
     rc, out, log = run_cli(torch_cli, path, monkeypatch, CPU)
-    assert rc == 1 and out is None and "ROADMAP item 23" in log
+    assert rc == 1 and out is None
+    assert 'frame identification needs "measured_dofs"' in log
 
 
 def test_banded_document_matches_jax(tmp_path, monkeypatch):
@@ -668,7 +673,13 @@ def test_spectral_documents_match_jax(tmp_path, monkeypatch, kind):
 @pytest.mark.parametrize("kind, item", [
     ("identification", "23"), ("reliability", "24"), ("sizing", "24")])
 def test_later_analysis_types_refused(kind, item):
+    """Item 24's types name it; identification (item 23, ported) refuses
+    a block without a measurement in the JAX package's words."""
     tp, _ = both(portal())
+    if item == "23":
+        with pytest.raises(ValueError, match='needs "measured_dofs"'):
+            t_io.run_frame_analysis(tp, {"type": kind}, CPU)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP item {item}$"):
         t_io.run_frame_analysis(tp, {"type": kind}, CPU)

@@ -483,12 +483,15 @@ def test_corpus_documents_match_jax(tmp_path, monkeypatch, name):
 
 
 def test_identification_document_refused(tmp_path, monkeypatch):
-    """dyn-plate-identify.json: exit 1 naming ROADMAP item 23, no
-    result."""
+    """dyn-plate-identify.json with "banded": false beside its zones: exit
+    1 with the JAX package's words, no result.  (The document itself runs
+    since ROADMAP item 23: tests/test_torch_identification.py.)"""
+    doc = json.loads((CORPUS / "dyn-plate-identify.json").read_text())
+    doc["analysis"]["banded"] = False
     path = tmp_path / "dyn-plate-identify.json"
-    path.write_text((CORPUS / "dyn-plate-identify.json").read_text())
+    path.write_text(json.dumps(doc))
     rc, out, log = run_cli(torch_cli, path, monkeypatch, CPU)
-    assert rc == 1 and out is None and "ROADMAP item 23" in log
+    assert rc == 1 and out is None and '"zones" rides the banded tier' in log
 
 
 def small_doc(**analysis):
@@ -615,6 +618,12 @@ def test_refusals_match_jax(name):
 @pytest.mark.parametrize("kind, item", [
     ("identification", 23), ("reliability", 24), ("sizing", 24)])
 def test_later_analysis_types_refused(kind, item):
+    """Item 24's types name it; identification (item 23, ported) refuses
+    a block without a measurement in the JAX package's words."""
+    if item == 23:
+        with pytest.raises(ValueError, match='needs "measured_dofs"'):
+            t_io.run_plate_document(small_doc(type=kind), CPU)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
         t_io.run_plate_document(small_doc(type=kind), CPU)
 

@@ -490,6 +490,12 @@ def test_refusals_match_jax(name):
 @pytest.mark.parametrize("kind, item", [
     ("identification", 23), ("reliability", 24), ("sizing", 24)])
 def test_later_analysis_types_refused(kind, item):
+    """Item 24's types name it; identification (item 23, ported) refuses
+    a block without a measurement in the JAX package's words."""
+    if item == 23:
+        with pytest.raises(ValueError, match='needs "measured_dofs"'):
+            t_io.run_shell_document(small_doc(type=kind), CPU)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
         t_io.run_shell_document(small_doc(type=kind), CPU)
 

@@ -261,9 +261,12 @@ def test_cli_cuda_without_card_is_an_error(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("doc,item", [
-    ({"analysis": {"type": "identification"}}, "ROADMAP item 23"),
+    ({"analysis": {"type": "sizing"}}, "ROADMAP item 24"),
 ])
 def test_unported_documents_name_their_roadmap_item(tmp_path, doc, item):
+    """A truss document whose analysis type is still to port names its
+    ROADMAP item (identification, item 23, runs since it was ported:
+    tests/test_torch_identification.py)."""
     base = json.loads((CORPUS / "example1.json").read_text())
     base.update(doc)
     path = tmp_path / "doc.json"

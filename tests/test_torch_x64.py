@@ -87,13 +87,13 @@ def test_cli_routes_on_parsed_meta(tmp_path, monkeypatch):
 
     def with_analysis(raw, seed=0):
         parsed = inner(raw, seed=seed)
-        parsed.meta["analysis"] = {"type": "identification"}
+        parsed.meta["analysis"] = {"type": "sizing"}
         return parsed
 
     monkeypatch.setattr(torch_cli, "parse_problem_dict", with_analysis)
     path = tmp_path / "example1.json"
     path.write_text((CORPUS / "example1.json").read_text())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
         torch_cli.run(str(path), device="cpu")
 
 
