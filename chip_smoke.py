@@ -442,6 +442,20 @@ code is not 0 and no result line is printed:
      documents, n_iter cut to 50, against the port's CPU run of the same
      document (CPU processes beside the card's runs); (e) refusals before
      any launch.
+ 25. Sizing and reliability (ROADMAP item 24): (a) OC compliance sizing
+     on the 100 x 200 grid (40,000 DOFs), uncut: oc_sizing_iteration,
+     the compliance drop, PCG iterations, idle share, peak memory, areas
+     and history against a float64 host OC (scipy.sparse LU, the same
+     bisection), the document default (40 iterations) through the CLI,
+     launches by the fused PCG's formula (kernel 1 once an OC
+     iteration); (b) ADAM sizing of the 16 x 64 strip (2,048 DOFs) with
+     dyn-sizing.json's analysis, float32 against float64 on the card;
+     (c) FORM on the strip with E a random field (3,860 variables), 8
+     stress limit states and 2,048 Monte-Carlo samples in chunks of
+     1,024 (each one batched dense solve), against float64 on the card;
+     (d) the seven sizing / reliability documents (ADAM cut) and nine
+     small family documents against the port's CPU run, with
+     benchmarks/dyn_corpus.py's gates; (e) refusals before any launch.
 
 Every kernel is held to its plain version by the tolerance stated where it
 is checked.  The line before the last is {"kernels": [...]}, one entry per
@@ -461,7 +475,7 @@ as launches_frequency on phase 17's, as launches_nonlinear on phase 18's,
 as launches_plane on phase 19's, as launches_solid on phase 20's, as
 launches_frame on phase 21's, as launches_plate on phase 22's, as
 launches_shell on phase 23's, as launches_identification on phase
-24's, kernels 1-3 their figures on phase 19's
+24's, as launches_sizing on phase 25's, kernels 1-3 their figures on phase 19's
 strip operator (plane_strip), on phase 20's column operator
 (solid_column), on phase 21's tower and skeleton operators (frame_tower,
 frame3d_grid), on phase 22's slab operator (plate_slab) and on phase 23's
@@ -6682,10 +6696,12 @@ def plane_refusals(dev, card: str) -> None:
             big, {"type": "modal"}, dev), ValueError, "8192-DOF budget"),
         "banded_prescribed": (lambda: run_plane_document(settled, dev),
                               ValueError, "homogeneous supports only")}
-    for kind, item in (("sizing", 24), ("reliability", 24)):
+    # Sizing and reliability (item 24) run since phase 25's port; a bare
+    # block is refused in the JAX package's words.
+    for kind, words in (("sizing", "thickness sizing needs stress_limit"),
+                        ("reliability", "needs at least one random")):
         calls[kind] = (lambda kind=kind: run_plane_analysis(
-            small, {"type": kind}, dev), NotImplementedError,
-            f"ROADMAP item {item}")
+            small, {"type": kind}, dev), ValueError, words)
     # Identification (item 23) runs since phase 24's port; a block with no
     # measurement is refused in the JAX package's words.
     calls["identification"] = (lambda: run_plane_analysis(
@@ -6739,6 +6755,11 @@ def phase_plane(workdir: Path, dev, card: str) -> dict:
 SOLID_DOCS = ("dyn-solid", "dyn-solid-plastic",
               "dyn-solid-transient-plastic",
               "dyn-plane-transient-plastic")   # 20(a)
+# The two host-bound plastic transient documents, cut in steps (the card
+# and the CPU run the same cut document) to keep the script within its
+# time: 8,000 and 4,000 steps in the corpus.
+SOLID_DOC_STEPS = {"dyn-solid-transient-plastic": 4000,
+                   "dyn-plane-transient-plastic": 2000}
 SOLID_DOC_RTOL = 1e-10          # the float64 tiers against the CPU run
 SOLID_DOC_F32_RTOL = 1e-4       # dyn-solid's banded float32 tier, same
 SOLID_CLOSED_FORM = 2e-3        # benchmarks/scaling.py:615's gate
@@ -6751,13 +6772,13 @@ SOLID_MODES = 4                 # 20(c): JAX's defaults
 SOLID_MODAL_ITERS = 30
 SOLID_MODAL_CG_TOL = 1e-7
 SOLID_MODAL_RTOL = 1e-2         # pinn_fem_tpu/solvers/modal.py:29-31
-SOLID_CENTRAL_STEPS = 2000      # 20(d)
+SOLID_CENTRAL_STEPS = 1000      # 20(d)
 SOLID_CENTRAL_EVERY = 100
 SOLID_CENTRAL_BETA = 0.05       # x dt: zeta 0.05 at omega = 2 / dt
 SOLID_CENTRAL_RTOL = 2e-3
 SOLID_IDLE_STEPS = 200
 SOLID_PT_BOX = (24, 24, 48)     # 20(e): 91,875 DOFs, 27,648 bricks
-SOLID_PT_STEPS = 1000
+SOLID_PT_STEPS = 500
 SOLID_PT_EVERY = 50
 SOLID_PT_TRACTION = [1.5, 0.0, 8.0]
 SOLID_PT_SIGMA_Y = 12.0
@@ -6773,8 +6794,8 @@ SOLID_PLASTIC_LOADS = [0.6, 0.9, 1.0, 1.1, 1.2]
 SOLID_DENSE_BOX = (12, 12, 15)  # 20(f): 8,112 DOFs, under 8192
 SOLID_DENSE_MODES = 6
 SOLID_BUCKLING_MODES = 3
-SOLID_NEWMARK_STEPS = 500
-SOLID_HARMONIC_FREQS = 20
+SOLID_NEWMARK_STEPS = 250
+SOLID_HARMONIC_FREQS = 10
 SOLID_DYN_RTOL = 1e-9
 SOLID_REF_WORKERS = 8           # processes of the harmonic reference
 
@@ -6830,21 +6851,26 @@ def solid_documents(workdir: Path, dev, card: str) -> dict:
     and dyn-plane-transient-plastic (float64 tiers, within 1e-10 of the
     CPU run, no repo kernel) through main() on the card, each against the
     same CLI run with device "cpu" in a process of its own (started first,
-    run alongside)."""
+    run alongside); the two plastic transients cut to SOLID_DOC_STEPS."""
     from pinn_fem_tpu_torch.cli.generic import main
     from pinn_fem_tpu_torch.io.solid_io import parse_solid_document
     from pinn_fem_tpu_torch.models import solid as S
     from pinn_fem_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    procs = cpu_cli_processes(workdir, SOLID_DOCS)
+    docs = {}
+    for name in SOLID_DOCS:
+        docs[name] = json.loads((ROOT / "examples" / "json"
+                                 / f"{name}.json").read_text())
+        if name in SOLID_DOC_STEPS:
+            docs[name]["analysis"]["n_steps"] = SOLID_DOC_STEPS[name]
+    procs = ident_cpu_processes(workdir, docs, "cpu20")
     try:
         os.environ["PINN_FEM_TORCH_DEVICE"] = DEVICE
         launches, report, outs = {}, {}, {}
         for name in SOLID_DOCS:
             path = workdir / f"{name}.json"
-            path.write_text((ROOT / "examples" / "json" / f"{name}.json")
-                            .read_text())
+            path.write_text(json.dumps(docs[name]))
             kernels.reset_launch_counts()
             card_s, rc = synced(lambda: main([str(path)]))
             require(rc == 0, f"20(a) {name}: exit code 0")
@@ -7637,8 +7663,8 @@ def solid_dense(dev, card: str) -> dict:
 
 def solid_refusals(dev, card: str) -> None:
     """20(g): mesh= (banded statics, banded modal, plastic transient),
-    "reliability" (ROADMAP item 24), an identification block without a
-    measurement, "sizing" (no solid
+    a "reliability" block without variables (ported in phase 25), an
+    identification block without a measurement, "sizing" (no solid
     analysis of that name), the 8,192-DOF budgets of the dense analyses,
     a prescribed displacement on the banded tier and "plasticity" with
     "banded", each refused before any launch."""
@@ -7676,8 +7702,8 @@ def solid_refusals(dev, card: str) -> None:
             big, {"type": kind, "omegas": [1.0], "sigma_y": 1.0}, dev),
             ValueError, "8192-DOF budget")
     calls["reliability"] = (lambda: run_solid_analysis(
-        small, {"type": "reliability"}, dev), NotImplementedError,
-        "ROADMAP item 24")
+        small, {"type": "reliability"}, dev), ValueError,
+        "needs at least one random")
     calls["identification"] = (lambda: run_solid_analysis(
         small, {"type": "identification"}, dev), ValueError,
         'needs "measured_dofs"')
@@ -8379,10 +8405,10 @@ def frame_dense(dev, card: str) -> dict:
 
 
 def frame_refusals(workdir: Path, dev, card: str) -> None:
-    """21(f): mesh= (the banded statics and modal of both families), the
-    frame types of ROADMAP item 24 ("reliability", "sizing") and an
+    """21(f): mesh= (the banded statics and modal of both families), bare
+    "reliability" and "sizing" blocks (ported in phase 25) and an
     identification block without a measurement, each refused before any
-    launch (the family documents of later items: 22(e))."""
+    launch in the JAX package's words (the family documents: 22(e))."""
     from pinn_fem_tpu_torch.io.frame_io import run_frame_analysis
     from pinn_fem_tpu_torch.ops import kernels
 
@@ -8396,11 +8422,12 @@ def frame_refusals(workdir: Path, dev, card: str) -> None:
                                                   device=dev),
                 NotImplementedError, "item 15")
         if kind == "tower":
-            for typ in ("reliability", "sizing"):
+            for typ, words in (
+                    ("reliability", "needs at least one random"),
+                    ("sizing", 'frame sizing needs "displacement_limit"')):
                 calls[f"{kind}_{typ}"] = (
                     lambda problem=problem, typ=typ: run_frame_analysis(
-                        problem, {"type": typ}, dev),
-                    NotImplementedError, "ROADMAP item 24")
+                        problem, {"type": typ}, dev), ValueError, words)
             calls[f"{kind}_identification"] = (
                 lambda problem=problem: run_frame_analysis(
                     problem, {"type": "identification"}, dev),
@@ -9061,8 +9088,9 @@ def spectral_documents(workdir: Path, dev, card: str) -> dict:
 def plate_refusals(workdir: Path, dev, card: str) -> None:
     """22(e): dyn-plate-identify.json with "banded": false beside its
     zones through the CLI's run() (the JAX package's ValueError) and a
-    plate's reliability and sizing (item 24), each refused before any
-    launch (the shell's refusals: 23(e))."""
+    plate's bare reliability and sizing blocks (ported in phase 25, the
+    JAX package's ValueErrors), each refused before any launch (the
+    shell's refusals: 23(e))."""
     from pinn_fem_tpu_torch.cli.generic import run
     from pinn_fem_tpu_torch.io.plate_io import run_plate_document
     from pinn_fem_tpu_torch.ops import kernels
@@ -9077,10 +9105,10 @@ def plate_refusals(workdir: Path, dev, card: str) -> None:
         "plate_identification": (lambda: run(str(ident_path), device=dev),
                                  ValueError, "rides the banded tier"),
     }
-    for kind in ("reliability", "sizing"):
+    for kind, words in (("reliability", "needs at least one random"),
+                        ("sizing", 'plate sizing needs "displacement_limit"')):
         calls[f"plate_{kind}"] = (lambda kind=kind: run_plate_document(
-            dict(small, analysis={"type": kind}), dev), NotImplementedError,
-            "ROADMAP item 24")
+            dict(small, analysis={"type": kind}), dev), ValueError, words)
     refused = {}
     kernels.reset_launch_counts()
     for name, (call, kind, text) in calls.items():
@@ -9683,10 +9711,11 @@ def shell_plastic_strip_document() -> dict:
 
 
 def shell_refusals(workdir: Path, dev, card: str) -> None:
-    """23(e): shell "sizing" and "reliability" (item 24) documents and an
-    identification document without a measurement through the CLI's
-    run(), and shell modal and buckling above DENSE_DOF_LIMIT (the JAX
-    package's ValueErrors), each refused before any launch."""
+    """23(e): bare shell "sizing" and "reliability" documents (ported in
+    phase 25) and an identification document without a measurement
+    through the CLI's run(), and shell modal and buckling above
+    DENSE_DOF_LIMIT (the JAX package's ValueErrors), each refused before
+    any launch."""
     from pinn_fem_tpu_torch.cli.generic import run
     from pinn_fem_tpu_torch.io.shell_io import run_shell_document
     from pinn_fem_tpu_torch.ops import kernels
@@ -9694,8 +9723,8 @@ def shell_refusals(workdir: Path, dev, card: str) -> None:
     calls = {}
     for kind, (exc, text) in (
             ("identification", (ValueError, 'needs "measured_dofs"')),
-            ("sizing", (NotImplementedError, "ROADMAP item 24")),
-            ("reliability", (NotImplementedError, "ROADMAP item 24"))):
+            ("sizing", (ValueError, 'shell sizing needs "stress_limit"')),
+            ("reliability", (ValueError, "needs at least one random"))):
         path = workdir / f"shell-{kind}.json"
         path.write_text(json.dumps(shell_roof_document(4, type=kind)))
         calls[kind] = (lambda path=path: run(str(path), device=dev), exc,
@@ -10298,11 +10327,12 @@ def ident_cut_document(name: str) -> dict:
     return doc
 
 
-def ident_cpu_processes(workdir: Path, docs: dict) -> dict:
+def ident_cpu_processes(workdir: Path, docs: dict,
+                        sub: str = "cpu24") -> dict:
     """{name: (process, result path)}: each document through the port's
     CLI on the CPU (one torch thread), in processes that run while the
-    card runs its copies."""
-    outdir = workdir / "cpu24"
+    card runs its copies (their files in workdir / sub)."""
+    outdir = workdir / sub
     outdir.mkdir(exist_ok=True)
     env = dict(os.environ, PINN_FEM_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1",
                MKL_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
@@ -10457,6 +10487,625 @@ def phase_identification(workdir: Path, dev, card: str) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------------------ phase 25
+SZ_OC_GRID = (100, 200)         # 25(a): 40,000 DOFs, 79,102 members
+SZ_OC_MIN_AREA = 1e-4
+SZ_OC_TIMED = (2, 12)           # oc_sizing_iteration = (t(12) - t(2)) / 10
+SZ_OC_PROFILED = 4
+SZ_OC_RTOL = 1e-3               # against the float64 host OC
+SZ_OC_DOC_ITERS = 40            # the sizing runner's default for "oc"
+SZ_OC_VOLUME_RTOL = 1e-4
+SZ_STRIP = (16, 64)             # 25(b)-(c): 2,048 DOFs, 3,858 members
+SZ_MASS_RTOL = 1e-2             # float32 against float64, both on the card
+SZ_FIELD_LENGTH = 2.0           # 25(c): E's correlation length
+SZ_LIMIT_STATES = 8
+SZ_MC_SAMPLES = 2048            # two chunks of 1024
+SZ_MC_CHUNK = 1024
+SZ_MC_CHUNK_F64 = 256           # the float64 check: the same samples
+SZ_BETA_RTOL = 1e-3
+SZ_MC_SE = 2.0
+SZ_DOC_ITERS = 10               # 25(d): ADAM iterations a round
+SZ_DOC_CUTS = {"dyn-sizing-fatigue": 5}   # fault 3.39: parts sooner
+SZ_DOC_RTOL = 5e-2              # sizing documents against the CPU run
+# The facet shell's float32 dense solve (membrane and bending scales, the
+# drilling eps) parts from the CPU's sooner: 5.1e-2 on the thickness after
+# 20 ADAM iterations, 6.4e-3 on p_f after 50 HL-RF iterations (the first
+# card runs).
+SZ_DOC_BOUNDS = {"shell_sizing": 2e-1,
+                 "shell_reliability": 2e-2}   # 6.4e-3 on p_f (the same run)
+SZ_REL_DOC_RTOL = 1e-3          # reliability documents
+SZ_GATE = 1e-6                  # max_stress_ratio <= 1 + SZ_GATE
+SZ_FLOOR = 1e-3                 # fatigue life / RBDO beta floors
+SZ_CLOSED_FORM_RTOL = 1e-4
+SZ_DOCUMENTS = ("dyn-sizing", "dyn-sizing-dynamic", "dyn-sizing-fatigue",
+                "dyn-sizing-rbdo", "dyn-reliability", "dyn-plane-sizing",
+                "dyn-plane-reliability")
+
+
+def oc_reference_main(out_path: str, n_iter: int, rows: int,
+                      cols: int) -> None:
+    """The float64 host OC of 25(a) (run in a process of its own): the
+    same iteration as solvers/sizing.optimize_compliance_oc on the rows x
+    cols grid, each solve a scipy.sparse LU of the free block, the 60-step
+    log-space bisection in numpy.  Writes areas and history."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    sys.path.insert(0, str(ROOT))
+    from pinn_fem_tpu_torch.examples_grid import grid_arrays
+
+    nodes, el, loads, fixed = grid_arrays(rows, cols)
+    n = loads.size
+    d = nodes[el[:, 1]] - nodes[el[:, 0]]
+    length = np.linalg.norm(d, axis=1)
+    c = d / length[:, None]
+    g = np.concatenate([-c, c], axis=1)
+    dm = np.concatenate([2 * el[:, :1], 2 * el[:, :1] + 1, 2 * el[:, 1:],
+                         2 * el[:, 1:] + 1], axis=1)
+    ggt = g[:, :, None] * g[:, None, :]
+    rows = np.repeat(dm, 4, axis=1).ravel()
+    cols = np.tile(dm, (1, 4)).ravel()
+    free = np.setdiff1d(np.arange(n), fixed)
+    volume = float(np.sum(length))
+    areas = np.ones(el.shape[0]) * volume / float(np.sum(length))
+    areas = np.clip(areas, SZ_OC_MIN_AREA, None)
+    hist = []
+    for _ in range(n_iter):
+        s = areas / length
+        k = sp.coo_matrix(((s[:, None, None] * ggt).ravel(), (rows, cols)),
+                          shape=(n, n)).tocsc()
+        u = np.zeros(n)
+        u[free] = spl.splu(k[free][:, free].tocsc(),
+                           permc_spec="MMD_AT_PLUS_A").solve(loads[free])
+        strain = np.sum(g * u[dm], axis=-1) / length
+        dens = 0.5 * strain * strain
+        hist.append(float(loads @ u))
+        lower = np.maximum(0.8 * areas, SZ_OC_MIN_AREA)
+        upper = 1.2 * areas
+
+        def clamped(lam):
+            return np.clip(areas * (dens / lam) ** 0.5, lower, upper)
+
+        d_max = max(float(np.max(dens)), 1e-30)
+        lo, hi = 1e-9 * d_max, 1e9 * d_max
+        for _ in range(60):
+            mid = np.sqrt(lo * hi)
+            if np.sum(clamped(mid) * length) > volume:
+                lo = mid
+            else:
+                hi = mid
+        areas = clamped(np.sqrt(lo * hi))
+    np.savez(out_path, areas=areas, history=np.asarray(hist))
+
+
+def oc_grid(workdir: Path, dev, card: str) -> dict:
+    """25(a): OC sizing on the 100 x 200 grid, uncut: the timed iteration,
+    the compliance drop, PCG iterations, idle share, peak memory; areas and
+    history against the float64 host OC; the document default through the
+    CLI to its convergence flag; launches by the fused PCG's formula."""
+    ref_path = workdir / "oc_reference.npz"
+    ref = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke as c; c.oc_reference_main(sys.argv[2], "
+         "*map(int, sys.argv[3:]))", str(ROOT), str(ref_path),
+         str(SZ_OC_TIMED[1]), *map(str, SZ_OC_GRID)], cwd=str(ROOT),
+        env=dict(os.environ, OMP_NUM_THREADS="2"),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        return oc_grid_runs(workdir, dev, card, ref, ref_path)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+
+
+def oc_grid_runs(workdir: Path, dev, card: str, ref, ref_path) -> dict:
+    """oc_grid's card runs and checks, the float64 host OC `ref` running
+    beside them."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.examples_grid import grid_document, grid_problem
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers.sizing import optimize_compliance_oc
+
+    problem = grid_problem(*SZ_OC_GRID)
+    nodes, el = problem.nodes, problem.elements
+    length = np.linalg.norm(nodes[el[:, 1]] - nodes[el[:, 0]], axis=1)
+    volume = float(np.sum(length))
+
+    def run(n_iter):
+        return optimize_compliance_oc(problem, volume, n_iter=n_iter,
+                                      min_area=SZ_OC_MIN_AREA, device=dev)
+
+    run(1)                                       # builds, warms the caches
+    t_short, _ = synced(lambda: run(SZ_OC_TIMED[0]))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_long, res = synced(lambda: run(SZ_OC_TIMED[1]))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    oc_ms = 1e3 * (t_long - t_short) / (SZ_OC_TIMED[1] - SZ_OC_TIMED[0])
+    kernels.reset_launch_counts()
+    with PcgTally() as its:
+        tallied = run(SZ_OC_TIMED[1])
+    launches = kernels.launch_counts()
+    expected = banded_launches(its, reactions=len(its))
+    idle = idle_profile(lambda: run(SZ_OC_PROFILED))
+
+    doc = grid_document(*SZ_OC_GRID)
+    doc["analysis"] = {"type": "sizing", "method": "oc",
+                       "objective": "compliance", "volume": volume,
+                       "min_area": SZ_OC_MIN_AREA}
+    with PcgTally() as doc_its:
+        out, doc_launches, doc_wall, _, _ = run_cli_document(
+            workdir, "oc_document", doc)
+    doc_expected = banded_launches(doc_its, reactions=len(doc_its))
+
+    require(ref.wait(timeout=600) == 0,
+            f"25(a): the float64 host OC ({ref.stderr.read()[-400:]!r})")
+    want = np.load(ref_path)
+    gaps = {"areas": max_rel(res.areas, want["areas"]),
+            "history": max_rel(res.history, want["history"])}
+    vol = {"timed": abs(float(np.sum(res.areas * length)) - volume) / volume,
+           "tallied": abs(float(np.sum(tallied.areas * length)) - volume)
+           / volume}
+    report = dict(
+        ndof=problem.ndof, members=problem.nelm,
+        oc_sizing_iteration_ms=oc_ms, wall_s={"2": t_short, "12": t_long},
+        compliance_drop=float(res.history[0] / res.history[-1]),
+        history=res.history.tolist(),
+        pcg_per_oc_iteration=list(its),
+        pcg_mean=float(np.mean(its)), peak_gb=peak, idle=idle,
+        float64_gaps=gaps, volume_gaps=vol,
+        area_range=[float(res.areas.min()), float(res.areas.max())],
+        launches=launches, expected=expected,
+        document=dict(wall_s=doc_wall, converged=out["converged"],
+                      n_iter=out["n_iter"], mass=out["mass"],
+                      volume_gap=abs(out["volume"] - volume) / volume,
+                      area_range=out["area_range"],
+                      pcg_iterations=list(doc_its),
+                      launches=doc_launches, expected=doc_expected))
+    log("phase25a_oc", card=card, **report)
+    require(gaps["areas"] <= SZ_OC_RTOL and gaps["history"] <= SZ_OC_RTOL,
+            "25(a): areas and compliance within 1e-3 of the float64 OC")
+    require(max(vol.values()) <= SZ_OC_VOLUME_RTOL,
+            "25(a): sum A L = V within 1e-4")
+    require(float(tallied.areas.min()) >= SZ_OC_MIN_AREA * (1 - 1e-6)
+            and float(out["area_range"][0]) >= SZ_OC_MIN_AREA * (1 - 1e-6),
+            "25(a): min_area <= A")
+    require(launches == expected, "25(a): kernel 1 once an OC iteration, "
+            "kernels 2 and 3 sum 32 ceil(it / 32), 4 and 4b none")
+    require(doc_launches == doc_expected, "25(a): the document's launches")
+    require(out["n_iter"] == SZ_OC_DOC_ITERS,
+            "25(a): the document default's 40 iterations")
+    return {"oc_timed_12": launches, "oc_document": doc_launches}
+
+
+def sizing_strip_problem():
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+
+    return grid_problem(*SZ_STRIP)
+
+
+def sizing_strip(dev, card: str) -> dict:
+    """25(b): optimize_sizing on the 16 x 64 strip with dyn-sizing.json's
+    analysis (stress limit 2, 300 ADAM iterations x 4 rounds), in float32
+    and in float64 on the card."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers import sizing as SZ
+    from pinn_fem_tpu_torch.solvers.sizing import optimize_sizing
+
+    analysis = json.loads((ROOT / "examples" / "json" / "dyn-sizing.json")
+                          .read_text())["analysis"]
+    problem = sizing_strip_problem()
+    kw = dict(stress_limit=float(analysis["stress_limit"]),
+              min_area=float(analysis["min_area"]),
+              learning_rate=float(analysis["learning_rate"]),
+              n_iter=int(analysis["n_iter"]),
+              outer_rounds=int(analysis["outer_rounds"]), device=dev)
+    optimize_sizing(problem, **dict(kw, n_iter=2, outer_rounds=1,
+                                    polish=False))                 # warm
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Timed(SZ, "_host_area_solve") as host:
+        wall, res = synced(lambda: optimize_sizing(problem, **kw))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = kernels.launch_counts()
+    n_adam = kw["n_iter"] * kw["outer_rounds"]
+    host_s = sum(s for s, _ in host)
+    adam_ms = 1e3 * (wall - host_s) / n_adam
+    idle = idle_profile(lambda: optimize_sizing(
+        problem, **dict(kw, n_iter=10, outer_rounds=1, polish=False)))
+    os.environ["PINN_FEM_TPU_X64"] = "1"
+    try:
+        wall64, res64 = synced(lambda: optimize_sizing(problem, **kw))
+    finally:
+        os.environ.pop("PINN_FEM_TPU_X64")
+    mass_gap = abs(res.mass - res64.mass) / res64.mass
+    report = dict(ndof=problem.ndof, members=problem.nelm, wall_s=wall,
+                  adam_iterations=n_adam, ms_per_adam_iteration=adam_ms,
+                  polish_and_checks_s=host_s, peak_gb=peak, idle=idle,
+                  converged=res.converged,
+                  max_stress_ratio=res.max_stress_ratio, mass=res.mass,
+                  mass_initial=res.mass_initial, mass_float64=res64.mass,
+                  converged_float64=res64.converged, wall_float64_s=wall64,
+                  mass_gap=mass_gap,
+                  area_range=[float(res.areas.min()), float(res.areas.max())],
+                  launches=launches)
+    log("phase25b_sizing", card=card, **report)
+    require(res.converged, "25(b): converged")
+    require(res.max_stress_ratio <= 1.0 + SZ_GATE,
+            "25(b): max_stress_ratio <= 1 + 1e-6 after the polish")
+    require(res.mass < res.mass_initial, "25(b): mass below the start")
+    # One-sided: the strip's sizing is not convex, and the float32 and
+    # float64 trajectories land in different local optima (ROADMAP fault
+    # 3.39: a CPU rehearsal landed float32 5.5 % lighter); a float32
+    # design heavier than the float64 one by more than 1e-2 fails.
+    require(res.mass <= res64.mass * (1.0 + SZ_MASS_RTOL),
+            "25(b): mass at most 1e-2 above float64's")
+    require(res64.converged and res64.max_stress_ratio <= 1.0 + SZ_GATE,
+            "25(b): the float64 run converged and feasible")
+    require(zero_launches(launches), "25(b): no repo kernel on the dense "
+            "path")
+    return launches
+
+
+def strip_reliability_inputs(problem):
+    """25(c)'s variables and limit state on the strip: dyn-reliability's
+    load scale and resistance, E a lognormal random field in two groups
+    (cross-braced diagonals share midpoints: one group would repeat a
+    correlation row), the resistance's mean 1.3 x the largest stress of the
+    SZ_LIMIT_STATES members at the support."""
+    import numpy as np
+
+    from pinn_fem_tpu_torch.solvers.sizing import _host_area_solve
+
+    el = problem.elements
+    cols = problem.nodes[:, 0]
+    slash = (cols[el[:, 0]] > cols[el[:, 1]])          # the "/" diagonals
+    _, sigma = _host_area_solve(problem, np.ones(problem.nelm))
+    at_support = np.flatnonzero((cols[el[:, 0]] == 0) | (cols[el[:, 1]]
+                                                         == 0))
+    ls = at_support[np.argsort(-np.abs(sigma[at_support]))[
+        :SZ_LIMIT_STATES]]
+    base = json.loads((ROOT / "examples" / "json" / "dyn-reliability.json")
+                      .read_text())["analysis"]["variables"]
+    field = {"correlation_length": SZ_FIELD_LENGTH}
+    variables = [
+        dict(base[0], name="E", elements=np.flatnonzero(~slash).tolist(),
+             field=field),
+        dict(base[0], name="E2", elements=np.flatnonzero(slash).tolist(),
+             field=field),
+        base[1],
+        dict(base[2], mean=1.3 * float(np.max(np.abs(sigma[ls])))),
+    ]
+    return variables, {"type": "stress", "variable": "R",
+                       "elements": ls.tolist()}
+
+
+def strip_reliability(dev, card: str) -> dict:
+    """25(c): form_reliability on the strip (E a random field: 3,858
+    per-element variables and their Nataf factor), 8 stress limit states,
+    2,048 crude Monte-Carlo samples in chunks of 1,024 (each one batched
+    dense solve of (1024, 2048, 2048) float32); the float64 run on the
+    card (the same samples, chunks of 256) for beta and p_f."""
+    import numpy as np
+    import torch
+
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers import reliability as R
+
+    problem = sizing_strip_problem()
+    variables, ls = strip_reliability_inputs(problem)
+    R.form_reliability(problem, variables, dict(ls, elements=ls[
+        "elements"][:1]), n_iter=2, device=dev)           # warm
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Timed(R, "_attach_monte_carlo") as mc, Timed(R, "_hlrf") as hlrf:
+        wall, res = synced(lambda: R.form_reliability(
+            problem, variables, ls, mc_samples=SZ_MC_SAMPLES,
+            mc_chunk=SZ_MC_CHUNK, mc_seed=0, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = kernels.launch_counts()
+    chunk_ms = 1e3 * mc[0][0] / (SZ_MC_SAMPLES / SZ_MC_CHUNK)
+    os.environ["PINN_FEM_TPU_X64"] = "1"
+    try:
+        wall64, res64 = synced(lambda: R.form_reliability(
+            problem, variables, ls, mc_samples=SZ_MC_SAMPLES,
+            mc_chunk=SZ_MC_CHUNK_F64, mc_seed=0, device=dev))
+    finally:
+        os.environ.pop("PINN_FEM_TPU_X64")
+    beta_gap = max_rel(res.beta, res64.beta)
+    se = max(res.mc_std_error, res64.mc_std_error)
+    report = dict(n_vars=len(res.variables), limit_states=len(res.labels),
+                  wall_s=wall, hlrf_s=hlrf[0][0],
+                  hlrf_ms_per_iteration=1e3 * hlrf[0][0] / res.n_iter,
+                  mc_chunk_ms=chunk_ms, mc_samples=res.mc_n, peak_gb=peak,
+                  beta=res.beta.tolist(), beta_float64=res64.beta.tolist(),
+                  beta_gap=beta_gap, mc_pf=res.mc_pf,
+                  mc_pf_float64=res64.mc_pf, mc_std_error=res.mc_std_error,
+                  system_pf_bounds=[res.system_pf_lower,
+                                    res.system_pf_upper],
+                  converged=res.converged.tolist(), wall_float64_s=wall64,
+                  launches=launches)
+    log("phase25c_reliability", card=card, **report)
+    require(bool(np.all(res.converged)), "25(c): every limit state "
+            "converged")
+    require(beta_gap <= SZ_BETA_RTOL, "25(c): beta within 1e-3 of float64")
+    require(abs(res.mc_pf - res64.mc_pf) <= SZ_MC_SE * se,
+            "25(c): Monte-Carlo p_f within 2 standard errors of float64")
+    require(zero_launches(launches), "25(c): no repo kernel on the dense "
+            "path")
+    return launches
+
+
+def sizing_family_documents() -> dict:
+    """25(d)'s small family documents: frame sizing, RBDO and reliability,
+    plate and shell thickness sizing, plane, solid, plate and shell
+    reliability."""
+    frame = {"element_type": "frame",
+             "nodes": [[0, 0], [0, 3], [4, 3], [4, 0]],
+             "elements": [[0, 1], [1, 2], [2, 3]],
+             "material": {"young": 200.0, "area": 0.4, "inertia": 0.05,
+                          "density": 2.0, "section_modulus": 0.2},
+             "loads": [0, 0, 0, 1.0, 0, 0, 0.5, 0, 0, 0, 0, 0],
+             "fixed_nodes": [0, 3]}
+    e_s = [{"name": "E", "kind": "young", "mean": 200.0, "cov": 0.1},
+           {"name": "S", "kind": "load_scale", "mean": 1.0, "std": 0.2}]
+    plane = json.loads((ROOT / "examples" / "json"
+                        / "dyn-plane-reliability.json").read_text())
+    plate = plate_document(6, 0.05)
+    shell = shell_roof_document(4)
+    solid = solid_column(1, 1, 3)[1]
+    few = {"n_iter": SZ_DOC_ITERS, "outer_rounds": 2}
+    return {
+        "frame_sizing": dict(frame, analysis=dict(
+            type="sizing", displacement_limit=0.2, probe_dofs=[3], **few)),
+        "frame_rbdo": dict(frame, analysis=dict(
+            type="sizing", displacement_limit=0.3, probe_dofs=[3],
+            reliability={"variables": e_s, "target_beta": 2.0}, **few)),
+        "frame_reliability": dict(frame, analysis={
+            "type": "reliability", "variables": e_s + [
+                {"name": "R", "kind": "resistance", "mean": 12.0,
+                 "cov": 0.1}],
+            "limit_state": {"type": "stress", "variable": "R"}}),
+        "plate_sizing": dict(plate, analysis=dict(
+            type="sizing", displacement_limit=2e-3, probe_nodes=[24],
+            **few)),
+        "shell_sizing": dict(shell, analysis=dict(
+            type="sizing", stress_limit=3e5, **few)),
+        "plane_reliability": dict(plane, analysis={
+            "type": "reliability", "variables": [
+                plane["analysis"]["variables"][0],
+                {"name": "E", "kind": "young", "mean": 200.0, "cov": 0.1}],
+            "limit_state": {"type": "displacement", "limit": 0.03,
+                            "probe_dofs": [8]}}),
+        "solid_reliability": dict(solid, analysis={
+            "type": "reliability", "variables": e_s,
+            "limit_state": {"type": "displacement", "limit": 0.15,
+                            "probe_dofs": [38]}}),
+        "plate_reliability": dict(plate, analysis={
+            "type": "reliability", "variables": [
+                dict(e_s[0], mean=2e11), e_s[1],
+                {"name": "t", "kind": "thickness", "mean": 0.05,
+                 "cov": 0.05}],
+            "limit_state": {"type": "displacement", "limit": 9e-6,
+                            "probe_dofs": [64]}}),
+        "shell_reliability": dict(shell, analysis={
+            "type": "reliability", "variables": [
+                dict(e_s[0], mean=4.32e8), e_s[1]],
+            "limit_state": {"type": "displacement", "limit": 0.5,
+                            "probe_dofs": [86]}}),
+    }
+
+
+def sizing_cut_document(name: str) -> dict:
+    """A corpus document, its ADAM iterations cut to SZ_DOC_ITERS a
+    round."""
+    doc = json.loads((ROOT / "examples" / "json" / f"{name}.json")
+                     .read_text())
+    if doc["analysis"]["type"] == "sizing":
+        doc["analysis"]["n_iter"] = min(int(doc["analysis"].get(
+            "n_iter", 300)), SZ_DOC_CUTS.get(name, SZ_DOC_ITERS))
+    return doc
+
+
+def sizing_iterations(doc: dict) -> int:
+    """ADAM iterations (sizing) or HL-RF iterations (reliability)."""
+    a = doc["analysis"]
+    if a["type"] == "reliability":
+        return int(a.get("n_iter", 50))
+    return int(a.get("n_iter", 300)) * int(a.get("outer_rounds", 4))
+
+
+SZ_VALUE_KEYS = ("history", "areas", "thickness", "inertia", "beta", "pf",
+                 "mass", "weight", "min_reliability_beta",
+                 "min_fatigue_life_s")
+
+
+def sizing_gaps(out: dict, cpu: dict) -> dict:
+    """Largest relative difference of each result value the card and the
+    CPU run share (an unreachable limit state's beta is null in both)."""
+    import numpy as np
+
+    gaps = {}
+    for k in SZ_VALUE_KEYS:
+        if k in out:
+            a = np.asarray(out[k], dtype=float).ravel()
+            b = np.asarray(cpu[k], dtype=float).ravel()
+            ok = np.isfinite(b)
+            gaps[k] = max_rel(a[ok], b[ok]) if ok.any() else 0.0
+    return gaps
+
+
+def corpus_gates(name: str, out: dict) -> list:
+    """benchmarks/dyn_corpus.py's gates of the seven documents, reimplemented:
+    the names of the gates that fail."""
+    import math
+
+    bad = []
+    a = out["analysis"]
+    if name == "dyn-plane-sizing":
+        import numpy as np
+
+        if np.max(np.abs(np.asarray(out["thickness"]) - 0.5)) \
+                > SZ_CLOSED_FORM_RTOL * 0.5 \
+                or abs(out["weight"] - 2.0) > SZ_CLOSED_FORM_RTOL * 2.0:
+            bad.append("thickness 0.5 / weight 2.0")
+        return bad
+    if name == "dyn-plane-reliability":
+        zr, zs = math.sqrt(math.log1p(0.15 ** 2)), math.sqrt(
+            math.log1p(0.2 ** 2))
+        b = math.log((2.0 / math.sqrt(1.0225)) / (1.0 / math.sqrt(1.04))) \
+            / math.hypot(zr, zs)
+        if abs(out["beta_min"] - b) > SZ_CLOSED_FORM_RTOL * b:
+            bad.append("closed-form lognormal R - S beta")
+        return bad
+    if a == "sizing":
+        if not out["converged"]:
+            bad.append("converged")
+        if "max_stress_ratio" in out \
+                and out["max_stress_ratio"] > 1.0 + SZ_GATE:
+            bad.append("max_stress_ratio")
+        if "min_fatigue_life_s" in out and out["min_fatigue_life_s"] \
+                < out["fatigue_min_life_s"] * (1.0 - SZ_FLOOR):
+            bad.append("fatigue life floor")
+        if "min_reliability_beta" in out and out["min_reliability_beta"] \
+                < out["target_beta"] * (1.0 - SZ_FLOOR):
+            bad.append("RBDO beta floor")
+    elif not all(out["converged"]):
+        bad.append("converged")
+    return bad
+
+
+def sizing_documents(workdir: Path, dev, card: str, docs: dict,
+                     procs: dict) -> dict:
+    """25(d): each document through main() on the card against the CPU
+    process's result (SZ_DOC_RTOL for sizing, SZ_REL_DOC_RTOL for
+    reliability), the corpus gates, ms an iteration, no repo kernel."""
+    launches, report = {}, {}
+    for name, doc in docs.items():
+        out, counts, wall, _, _ = run_cli_document(workdir, name, doc)
+        proc, path = procs[name]
+        require(proc.wait(timeout=600) == 0, f"25(d): {name} on the CPU")
+        cpu = json.loads(path.read_text())
+        n_it = sizing_iterations(doc)
+        gaps = sizing_gaps(out, cpu)
+        bound = SZ_DOC_BOUNDS.get(name, (
+            SZ_REL_DOC_RTOL if doc["analysis"]["type"] == "reliability"
+            else SZ_DOC_RTOL))
+        gates = corpus_gates(name, out) if name in SZ_DOCUMENTS else []
+        report[name] = dict(wall_s=wall, iterations=n_it,
+                            ms_per_iteration=1e3 * wall / n_it, gaps=gaps,
+                            keys_equal=sorted(out) == sorted(cpu),
+                            failed_gates=gates, launches=counts)
+        launches[name] = counts
+        log("phase25d_document", card=card, name=name, **report[name])
+        require(sorted(out) == sorted(cpu), f"25(d): {name}'s keys")
+        require(max(gaps.values(), default=0.0) <= bound,
+                f"25(d): {name} within {bound} of the CPU run")
+        require(not gates, f"25(d): {name}'s corpus gates {gates}")
+        require(zero_launches(counts), f"25(d): {name} runs no repo "
+                "kernel")
+    log("phase25d_documents", card=card,
+        total_s=sum(r["wall_s"] for r in report.values()))
+    return launches
+
+
+def sizing_refusals(workdir: Path, dev, card: str) -> None:
+    """25(e): ADAM and FSD sizing above 2,048 DOFs (the "oc" hint), FORM
+    above the dense limit, solid sizing, "oc" without a volume and mesh=,
+    each refused before any launch."""
+    from pinn_fem_tpu_torch.examples_grid import grid_problem
+    from pinn_fem_tpu_torch.io.sizing_io import run_sizing
+    from pinn_fem_tpu_torch.io.solid_io import run_solid_analysis
+    from pinn_fem_tpu_torch.ops import kernels
+    from pinn_fem_tpu_torch.solvers.continuum_reliability import (
+        continuum_reliability)
+    from pinn_fem_tpu_torch.solvers.reliability import form_reliability
+
+    big = grid_problem(24, 48)                  # 2,304 DOFs
+    small = grid_problem(2, 4)
+    solid = solid_column(1, 1, 2)[0]
+    v = json.loads((ROOT / "examples" / "json" / "dyn-reliability.json")
+                   .read_text())["analysis"]["variables"]
+    cases = {
+        "adam_above_dense_limit": (lambda: run_sizing(
+            big, {"type": "sizing", "stress_limit": 1.0}, dev), ValueError,
+            'use method "oc"'),
+        "fsd_above_dense_limit": (lambda: run_sizing(
+            big, {"type": "sizing", "method": "fsd", "stress_limit": 1.0},
+            dev), ValueError, 'use method "oc"'),
+        "form_above_dense_limit": (lambda: form_reliability(
+            big, v, {"type": "stress", "variable": "R"}, device=dev),
+            ValueError, "FORM traces the dense solve"),
+        "solid_sizing": (lambda: run_solid_analysis(
+            solid, {"type": "sizing"}, dev), ValueError,
+            "analysis.type must be"),
+        "oc_without_volume": (lambda: run_sizing(
+            small, {"type": "sizing", "method": "oc",
+                    "objective": "compliance"}, dev), ValueError,
+            'method "oc" needs the volume budget'),
+        "mesh_form": (lambda: form_reliability(
+            small, v, {"type": "stress", "variable": "R"}, mesh=object(),
+            device=dev), NotImplementedError, "item 15"),
+        "mesh_continuum": (lambda: continuum_reliability(
+            solid, v[1:2], {"type": "displacement", "limit": 1.0,
+                            "probe_dofs": [0]}, "solid", mesh=object(),
+            device=dev), NotImplementedError, "item 15"),
+    }
+    seen = {}
+    for label, (call, kind, words) in cases.items():
+        kernels.reset_launch_counts()
+        try:
+            call()
+            seen[label] = None
+        except kind as err:
+            seen[label] = str(err)
+        require(seen[label] is not None and words in seen[label]
+                and zero_launches(kernels.launch_counts()),
+                f"25(e): {label} refused before any launch")
+    log("phase25e_refusals", card=card, refusals=seen)
+
+
+def phase_sizing(workdir: Path, dev, card: str) -> dict:
+    """Phase 25: sizing and reliability on the card.  Returns the kernels'
+    launches on each of its paths."""
+    seconds = {}
+    clock = time.perf_counter()
+
+    def lap(item):
+        nonlocal clock
+        seconds[item] = time.perf_counter() - clock
+        clock = time.perf_counter()
+
+    launches = oc_grid(workdir, dev, card)
+    lap("a")
+    docs = {name: sizing_cut_document(name) for name in SZ_DOCUMENTS}
+    docs.update(sizing_family_documents())
+    procs = ident_cpu_processes(workdir, docs, "cpu25")
+    try:
+        launches["strip_sizing"] = sizing_strip(dev, card)
+        lap("b")
+        launches["strip_reliability"] = strip_reliability(dev, card)
+        lap("c")
+        launches.update(sizing_documents(workdir, dev, card, docs, procs))
+        lap("d")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    sizing_refusals(workdir, dev, card)
+    lap("e")
+    log("phase25_done", card=card, seconds=seconds,
+        total_s=sum(seconds.values()))
+    return {"launches": launches}
+
+
 def main() -> int:
     card = phase_card()
     phase_build()
@@ -10487,6 +11136,7 @@ def main() -> int:
         plate = phase_plate(Path(tmp), dev, card)
         shell = phase_shell(Path(tmp), dev, card)
         ident = phase_identification(Path(tmp), dev, card)
+        sizing = phase_sizing(Path(tmp), dev, card)
 
     grid = dict(stats["grid_40k"], **mat_stats)
     entries = []
@@ -10542,6 +11192,8 @@ def main() -> int:
             path: counts[name] for path, counts in shell["launches"].items()}
         entries[-1]["launches_identification"] = {
             path: counts[name] for path, counts in ident["launches"].items()}
+        entries[-1]["launches_sizing"] = {
+            path: counts[name] for path, counts in sizing["launches"].items()}
         if name in BANDED:
             entries[-1]["plane_strip"] = {
                 key: plane["strip"][name][key]

@@ -70,7 +70,16 @@ documents: the truss time-domain, modal and FRF fits
 and the plane, solid, plate, shell and frame families' Young / inertia
 fits, large meshes on the banded adjoint (solvers/banded_inverse.py over
 ops/dia.dia_solve_diff: two fused PCGs an ADAM iteration on a card).
-ROADMAP.md lists what is still to port.
+Sizing and reliability run through "sizing" and "reliability" documents
+of every family that has them: truss areas by ADAM (the augmented
+Lagrangian on the dense differentiable solve), the fully stressed design
+and, past the dense limit, optimality criteria on the banded operator
+(solvers/sizing.py: one fused PCG an iteration on a card); FORM / SORM
+with Nataf correlation, random fields and Monte Carlo
+(solvers/reliability.py); frame inertia sizing, RBDO and reliability
+(models/frame.py); continuum thickness sizing and reliability
+(solvers/continuum_sizing.py, continuum_reliability.py).  ROADMAP.md lists
+what is still to port.
 
 Float32 by default; PINN_FEM_TPU_X64=1 computes in float64 where no CUDA
 kernel is on the path (utils/runtime.py).  TF32 is switched off for every
@@ -100,7 +109,11 @@ from .models.frame import (  # noqa: E402
     frame_matrices,
     frame_modal,
     frame_modal_banded,
+    frame_reliability,
+    frame_static_response,
     identify_frame_properties,
+    optimize_frame_inertia,
+    optimize_frame_inertia_rbdo,
     solve_frame_static,
     solve_frame_static_banded,
     solve_frame_transient,
@@ -124,6 +137,7 @@ from .models.plane import (  # noqa: E402
     plane_stable_dt,
     pressure_load,
     rect_mesh,
+    plane_static_response,
     solve_plane_static,
     solve_plane_transient,
 )
@@ -138,6 +152,7 @@ from .models.solid import (  # noqa: E402
     solid_modal,
     solid_modal_banded,
     solid_stable_dt,
+    solid_static_response,
     solve_solid_static,
     solve_solid_static_banded,
     solve_solid_transient,
@@ -156,6 +171,7 @@ from .models.plate import (  # noqa: E402
     plate_matrices,
     plate_modal,
     plate_supports,
+    plate_static_response,
     recover_moments,
     solve_plate_static,
     solve_plate_static_banded,
@@ -171,6 +187,7 @@ from .models.shell import (  # noqa: E402
     shell_harmonic,
     shell_matrices,
     shell_modal,
+    shell_static_response,
     solve_shell_static,
     solve_shell_transient,
 )
@@ -315,6 +332,25 @@ from .solvers.transient_inverse import (  # noqa: E402
     identify_from_transient,
     transient_probe_response,
 )
+from .solvers.reliability import (  # noqa: E402
+    ReliabilityResult,
+    form_reliability,
+)
+from .solvers.sizing import (  # noqa: E402
+    SizingResult,
+    fatigue_life_ratio,
+    fully_stressed_design,
+    member_force_frf_sq,
+    optimize_compliance_oc,
+    optimize_sizing,
+    static_response_elem,
+)
+from .solvers.continuum_reliability import continuum_reliability  # noqa: E402
+from .solvers.continuum_sizing import (  # noqa: E402
+    optimize_plane_thickness,
+    optimize_plate_thickness,
+    optimize_shell_thickness,
+)
 from .solvers.spectrum import (  # noqa: E402
     DirectionalSpectrumResult,
     SpectrumCurve,
@@ -392,4 +428,13 @@ __all__ = [
     "frf_probe_amplitudes", "identify_frame_properties",
     "identify_plate_young", "identify_plate_young_banded",
     "identify_solid_young_banded",
+    "ReliabilityResult", "SizingResult", "continuum_reliability",
+    "fatigue_life_ratio", "form_reliability", "frame_reliability",
+    "frame_static_response", "fully_stressed_design", "member_force_frf_sq",
+    "optimize_compliance_oc", "optimize_frame_inertia",
+    "optimize_frame_inertia_rbdo", "optimize_plane_thickness",
+    "optimize_plate_thickness", "optimize_shell_thickness",
+    "optimize_sizing", "plane_static_response", "plate_static_response",
+    "shell_static_response", "solid_static_response",
+    "static_response_elem",
 ]

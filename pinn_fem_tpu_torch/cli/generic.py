@@ -17,10 +17,10 @@ The device comes from PINN_FEM_TORCH_DEVICE (default "cuda"); asking for
 CUDA without a card is an error, not a CPU run.  PINN_FEM_TPU_SEED seeds
 the NN initialisation, as in the JAX CLI.  An "analysis" document
 (routed, as in the JAX CLI, on the parsed document's meta["analysis"])
-runs io/analysis.run_analysis and writes its result dict; of the analysis
-types "transient" (with "plasticity"), "modal", "buckling", "harmonic",
-"random", "spectrum", "continuation", "plastic" and "reduction" are
-ported (the others exit 1, naming their ROADMAP item).
+runs io/analysis.run_analysis and writes its result dict: every analysis
+type of the JAX CLI ("transient" with "plasticity", "modal", "buckling",
+"harmonic", "random", "spectrum", "continuation", "plastic", "reduction",
+"identification", "sizing" and "reliability").
 Solid, plane, frame, space-frame, plate and shell documents
 ("element_type": "solid", "plane", "frame", "frame3d", "plate", "shell")
 are routed before the truss parse to io/solid_io, io/plane_io,
@@ -170,6 +170,10 @@ def run(problem_file: str, output_file: str | None = None, seed: int = 0,
                                    f"{output.get('batch')}"))
         elif output["analysis"] == "identification":
             _log_truss_identification(output)
+        elif output["analysis"] == "sizing":
+            _log_truss_sizing(output)
+        elif output["analysis"] == "reliability":
+            _log_truss_reliability(output)
         logger.info("Results written to %s", output_file)
         return output
 
@@ -369,6 +373,40 @@ def _log_frame_identification(output: dict) -> None:
                 output["final_loss"])
 
 
+def _log_truss_sizing(output: dict) -> None:
+    logger.info(
+        "  %s sizing (%s): mass %.6g -> %.6g (%.1f%% lighter), "
+        "max stress ratio %s",
+        output["objective"], output["method"], output["mass_initial"],
+        output["mass"], 100.0 * output["mass_reduction"],
+        ("%.4f" % output["max_stress_ratio"])
+        if "max_stress_ratio" in output else "n/a")
+    if "min_reliability_beta" in output:
+        logger.info("  RBDO: achieved min beta %.4f over the members "
+                    "(target %.4f)", output["min_reliability_beta"],
+                    output["target_beta"])
+    if "min_fatigue_life_s" in output:
+        logger.info("  Fatigue (%s): min life %.6g h over the members "
+                    "(floor %.6g h, critical e%d)",
+                    output["fatigue_method"],
+                    output["min_fatigue_life_s"] / 3600.0,
+                    output["fatigue_min_life_s"] / 3600.0,
+                    output["fatigue_critical_element"])
+
+
+def _log_truss_reliability(output: dict) -> None:
+    worst = output["critical_limit_state"]
+    logger.info("  FORM over %d limit states: min beta %.4f (pf %.3e, %s); "
+                "system pf in [%.3e, %.3e]", len(output["labels"]),
+                output["beta_min"], output["pf"][worst],
+                output["labels"][worst], output["system_pf_bounds"][0],
+                output["system_pf_bounds"][1])
+    if "mc" in output:
+        logger.info("  Monte-Carlo check: pf %.3e +/- %.1e (%d samples)",
+                    output["mc"]["pf"], output["mc"]["std_error"],
+                    output["mc"]["n_samples"])
+
+
 def _log_plate_static(output: dict) -> None:
     logger.info("  Max deflection: %.6g (node %d), max extreme-fiber von "
                 "Mises: %.6g (element %d)", output["max_deflection"],
@@ -380,7 +418,13 @@ def _log_plate_static(output: dict) -> None:
 # alike; _FAMILIES holds each family's own lines and its static summary.
 _SUMMARIES = {"modal": _log_modal, "transient": _log_transient,
               "harmonic": _log_sweep, "spectrum": _log_spectrum,
-              "random": _log_random, "reduction": _log_reduction}
+              "random": _log_random, "reduction": _log_reduction,
+              "sizing": lambda out: logger.info(
+                  "  Weight %.6g after %d iterations", out["weight"],
+                  len(out["history"])),
+              "reliability": lambda out: logger.info(
+                  "  beta_min = %s (pf bounds %s)", out["beta_min"],
+                  out["system_pf_bounds"])}
 
 
 def _counts_of(raw: dict) -> str:

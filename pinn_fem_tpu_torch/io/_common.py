@@ -6,8 +6,8 @@ parameters, the element areas) and the strict-JSON sanitizer
 spectrum, random-vibration, reduction and explicit elastoplastic transient
 runners (`_continuum_prestress_u`, `run_continuum_spectrum`,
 `run_continuum_random`, `run_continuum_reduction`,
-`run_continuum_transient_plastic`).  The reliability runner is ROADMAP
-item 24.
+`run_continuum_transient_plastic`) and their reliability runner
+(`run_continuum_reliability`).
 """
 
 from __future__ import annotations
@@ -536,3 +536,51 @@ def _json_finite(obj):
     if isinstance(obj, list):
         return [_json_finite(v) for v in obj]
     return obj
+
+
+def run_continuum_reliability(problem, analysis: Dict, element_type: str,
+                              device=None) -> Dict:
+    """Shared JSON runner of the continuum FORM family
+    (solvers/continuum_reliability.py) on plane / solid / plate / shell
+    documents, the JAX package's contract: variables, limit_state
+    (probe_nodes expands to every DOF of the node: 2 / 3 / 3 / 6 a
+    family), correlation, n_iter, validate_mc, seed.  Runs on `device`
+    ("cuda" when None)."""
+    from ..solvers.continuum_reliability import continuum_reliability
+
+    ls = dict(analysis.get("limit_state") or {})
+    if ls.get("probe_dofs") is None and ls.get("probe_nodes") is not None:
+        nd = {"solid": 3, "plate": 3, "shell": 6}.get(element_type, 2)
+        pn = np.asarray(ls["probe_nodes"], dtype=int).reshape(-1)
+        ls["probe_dofs"] = (nd * pn[:, None]
+                            + np.arange(nd)).reshape(-1).tolist()
+    res = continuum_reliability(
+        problem, analysis.get("variables"), ls, element_type,
+        n_iter=int(analysis.get("n_iter", 50)),
+        mc_samples=int(analysis.get("validate_mc", 0)),
+        mc_seed=int(analysis.get("seed", 0)),
+        correlation=analysis.get("correlation"), device=device)
+    worst = int(np.argmin(res.beta)) if res.beta.size else -1
+    out = {
+        "success": True,
+        "analysis": "reliability",
+        "element_type": element_type,
+        "labels": res.labels,
+        "variables": res.variables,
+        "beta": [None if not np.isfinite(v) else float(v)
+                 for v in res.beta],
+        "pf": res.pf.tolist(),
+        "alpha": res.alpha.tolist(),
+        "converged": [bool(v) for v in res.converged],
+        "critical_limit_state": worst,
+        "beta_min": (None if worst < 0
+                     or not np.isfinite(res.beta[worst])
+                     else float(res.beta[worst])),
+        "system_pf_bounds": [res.system_pf_lower, res.system_pf_upper],
+        "system_pf_ditlevsen_bounds": [res.system_pf_ditlevsen_lower,
+                                       res.system_pf_ditlevsen_upper],
+    }
+    if res.mc_pf is not None:
+        out["mc"] = {"pf": res.mc_pf, "std_error": res.mc_std_error,
+                     "n_samples": res.mc_n, "method": res.mc_method}
+    return _json_finite(out)

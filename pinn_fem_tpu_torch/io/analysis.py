@@ -1,9 +1,9 @@
 """Dispatch of a document's "analysis" block (counterpart of
 pinn_fem_tpu/io/analysis.py).  "transient" (io/transient_io.py), "modal",
 "buckling", "harmonic", "random", "spectrum", "continuation", "plastic",
-"reduction" and "identification" (io/identification_io.py) run; of the
-other analysis types of the JAX package, sizing and reliability are
-ROADMAP item 24.
+"reduction", "identification" (io/identification_io.py), "sizing"
+(io/sizing_io.py) and "reliability" (io/reliability_io.py) run: every
+analysis type of the JAX package.
 
     "analysis": {"type": "modal", "n_modes": 6, "lumped": true,
                  "n_iter": 25, "include_shapes": true,
@@ -72,9 +72,6 @@ from ._common import (_SHAPES_JSON_DOF_LIMIT, _element_areas,
                       _history_record, _json_finite, _omega_array,
                       _prestress_state, _probe_dofs, _sa_callable,
                       _sn_params)
-
-# Analysis types whose runners are not yet ported, by ROADMAP item.
-_NOT_PORTED = {"sizing": 24, "reliability": 24}
 
 
 def run_modal(problem, analysis: Dict, device=None) -> Dict:
@@ -603,10 +600,14 @@ def run_analysis(problem, analysis: Dict, device=None) -> Dict:
         from .identification_io import run_identification
 
         return run_identification(problem, analysis, device)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f'"{kind}" analysis documents are not yet ported, ROADMAP '
-            f"item {_NOT_PORTED[kind]}")
+    if kind == "sizing":
+        from .sizing_io import run_sizing
+
+        return run_sizing(problem, analysis, device)
+    if kind == "reliability":
+        from .reliability_io import run_reliability
+
+        return run_reliability(problem, analysis, device)
     raise ValueError(f'analysis.type must be "modal", "transient", '
                      f'"buckling", "harmonic", "spectrum", '
                      f'"continuation", "plastic", "random", "reduction", '

@@ -22,10 +22,12 @@ Buckling, Newmark, harmonic, spectrum, random (io/_common's continuum
 runners; fatigue on the governing extreme fiber), reduction and the
 plastic-hinge pushover are dense float64; "identification" recovers a
 per-member I (or E) profile from measured displacements
-(models/frame.identify_frame_properties).  Every analysis runs on the
-caller's device ("cuda" when None).  The analysis types of a later ROADMAP
-item raise NotImplementedError naming it before any work: "reliability"
-and "sizing" (24).
+(models/frame.identify_frame_properties); "reliability" is FORM on the
+dense traced statics (models/frame.frame_reliability) and "sizing" the
+minimum-weight inertia profile under a deflection limit, deterministic or
+RBDO with a "reliability" sub-block (optimize_frame_inertia,
+optimize_frame_inertia_rbdo).  Every analysis runs on the caller's device
+("cuda" when None).
 """
 
 from __future__ import annotations
@@ -37,9 +39,6 @@ import numpy as np
 from ..models.frame import (FrameProblem, frame_buckling, frame_harmonic,
                             frame_modal, solve_frame_static,
                             solve_frame_transient)
-
-# Analysis types of later ROADMAP items.
-_LATER = {"reliability": "24", "sizing": "24"}
 
 
 def is_frame_document(doc: Dict) -> bool:
@@ -403,11 +402,91 @@ def _identification(problem: FrameProblem, analysis: Dict, device) -> Dict:
     return _json_finite(out)
 
 
+def _reliability(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    from ..models.frame import frame_reliability
+    from ._common import _json_finite
+
+    res = frame_reliability(
+        problem, analysis.get("variables"), analysis.get("limit_state"),
+        n_iter=int(analysis.get("n_iter", 50)),
+        mc_samples=int(analysis.get("validate_mc", 0)),
+        mc_seed=int(analysis.get("seed", 0)),
+        correlation=analysis.get("correlation"), device=device)
+    worst = int(np.argmin(res.beta)) if res.beta.size else -1
+    out = {
+        "success": True,
+        "analysis": "reliability",
+        "element_type": "frame",
+        "labels": res.labels,
+        "variables": res.variables,
+        "beta": [None if not np.isfinite(v) else float(v)
+                 for v in res.beta],
+        "pf": res.pf.tolist(),
+        "alpha": res.alpha.tolist(),
+        "converged": [bool(v) for v in res.converged],
+        "critical_limit_state": worst,
+        "beta_min": (None if worst < 0 or not np.isfinite(res.beta[worst])
+                     else float(res.beta[worst])),
+        "system_pf_bounds": [res.system_pf_lower, res.system_pf_upper],
+        "system_pf_ditlevsen_bounds": [res.system_pf_ditlevsen_lower,
+                                       res.system_pf_ditlevsen_upper],
+    }
+    if res.mc_pf is not None:
+        out["mc"] = {"pf": res.mc_pf, "std_error": res.mc_std_error,
+                     "n_samples": res.mc_n, "method": res.mc_method}
+    return _json_finite(out)
+
+
+def _sizing(problem: FrameProblem, analysis: Dict, device) -> Dict:
+    """The minimum-weight inertia profile under a deflection limit,
+    deterministic or RBDO (a "reliability" sub-block)."""
+    from ..models.frame import (optimize_frame_inertia,
+                                optimize_frame_inertia_rbdo)
+    from ._common import _json_finite
+
+    if analysis.get("displacement_limit") is None \
+            or analysis.get("probe_dofs") is None:
+        raise ValueError('frame sizing needs "displacement_limit" '
+                         'and "probe_dofs"')
+    rel = analysis.get("reliability")
+    common = dict(
+        weight_exponent=float(analysis.get("weight_exponent", 0.5)),
+        min_inertia=float(analysis.get("min_inertia", 1e-8)),
+        n_iter=int(analysis.get("n_iter", 300)),
+        outer_rounds=int(analysis.get("outer_rounds", 4)),
+        learning_rate=float(analysis.get("learning_rate", 0.05)),
+        device=device)
+    limit = float(analysis["displacement_limit"])
+    if rel is not None:
+        # RBDO: downgrading it to the deterministic design would ship an
+        # unmargined structure as if beta held.
+        if rel.get("target_beta") is None or rel.get("variables") is None:
+            raise ValueError('frame RBDO needs reliability '
+                             '{"variables": [..], "target_beta": b}')
+        i_e, weight, betas, hist = optimize_frame_inertia_rbdo(
+            problem, rel["variables"], limit, analysis["probe_dofs"],
+            float(rel["target_beta"]), **common)
+        return _json_finite({
+            "success": True, "analysis": "sizing", "element_type": "frame",
+            "inertia": i_e.tolist(), "weight": weight,
+            "displacement_limit": limit,
+            "target_beta": float(rel["target_beta"]),
+            "reliability_beta": betas.tolist(),
+            "min_reliability_beta": float(np.min(betas)),
+            "history": hist.tolist()})
+    i_e, weight, hist = optimize_frame_inertia(
+        problem, limit, analysis["probe_dofs"], **common)
+    return {"success": True, "analysis": "sizing", "element_type": "frame",
+            "inertia": i_e.tolist(), "weight": weight,
+            "displacement_limit": limit, "history": hist.tolist()}
+
+
 _RUNNERS = {"static": _static, "modal": _modal, "buckling": _buckling,
             "transient": _transient, "harmonic": _harmonic,
             "spectrum": _spectrum, "random": _random,
             "reduction": _reduction, "plastic": _plastic,
-            "identification": _identification}
+            "identification": _identification,
+            "reliability": _reliability, "sizing": _sizing}
 
 
 def run_frame_analysis(problem: FrameProblem, analysis: Dict,
@@ -419,10 +498,6 @@ def run_frame_analysis(problem: FrameProblem, analysis: Dict,
         # The backend's /api/fem/frame route sends type "frame" for a
         # document without an analysis block: statics.
         kind = "static"
-    if kind in _LATER:
-        raise NotImplementedError(
-            f'frame "{kind}" analysis is not yet ported, ROADMAP item '
-            f"{_LATER[kind]}")
     runner = _RUNNERS.get(kind)
     if runner is None:
         raise ValueError('frame analysis type must be "static", "modal", '

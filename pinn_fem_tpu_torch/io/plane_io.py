@@ -32,10 +32,11 @@ transient (solvers/continuum_transient_plastic); "spectrum" and "random"
 recovers Young's modulus from measured displacements
 (io/identification_io.run_young_identification: twin data from the
 banded tier, named edges, centroid-box zones, the banded adjoint past
-DENSE_DOF_LIMIT or with zones, else the dense traced solve).  Every
-analysis runs on the caller's device ("cuda" when None).  The analysis
-types of a later ROADMAP item raise NotImplementedError naming it:
-"sizing" and "reliability" (24).
+DENSE_DOF_LIMIT or with zones, else the dense traced solve); "sizing" is
+the minimum-weight thickness field (solvers/continuum_sizing.py) and
+"reliability" FORM on the dense traced statics
+(io/_common.run_continuum_reliability).  Every analysis runs on the
+caller's device ("cuda" when None).
 """
 
 from __future__ import annotations
@@ -49,9 +50,6 @@ from ..models.plane import (PlaneProblem, annulus_mesh, edge_load,
                             pressure_load, rect_mesh,
                             solve_plane_static, solve_plane_static_banded,
                             solve_plane_transient)
-
-# Analysis types of later ROADMAP items.
-_LATER = {"sizing": 24, "reliability": 24}
 
 
 def is_plane_document(doc: Dict) -> bool:
@@ -474,10 +472,44 @@ def _identification(problem: PlaneProblem, analysis: Dict, device) -> Dict:
         centroids=problem.coords().mean(axis=1))
 
 
+def _reliability(problem: PlaneProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_reliability
+
+    return run_continuum_reliability(problem, analysis, "plane", device)
+
+
+def _sizing(problem: PlaneProblem, analysis: Dict, device) -> Dict:
+    """Minimum-weight thickness field under stress and / or displacement
+    limits (solvers/continuum_sizing.optimize_plane_thickness)."""
+    from ..solvers.continuum_sizing import optimize_plane_thickness
+
+    t_e, weight, hist = optimize_plane_thickness(
+        problem,
+        stress_limit=(None if analysis.get("stress_limit") is None
+                      else float(analysis["stress_limit"])),
+        displacement_limit=(
+            None if analysis.get("displacement_limit") is None
+            else float(analysis["displacement_limit"])),
+        probe_dofs=_probe_dofs(analysis, problem),
+        min_thickness=float(analysis.get("min_thickness", 1e-6)),
+        n_iter=int(analysis.get("n_iter", 300)),
+        outer_rounds=int(analysis.get("outer_rounds", 4)),
+        learning_rate=float(analysis.get("learning_rate", 0.05)),
+        device=device)
+    out = {"success": True, "analysis": "sizing", "element_type": "plane",
+           "thickness": t_e.tolist(), "weight": weight,
+           "history": hist.tolist()}
+    for key in ("stress_limit", "displacement_limit"):
+        if analysis.get(key) is not None:
+            out[key] = float(analysis[key])
+    return out
+
+
 _RUNNERS = {"reduction": _reduction, "buckling": _buckling,
             "plastic": _plastic, "modal": _modal, "transient": _transient,
             "harmonic": _harmonic, "spectrum": _spectrum,
-            "random": _random, "identification": _identification}
+            "random": _random, "identification": _identification,
+            "reliability": _reliability, "sizing": _sizing}
 
 
 def run_plane_analysis(problem: PlaneProblem, analysis: Dict,
@@ -500,10 +532,6 @@ def run_plane_analysis(problem: PlaneProblem, analysis: Dict,
             "DOFs exceeds its 8192-DOF budget (minutes of O(n^3) work "
             "on one core) — coarsen the mesh; only statics has a "
             "banded large-mesh path so far")
-    if kind in _LATER:
-        raise NotImplementedError(
-            f'plane "{kind}" analysis is not yet ported, ROADMAP item '
-            f"{_LATER[kind]}")
     runner = _RUNNERS.get(kind)
     if runner is None:
         raise ValueError(f'plane analysis.type must be "static", "modal", '

@@ -25,10 +25,12 @@ random (with "fatigue") and reduction are dense float64, refused above
 8192 DOFs; "plastic" is the layered J2 statics (solvers/plate_plasticity);
 "identification" recovers Young's modulus from measured deflections
 (io/identification_io.run_young_identification: the banded adjoint past
-DENSE_DOF_LIMIT or with zones, else the dense traced solve).  Every
-analysis runs on the caller's device ("cuda" when None).  The analysis
-types of a later ROADMAP item raise NotImplementedError naming it:
-"reliability" and "sizing" (24).
+DENSE_DOF_LIMIT or with zones, else the dense traced solve);
+"reliability" is FORM on the dense traced statics
+(io/_common.run_continuum_reliability) and "sizing" the minimum-weight
+thickness under a deflection limit (solvers/continuum_sizing.py), both
+refused above 8192 DOFs.  Every analysis runs on the caller's device
+("cuda" when None).
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ from ..models.plate import (PlateProblem, plate_buckling, plate_harmonic,
                             solve_plate_static, solve_plate_static_banded,
                             solve_plate_transient)
 
-# Analysis types of later ROADMAP items.
-_LATER = {"reliability": 24, "sizing": 24}
 # The dense analyses' DOF budget (the JAX package's 4 * 2048).
 _DENSE_BUDGET = 4 * 2048
 _DENSE_KINDS = ("modal", "transient", "harmonic", "buckling", "spectrum",
@@ -380,10 +380,40 @@ def _identification(problem: PlateProblem, analysis: Dict, device) -> Dict:
         centroids=problem.coords().mean(axis=1))
 
 
+def _reliability(problem: PlateProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_reliability
+
+    return run_continuum_reliability(problem, analysis, "plate", device)
+
+
+def _sizing(problem: PlateProblem, analysis: Dict, device) -> Dict:
+    """Minimum-weight slab depth under a deflection limit
+    (solvers/continuum_sizing.optimize_plate_thickness)."""
+    from ..solvers.continuum_sizing import optimize_plate_thickness
+
+    if analysis.get("displacement_limit") is None:
+        raise ValueError('plate sizing needs "displacement_limit" '
+                         '(deflection-governed slab depth)')
+    t_e, weight, hist = optimize_plate_thickness(
+        problem, float(analysis["displacement_limit"]),
+        probe_dofs=analysis.get("probe_dofs"),
+        probe_nodes=analysis.get("probe_nodes"),
+        min_thickness=float(analysis.get("min_thickness", 1e-6)),
+        n_iter=int(analysis.get("n_iter", 300)),
+        outer_rounds=int(analysis.get("outer_rounds", 4)),
+        learning_rate=float(analysis.get("learning_rate", 0.05)),
+        device=device)
+    return {"success": True, "analysis": "sizing", "element_type": "plate",
+            "thickness": t_e.tolist(), "weight": weight,
+            "displacement_limit": float(analysis["displacement_limit"]),
+            "history": hist.tolist()}
+
+
 _RUNNERS = {"static": _static, "spectrum": _spectrum, "random": _random,
             "reduction": _reduction, "plastic": _plastic, "modal": _modal,
             "buckling": _buckling, "transient": _transient,
-            "harmonic": _harmonic, "identification": _identification}
+            "harmonic": _harmonic, "identification": _identification,
+            "reliability": _reliability, "sizing": _sizing}
 
 
 def run_plate_analysis(problem: PlateProblem, analysis: Dict,
@@ -410,10 +440,6 @@ def run_plate_analysis(problem: PlateProblem, analysis: Dict,
             f"plate {kind} runs dense traced solves per {what}; "
             f"{problem.ndof} DOFs exceeds its 8192-DOF budget — "
             "coarsen the mesh")
-    if kind in _LATER:
-        raise NotImplementedError(
-            f'plate "{kind}" analysis is not yet ported, ROADMAP item '
-            f"{_LATER[kind]}")
     runner = _RUNNERS.get(kind)
     if runner is None:
         raise ValueError(f"unknown plate analysis type: {kind!r} — "

@@ -28,10 +28,11 @@ banded tier above the limit or with "banded": true; "continuation" the
 float64 arc length; "plastic" the layered J2 statics; "identification"
 recovers Young's modulus from measured displacements
 (io/identification_io.run_young_identification: the banded adjoint past
-DENSE_DOF_LIMIT or with zones, else the dense traced solve).  Every
-analysis runs on the caller's device ("cuda" when None).  The analysis
-types of a later ROADMAP item raise NotImplementedError naming it:
-"reliability" and "sizing" (24).
+DENSE_DOF_LIMIT or with zones, else the dense traced solve);
+"sizing" is the minimum-weight plating thickness
+(solvers/continuum_sizing.py) and "reliability" FORM on the dense traced
+statics (io/_common.run_continuum_reliability), both refused above 8192
+DOFs.  Every analysis runs on the caller's device ("cuda" when None).
 """
 
 from __future__ import annotations
@@ -46,8 +47,6 @@ from ..models.shell import (ShellProblem, arch_strip_mesh,
                             solve_shell_static, solve_shell_static_banded,
                             solve_shell_transient)
 
-# Analysis types of later ROADMAP items.
-_LATER = {"reliability": 24, "sizing": 24}
 # The field payloads' size guard (the JAX package's 6 * 600 DOFs).
 _FIELD_DOFS = 6 * 600
 
@@ -534,12 +533,53 @@ def _identification(problem: ShellProblem, analysis: Dict, device) -> Dict:
         report_truth=False, finite=True)
 
 
+def _sizing(problem: ShellProblem, analysis: Dict, device) -> Dict:
+    """Minimum-weight plating thickness under extreme-fiber stress and /
+    or displacement limits (solvers/continuum_sizing.
+    optimize_shell_thickness)."""
+    from ..solvers.continuum_sizing import optimize_shell_thickness
+
+    if analysis.get("stress_limit") is None \
+            and analysis.get("displacement_limit") is None:
+        raise ValueError('shell sizing needs "stress_limit" '
+                         'and/or "displacement_limit"')
+    probe = analysis.get("probe_dofs")
+    if probe is None and analysis.get("probe_nodes") is not None:
+        probe = _probe6(analysis, problem).tolist()
+    sl = analysis.get("stress_limit")
+    dl = analysis.get("displacement_limit")
+    t_e, weight, hist = optimize_shell_thickness(
+        problem, stress_limit=None if sl is None else float(sl),
+        displacement_limit=None if dl is None else float(dl),
+        probe_dofs=probe,
+        min_thickness=float(analysis.get("min_thickness", 1e-6)),
+        n_iter=int(analysis.get("n_iter", 300)),
+        outer_rounds=int(analysis.get("outer_rounds", 4)),
+        learning_rate=float(analysis.get("learning_rate", 0.05)),
+        device=device)
+    out = {"success": True, "analysis": "sizing", "element_type": "shell",
+           "thickness": t_e.tolist(), "weight": weight,
+           "history": hist.tolist()}
+    if sl is not None:
+        out["stress_limit"] = float(sl)
+    if dl is not None:
+        out["displacement_limit"] = float(dl)
+    return out
+
+
+def _reliability(problem: ShellProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_reliability
+
+    return run_continuum_reliability(problem, analysis, "shell", device)
+
+
 _RUNNERS = {"static": _static, "buckling": _buckling, "modal": _modal,
             "nonlinear": _nonlinear, "continuation": _continuation,
             "plastic": _plastic, "transient": _transient,
             "harmonic": _harmonic, "spectrum": _spectrum,
             "random": _random, "reduction": _reduction,
-            "identification": _identification}
+            "identification": _identification, "sizing": _sizing,
+            "reliability": _reliability}
 
 
 def run_shell_analysis(problem: ShellProblem, analysis: Dict,
@@ -557,10 +597,6 @@ def run_shell_analysis(problem: ShellProblem, analysis: Dict,
             f"shell {kind} runs dense traced solves per {what} "
             f"iteration; {problem.ndof} DOFs exceeds its 8192-DOF "
             "budget — coarsen the midsurface")
-    if kind in _LATER:
-        raise NotImplementedError(
-            f'shell "{kind}" analysis is not yet ported, ROADMAP item '
-            f"{_LATER[kind]}")
     runner = _RUNNERS.get(kind)
     if runner is None:
         raise ValueError('shell analysis type must be "static", "modal", '

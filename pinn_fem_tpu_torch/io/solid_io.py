@@ -28,9 +28,10 @@ step); with "plasticity" the explicit elastoplastic transient
 spectrum, random (io/_common's continuum runners) and reduction are dense,
 refused above 8192 DOFs; "identification" recovers Young's modulus from
 measured displacements on the banded adjoint
-(io/identification_io.run_young_identification).  Every analysis runs on
-the caller's device ("cuda" when None).  "reliability", of a later ROADMAP
-item, raises NotImplementedError naming it (24).
+(io/identification_io.run_young_identification); "reliability" is FORM
+on the dense traced statics (io/_common.run_continuum_reliability),
+refused above 8192 DOFs.  A solid has no "sizing" analysis, as in the JAX
+package.  Every analysis runs on the caller's device ("cuda" when None).
 """
 
 from __future__ import annotations
@@ -469,18 +470,12 @@ def _identification(problem: SolidProblem, analysis: Dict, device) -> Dict:
         identify_banded=banded, finite=True)
 
 
-def _later(item: int, budget: str = ""):
-    """A runner of a later ROADMAP item's type: the JAX package's budget
-    refusal first (when it has one), then NotImplementedError."""
+def _reliability(problem: SolidProblem, analysis: Dict, device) -> Dict:
+    from ._common import run_continuum_reliability
 
-    def run(problem: SolidProblem, analysis: Dict, device) -> Dict:
-        if budget:
-            _budget(problem, budget.format(kind=analysis.get("type")))
-        raise NotImplementedError(
-            f'solid "{analysis.get("type")}" analysis is not yet ported, '
-            f"ROADMAP item {item}")
-
-    return run
+    _budget(problem, "reliability runs dense traced solves per HL-RF "
+            "iteration")
+    return run_continuum_reliability(problem, analysis, "solid", device)
 
 
 _RUNNERS = {
@@ -488,8 +483,7 @@ _RUNNERS = {
     "reduction": _reduction,
     "spectrum": _spectrum, "random": _random,
     "buckling": _buckling, "harmonic": _harmonic, "plastic": _plastic,
-    "reliability": _later(24, "reliability runs dense traced solves per "
-                          "HL-RF iteration"),
+    "reliability": _reliability,
     "identification": _identification,
 }
 

@@ -34,9 +34,13 @@ on that operator with the HRZ-lumped mass.
 `identify_frame_properties` recovers a per-member I (or E) profile from
 measured static displacements: ADAM on log-values through the dense
 masked solve of the T'KT blocks (solvers/banded_inverse.py), the JAX
-module's traced `frame_static_response` forward.  The design functions
-(`optimize_frame_inertia`, `optimize_frame_inertia_rbdo`,
-`frame_reliability`) are ROADMAP item 24.
+module's traced `frame_static_response` forward.  `frame_static_response`
+is that forward as a function (u, end moments, axial forces, each
+differentiable in per-member E, A, I and a load scale); on it run the
+design functions: `optimize_frame_inertia` (the minimum-weight inertia
+profile under a deflection limit, `_al_minimize`'s augmented Lagrangian),
+`optimize_frame_inertia_rbdo` (its RBDO form) and `frame_reliability`
+(FORM through solvers/reliability.form_core).
 """
 
 from __future__ import annotations
@@ -845,3 +849,366 @@ def identify_frame_properties(problem: FrameProblem, measured_dofs,
     (log_p,), hist = adam_fit(lambda ps: loss_of(torch.exp(ps[0])), [log0],
                               n_iter, learning_rate)
     return torch.exp(log_p).double().cpu().numpy(), hist
+
+
+# --------------------------------------------------------------------
+# The differentiable frame statics and the design functions
+
+
+def frame_static_response(problem: FrameProblem, young_e=None, area_e=None,
+                          inertia_e=None, loads=None, load_scale=None,
+                          dtype=None, device=None):
+    """Differentiable frame statics with per-element properties (the JAX
+    package's traced twin): (u, end moments (m, 2), axial (m,)) from the
+    masked dense solve K(E, A, I) u = f (float64 T'KT blocks, one float64
+    scatter rounded once to `dtype`, torch.linalg.solve) and the local
+    member-force recovery, each differentiable in the property tensors.
+    The loads are the nodal and member loads (consistent vector and
+    fixed-end correction); an explicit `loads` replaces them, correction
+    included; `load_scale` scales the whole load model.  device: "cuda"
+    when None."""
+    from ..solvers.banded_inverse import dense_masked_solve
+
+    dev = resolve_device(device)
+    dtype = dtype or default_dtype()
+    m = problem.nelm
+
+    def prop(v, name):
+        return torch.broadcast_to(_t(getattr(problem, name) if v is None
+                                     else v, dev), (m,))
+
+    young, area, inertia = (prop(young_e, "young"), prop(area_e, "area"),
+                            prop(inertia_e, "inertia"))
+    length, c, s = _geometry(problem, dev)
+    kl = _k_local(young, area, inertia, length)
+    t = _rotation(c, s)
+    dm = torch.as_tensor(problem.dof_map(), dtype=torch.int64, device=dev)
+    f_member, f_fixed = _member_load_vectors(problem, dev)
+    if loads is None:
+        f = (_t(problem.loads, dev) + f_member).to(dtype)
+        f_fixed = f_fixed.to(dtype)
+    else:
+        f = _t(loads, dev, dtype)
+        f_fixed = torch.zeros((m, 6), dtype=dtype, device=dev)
+    if load_scale is not None:
+        scale = _t(load_scale, dev, dtype)
+        f = f * scale
+        f_fixed = f_fixed * scale
+    mask = _t(problem.free_mask(), dev, dtype)
+    u = dense_masked_solve(_to_global(t, kl), dm, problem.ndof, f, mask)
+    u_loc = torch.einsum("mij,mj->mi", t.to(dtype), u[dm])
+    f_loc = torch.einsum("mij,mj->mi", kl.to(dtype), u_loc) - f_fixed
+    return u, f_loc[:, [2, 5]], -f_loc[:, 0]
+
+
+def _al_minimize(obj_g, t0: torch.Tensor, n_con: int, n_iter: int,
+                 outer_rounds: int, penalty: float, learning_rate: float):
+    """Shared augmented-Lagrangian ADAM driver (Rockafellar multipliers, a
+    fresh Adam state and a halved learning rate each outer round, as
+    solvers/sizing.optimize_sizing).  obj_g(t) returns (objective,
+    constraint vector g <= 0).  The losses stay on the device and are
+    fetched once.  Returns (t, history)."""
+    from ..solvers.phases import Adam
+
+    dtype, dev = t0.dtype, t0.device
+
+    def loss_fn(t, lam, mu):
+        obj, g = obj_g(t)
+        return obj + mu * torch.sum(torch.clamp_min(
+            g + lam / (2.0 * mu), 0.0) ** 2)
+
+    lam = torch.zeros(n_con, dtype=dtype, device=dev)
+    mu = torch.as_tensor(float(penalty), dtype=dtype, device=dev)
+    t = t0.detach()
+    hist = []
+    for r in range(int(outer_rounds)):
+        lr = float(np.asarray(learning_rate * 0.5 ** r, dtype=(
+            np.float64 if dtype == _F64 else np.float32)))
+        opt = Adam(t)
+        for _ in range(int(n_iter)):
+            leaf = t.detach().requires_grad_()
+            loss = loss_fn(leaf, lam, mu)
+            grad, = torch.autograd.grad(loss, leaf)
+            with torch.no_grad():
+                t = t - lr * opt.direction(grad)
+            hist.append(loss.detach())
+        with torch.no_grad():
+            _, g = obj_g(t)
+            lam = torch.clamp_min(lam + 2.0 * mu * g, 0.0)
+        mu = 2.0 * mu
+    return t, (torch.stack(hist).double().cpu().numpy() if hist
+               else np.zeros(0))
+
+
+def _frame_with_inertia(problem: FrameProblem, inertia,
+                        keep_section: bool = False) -> FrameProblem:
+    """The JAX package's polish problem: the frame with `inertia`, its
+    nodal and member loads, no thermal case (the section modulus only when
+    asked)."""
+    return FrameProblem(problem.nodes, problem.elements, problem.young,
+                        problem.area, inertia, problem.density,
+                        problem.loads, problem.fixed_dofs,
+                        problem.point_masses, problem.member_loads,
+                        problem.section_modulus if keep_section else None)
+
+
+def optimize_frame_inertia(problem: FrameProblem, displacement_limit: float,
+                           probe_dofs, weight_exponent: float = 0.5,
+                           min_inertia: float = 1e-8, n_iter: int = 300,
+                           outer_rounds: int = 4, penalty: float = 10.0,
+                           learning_rate: float = 0.05, device=None):
+    """Minimum-weight inertia profile under a deflection limit: objective
+    sum I_e^q L_e (section area ~ I^q), |u_p| <= limit on `probe_dofs` by
+    the augmented Lagrangian on log(I - min_inertia), then a uniform
+    float64 polish (solve_frame_static) until the limit holds; an axial
+    deflection floor the inertia cannot cross raises.  Returns (inertia
+    (m,), weight, history)."""
+    if displacement_limit <= 0.0:
+        raise ValueError("displacement_limit must be positive")
+    dev = resolve_device(device)
+    dtype = default_dtype()
+    probe_np = np.asarray(probe_dofs, dtype=int).reshape(-1)
+    probe = torch.as_tensor(probe_np, dtype=torch.int64, device=dev)
+    length_np = _numpy(_geometry(problem)[0])
+    lengths = _t(length_np, dev, dtype)
+    q = float(weight_exponent)
+    # Clamp the start above the gauge: log(I - min) must be finite.
+    i_start = np.maximum(np.asarray(problem.inertia),
+                         min_inertia * (1.0 + 1e-9))
+    t0 = torch.log(_t(i_start, dev, dtype) - min_inertia)
+    w0 = float(np.sum(i_start ** q * length_np))
+
+    def obj_g(t):
+        i_e = min_inertia + torch.exp(t)
+        u, _, _ = frame_static_response(problem, inertia_e=i_e, dtype=dtype,
+                                        device=dev)
+        g = torch.abs(u[probe]) / displacement_limit - 1.0
+        return torch.sum(i_e ** q * lengths) / w0, g
+
+    t, hist = _al_minimize(obj_g, t0, int(probe_np.size), n_iter,
+                           outer_rounds, penalty, learning_rate)
+    i_e = (min_inertia + torch.exp(t)).double().cpu().numpy()
+    # Uniform polish: the deflection falls under a uniform inertia scale.
+    for _ in range(20):
+        st = solve_frame_static(_frame_with_inertia(problem, i_e),
+                                device=dev)
+        ratio = float(np.max(np.abs(st.displacements[probe_np]))
+                      / displacement_limit)
+        if ratio <= 1.0 + 1e-9:
+            break
+        i_e = i_e * ratio
+    else:
+        raise ValueError(
+            f"displacement_limit {displacement_limit} unreachable by "
+            f"inertia scaling (residual ratio {ratio:.3f}) — the "
+            f"probe deflection has an axial component EA cannot "
+            f"reduce; raise the limit or size areas too")
+    weight = float(np.sum(i_e ** q * length_np))
+    return i_e, weight, hist
+
+
+def frame_reliability(problem: FrameProblem, variables, limit_state,
+                      n_iter: int = 50, tol: float = 1e-4,
+                      mc_samples: int = 0, mc_seed: int = 0,
+                      correlation=None, device=None):
+    """FORM on the frame family (solvers/reliability.form_core over
+    `frame_static_response`, one dense solve a row): variables young /
+    inertia / area over element subsets, load_scale and a resistance
+    ("density" refused); limit states {"type": "displacement", "limit",
+    "probe_dofs"} or {"type": "stress", "limit" | "variable",
+    "elements"}, the extreme-fiber |N| / A + max |M| / S (needs the
+    section modulus).  device: "cuda" when None."""
+    from ..solvers.reliability import (VariableMap, _nataf_cholesky,
+                                       _parse_variables, form_core,
+                                       rowwise)
+
+    m = problem.nelm
+    # The truss parser with "inertia" aliased onto its "density" slot (a
+    # per-element field with an optional subset).
+    alias, kinds = [], []
+    for spec in variables or ():
+        sp = dict(spec)
+        if sp.get("kind") == "density":
+            raise ValueError('"density" does not enter frame statics '
+                             '— use young / inertia / area / '
+                             'load_scale / resistance')
+        kinds.append(sp.get("kind"))
+        if sp.get("kind") == "inertia":
+            sp["kind"] = "density"
+        alias.append(sp)
+    varspecs = _parse_variables(alias, m)
+    for v, orig_kind in zip(varspecs, kinds):
+        v["kind"] = orig_kind
+    chol = _nataf_cholesky(varspecs, correlation)
+    dev = resolve_device(device)
+    dtype = default_dtype()
+    vm = VariableMap(varspecs, chol, m, dtype, dev)
+
+    ls = dict(limit_state or {})
+    ls_type = ls.get("type", "displacement")
+    var_names = [v["name"] for v in varspecs]
+    res_var = None
+    if ls_type == "displacement":
+        if ls.get("limit") is None or ls.get("probe_dofs") is None:
+            raise ValueError('frame displacement limit state needs '
+                             '"limit" and "probe_dofs"')
+        limit = float(ls["limit"])
+        probe = np.asarray(ls["probe_dofs"], dtype=int).reshape(-1)
+        if probe.size and (probe.min() < 0
+                           or probe.max() >= problem.ndof):
+            raise ValueError("probe_dofs out of range")
+        labels = [f"displacement dof{int(d)}" for d in probe]
+    elif ls_type == "stress":
+        if problem.section_modulus is None:
+            raise ValueError("frame stress limit state needs the "
+                             "problem's section_modulus")
+        if ls.get("variable") is not None:
+            rn = ls["variable"]
+            if rn not in var_names:
+                raise ValueError(f"resistance variable {rn!r} is not "
+                                 f"defined")
+            res_var = var_names.index(rn)
+            if varspecs[res_var]["kind"] != "resistance":
+                raise ValueError(f'{rn!r} must have kind "resistance"')
+            limit = None
+        elif ls.get("limit") is not None:
+            limit = float(ls["limit"])
+        else:
+            raise ValueError('frame stress limit state needs "limit" '
+                             'or "variable"')
+        elems = ls.get("elements")
+        probe = (np.arange(m) if elems is None
+                 else np.asarray(elems, dtype=int).reshape(-1))
+        if probe.size and (probe.min() < 0 or probe.max() >= m):
+            raise ValueError("limit-state elements out of range")
+        labels = [f"stress e{int(e)}" for e in probe]
+    else:
+        raise ValueError('frame limit_state type must be '
+                         '"displacement" or "stress"')
+    probe_d = torch.as_tensor(probe, dtype=torch.int64, device=dev)
+    base = {name: _t(getattr(problem, name), dev, dtype)
+            for name in ("young", "area", "inertia")}
+    s_mod = (None if problem.section_modulus is None
+             else _t(problem.section_modulus, dev, dtype))
+
+    def single(u):
+        x = vm.physical(u[None])
+        young, area, inertia = (vm.field(x, kind, base[kind])[0]
+                                for kind in ("young", "area", "inertia"))
+        # load_scale= keeps the member-load fixed-end correction
+        # consistent with the scaled loads.
+        uu, mom, ax = frame_static_response(
+            problem, young_e=young, area_e=area, inertia_e=inertia,
+            load_scale=vm.load_scale(x)[0], dtype=dtype, device=dev)
+        if ls_type == "stress":
+            sigma = torch.abs(ax) / area \
+                + torch.amax(torch.abs(mom), dim=1) / s_mod
+            r = x[0, res_var] if res_var is not None else limit
+            return sigma[probe_d] / r
+        return torch.abs(uu)[probe_d] / limit
+
+    return form_core(rowwise(single), varspecs, chol, labels,
+                     n_iter=n_iter, tol=tol, mc_samples=mc_samples,
+                     mc_seed=mc_seed, dtype=dtype, device=dev)
+
+
+def optimize_frame_inertia_rbdo(problem: FrameProblem, variables,
+                                limit: float, probe_dofs,
+                                target_beta: float,
+                                weight_exponent: float = 0.5,
+                                min_inertia: float = 1e-8,
+                                n_iter: int = 300, outer_rounds: int = 4,
+                                penalty: float = 10.0,
+                                learning_rate: float = 0.05,
+                                n_amv: int = 10, device=None):
+    """RBDO on frames: the minimum-weight inertia profile with every
+    probed displacement at a FORM index >= target_beta under uncertain E /
+    load (young / load_scale variables; I is the design vector).  PMA:
+    an AMV fixpoint on the target-beta sphere for each probe, on detached
+    inertias (Danskin), the constraint the displacement ratio there; a
+    uniform polish; the achieved betas from `frame_reliability`.  Returns
+    (inertia, weight, achieved_betas, history)."""
+    from ..solvers.reliability import VariableMap, _parse_variables, rowwise
+
+    if limit <= 0.0 or target_beta <= 0.0:
+        raise ValueError("limit and target_beta must be positive")
+    for spec in variables or ():
+        if spec.get("kind") in ("inertia", "density", "area",
+                                "resistance"):
+            raise ValueError('frame RBDO variables must be young or '
+                             'load_scale ("inertia" is the design '
+                             'vector; a resistance cannot bind a '
+                             'displacement limit state)')
+    varspecs = _parse_variables(variables, problem.nelm)
+    n_vars = len(varspecs)
+    dev = resolve_device(device)
+    dtype = default_dtype()
+    vm = VariableMap(varspecs, None, problem.nelm, dtype, dev)
+    probe = np.asarray(probe_dofs, dtype=int).reshape(-1)
+    if probe.size and (probe.min() < 0 or probe.max() >= problem.ndof):
+        raise ValueError("probe_dofs out of range")
+    probe_d = torch.as_tensor(probe, dtype=torch.int64, device=dev)
+    rows = torch.arange(probe.size, device=dev)
+    bt = torch.as_tensor(float(target_beta), dtype=dtype, device=dev)
+    length_np = _numpy(_geometry(problem)[0])
+    lengths = _t(length_np, dev, dtype)
+    q = float(weight_exponent)
+    w0 = float(np.sum(np.maximum(np.asarray(problem.inertia),
+                                 min_inertia) ** q * length_np))
+    young0 = _t(problem.young, dev, dtype)
+
+    def ratios(i_e, u):
+        """(n_probe, n_probe) displacement ratios, row k at u[k]."""
+        def single(row):
+            x = vm.physical(row[None])
+            uu, _, _ = frame_static_response(
+                problem, young_e=vm.field(x, "young", young0)[0],
+                inertia_e=i_e, load_scale=vm.load_scale(x)[0],
+                dtype=dtype, device=dev)
+            return torch.abs(uu)[probe_d] / limit
+        return rowwise(single)(u)
+
+    def pma_ratios(i_e):
+        i_d = i_e.detach()
+        u = torch.zeros((probe.size, n_vars), dtype=dtype, device=dev)
+        for _ in range(int(n_amv)):
+            leaf = u.detach().requires_grad_()
+            with torch.enable_grad():
+                g = 1.0 - ratios(i_d, leaf)[rows, rows]
+                dg, = torch.autograd.grad(torch.sum(g), leaf)
+            nrm = torch.clamp_min(torch.linalg.vector_norm(dg, dim=1),
+                                  1e-30)
+            u = -bt * dg / nrm[:, None]
+        return ratios(i_e, u.detach())[rows, rows]   # Danskin
+
+    i_start = np.maximum(np.asarray(problem.inertia),
+                         min_inertia * (1.0 + 1e-9))
+    t0 = torch.log(_t(i_start, dev, dtype) - min_inertia)
+
+    def obj_g(t):
+        i_e = min_inertia + torch.exp(t)
+        return torch.sum(i_e ** q * lengths) / w0, pma_ratios(i_e) - 1.0
+
+    t, hist = _al_minimize(obj_g, t0, int(probe.size), n_iter,
+                           outer_rounds, penalty, learning_rate)
+    i_e = (min_inertia + torch.exp(t)).double().cpu().numpy()
+    # Uniform PMA polish: the ratio at the fixed design point falls ~1/s.
+    for _ in range(20):
+        with torch.no_grad():
+            r_max = float(torch.max(pma_ratios(_t(i_e, dev, dtype))
+                                    ).double().cpu())
+        if r_max <= 1.0 + 1e-6:
+            break
+        i_e = i_e * r_max
+    else:
+        raise ValueError(
+            f"target_beta {target_beta} at limit {limit} unreachable "
+            f"by inertia scaling (residual PMA ratio {r_max:.3f}) — "
+            f"the probe deflection has an axial component EA cannot "
+            f"reduce; raise the limit or size areas too")
+    rres = frame_reliability(
+        _frame_with_inertia(problem, i_e, keep_section=True), variables,
+        {"type": "displacement", "limit": limit,
+         "probe_dofs": probe.tolist()}, device=dev)
+    weight = float(np.sum(i_e ** q * length_np))
+    return i_e, weight, np.asarray(rres.beta, dtype=float), hist

@@ -1102,3 +1102,55 @@ def identify_plane_young_banded(problem: PlaneProblem, measured_dofs,
         zones=zones, field=field, seed=seed, hidden_layers=hidden_layers,
         neurons_per_layer=neurons_per_layer, input_dim=2,
         device=dev)
+
+
+def plane_static_response(problem: PlaneProblem, young_e=None,
+                          poisson_e=None, thickness_e=None, loads=None,
+                          load_scale=None, dtype=None, device=None):
+    """Differentiable plane statics with per-element properties (the JAX
+    package's traced twin): (u, centroid stresses (m, 3), von Mises (m,))
+    from the masked dense solve K(E, nu, t) u = f (float64 blocks, one
+    float64 scatter rounded once to `dtype`, torch.linalg.solve;
+    prescribed fixed-DOF values as in the dense statics) and the centroid
+    recovery in `dtype`, each differentiable in the property tensors and
+    `load_scale`.  device: "cuda" when None."""
+    from ..solvers.banded_inverse import dense_masked_solve
+
+    dev = resolve_device(device)
+    dtype = dtype or default_dtype()
+    m = problem.nelm
+
+    def prop(v, name):
+        return torch.broadcast_to(_t(getattr(problem, name) if v is None
+                                     else v, dev), (m,))
+
+    young, nu, thick = (prop(young_e, "young"), prop(poisson_e, "poisson"),
+                        prop(thickness_e, "thickness"))
+    coords, dm = _elements(problem, dev)
+    dmat = _dmat(young, nu, problem.plane_strain)
+    blocks = _k_blocks(coords, dmat, thick, problem.nen)
+    if loads is None:
+        f = (_t(problem.loads, dev) + _body_force_vectors(problem, dev)
+             ).to(dtype)
+    else:
+        f = _t(loads, dev, dtype)
+    if load_scale is not None:
+        f = f * _t(load_scale, dev, dtype)
+    mask = _t(problem.free_mask(), dev, dtype)
+    u_p = None
+    if problem.prescribed is not None:
+        u_p_np = np.zeros(problem.ndof)
+        u_p_np[problem.fixed_dofs] = problem.prescribed
+        u_p = _t(u_p_np, dev, dtype)
+    u = dense_masked_solve(blocks, dm, problem.ndof, f, mask, u_p)
+    b = _centroid_b(problem, dev).to(dtype)
+    eps = torch.einsum("mia,ma->mi", b, u[dm])
+    sig = torch.einsum("mij,mj->mi", dmat.to(dtype), eps)
+    sxx, syy, sxy = sig[:, 0], sig[:, 1], sig[:, 2]
+    if problem.plane_strain:
+        szz = nu.to(dtype) * (sxx + syy)
+        vm = torch.sqrt(0.5 * ((sxx - syy) ** 2 + (syy - szz) ** 2
+                               + (szz - sxx) ** 2) + 3.0 * sxy ** 2)
+    else:
+        vm = torch.sqrt(sxx ** 2 - sxx * syy + syy ** 2 + 3.0 * sxy ** 2)
+    return u, sig, vm

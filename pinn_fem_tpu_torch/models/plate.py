@@ -38,9 +38,9 @@ supports helper and the mesh generator (models/plane.rect_mesh) are numpy.
 `identify_plate_young` (the dense traced solve) and
 `identify_plate_young_banded` (the banded adjoint: kernels 1-3 twice an
 ADAM iteration on a card) recover Young's modulus from measured
-deflections through solvers/banded_inverse.py.  The traced twin
-`plate_static_response` (item 24's sizing and reliability) is a later
-ROADMAP item.
+deflections through solvers/banded_inverse.py.  The differentiable
+`plate_static_response` (u, moments, extreme-fiber von Mises) carries the
+thickness sizing and the reliability analyses.
 """
 
 from __future__ import annotations
@@ -880,3 +880,60 @@ def identify_plate_young_banded(problem: PlateProblem, measured_dofs,
         zones=zones, field=field, seed=seed, hidden_layers=hidden_layers,
         neurons_per_layer=neurons_per_layer, input_dim=2,
         device=dev)
+
+
+def plate_static_response(problem: PlateProblem, young_e=None,
+                          thickness_e=None, loads=None, load_scale=None,
+                          dtype=None, device=None):
+    """Differentiable plate statics with per-element properties (the JAX
+    package's traced twin): (u, centroid moments (m, 3), extreme-fiber
+    von Mises (m,) of 6M / t^2) from the masked dense solve K(E, t) u = f
+    (float64 MITC4 blocks, one float64 scatter rounded once to `dtype`)
+    and the recovery in `dtype`.  The thermal case's curvature alpha dT / t
+    and its loads are rebuilt from the given E and t, so their gradients
+    stay exact.  device: "cuda" when None."""
+    from ..solvers.banded_inverse import dense_masked_solve
+
+    dev = resolve_device(device)
+    dtype = dtype or default_dtype()
+    m = problem.nelm
+
+    def prop(v, name):
+        return torch.broadcast_to(_t(getattr(problem, name) if v is None
+                                     else v, dev), (m,))
+
+    young, nu, thick = (prop(young_e, "young"), prop(None, "poisson"),
+                        prop(thickness_e, "thickness"))
+    coords, dm = _elements(problem, dev)
+    blocks = _k_blocks_plate(coords, young, nu, thick)
+    db, _ = _dmats(young, nu, thick)
+    kap_th = None
+    if problem.temperature is not None:
+        kt = _t(problem.alpha_cte * problem.temperature, dev) / thick
+        kap_th = torch.stack([kt, kt, torch.zeros_like(kt)], dim=-1)
+    if loads is None:
+        f = _t(problem.loads, dev) + _pressure_vectors(problem, dev)
+        if kap_th is not None:
+            m_th = torch.einsum("mij,mj->mi", db, kap_th)
+            fe = torch.zeros((m, 12), dtype=_F64, device=dev)
+            for xi, eta in _GP:
+                _, dx, dy, det = _shape_grads(coords, xi, eta)
+                fe = fe + det[:, None] * torch.einsum(
+                    "mia,mi->ma", _bend_b(dx, dy), m_th)
+            f = f + scatter_add(problem.ndof, dm, fe)
+        f = f.to(dtype)
+    else:
+        f = _t(loads, dev, dtype)
+    if load_scale is not None:
+        f = f * _t(load_scale, dev, dtype)
+    mask = _t(problem.free_mask(), dev, dtype)
+    u = dense_masked_solve(blocks, dm, problem.ndof, f, mask)
+    _, dx, dy, _ = _shape_grads(coords.to(dtype), 0.0, 0.0)
+    kap = torch.einsum("mia,ma->mi", _bend_b(dx, dy), u[dm])
+    if kap_th is not None:
+        kap = kap - kap_th.to(dtype)
+    mom = torch.einsum("mij,mj->mi", db.to(dtype), kap)
+    s = 6.0 * mom / thick.to(dtype)[:, None] ** 2
+    vm = torch.sqrt(s[:, 0] ** 2 - s[:, 0] * s[:, 1] + s[:, 1] ** 2
+                    + 3.0 * s[:, 2] ** 2)
+    return u, mom, vm

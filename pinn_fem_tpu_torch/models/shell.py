@@ -41,8 +41,9 @@ diagonals, bandwidth 6 (nx + 2) + 5.
 `identify_shell_young_banded` (the banded adjoint: kernels 1-3 twice an
 ADAM iteration on a card) recover Young's modulus from measured
 displacements through solvers/banded_inverse.py, at known thickness.  The
-traced twin `shell_static_response` (item 24's sizing and reliability) is
-a later ROADMAP item.
+differentiable `shell_static_response` (u, resultants, governing
+extreme-fiber von Mises) carries the thickness sizing and the reliability
+analyses.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ __all__ = [
     "shell_geometric_stiffness", "shell_buckling", "solve_shell_transient",
     "shell_harmonic", "solve_shell_static_banded", "shell_dia_layout",
     "shell_fiber_vm", "cylinder_panel_mesh", "hemisphere_mesh",
-    "arch_strip_mesh",
+    "arch_strip_mesh", "shell_static_response",
 ]
 
 _DRILL_ALPHA = 1e-3
@@ -912,3 +913,72 @@ def identify_shell_young_banded(problem: ShellProblem, measured_dofs,
         max_iter=max_iter, zones=zones, field=field, seed=seed,
         hidden_layers=hidden_layers, neurons_per_layer=neurons_per_layer,
         input_dim=3, device=dev)
+
+
+def _fiber_vm(nf: torch.Tensor, mom: torch.Tensor,
+              thickness: torch.Tensor) -> torch.Tensor:
+    """`shell_fiber_vm` on tensors, differentiable."""
+    t = thickness[:, None]
+    sm = nf / t
+    sb = 6.0 * mom / t ** 2
+
+    def _vm(s):
+        return torch.sqrt(s[:, 0] ** 2 - s[:, 0] * s[:, 1] + s[:, 1] ** 2
+                          + 3.0 * s[:, 2] ** 2)
+
+    return torch.maximum(_vm(sm + sb), _vm(sm - sb))
+
+
+def shell_static_response(problem: ShellProblem, young_e=None,
+                          thickness_e=None, load_scale=None, dtype=None,
+                          drill_eps: float = _DRILL_EPS_BANDED,
+                          device=None):
+    """Differentiable shell statics with per-element properties (the JAX
+    package's traced twin): (u, resultants (m, 6) [Nxx, Nyy, Nxy, Mxx,
+    Myy, Mxy] in local facet axes, governing extreme-fiber von Mises (m,)
+    of N / t +- 6M / t^2) from the masked dense solve K(E, t) u = f
+    (float64 facet blocks with the banded drilling eps, one float64
+    scatter rounded once to `dtype`) and the centroid recovery in `dtype`.
+    Thermoelastic documents are refused, as in the JAX package.  device:
+    "cuda" when None."""
+    from ..solvers.banded_inverse import dense_masked_solve
+
+    if problem.temperature is not None \
+            or problem.temperature_gradient is not None:
+        raise ValueError("the traced shell twin does not carry the "
+                         "thermoelastic load case — drop temperature/"
+                         "temperature_gradient for reliability or "
+                         "sizing blocks")
+    dev = resolve_device(device)
+    dtype = dtype or default_dtype()
+    m = problem.nelm
+
+    def prop(v, name):
+        return torch.broadcast_to(_t(getattr(problem, name) if v is None
+                                     else v, dev), (m,))
+
+    young, nu, thick = (prop(young_e, "young"), prop(None, "poisson"),
+                        prop(thickness_e, "thickness"))
+    r, c2, area = _facets(problem, dev)
+    blocks = _shell_blocks(c2, r, young, nu, thick, area, drill_eps)
+    dm = _dof_map(problem, dev)
+    f = (_t(problem.loads, dev) + _load_vectors(problem, dev)).to(dtype)
+    if load_scale is not None:
+        f = f * _t(load_scale, dev, dtype)
+    mask = _t(problem.free_mask(), dev, dtype)
+    u = dense_masked_solve(blocks, dm, problem.ndof, f, mask)
+    r, c2 = r.to(dtype), c2.to(dtype)
+    young, nu, thick = young.to(dtype), nu.to(dtype), thick.to(dtype)
+    u_loc = torch.einsum("mij,mj->mi", _transformation(r), u[dm])
+    bmem, _ = _q4_point(c2, 0.0, 0.0)
+    eps = torch.einsum("mia,ma->mi", bmem, u_loc[:, _MEM_IDX])
+    nf = thick[:, None] * torch.einsum("mij,mj->mi",
+                                       _plane_dmat(young, nu, False), eps)
+    u_plate = u_loc[:, _BND_IDX] @ _q_beta(c2).T
+    _, dx, dy, _ = _shape_grads(c2, 0.0, 0.0)
+    kap = torch.einsum("mia,ma->mi", _bend_b(dx, dy), u_plate)
+    d0 = young * thick ** 3 / (12.0 * (1.0 - nu ** 2))
+    mom = torch.stack([d0 * (kap[:, 0] + nu * kap[:, 1]),
+                       d0 * (kap[:, 1] + nu * kap[:, 0]),
+                       d0 * (1.0 - nu) / 2.0 * kap[:, 2]], dim=-1)
+    return u, torch.cat([nf, mom], dim=-1), _fiber_vm(nf, mom, thick)

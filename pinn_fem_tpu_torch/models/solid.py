@@ -38,8 +38,9 @@ blocks (models/plane.abs_row_sums), never a dense K.  The mesh tools
 node numbering and all, as in the JAX package.
 `identify_solid_young_banded` recovers Young's modulus from measured
 displacements on the banded adjoint (solvers/banded_inverse.py: kernels
-1-3 twice an ADAM iteration on a card).  The traced
-`solid_static_response` is item 24; mesh= is item 15's multi-device row.
+1-3 twice an ADAM iteration on a card).  The differentiable
+`solid_static_response` (u, stresses, von Mises) carries the reliability
+analyses; mesh= is item 15's multi-device row.
 """
 
 from __future__ import annotations
@@ -970,3 +971,55 @@ def identify_solid_young_banded(problem: SolidProblem, measured_dofs,
         zones=zones, field=field, seed=seed, hidden_layers=hidden_layers,
         neurons_per_layer=neurons_per_layer, input_dim=3,
         device=dev)
+
+
+def solid_static_response(problem: SolidProblem, young_e=None,
+                          poisson_e=None, loads=None, load_scale=None,
+                          dtype=None, device=None):
+    """Differentiable solid statics with per-element properties (the JAX
+    package's traced twin): (u, centroid stresses (m, 6), von Mises (m,))
+    from the masked dense solve K(E, nu) u = f (float64 blocks, one
+    float64 scatter rounded once to `dtype`) and the centroid recovery in
+    `dtype`.  A temperature load case is refused, as in the JAX package.
+    device: "cuda" when None."""
+    from ..solvers.banded_inverse import dense_masked_solve
+
+    if problem.temperature is not None:
+        raise ValueError("solid_static_response does not take a "
+                         "temperature load case (traced f_th not "
+                         "implemented — run the host static instead)")
+    dev = resolve_device(device)
+    dtype = dtype or default_dtype()
+    m = problem.nelm
+
+    def prop(v, name):
+        return torch.broadcast_to(_t(getattr(problem, name) if v is None
+                                     else v, dev), (m,))
+
+    young, nu = prop(young_e, "young"), prop(poisson_e, "poisson")
+    coords, dm = _elements(problem, dev)
+    dmat = _dmat3(young, nu)
+    blocks = _k_blocks3(coords, dmat)
+    if loads is None:
+        f = (_t(problem.loads, dev) + _body_force_vectors3(problem, dev)
+             ).to(dtype)
+    else:
+        f = _t(loads, dev, dtype)
+    if load_scale is not None:
+        f = f * _t(load_scale, dev, dtype)
+    mask = _t(problem.free_mask(), dev, dtype)
+    u_p = None
+    if problem.prescribed is not None:
+        u_p_np = np.zeros(problem.ndof)
+        u_p_np[problem.fixed_dofs] = problem.prescribed
+        u_p = _t(u_p_np, dev, dtype)
+    u = dense_masked_solve(blocks, dm, problem.ndof, f, mask, u_p)
+    b = _centroid_b3(problem, dev).to(dtype)
+    eps = torch.einsum("mia,ma->mi", b, u[dm])
+    sig = torch.einsum("mij,mj->mi", dmat.to(dtype), eps)
+    sxx, syy, szz = sig[:, 0], sig[:, 1], sig[:, 2]
+    syz, sxz, sxy = sig[:, 3], sig[:, 4], sig[:, 5]
+    vm = torch.sqrt(0.5 * ((sxx - syy) ** 2 + (syy - szz) ** 2
+                           + (szz - sxx) ** 2)
+                    + 3.0 * (sxy ** 2 + syz ** 2 + sxz ** 2))
+    return u, sig, vm

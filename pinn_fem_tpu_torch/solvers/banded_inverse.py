@@ -215,8 +215,18 @@ def dense_masked_solve(blocks: torch.Tensor, dof_map: torch.Tensor,
         f.dtype)
     km = mask[:, None] * k * mask[None, :] + torch.diag(1.0 - mask)
     if u_p is None:
-        return torch.linalg.solve(km, f * mask) * mask
-    return torch.linalg.solve(km, (f - k @ u_p) * mask) * mask + u_p
+        return solve_or_nan(km, f * mask) * mask
+    return solve_or_nan(km, (f - k @ u_p) * mask) * mask + u_p
+
+
+def solve_or_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.linalg.solve (batched too) that returns NaN for a singular
+    system instead of raising, as the JAX package's LU does (a FORM
+    search that walks into a singular model then resets that limit state
+    as unreachable); no host read."""
+    x, info = torch.linalg.solve_ex(a, b)
+    bad = (info != 0).reshape(info.shape + (1,) * (x.dim() - info.dim()))
+    return torch.where(bad, torch.full_like(x, float("nan")), x)
 
 
 def identify_young_dense(blocks_of: Callable, dof_map, base_young,
@@ -264,4 +274,5 @@ def identify_young_dense(blocks_of: Callable, dof_map, base_young,
 
 __all__ = ["identify_young_banded", "identify_young_dense",
            "young_parameterization", "adam_fit", "dense_masked_solve",
+           "solve_or_nan",
            "measurement", "value_and_grad", "adam_step", "zone_index"]

@@ -224,16 +224,11 @@ def identify_from_transient(
 
 def _elem_operators(problem: TrussProblem, data, young_e, area_e, rho_e):
     """(K dense, lumped m (ndof,)) from per-element material values."""
+    from .sizing import _per_elem
+
     dtype = data.loads.dtype
-    nelm = data.nelm
-
-    def per_elem(v):
-        return torch.broadcast_to(torch.as_tensor(
-            np.asarray(v, dtype=float), dtype=dtype, device=data.device),
-            (nelm,))
-
-    young_e, area_e, rho_e = per_elem(young_e), per_elem(area_e), \
-        per_elem(rho_e)
+    young_e, area_e, rho_e = (_per_elem(v, data.nelm, dtype, data.device)
+                              for v in (young_e, area_e, rho_e))
     elem = truss_linear_batch(data.gvec, data.inv_len,
                               torch.zeros(data.dof_map.shape, dtype=dtype,
                                           device=data.device),

@@ -527,19 +527,26 @@ def test_unported_solver_options_refused(kw, item):
 ])
 def test_unported_transient_keys_refused(extra, item):
     """Every transient key runs, the "plasticity" key included; a
-    transient block retyped to an analysis still to port is refused
-    with that type's ROADMAP item, whatever transient keys it carries.
-    Identification (item 23) is ported: retyped so, the block is refused
-    by its own contract, which wants a measurement or twin data."""
-    _, tprob = both_problems()
+    transient block retyped to another analysis is run by that type's
+    contract, whatever transient keys it carries.  Identification (item
+    23) and sizing (item 24) are ported: retyped so, the block is refused
+    by its own contract (identification wants a measurement or twin data,
+    mass sizing a constraint), in the JAX package's words."""
+    from pinn_fem_tpu.io.analysis import run_analysis as j_run_analysis
+
+    jprob, tprob = both_problems()
     analysis = {"type": "transient", "dt": 0.01, "n_steps": 10,
                 "plasticity": {"sigma_y": 1.0}, **extra}
     if item == 23:
         with pytest.raises(ValueError, match='exactly one of "measured"'):
             run_analysis(tprob, analysis, "cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        run_analysis(tprob, analysis, "cpu")
+    with pytest.raises(ValueError) as want:
+        j_run_analysis(jprob, dict(analysis))
+    with pytest.raises(ValueError) as got:
+        run_analysis(tprob, dict(analysis), "cpu")
+    assert str(got.value) == str(want.value)
+    assert "mass minimization needs stress_limit" in str(got.value)
 
 
 UNPORTED_ITEMS = {"identification": 23, "sizing": 24, "reliability": 24}
@@ -547,18 +554,24 @@ UNPORTED_ITEMS = {"identification": 23, "sizing": 24, "reliability": 24}
 
 @pytest.mark.parametrize("kind", list(UNPORTED_ITEMS))
 def test_other_analysis_types_refused(kind):
-    """Each type not yet ported names its ROADMAP item: the truss sizing
-    and reliability solvers are item 24.  Identification (item 23) is
-    ported; a bare block is refused as the JAX package refuses it, on its
-    missing "n_steps"."""
-    _, tprob = both_problems()
+    """The analysis types of ROADMAP items 23 and 24 are ported: a bare
+    block is refused as the JAX package refuses it (identification on its
+    missing "n_steps"; sizing and reliability, item 24, with the JAX
+    package's ValueError: mass sizing wants a constraint, FORM a random
+    variable)."""
+    from pinn_fem_tpu.io.analysis import run_analysis as j_run_analysis
+
+    jprob, tprob = both_problems()
     if kind == "identification":
         with pytest.raises(KeyError, match="n_steps"):
             run_analysis(tprob, {"type": kind}, "cpu")
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP item {UNPORTED_ITEMS[kind]}$"):
+    with pytest.raises(ValueError) as want:
+        j_run_analysis(jprob, {"type": kind})
+    with pytest.raises(ValueError) as got:
         run_analysis(tprob, {"type": kind}, "cpu")
+    assert str(got.value) == str(want.value)
+    assert UNPORTED_ITEMS[kind] == 24
 
 
 @pytest.mark.parametrize("call, match", [

@@ -673,16 +673,18 @@ def test_spectral_documents_match_jax(tmp_path, monkeypatch, kind):
 @pytest.mark.parametrize("kind, item", [
     ("identification", "23"), ("reliability", "24"), ("sizing", "24")])
 def test_later_analysis_types_refused(kind, item):
-    """Item 24's types name it; identification (item 23, ported) refuses
-    a block without a measurement in the JAX package's words."""
-    tp, _ = both(portal())
+    """Items 23 and 24 are ported: a bare identification, reliability or
+    sizing block is refused in the JAX package's words and error type."""
+    tp, jp = both(portal())
     if item == "23":
         with pytest.raises(ValueError, match='needs "measured_dofs"'):
             t_io.run_frame_analysis(tp, {"type": kind}, CPU)
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP item {item}$"):
+    with pytest.raises(ValueError) as want:
+        j_io.run_frame_analysis(jp, {"type": kind})
+    with pytest.raises(ValueError) as got:
         t_io.run_frame_analysis(tp, {"type": kind}, CPU)
+    assert str(got.value) == str(want.value)
 
 
 def test_unknown_analysis_type_matches_jax():

@@ -661,18 +661,21 @@ def test_spectral_documents_match_jax(kind):
 @pytest.mark.parametrize("kind, item", [
     ("identification", 23), ("sizing", 24), ("reliability", 24)])
 def test_later_analysis_types_refused(kind, item):
-    """The plane analysis types of later ROADMAP items raise
-    NotImplementedError naming the item (a transient's "plasticity" runs
-    since the continuum plastic transients were ported:
-    tests/test_torch_continuum_transient_plastic.py).  Identification
-    (item 23) is ported: a block without a measurement is refused in the
-    JAX package's words."""
+    """The plane analysis types of ROADMAP items 23 and 24 are ported
+    (identification; thickness sizing and reliability: tests/
+    test_torch_sizing.py, test_torch_reliability.py): a block without its
+    keys is refused in the JAX package's words, with its error type."""
     if item == 23:
         with pytest.raises(ValueError, match='needs "measured_dofs"'):
             t_io.run_plane_document(small_doc(type=kind), CPU)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        t_io.run_plane_document(small_doc(type=kind), CPU)
+    errs = []
+    for run, args in ((j_io.run_plane_document, ()),
+                      (t_io.run_plane_document, (CPU,))):
+        with pytest.raises(ValueError) as err:
+            run(small_doc(type=kind), *args)
+        errs.append(str(err.value))
+    assert errs[0] == errs[1]
 
 
 REFUSALS = {

@@ -490,14 +490,19 @@ def test_refusals_match_jax(name):
 @pytest.mark.parametrize("kind, item", [
     ("identification", 23), ("reliability", 24), ("sizing", 24)])
 def test_later_analysis_types_refused(kind, item):
-    """Item 24's types name it; identification (item 23, ported) refuses
-    a block without a measurement in the JAX package's words."""
+    """Items 23 and 24 are ported: a bare identification, reliability or
+    sizing block is refused in the JAX package's words and error type."""
     if item == 23:
         with pytest.raises(ValueError, match='needs "measured_dofs"'):
             t_io.run_shell_document(small_doc(type=kind), CPU)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}$"):
-        t_io.run_shell_document(small_doc(type=kind), CPU)
+    errs = []
+    for run, args in ((j_io.run_shell_document, ()),
+                      (t_io.run_shell_document, (CPU,))):
+        with pytest.raises(ValueError) as err:
+            run(small_doc(type=kind), *args)
+        errs.append(str(err.value))
+    assert errs[0] == errs[1]
 
 
 @pytest.mark.parametrize("call", [

@@ -264,15 +264,22 @@ def test_cli_cuda_without_card_is_an_error(tmp_path, monkeypatch):
     ({"analysis": {"type": "sizing"}}, "ROADMAP item 24"),
 ])
 def test_unported_documents_name_their_roadmap_item(tmp_path, doc, item):
-    """A truss document whose analysis type is still to port names its
-    ROADMAP item (identification, item 23, runs since it was ported:
-    tests/test_torch_identification.py)."""
+    """No analysis type is left to port: the document of `item` (sizing,
+    ported with it; identification, item 23, in
+    tests/test_torch_identification.py) runs through the port's CLI as
+    through the JAX CLI, and a bare sizing block is refused by both with
+    the same error."""
     base = json.loads((CORPUS / "example1.json").read_text())
     base.update(doc)
     path = tmp_path / "doc.json"
     path.write_text(json.dumps(base))
-    with pytest.raises(NotImplementedError, match=item):
-        torch_cli.run(str(path), device="cpu")
+    errs = []
+    for run, kw in ((jax_cli.run, {}), (torch_cli.run, {"device": "cpu"})):
+        with pytest.raises(Exception) as err:
+            run(str(path), str(tmp_path / "out.json"), **kw)
+        errs.append((type(err.value), str(err.value)))
+    assert errs[0] == errs[1] and errs[0][0] is ValueError
+    assert item == "ROADMAP item 24"
 
 
 def test_banded_newton_solves_with_the_fused_pcg(monkeypatch):

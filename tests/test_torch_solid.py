@@ -679,15 +679,20 @@ def test_spectral_documents_match_jax(kind):
 @pytest.mark.parametrize("kind, item", [
     ("identification", 23), ("reliability", 24)])
 def test_later_analysis_types_refused(kind, item):
-    """The solid analysis types of later ROADMAP items raise
-    NotImplementedError naming the item; identification (item 23, ported)
-    refuses a block without a measurement in the JAX package's words."""
+    """The solid analysis types of ROADMAP items 23 and 24 are ported:
+    identification refuses a block without a measurement, reliability one
+    without variables, in the JAX package's words and error type."""
     if item == 23:
         with pytest.raises(ValueError, match='needs "measured_dofs"'):
             t_io.run_solid_document(small_doc(type=kind), CPU)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        t_io.run_solid_document(small_doc(type=kind), CPU)
+    errs = []
+    for run, args in ((j_io.run_solid_document, ()),
+                      (t_io.run_solid_document, (CPU,))):
+        with pytest.raises(ValueError) as err:
+            run(small_doc(type=kind), *args)
+        errs.append(str(err.value))
+    assert errs[0] == errs[1]
 
 
 BIG = {"mesh": {"type": "box", "lx": 1.0, "ly": 1.0, "lz": 4.0, "nx": 12,
